@@ -1,0 +1,31 @@
+"""collide2d_tpu_torch — the 2D convex collision engine on PyTorch and CUDA.
+
+A port of ``collide2d_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
+This package covers the ``generate`` main path on rectangles: the annulus
+configuration sampler, the adaptive Monte Carlo driver with its Wald /
+rule-of-three stopping rule, the fused Monte Carlo kernel
+(``csrc/mc_kernel.cu``, built with nvcc at first use), and the
+``generate`` / ``ztest`` / ``compare`` commands (``collide2d-torch``).
+
+It imports torch and never jax. Nothing is built or launched at import.
+"""
+
+from collide2d_tpu_torch.mc.estimator import (
+    AdaptiveConfig,
+    Configs,
+    collision_probability,
+    configs_from_numpy,
+)
+from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+from collide2d_tpu_torch.ops.sat import obb_collide, sat_rects, sat_rects_reference
+
+__all__ = [
+    "AdaptiveConfig",
+    "Configs",
+    "adaptive_collision_probabilities",
+    "collision_probability",
+    "configs_from_numpy",
+    "obb_collide",
+    "sat_rects",
+    "sat_rects_reference",
+]

@@ -1,0 +1,282 @@
+"""Command-line interface of the port (console script ``collide2d-torch``):
+
+    collide2d-torch generate ...   # generate_dataset.cu
+    collide2d-torch ztest    ...   # ztest.cu
+    collide2d-torch compare  ...   # label-agreement report
+
+Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
+after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
+plus ``--device`` (default ``cuda``). ``--impl`` takes ``auto`` (= the
+fused kernel, ``cuda``), ``cuda`` or ``threefry`` (the per-draw reference
+path). Flags of features this port does not have yet are still parsed,
+so that using one fails with an error that names it instead of being
+silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from collide2d_tpu_torch.data.pipeline import (
+    GenerateConfig,
+    ZTestConfig,
+    generate_dataset,
+    ztest,
+)
+
+_IMPL_HELP = ("MC sampler: auto = cuda, the fused kernel (on a CPU device "
+              "its plain torch version); threefry = the per-draw reference "
+              "path with the JAX package's jnp streams")
+
+
+def _bool_flag(value: str) -> bool:
+    if value.lower() in ("1", "true", "yes", "on"):
+        return True
+    if value.lower() in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {value!r}")
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    """Flags shared by generate and ztest, ported or rejected."""
+    p.add_argument("--schedule", default="reference",
+                   choices=["reference", "tuned", "opt"],
+                   help="convergence-checkpoint schedule: 'reference' (the "
+                        "mode's reference cadence) or 'tuned' (one extra "
+                        "rule-of-three checkpoint, same CI guarantees); "
+                        "'opt' is not ported yet and is rejected")
+    p.add_argument("--prune_sigma", type=float, default=0.0,
+                   help="noise-aware pruning; not ported yet: only 0 is "
+                        "accepted")
+    p.add_argument("--ladder", default="eighth",
+                   choices=["half", "quarter", "eighth", "sixteenth"],
+                   help="repack bucket ladder granularity")
+    p.add_argument("--impl", default="auto",
+                   choices=["auto", "cuda", "threefry"], help=_IMPL_HELP)
+    p.add_argument("--device", default="cuda",
+                   help="torch device the tables and labeling run on")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="mid-run checkpoints; not ported yet: only 0 is "
+                        "accepted")
+    p.add_argument("--trace_dir", default="",
+                   help="profiler trace capture; not ported yet")
+    p.add_argument("--verbose", type=_bool_flag, default=True,
+                   help="per-sync progress lines + batch progress")
+
+
+def _reject_unported(parser: argparse.ArgumentParser,
+                     args: argparse.Namespace) -> None:
+    """Fail loudly on every flag whose feature the port lacks."""
+    if args.schedule == "opt":
+        parser.error("--schedule opt is not supported by collide2d-torch yet")
+    if args.prune_sigma > 0:
+        parser.error("--prune_sigma > 0 is not supported by collide2d-torch yet")
+    if args.checkpoint_every > 0:
+        parser.error("--checkpoint_every > 0 is not supported by "
+                     "collide2d-torch yet")
+    if args.trace_dir:
+        parser.error("--trace_dir is not supported by collide2d-torch yet")
+    for flag in ("resume", "data_parallel"):
+        if getattr(args, flag, False):
+            parser.error(f"--{flag} is not supported by collide2d-torch yet")
+    if getattr(args, "sample_parallel", 0):
+        parser.error("--sample_parallel is not supported by collide2d-torch yet")
+
+
+def _schedule_arg(args: argparse.Namespace):
+    return None if args.schedule in (None, "reference") else args.schedule
+
+
+def _add_generate(sub) -> None:
+    d = GenerateConfig()
+    p = sub.add_parser("generate", help="create a labeled collision dataset")
+    p.add_argument("--data_dir", default=d.data_dir, help="where to store the data")
+    p.add_argument("--num_batches", "-n", type=int, default=d.num_batches,
+                   help="number of batches")
+    p.add_argument("--batch_size", "-b", type=int, default=d.batch_size,
+                   help="number of samples per batch")
+    p.add_argument("--start_batch_count", "-s", type=int, default=d.start_batch_count,
+                   help="start value for batches")
+    p.add_argument("--num_poses", type=int, default=d.num_poses, help="number of poses")
+    p.add_argument("--num_variances", type=int, default=d.num_variances,
+                   help="number of variances")
+    p.add_argument("--shape_variance", action="store_true",
+                   help="whether or not to have shape variance")
+    p.add_argument("--max_samples", type=int, default=d.max_samples,
+                   help="maximum number of samples for z-test")
+    p.add_argument("--accuracy_bins", type=float, nargs="+",
+                   default=list(d.accuracy_bins),
+                   help="accuracy bins e.g. 0.0 0.01 0.1 1.0")
+    p.add_argument("--bin_accuracy", type=float, nargs="+",
+                   default=list(d.bin_accuracy),
+                   help="accuracy for each bin e.g. 0.0001 0.001 0.01")
+    p.add_argument("--min_variance", type=float, nargs=5, default=list(d.min_variance),
+                   help="min variance for each dimension")
+    p.add_argument("--max_variance", type=float, nargs=5, default=list(d.max_variance),
+                   help="max variance for each dimension")
+    p.add_argument("--min_pose", type=float, nargs=3, default=list(d.min_pose),
+                   help="min pose for each dimension")
+    p.add_argument("--max_pose", type=float, nargs=3, default=list(d.max_pose),
+                   help="max pose for each dimension")
+    p.add_argument("--robot_width", "-w", type=float, default=d.robot_width)
+    p.add_argument("--robot_height", type=float, default=d.robot_height)
+    p.add_argument("--spread", type=float, default=d.spread, help="spread of poses")
+    p.add_argument("--pose_dir", default=d.pose_dir, help="directory of poses")
+    p.add_argument("--variance_dir", default=d.variance_dir,
+                   help="directory of variances")
+    p.add_argument("--seed", type=int, default=None,
+                   help="device PRNG seed (default: time-based, like the reference)")
+    p.add_argument("--refcompat_tables", action="store_true",
+                   help="bit-identical libstdc++ pose/variance table sampling")
+    p.add_argument("--no_shuffle", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from checkpoints; not ported yet")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="multi-device runs; not ported yet")
+    p.add_argument("--overlap_batches", type=int, default=d.overlap_batches,
+                   help="cross-batch pipelining depth: batch i+1's rounds "
+                        "interleave with batch i's convergence tail; "
+                        "outputs are bitwise-identical across all depths")
+    _add_common(p)
+    p.set_defaults(func=_run_generate)
+
+
+def generate_config(args: argparse.Namespace) -> GenerateConfig:
+    """The `GenerateConfig` of parsed ``generate`` arguments."""
+    return GenerateConfig(
+        data_dir=args.data_dir,
+        pose_dir=args.pose_dir,
+        variance_dir=args.variance_dir,
+        num_batches=args.num_batches,
+        batch_size=args.batch_size,
+        start_batch_count=args.start_batch_count,
+        num_poses=args.num_poses,
+        num_variances=args.num_variances,
+        max_samples=args.max_samples,
+        min_variance=tuple(args.min_variance),
+        max_variance=tuple(args.max_variance),
+        min_pose=tuple(args.min_pose),
+        max_pose=tuple(args.max_pose),
+        accuracy_bins=tuple(args.accuracy_bins),
+        bin_accuracy=tuple(args.bin_accuracy),
+        robot_width=args.robot_width,
+        robot_height=args.robot_height,
+        spread=args.spread,
+        shape_variance=args.shape_variance,
+        seed=args.seed,
+        refcompat_tables=args.refcompat_tables,
+        shuffle=not args.no_shuffle,
+        overlap_batches=args.overlap_batches,
+        schedule=_schedule_arg(args),
+        verbose=args.verbose,
+        impl=args.impl,
+        ladder=args.ladder,
+        device=args.device,
+    )
+
+
+def _run_generate(args: argparse.Namespace) -> int:
+    generate_dataset(generate_config(args))
+    return 0
+
+
+def _add_ztest(sub) -> None:
+    d = ZTestConfig()
+    p = sub.add_parser("ztest", help="high-precision relabel of one file")
+    p.add_argument("--data_dir", default=d.data_dir, help="where to read the data")
+    p.add_argument("--data_file_in", default=d.data_file_in)
+    p.add_argument("--data_file_out", default=d.data_file_out)
+    p.add_argument("--max_samples", type=int, default=d.max_samples)
+    p.add_argument("--robot_width", "-w", type=float, default=d.robot_width)
+    p.add_argument("--robot_height", type=float, default=d.robot_height)
+    p.add_argument("--shuffle", type=_bool_flag, default=d.shuffle,
+                   help="shuffle the written artifact")
+    p.add_argument("--cps_only", type=_bool_flag, default=d.cps_only,
+                   help="whether or not to only compute collision probabilities")
+    p.add_argument("--meta_dir", default=d.meta_dir,
+                   help="path to meta folder containing accuracy_bins.npy and "
+                        "bin_accuracy.npy")
+    p.add_argument("--n_batch", type=int, default=d.n_batch,
+                   help="samples per round (fixed schedule)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--sample_parallel", type=int, default=0,
+                   help="multi-device sample sharding; not ported yet")
+    _add_common(p)
+    p.set_defaults(func=_run_ztest)
+
+
+def _run_ztest(args: argparse.Namespace) -> int:
+    ztest(ZTestConfig(
+        data_dir=args.data_dir,
+        data_file_in=args.data_file_in,
+        data_file_out=args.data_file_out,
+        max_samples=args.max_samples,
+        robot_width=args.robot_width,
+        robot_height=args.robot_height,
+        shuffle=args.shuffle,
+        cps_only=args.cps_only,
+        meta_dir=args.meta_dir,
+        n_batch=args.n_batch,
+        seed=args.seed,
+        verbose=args.verbose,
+        impl=args.impl,
+        schedule=_schedule_arg(args),
+        ladder=args.ladder,
+        device=args.device,
+    ))
+    return 0
+
+
+def _add_compare(sub) -> None:
+    p = sub.add_parser(
+        "compare",
+        help="label-agreement report between two labelings of the same rows",
+    )
+    p.add_argument("file_a", help=".npy: (N,5) dataset rows or (N,) cps")
+    p.add_argument("file_b", help=".npy: same configurations, same order")
+    p.add_argument("--n_samples_a", type=float, default=4_000_000)
+    p.add_argument("--n_samples_b", type=float, default=4_000_000)
+    p.add_argument("--tolerance", type=float, default=0.005)
+    p.set_defaults(func=_run_compare)
+
+
+def _run_compare(args: argparse.Namespace) -> int:
+    import numpy as np
+
+    from collide2d_tpu_torch.data.validate import compare_labels
+
+    report = compare_labels(
+        np.load(args.file_a), np.load(args.file_b),
+        n_samples_a=args.n_samples_a, n_samples_b=args.n_samples_b,
+        tolerance=args.tolerance,
+    )
+    print(report)
+    return 0 if report.frac_within_tolerance >= 0.95 else 1
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """Parse a command line; flags of unported features exit with an
+    error that names them."""
+    parser = argparse.ArgumentParser(
+        prog="collide2d-torch",
+        description="2D convex collision engine on PyTorch/CUDA "
+                    "(dataset generation / validation)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    _add_generate(sub)
+    _add_ztest(sub)
+    _add_compare(sub)
+    args = parser.parse_args(argv)
+    if args.command in ("generate", "ztest"):
+        _reject_unported(parser, args)
+    return args
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,420 @@
+"""The labeled-dataset pipeline: ``generate`` and ``ztest``.
+
+Counterpart of ``collide2d_tpu/data/pipeline.py`` for the two modes this
+port covers so far:
+
+  generate  (generate_dataset.cu:255-524)  sample configs, label, emit
+  ztest     (ztest.cu:168-444)             one file, fixed 10k per round
+
+Tables (``poses.npy``, ``variances.npy``, ``meta/``) and batch files keep
+the JAX package's byte layout, so either package reads the other's
+datasets; with the same seed both sample the same configurations. The
+configurations, tables and labeling state live on ``device``.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from collide2d_tpu_torch.data import schemas
+from collide2d_tpu_torch.mc import prng
+from collide2d_tpu_torch.mc.driver import (
+    AdaptiveRun,
+    _CopyToHost,
+    adaptive_collision_probabilities,
+    run_interleaved,
+)
+from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, Configs
+from collide2d_tpu_torch.mc.noise import sample_configuration_batch
+from collide2d_tpu_torch.utils import native
+from collide2d_tpu_torch.utils.io_npy import batch_path, load_npy, mkdirs, save_npy
+from collide2d_tpu_torch.utils.profiling import StepTimer
+
+TWO_PI = 2.0 * math.pi
+
+
+@dataclass(frozen=True)
+class GenerateConfig:
+    """Knobs of the dataset generator — names/defaults per
+    generate_dataset.cu:44-64, as in the JAX package."""
+
+    data_dir: str = "./data/"
+    pose_dir: str = ""
+    variance_dir: str = ""
+    num_batches: int = 100
+    batch_size: int = 100_000
+    start_batch_count: int = 0
+    num_poses: int = 64**4
+    num_variances: int = 64**4
+    max_samples: int = 4_000_000
+    min_variance: Sequence[float] = (0.0, 0.0, 0.0, 0.0, 0.0)
+    max_variance: Sequence[float] = (0.3, 0.3, 0.3, 0.3, 0.3)
+    min_pose: Sequence[float] = (0.1, 0.1, 0.0)
+    max_pose: Sequence[float] = (5.0, 5.0, TWO_PI)
+    accuracy_bins: Sequence[float] = (0.0, 0.01, 0.1, 1.0)
+    bin_accuracy: Sequence[float] = (0.0001, 0.001, 0.01)
+    robot_width: float = 4.07
+    robot_height: float = 1.74
+    spread: float = 4.0
+    shape_variance: bool = False
+    seed: int | None = None  # device PRNG seed (None: time-based)
+    table_seed: int = 0  # host table RNG seed
+    refcompat_tables: bool = False  # bit-identical libstdc++ table sampling
+    shuffle: bool = True
+    verbose: bool = True
+    schedule: object = None  # None = reference schedule | "tuned" | tuple
+    impl: str = "auto"  # 'auto' (= 'cuda') | 'cuda' | 'threefry'
+    ladder: str = "eighth"
+    # Cross-batch pipelining depth: up to this many batches labeled in
+    # flight; outputs do not depend on it.
+    overlap_batches: int = 3
+    device: str = "cuda"
+
+    @property
+    def robot_wh(self) -> tuple[float, float]:
+        return (self.robot_width, self.robot_height)
+
+    @property
+    def r_offset(self) -> float:
+        return (self.robot_width + self.robot_height) / 4.0  # generate_dataset.cu:398
+
+
+@dataclass(frozen=True)
+class ZTestConfig:
+    """ztest.cu:37-47 flag set (shuffle off by default: an unshuffled
+    output keeps the row correspondence the comparison needs)."""
+
+    data_dir: str = "./data/"
+    data_file_in: str = ""
+    data_file_out: str = ""
+    max_samples: int = 4_000_000
+    robot_width: float = 4.07
+    robot_height: float = 1.74
+    shuffle: bool = False
+    cps_only: bool = False
+    meta_dir: str = ""
+    seed: int | None = None
+    verbose: bool = True
+    n_batch: int = 10_000  # fixed per-round budget (ztest.cu:332)
+    impl: str = "auto"
+    schedule: object = None  # None = fixed n_batch | "tuned" | tuple
+    ladder: str = "eighth"
+    device: str = "cuda"
+
+    @property
+    def robot_wh(self) -> tuple[float, float]:
+        return (self.robot_width, self.robot_height)
+
+
+def _log(cfg, *msg):
+    if cfg.verbose:
+        print(*msg, flush=True)
+
+
+def _progress_logger(cfg, total: int):
+    """A StepTimer-backed progress callback: one line per host sync."""
+    if not cfg.verbose:
+        return None
+    timer = StepTimer(log_every=1)
+    last = {"n_samples": 0, "active": total}
+
+    def cb(*, num_left: int, n_samples: int, round: int) -> None:
+        timer.rounds = round - 1  # StepTimer increments to the true count
+        timer.round_done(
+            n_batch=n_samples - last["n_samples"],
+            active=last["active"],
+            done_total=total - num_left,
+        )
+        last["n_samples"] = n_samples
+        last["active"] = num_left
+
+    return cb
+
+
+def _master_key(seed: int | None) -> np.ndarray:
+    if seed is None:
+        seed = int(time.time_ns() % (2**31))  # reference: srand(time(0))
+    return prng.PRNGKey(seed)
+
+
+def _sample_tables(cfg: GenerateConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side pose/variance table sampling (generate_dataset.cu:282-336),
+    the JAX package's numpy streams exactly."""
+    min_var = np.asarray(cfg.min_variance, np.float32).copy()
+    max_var = np.asarray(cfg.max_variance, np.float32).copy()
+    if not cfg.shape_variance:
+        # generate_dataset.cu:285-290: zero the width/height noise dims.
+        min_var[3:5] = 0.0
+        max_var[3:5] = 0.0
+    if cfg.refcompat_tables and native.available():
+        eng = native.RefEngine(None if cfg.table_seed == 0 else cfg.table_seed)
+        variances = eng.uniform_table(cfg.num_variances, min_var, max_var)
+        poses = eng.uniform_table(cfg.num_poses, cfg.min_pose, cfg.max_pose)
+    else:
+        rng = np.random.default_rng(cfg.table_seed)
+        variances = rng.uniform(
+            min_var, max_var, (cfg.num_variances, 5)
+        ).astype(np.float32)
+        poses = rng.uniform(
+            np.asarray(cfg.min_pose, np.float32),
+            np.asarray(cfg.max_pose, np.float32),
+            (cfg.num_poses, 3),
+        ).astype(np.float32)
+    return poses, variances
+
+
+def _check_table_idx(idx, table_len: int, name: str) -> None:
+    """Host-side bounds check before indexing the tables (negative decoded
+    indices would otherwise wrap to the tail rows)."""
+    idx = np.asarray(idx)
+    if idx.size and (idx.min() < 0 or idx.max() >= table_len):
+        raise ValueError(
+            f"{name} index out of range [0, {table_len}): input rows "
+            f"reference rows {idx.min()}..{idx.max()} — the input was "
+            "generated against different tables?"
+        )
+
+
+def _label_batch(key, positions, pose_idx, var_idx, poses, std_devs, robot_wh,
+                 adaptive: AdaptiveConfig, device, progress=None) -> np.ndarray:
+    """Label one batch (ztest's core): host gather of the table rows, one
+    adaptive run on ``device``, rows back in INPUT order."""
+    pose_idx = np.asarray(pose_idx, np.int64)
+    var_idx = np.asarray(var_idx, np.int64)
+    poses = np.asarray(poses, np.float32)
+    std_devs = np.asarray(std_devs, np.float32)
+    _check_table_idx(pose_idx, len(poses), "pose_idx")
+    _check_table_idx(var_idx, len(std_devs), "var_idx")
+    pose_rows = poses[pose_idx]
+    f32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, np.float32), device=device)
+    configs = Configs(
+        position=f32(positions),
+        pose_theta=f32(pose_rows[:, 2]),
+        obstacle_wh=f32(pose_rows[:, 0:2]),
+        std_dev=f32(std_devs[var_idx]),
+    )
+    cp, _, _ = adaptive_collision_probabilities(
+        key, configs, robot_wh, adaptive, progress=progress,
+    )
+    return schemas.pack_dataset_rows(positions, cp, var_idx, pose_idx)
+
+
+def _shuffle_rows(rows: np.ndarray, enabled: bool) -> np.ndarray:
+    """Batch shuffle with the reference's fixed seed-0 engine
+    (generate_dataset.cu:496)."""
+    if not enabled:
+        return rows
+    return rows[native.std_shuffle_perm(len(rows), 0)]
+
+
+class GenerateStats(NamedTuple):
+    """What one `generate_dataset` call did, for progress reports and
+    measurements: host clock seconds, counted from the start of labeling."""
+
+    setup_seconds: float          # tables (sample or load, save, upload)
+    label_seconds: float          # run_interleaved, writes flushed
+    rows: int                     # configurations labeled
+    samples_used: int             # sum of per-row sample denominators
+    slots_dispatched: int         # device sample-slots dispatched
+
+
+def _interleaved_finish(cfg, writer, state, num_batches: int, begin: float):
+    """`run_interleaved`'s on_done: materialize -> pack (input order) ->
+    shuffle -> async write -> progress line."""
+    def _finish(tag, run):
+        cp, n_used, _ = run.materialize()
+        state["samples_used"] += int(n_used.sum())
+        state["slots"] += run.ops.dispatched_slots
+        rows = schemas.pack_dataset_rows(
+            tag["positions"].numpy(), cp, tag["var_idx"].numpy(),
+            tag["pose_idx"].numpy(),
+        )
+        rows = _shuffle_rows(rows, cfg.shuffle)
+        writer.submit(tag["target"], rows)
+        state["done"] += 1
+        mins = (time.monotonic() - begin) / 60.0
+        _log(cfg, f"batches generated: {state['done']}/{num_batches}, "
+                  f"Time: {mins:.1f} [min]")
+    return _finish
+
+
+# ---------------------------------------------------------------------------
+# Mode 1: generate (generate_dataset.cu main)
+# ---------------------------------------------------------------------------
+
+
+def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
+    device = torch.device(cfg.device)
+    t_setup = time.monotonic()
+    data_dir = mkdirs(cfg.data_dir)
+    _log(cfg, f"data dir: {cfg.data_dir}")
+    _log(cfg, f"num batches: {cfg.num_batches}")
+    _log(cfg, f"num batch: {cfg.batch_size}")
+    _log(cfg, f"start batch count: {cfg.start_batch_count}")
+
+    # Pose/variance tables: sample or reuse (generate_dataset.cu:282-336).
+    variances = (schemas.validate_variances(load_npy(cfg.variance_dir))
+                 if cfg.variance_dir else None)
+    poses = (schemas.validate_poses(load_npy(cfg.pose_dir))
+             if cfg.pose_dir else None)
+    if poses is None or variances is None:
+        sampled_poses, sampled_variances = _sample_tables(cfg)
+        if variances is None:
+            variances = sampled_variances
+            save_npy(data_dir / "variances.npy", variances)
+        if poses is None:
+            poses = sampled_poses
+            save_npy(data_dir / "poses.npy", poses)
+    std_devs = np.sqrt(variances)  # generate_dataset.cu:310-317
+
+    _log(cfg, f"num poses: {len(poses)}")
+    _log(cfg, f"num variances: {len(variances)}")
+
+    # Meta artifacts (generate_dataset.cu:346-352).
+    save_npy(data_dir / "meta" / "accuracy_bins.npy",
+             np.asarray(cfg.accuracy_bins, np.float32))
+    save_npy(data_dir / "meta" / "bin_accuracy.npy",
+             np.asarray(cfg.bin_accuracy, np.float32))
+
+    key = _master_key(cfg.seed)
+    # Device-resident tables, uploaded once per run.
+    poses_t = torch.as_tensor(poses, device=device)
+    std_devs_t = torch.as_tensor(std_devs, device=device)
+    adaptive = AdaptiveConfig(
+        accuracy_bins=tuple(cfg.accuracy_bins),
+        bin_accuracy=tuple(cfg.bin_accuracy), max_samples=cfg.max_samples,
+        impl=cfg.impl, schedule=cfg.schedule, ladder=cfg.ladder,
+    )
+
+    # The batch writer and shuffle build the native library at first use
+    # (seconds of g++): that is set-up, not labeling.
+    native.available()
+
+    _log(cfg, f"Total number of configurations: {cfg.batch_size * cfg.num_batches}")
+    _log(cfg, "Begin computation...")
+    begin = time.monotonic()
+    overlap = max(1, int(cfg.overlap_batches or 1))
+    progress_state = {"done": 0, "samples_used": 0, "slots": 0}
+
+    def _start(batch_index: int):
+        abs_index = cfg.start_batch_count + batch_index
+        k_init, k_mc = prng.split(prng.fold_in(key, abs_index))
+        positions, pose_idx, var_idx, pose_cols, sd_rows = (
+            sample_configuration_batch(
+                k_init, poses_t, std_devs_t, num_configs=cfg.batch_size,
+                r_offset=cfg.r_offset, spread=cfg.spread,
+            )
+        )
+        configs = Configs(
+            position=positions,
+            pose_theta=pose_cols[:, 2],
+            obstacle_wh=pose_cols[:, 0:2],
+            std_dev=sd_rows,
+        )
+        run = AdaptiveRun(
+            k_mc, configs, cfg.robot_wh, adaptive,
+            progress=_progress_logger(cfg, cfg.batch_size),
+        )
+        # The host needs positions/indices only at pack time: start the
+        # copies now, off the critical path.
+        tag = dict(
+            target=batch_path(data_dir, abs_index),
+            positions=_CopyToHost(positions),
+            pose_idx=_CopyToHost(pose_idx),
+            var_idx=_CopyToHost(var_idx),
+        )
+        return tag, run
+
+    with native.AsyncNpyWriter() as writer:
+        run_interleaved(
+            [functools.partial(_start, i) for i in range(cfg.num_batches)],
+            overlap,
+            _interleaved_finish(cfg, writer, progress_state,
+                                cfg.num_batches, begin),
+        )
+        errors = writer.flush()
+        if errors:
+            raise IOError(f"{errors} batch file(s) failed to write")
+    _log(cfg, "Finished computation")
+    return GenerateStats(
+        setup_seconds=begin - t_setup,
+        label_seconds=time.monotonic() - begin,
+        rows=cfg.batch_size * cfg.num_batches,
+        samples_used=progress_state["samples_used"],
+        slots_dispatched=progress_state["slots"],
+    )
+
+
+# ---------------------------------------------------------------------------
+# Mode 3: ztest (ztest.cu main) — high-precision validation of one file
+# ---------------------------------------------------------------------------
+
+
+def ztest(cfg: ZTestConfig) -> np.ndarray:
+    data_dir = Path(cfg.data_dir)
+    if not data_dir.exists():
+        raise FileNotFoundError(f"data_dir {data_dir} does not exist")
+
+    # Default meta bins written when absent (ztest.cu:186-194).
+    if cfg.meta_dir:
+        meta_dir = Path(cfg.meta_dir)
+    else:
+        meta_dir = data_dir / "meta"
+        mkdirs(meta_dir)
+        if not (meta_dir / "accuracy_bins.npy").exists():
+            save_npy(meta_dir / "accuracy_bins.npy",
+                     np.asarray([0.0, 0.01, 0.1, 1.0], np.float32))
+            save_npy(meta_dir / "bin_accuracy.npy",
+                     np.asarray([0.0001, 0.001, 0.01], np.float32))
+    data_file_in = Path(cfg.data_file_in) if cfg.data_file_in else data_dir / "tmp" / "0.npy"
+    data_file_out = Path(cfg.data_file_out) if cfg.data_file_out else data_dir / "0.npy"
+    if not cfg.data_file_in:
+        _log(cfg, f"Using default input file: {data_file_in}")
+    if not cfg.data_file_out:
+        _log(cfg, f"Using default output file: {data_file_out}")
+    if data_file_out.exists():
+        _log(cfg, f"Warning: {data_file_out} already exists, will be overwritten")
+
+    poses = schemas.validate_poses(load_npy(data_dir / "poses.npy"))
+    variances = schemas.validate_variances(load_npy(data_dir / "variances.npy"))
+    accuracy_bins = load_npy(meta_dir / "accuracy_bins.npy")
+    bin_accuracy = load_npy(meta_dir / "bin_accuracy.npy")
+    std_devs = np.sqrt(variances)
+
+    rows_in = load_npy(data_file_in)
+    positions, var_idx, pose_idx = schemas.unpack_relabel_rows(rows_in)
+    _log(cfg, f"num poses: {len(poses)}")
+    _log(cfg, f"num variances: {len(variances)}")
+    _log(cfg, f"num data points: {len(positions)}")
+
+    # ztest.cu:332 fixes 10k samples per round; an explicit schedule
+    # replaces that cadence (fixed_batch would win inside batch_for).
+    adaptive = AdaptiveConfig(
+        accuracy_bins=tuple(float(x) for x in accuracy_bins),
+        bin_accuracy=tuple(float(x) for x in bin_accuracy),
+        max_samples=cfg.max_samples,
+        fixed_batch=None if cfg.schedule is not None else cfg.n_batch,
+        impl=cfg.impl,
+        schedule=cfg.schedule,
+        ladder=cfg.ladder,
+    )
+    rows = _label_batch(
+        _master_key(cfg.seed), positions, pose_idx, var_idx, poses, std_devs,
+        cfg.robot_wh, adaptive, torch.device(cfg.device),
+        progress=_progress_logger(cfg, len(positions)),
+    )
+    out = rows[:, 2].copy() if cfg.cps_only else rows  # ztest.cu:391-396
+    if cfg.shuffle:
+        out = out[native.std_shuffle_perm(len(out), 0)]
+    save_npy(data_file_out, out)
+    _log(cfg, "Finished computation")
+    return out

@@ -1,0 +1,321 @@
+"""Monte Carlo collision-probability estimator with adaptive stopping.
+
+Counterpart of ``collide2d_tpu/mc/estimator.py`` for rectangle `Configs`.
+Two ways to draw a round's counts:
+
+- ``'cuda'`` — the fused kernel (`ops.mc_cuda`): Philox streams keyed by
+  (round seed, row uid, sample index). On CUDA tensors the kernel runs;
+  on CPU tensors its plain version gives the same counts.
+- ``'threefry'`` — the per-draw reference: the JAX package's ``jnp`` path
+  (`_counts_chunk` through `_mc_round_threefry`) with the same threefry
+  draws, so it reproduces that path's counts up to the rare sample within
+  an ulp of a separation boundary.
+
+``'auto'`` resolves to ``'cuda'`` on every device. `_fused_round` runs a
+run of same-plan rounds, the `mc.stats` convergence test and label
+freezing, as its JAX namesake does inside one program.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from collide2d_tpu_torch.mc import prng, stats
+from collide2d_tpu_torch.mc.noise import NoiseParams, sampled_obstacle_vertices
+from collide2d_tpu_torch.ops import mc_cuda
+from collide2d_tpu_torch.ops.geometry import rects_from_params
+from collide2d_tpu_torch.ops.sat import obb_collide, sat_rects
+
+IMPLS = ("cuda", "threefry")
+# Samples per kernel sub-tile on the TPU path; the round plan keeps this
+# granule so round plans match the JAX runs (estimator.py:209-210).
+KERNEL_GRANULE = 64
+
+
+class Configs(NamedTuple):
+    """A batch of C dataset configurations, as tensors on one device.
+
+    position:    (C, 2) robot centre in the obstacle frame
+    pose_theta:  (C,)   robot orientation
+    obstacle_wh: (C, 2) obstacle width/height (obstacle at the origin)
+    std_dev:     (C, 5) noise sigmas (x, y, theta, width, height)
+    """
+
+    position: torch.Tensor
+    pose_theta: torch.Tensor
+    obstacle_wh: torch.Tensor
+    std_dev: torch.Tensor
+
+    @property
+    def num(self) -> int:
+        return self.position.shape[0]
+
+
+def configs_from_numpy(configs, device) -> Configs:
+    """The JAX package's `Configs` (or any 4-field tuple of arrays), taken
+    as numpy arrays, as the port's float32 tensors on ``device``."""
+    return Configs(*(
+        torch.as_tensor(np.asarray(a, np.float32), device=device)
+        for a in configs
+    ))
+
+
+def resolve_impl(impl: str) -> str:
+    """'auto' -> the fused kernel ('cuda'); names are validated."""
+    if impl == "auto":
+        return "cuda"
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be 'auto' or one of {IMPLS}, got {impl!r}")
+    return impl
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for s in range(min(cap, n), 0, -1):
+        if n % s == 0:
+            return s
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _canonical_step(nb: int) -> int:
+    """The threefry path's step for an ``nb``-sample round: the largest
+    divisor <= 512 whose step count is a multiple of 8, else the largest
+    divisor (the JAX package's shard-invariant choice, kept so step tags
+    match)."""
+    fallback = 1
+    for s in range(min(512, nb), 0, -1):
+        if nb % s:
+            continue
+        if fallback == 1:
+            fallback = s
+        if (nb // s) % 8 == 0:
+            return s
+    return fallback
+
+
+def _plan_round(cfg, sim_n: int, n_sample: int, impl: str) -> tuple[int, int]:
+    """(n_batch, step_samples) for the round starting at ``sim_n`` samples.
+
+    The kernel path rounds n_batch up to the 64-sample granule and uses
+    step 64, which only advances the round tag; the threefry path keeps
+    the JAX ``jnp`` plan. Extra samples count in n_samples, so the CI
+    criterion is evaluated at the true draw count. The port runs one
+    device per run (``n_sample`` must be 1)."""
+    if n_sample != 1:
+        raise ValueError(f"sample axis {n_sample} is not supported")
+    nb = cfg.batch_for(sim_n)
+    if impl == "cuda":
+        nb = -(-nb // KERNEL_GRANULE) * KERNEL_GRANULE
+    if cfg.step_samples:
+        step = cfg.step_samples
+        if impl == "cuda":
+            return nb, min(step, nb)
+        if nb % step:
+            raise ValueError(
+                f"step_samples={step} must divide n_batch={nb}"
+            )
+        return nb, step
+    if impl == "cuda":
+        return nb, KERNEL_GRANULE
+    step = _canonical_step(nb)
+    if step < 64 and nb >= 4096:
+        nb = -(-nb // 4096) * 4096
+        step = 512
+    return nb, step
+
+
+def _per_config_keys(key, uids: torch.Tensor):
+    """Stable per-configuration keys: fold each uid into the base key, so
+    streams do not change under compaction or reordering."""
+    return prng.fold_in_many(key, uids)
+
+
+def _counts_chunk(keys, configs: Configs, robot_wh: torch.Tensor,
+                  n_lanes: int, use_vertices: bool) -> torch.Tensor:
+    """Collision count over ``n_lanes`` threefry samples per configuration
+    (``keys``: a batched key pair, one key per configuration)."""
+    z = prng.normal(keys, (n_lanes, 5))
+    d = z * configs.std_dev[:, None, :]
+    if use_vertices:
+        # Vertex path: sample_rectangle + convex_collide (utils.cu:144-184).
+        noise = NoiseParams(d[..., 0], d[..., 1], d[..., 2], d[..., 3], d[..., 4])
+        obstacle = sampled_obstacle_vertices(configs.obstacle_wh[:, None, :], noise)
+        robot = rects_from_params(
+            configs.position,
+            torch.broadcast_to(robot_wh, configs.position.shape),
+            configs.pose_theta,
+        )
+        hit = sat_rects(torch.broadcast_to(robot[:, None], obstacle.shape), obstacle)
+    else:
+        hit = obb_collide(
+            configs.position[:, None, :],
+            torch.broadcast_to(robot_wh, (1, 1, 2)),
+            configs.pose_theta[:, None],
+            d[..., 0:2],
+            configs.obstacle_wh[:, None, :] + d[..., 3:5],
+            d[..., 2],
+        )
+    return hit.sum(dim=-1, dtype=torch.int32)
+
+
+def _mc_round_threefry(key, uids, configs: Configs, robot_wh, chunk_offset: int,
+                       n_steps: int, *, step_samples: int,
+                       use_vertices: bool = False) -> torch.Tensor:
+    """Threefry round: ``n_steps`` steps of ``step_samples`` lanes; step i
+    draws with tag ``chunk_offset + i`` folded into each uid's key, so a
+    row's stream is continuous across rounds whatever the compaction."""
+    k0, k1 = _per_config_keys(key, uids)
+    robot_wh = torch.as_tensor(robot_wh, dtype=torch.float32,
+                               device=configs.position.device)
+    counts = torch.zeros((configs.num,), dtype=torch.int32,
+                         device=configs.position.device)
+    for i in range(int(n_steps)):
+        step_keys = prng.fold_in_pair(k0, k1, int(chunk_offset) + i)
+        counts += _counts_chunk(step_keys, configs, robot_wh, step_samples,
+                                use_vertices)
+    return counts
+
+
+def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
+             n_batch: int, step_samples: int = 0, use_vertices: bool = False,
+             impl: str = "threefry", shape_noise: bool = True) -> torch.Tensor:
+    """One round: int32 (C,) collision counts of ``n_batch`` samples."""
+    impl = resolve_impl(impl)
+    if impl == "cuda":
+        return mc_cuda.mc_round_cuda(key, uids, configs, robot_wh,
+                                     chunk_offset, n_batch=n_batch,
+                                     shape_noise=shape_noise)
+    if step_samples <= 0:
+        step_samples = _largest_divisor_leq(n_batch, 512)
+    if n_batch % step_samples:
+        raise ValueError(f"step_samples={step_samples} must divide "
+                         f"n_batch={n_batch}")
+    return _mc_round_threefry(key, uids, configs, robot_wh, chunk_offset,
+                              n_batch // step_samples,
+                              step_samples=step_samples,
+                              use_vertices=use_vertices)
+
+
+def collision_probability(key, configs: Configs, robot_wh, n_samples: int, *,
+                          step_samples: int = 0, use_vertices: bool = False,
+                          impl: str = "threefry") -> torch.Tensor:
+    """Fixed-sample-count Monte Carlo collision probability: float32 (C,)."""
+    uids = torch.arange(configs.num, dtype=torch.int32,
+                        device=configs.position.device)
+    counts = mc_round(key, uids, configs, robot_wh, 0, n_batch=int(n_samples),
+                      step_samples=step_samples, use_vertices=use_vertices,
+                      impl=impl)
+    return counts.to(torch.float32) / torch.tensor(
+        float(n_samples), dtype=torch.float32, device=counts.device)
+
+
+@dataclass(frozen=True)
+class AdaptiveConfig:
+    """Adaptive-stop schedule and accuracy targets (reference defaults:
+    bins {0, .01, .1, 1} with targets {1e-4, 1e-3, 1e-2}, 1000 samples a
+    round until 20k then 100000 a round, cap 4e6 —
+    generate_dataset.cu:53-59, 427-430). ``fixed_batch`` overrides the
+    two-phase schedule (ztest.cu:332 uses 10000). ``schedule`` is None,
+    explicit cumulative checkpoints, or "tuned" (one extra checkpoint at
+    the rule-of-three point, where zero-probability rows can first
+    converge)."""
+
+    accuracy_bins: Sequence[float] = (0.0, 0.01, 0.1, 1.0)
+    bin_accuracy: Sequence[float] = (0.0001, 0.001, 0.01)
+    max_samples: int = 4_000_000
+    initial_batch: int = 1_000
+    initial_phase_samples: int = 20_000
+    later_batch: int = 100_000
+    fixed_batch: int | None = None
+    step_samples: int = 0
+    min_active: int = 256  # smallest compaction bucket
+    use_vertices: bool = False
+    impl: str = "auto"  # 'auto' | 'cuda' | 'threefry'
+    schedule: Sequence[int] | str | None = None
+    ladder: str = "eighth"  # repack bucket ladder (driver._round_up_bucket)
+
+    def __post_init__(self):
+        if self.ladder not in ("half", "quarter", "eighth", "sixteenth"):
+            raise ValueError(f"ladder must be 'half', 'quarter', 'eighth' "
+                             f"or 'sixteenth', got {self.ladder!r}")
+        if len(self.bin_accuracy) != len(self.accuracy_bins) - 1:
+            raise ValueError(
+                f"bin_accuracy must have len(accuracy_bins) - 1 = "
+                f"{len(self.accuracy_bins) - 1} entries, got "
+                f"{len(self.bin_accuracy)}"
+            )
+
+    def checkpoints(self) -> tuple[int, ...] | None:
+        if self.schedule is None:
+            return None
+        if self.schedule == "tuned":
+            pts = [self.initial_batch * i
+                   for i in range(1, self.initial_phase_samples // self.initial_batch + 1)]
+            acc0 = float(self.bin_accuracy[0])
+            if acc0 > 0:
+                n3 = -(-int(np.ceil(stats._LOG_INV_ALPHA / acc0)) // 64) * 64
+                if (not pts or n3 > pts[-1]) and n3 < self.max_samples:
+                    pts.append(n3)
+            return tuple(pts)
+        return tuple(int(x) for x in self.schedule)
+
+    def batch_for(self, n_samples_so_far: int) -> int:
+        if self.fixed_batch is not None:
+            return self.fixed_batch
+        pts = self.checkpoints()
+        if pts is not None:
+            for p in pts:
+                if p > n_samples_so_far:
+                    return p - n_samples_so_far
+            return self.later_batch
+        if n_samples_so_far < self.initial_phase_samples:
+            return self.initial_batch
+        return self.later_batch
+
+
+class _LoopState(NamedTuple):
+    """Device-resident adaptive-loop state (one row per buffer slot)."""
+
+    uids: torch.Tensor      # int32 original row id; -1 marks padding slots
+    active: Configs
+    n_true: torch.Tensor    # int32 running collision count
+    done: torch.Tensor      # bool: has the stop criterion EVER held
+    k_frozen: torch.Tensor  # int32 n_true at the first round it held
+    n_frozen: torch.Tensor  # int32 n_samples at that round
+
+
+def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
+                 n_samples_after: int, n_rounds: int, nb: int,
+                 chunk_step: int, *, step_samples: int, impl: str,
+                 accuracy_bins, bin_accuracy, use_vertices: bool = False,
+                 shape_noise: bool = True) -> tuple[_LoopState, torch.Tensor]:
+    """``n_rounds`` same-plan rounds with convergence and label freezing.
+
+    Round r draws with tag ``chunk_offset + r * chunk_step`` and tests
+    convergence at ``n_samples_after + r * nb``; labels freeze at the
+    first round the criterion holds (generate_dataset.cu:455-464). Returns
+    the new state and the device-resident count of done real rows."""
+    n_true, done = state.n_true, state.done
+    k_frozen, n_frozen = state.k_frozen, state.n_frozen
+    for r in range(int(n_rounds)):
+        counts = mc_round(key, state.uids, state.active, robot_wh,
+                          int(chunk_offset) + r * int(chunk_step), n_batch=nb,
+                          step_samples=step_samples, use_vertices=use_vertices,
+                          impl=impl, shape_noise=shape_noise)
+        n_true = n_true + counts
+        n_after = int(n_samples_after) + r * int(nb)
+        conv = stats.is_converged(n_after, n_true, accuracy_bins, bin_accuracy)
+        newly = conv & ~done
+        done = done | conv
+        k_frozen = torch.where(newly, n_true, k_frozen)
+        n_frozen = torch.where(newly, torch.full_like(n_frozen, n_after),
+                               n_frozen)
+    new_state = state._replace(n_true=n_true, done=done, k_frozen=k_frozen,
+                               n_frozen=n_frozen)
+    num_done = (done & (state.uids >= 0)).sum(dtype=torch.int32)
+    return new_state, num_done

@@ -1,0 +1,69 @@
+"""Core 2D geometry primitives on torch tensors.
+
+Counterpart of ``collide2d_tpu/ops/geometry.py``. Vertex layout contract
+(the reference's ``create_rect``, utils.cu:119-130): a rectangle of width
+``w`` and height ``h`` centred at the origin is the 4 counter-clockwise
+vertices starting at the bottom-left corner::
+
+    (-w/2, -h/2), (w/2, -h/2), (w/2, h/2), (-w/2, h/2)
+
+Every function broadcasts over leading batch dimensions and evaluates
+each coordinate with the same separately rounded float32 operations, in
+the same order, as the JAX package, so results agree bitwise on the CPU
+(cos/sin excepted, which may differ by an ulp between libraries).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_CORNER_SIGNS = ((-0.5, -0.5), (0.5, -0.5), (0.5, 0.5), (-0.5, 0.5))
+
+
+def _as_f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def rect_vertices(width, height) -> torch.Tensor:
+    """Axis-aligned rectangle centred at the origin as 4 CCW vertices.
+
+    ``width``/``height``: broadcastable batch shape ``B``; returns
+    ``B + (4, 2)`` float32."""
+    width = _as_f32(width)
+    height = _as_f32(height, width.device)
+    wh = torch.stack(torch.broadcast_tensors(width, height), dim=-1)
+    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=wh.device)
+    return wh[..., None, :] * signs
+
+
+def transform_vertices(vertices: torch.Tensor, dx, dy, theta) -> torch.Tensor:
+    """Rotate vertices by ``theta`` about the origin, then translate
+    (rotate-then-translate, utils.cu:132-142):
+    x' = c*x - s*y + dx ;  y' = s*x + c*y + dy."""
+    dev = vertices.device
+    theta = _as_f32(theta, dev)
+    c = torch.cos(theta)[..., None]
+    s = torch.sin(theta)[..., None]
+    x = vertices[..., 0]
+    y = vertices[..., 1]
+    xt = c * x - s * y + _as_f32(dx, dev)[..., None]
+    yt = s * x + c * y + _as_f32(dy, dev)[..., None]
+    return torch.stack([xt, yt], dim=-1)
+
+
+def rects_from_params(center, extents, angle) -> torch.Tensor:
+    """Rectangles from (center ``B+(2,)``, extents ``B+(2,)`` = (w, h),
+    angle ``B``) as vertices ``B + (4, 2)``."""
+    base = rect_vertices(extents[..., 0], extents[..., 1])
+    return transform_vertices(base, center[..., 0], center[..., 1], angle)
+
+
+def polygon_edges(vertices: torch.Tensor) -> torch.Tensor:
+    """Cyclic edge vectors v[i+1] - v[i]: ``B+(k,2)`` -> ``B+(k,2)``."""
+    return torch.roll(vertices, shifts=-1, dims=-2) - vertices
+
+
+def edge_normals(vertices: torch.Tensor) -> torch.Tensor:
+    """Perpendicular edge normals (ey, -ex), unnormalised."""
+    e = polygon_edges(vertices)
+    return torch.stack([e[..., 1], -e[..., 0]], dim=-1)
