@@ -8,8 +8,10 @@ NVIDIA H100 (sm_90a) and nvcc:
 Phases (each prints its result and seconds on its own line; any failure
 raises, and the script then exits non-zero without printing a result):
 
-1. the card's name and power limit (nvidia-smi); build the fused Monte
-   Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu) from this checkout;
+1. the card's name and power limit (nvidia-smi); build the kernels from
+   this checkout, one nvcc per source, started together: the fused Monte
+   Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu) and the SAT
+   kernels (collide2d_tpu_torch/csrc/sat_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -24,7 +26,21 @@ raises, and the script then exits non-zero without printing a result):
    first 16,384 rows of batch 0, then ``compare``: mean |d| <= 1e-3 and a
    share within +-0.005 of at least 0.93;
 5. stream invariance: ``generate -n 2 -b 16384`` with
-   ``--overlap_batches 1`` and ``3`` at one seed give bitwise-equal files.
+   ``--overlap_batches 1`` and ``3`` at one seed give bitwise-equal files;
+6. the SAT kernels at N = 2^23 pairs (the JAX bench's size), inputs drawn
+   on the card by a seeded torch.Generator as in `example_configs`: the
+   main path ``CollisionProbabilityModel.collide`` (vertex f32 and bf16,
+   obb) and the count entry points launch every kernel; then each kernel
+   against its plain version on the same packed tensors: 0 labels differ,
+   counts exact, collision share in (0, 1); kernel ms (CUDA events, 20
+   launches after a warm-up), plain ms (1 run), pairs/s and GB/s;
+7. ``relabel --device cuda`` with another seed on phase 3's two batches:
+   order and shapes kept, mean |d| <= 1e-3 and a share within +-0.005 of
+   at least 0.93 against phase 3's labels; configs/s;
+8. ``generate -n 1 -b 100000 --seed 7`` with ``--prune_sigma 6`` against
+   the same call without it: rows `possible_collision_mask` keeps are
+   bitwise equal, pruned rows have cp = 0; then ``--schedule opt``: files
+   as in phase 3; checkpoints, mean samples per configuration, configs/s.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path; the last line is
@@ -36,10 +52,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
+import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +69,11 @@ HERE = Path(__file__).resolve().parent
 C_CHECK, N_CHECK = 100_000, 4096
 TAIL_ROWS, TAIL_SAMPLES = 256, 100_000
 MISMATCH_BOUND = 1e-5
+SAT_PAIRS = 1 << 23
+# Bytes each kernel moves per pair (in + out): 8 f32 coordinates of each
+# rectangle (bf16: half) or 6 f32 rows of each box, plus a 4-byte label.
+SAT_BYTES = {"sat_label": 68, "sat_label_bf16": 36, "sat_count": 64,
+             "sat_count_bf16": 32, "obb_label": 52, "obb_count": 48}
 
 
 def _line(phase: str, seconds: float, **fields) -> None:
@@ -89,9 +114,13 @@ def phase_build():
     from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    lib = cuda_build.library_path("mc_kernel")
-    cuda_build.load("mc_kernel")
-    _line("1 build", time.monotonic() - t, kernel="mc_kernel.cu", library=lib.name)
+    names = ("mc_kernel", "sat_kernel")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(cuda_build.build, names))
+    for name in names:
+        cuda_build.load(name)
+    _line("1 build", time.monotonic() - t, kernels=",".join(f"{n}.cu" for n in names),
+          libraries=",".join(lib.name for lib in libs))
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -158,6 +187,17 @@ def _generate(argv):
     return generate_dataset(cli.generate_config(cli.parse_args(["generate", *argv])))
 
 
+def _check_batch(path: Path, rows_expected: int = 100_000) -> np.ndarray:
+    """A written batch: (rows, 5) float32, finite, cp in [0, 1]."""
+    rows = np.load(path)
+    if rows.shape != (rows_expected, 5) or rows.dtype != np.float32:
+        raise RuntimeError(f"{path.name}: shape {rows.shape} dtype {rows.dtype}")
+    cp = rows[:, 2]
+    if not (np.isfinite(rows).all() and (cp >= 0).all() and (cp <= 1).all()):
+        raise RuntimeError(f"{path.name}: cp not finite in [0, 1]")
+    return rows
+
+
 def phase_main_path(work: Path) -> int:
     from collide2d_tpu_torch.ops import mc_cuda
 
@@ -172,13 +212,8 @@ def phase_main_path(work: Path) -> int:
         raise RuntimeError("the main path never launched the kernel")
     zero = []
     for i in range(2):
-        rows = np.load(data / f"{i}.npy")
-        if rows.shape != (100_000, 5) or rows.dtype != np.float32:
-            raise RuntimeError(f"batch {i}: shape {rows.shape} dtype {rows.dtype}")
-        cp = rows[:, 2]
-        if not (np.isfinite(rows).all() and (cp >= 0).all() and (cp <= 1).all()):
-            raise RuntimeError(f"batch {i}: cp not finite in [0, 1]")
-        zero.append(float((cp == 0).mean()))
+        rows = _check_batch(data / f"{i}.npy")
+        zero.append(float((rows[:, 2] == 0).mean()))
     zero_share = float(np.mean(zero))
     if not 0.5 <= zero_share <= 0.7:
         raise RuntimeError(f"zero-probability share {zero_share:.4f} not in [0.5, 0.7]")
@@ -235,6 +270,183 @@ def phase_invariance(work: Path) -> None:
           bitwise_equal=True)
 
 
+def phase_sat() -> dict:
+    """Phase 6: returns per-kernel launches, errors and times."""
+    from collide2d_tpu_torch.models.collision_model import CollisionProbabilityModel
+    from collide2d_tpu_torch.ops import sat_cuda
+    from collide2d_tpu_torch.ops.geometry import rects_from_params
+
+    t = time.monotonic()
+    dev = torch.device("cuda")
+    n = SAT_PAIRS
+    g = torch.Generator(device=dev).manual_seed(6)
+    pos = torch.rand((n, 2), generator=g, device=dev) * 12.0 - 6.0
+    theta = torch.rand((n,), generator=g, device=dev) * (2.0 * math.pi)
+    wh = torch.rand((n, 2), generator=g, device=dev) * 4.9 + 0.1
+    model = CollisionProbabilityModel()
+    ext = model._robot_ext(pos)
+    zeros, zeros_t = torch.zeros_like(pos), torch.zeros_like(theta)
+    packs = {
+        "f32": (sat_cuda.pack_rects(rects_from_params(pos, ext, theta)),
+                sat_cuda.pack_rects(rects_from_params(zeros, wh, zeros_t))),
+        "obb": (sat_cuda.pack_obbs(pos, ext, theta), sat_cuda.pack_obbs(zeros, wh, zeros_t)),
+    }
+    packs["bf16"] = tuple(p.to(torch.bfloat16) for p in packs["f32"])
+
+    # The main path: the model's labels, and the count kernels' entry points
+    # (the throughput legs call them on packed pairs).
+    sat_cuda.reset_launches()
+    labels = {
+        "f32": model.collide(pos, theta, wh),
+        "bf16": model.collide(pos, theta, wh, precision="bf16"),
+        "obb": model.collide(pos, theta, wh, method="obb"),
+    }
+    counts = {"f32": sat_cuda.sat_count_cuda_t(*packs["f32"]),
+              "bf16": sat_cuda.sat_count_cuda_t(*packs["bf16"]),
+              "obb": sat_cuda.obb_count_cuda_t(*packs["obb"])}
+    torch.cuda.synchronize()
+    launches = dict(sat_cuda.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a SAT kernel was never launched: {launches}")
+
+    result = {name: {"launches": launches[name], "max_abs_err": 0.0}
+              for name in launches}
+    for key in ("f32", "bf16", "obb"):
+        a, b = packs[key]
+        label_fn, count_fn, plain_fn, label_name, count_name = (
+            (sat_cuda.obb_collide_cuda_t, sat_cuda.obb_count_cuda_t,
+             sat_cuda.obb_collide_plain, "obb_label", "obb_count") if key == "obb"
+            else (sat_cuda.sat_rects_cuda_t, sat_cuda.sat_count_cuda_t,
+                  sat_cuda.sat_collide_plain, "sat_label", "sat_count"))
+        got = label_fn(a, b)
+        want = plain_fn(a, b).reshape(-1).to(torch.float32)
+        differ = int((got != want).sum())
+        share = float(want.mean())
+        if differ or not torch.equal(labels[key], got.to(torch.int32)):
+            raise RuntimeError(f"{label_name} ({key}): {differ} labels differ "
+                               "from the plain version")
+        if not 0.0 < share < 1.0:
+            raise RuntimeError(f"degenerate collision share {share} ({key})")
+        plain_count = int(want.sum())
+        count_err = abs(int(counts[key]) - plain_count)
+        if count_err:
+            raise RuntimeError(f"{count_name} ({key}): {int(counts[key])} != "
+                               f"plain sum {plain_count}")
+        for name, fn, plain, exact in (
+                (label_name, lambda: label_fn(a, b), lambda: plain_fn(a, b),
+                 float((got - want).abs().max())),
+                (count_name, lambda: count_fn(a, b),
+                 lambda: plain_fn(a, b).sum(), float(count_err))):
+            kernel_ms = _events_ms(fn, reps=20)
+            plain_ms = _events_ms(plain, reps=1)
+            tag = name + ("_bf16" if key == "bf16" else "")
+            gbps = SAT_BYTES[tag] * n / (kernel_ms * 1e-3) / 1e9
+            _line("6 sat", time.monotonic() - t, kernel=tag, pairs=n,
+                  labels_differ=differ, count=int(counts[key]),
+                  collision_share=f"{share:.4f}",
+                  kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+                  kernel_pairs_per_s=f"{n / kernel_ms * 1e3:.4e}",
+                  plain_pairs_per_s=f"{n / plain_ms * 1e3:.4e}",
+                  bytes_per_pair=SAT_BYTES[tag], kernel_gb_per_s=f"{gbps:.1f}")
+            entry = result[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], exact)
+            if key != "bf16":  # the f32 (and obb) timings are the reported ones
+                entry.update(ms=kernel_ms, plain_ms=plain_ms)
+    return result
+
+
+def _relabel(argv):
+    from collide2d_tpu_torch import cli
+    from collide2d_tpu_torch.data.pipeline import relabel_dataset
+
+    return relabel_dataset(cli.relabel_config(cli.parse_args(["relabel", *argv])))
+
+
+def phase_relabel(work: Path) -> None:
+    from collide2d_tpu_torch.data.validate import compare_labels
+
+    t = time.monotonic()
+    main, inp, out = work / "main", work / "relabel_in", work / "relabel_out"
+    inp.mkdir()
+    (out / "meta").mkdir(parents=True)
+    for name in ("poses.npy", "variances.npy", "meta/accuracy_bins.npy",
+                 "meta/bin_accuracy.npy"):
+        os.symlink(main / name, out / name)
+    for i in range(2):
+        rows = np.load(main / f"{i}.npy")
+        np.save(inp / f"{i}.npy", rows[:, [0, 1, 3, 4]].astype(np.float32))
+    stats, _ = _quiet(_relabel, [
+        "--device", "cuda", "--data_in", str(inp), "--data_out", str(out),
+        "--seed", "8", "--shuffle", "false"])
+    reports = []
+    for i in range(2):
+        new = _check_batch(out / f"{i}.npy")
+        old = np.load(main / f"{i}.npy")
+        if not np.array_equal(new[:, [0, 1, 3, 4]], old[:, [0, 1, 3, 4]]):
+            raise RuntimeError(f"relabel batch {i}: rows not in input order")
+        reports.append(compare_labels(old, new))
+    mean_d = float(np.mean([r.mean_abs_diff for r in reports]))
+    share = float(np.mean([r.frac_within_tolerance for r in reports]))
+    if mean_d > 1e-3 or share < 0.93:
+        raise RuntimeError(f"relabel misses the acceptance bar: {reports}")
+    _line("7 relabel", time.monotonic() - t, batches=2, batch_size=100_000,
+          label_s=f"{stats.label_seconds:.3f}",
+          configs_per_s=f"{stats.rows / stats.label_seconds:.1f}",
+          mean_samples_per_config=f"{stats.samples_used / stats.rows:.1f}",
+          mean_abs_d=f"{mean_d:.3e}", share_within_tol=f"{share:.4f}")
+
+
+def phase_prune_opt(work: Path) -> None:
+    from collide2d_tpu_torch.mc.estimator import Configs
+    from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+
+    t = time.monotonic()
+    main = work / "main"
+    tables = ["--pose_dir", str(main / "poses.npy"),
+              "--variance_dir", str(main / "variances.npy")]
+    base = ["--device", "cuda", "-n", "1", "-b", "100000", "--seed", "7", *tables]
+    runs = {}
+    for name, extra in (("full", []), ("pruned", ["--prune_sigma", "6"])):
+        stats, _ = _quiet(_generate, [*base, *extra, "--data_dir", str(work / name)])
+        runs[name] = (stats, _check_batch(work / name / "0.npy"))
+    full, pruned = runs["full"][1], runs["pruned"][1]
+    if not np.array_equal(full[:, [0, 1, 3, 4]], pruned[:, [0, 1, 3, 4]]):
+        raise RuntimeError("pruned and unpruned runs sampled different rows")
+    poses = np.load(main / "poses.npy")[full[:, 4].astype(np.int64)]
+    sds = np.sqrt(np.load(main / "variances.npy")[full[:, 3].astype(np.int64)])
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device="cuda")  # noqa: E731
+    configs = Configs(f32(full[:, :2]), f32(poses[:, 2]), f32(poses[:, :2]), f32(sds))
+    keep = possible_collision_mask(configs, (4.07, 1.74), 6.0).cpu().numpy()
+    if not np.array_equal(pruned[keep], full[keep]):
+        raise RuntimeError(f"{int((pruned[keep] != full[keep]).any(1).sum())} kept "
+                           "rows differ from the unpruned run")
+    if (pruned[~keep, 2] != 0).any():
+        raise RuntimeError("a pruned row has cp != 0")
+    rate = {k: s.rows / s.label_seconds for k, (s, _) in runs.items()}
+    _line("8 prune", time.monotonic() - t, rows=100_000,
+          pruned_share=f"{1.0 - keep.mean():.4f}", kept_rows_bitwise_equal=True,
+          configs_per_s_unpruned=f"{rate['full']:.1f}",
+          configs_per_s_pruned=f"{rate['pruned']:.1f}",
+          mean_samples_unpruned=f"{runs['full'][0].samples_used / len(full):.1f}",
+          mean_samples_pruned=f"{runs['pruned'][0].samples_used / len(full):.1f}")
+
+    t = time.monotonic()
+    stats, log = _quiet(_generate, [*base, "--schedule", "opt",
+                                    "--data_dir", str(work / "opt")])
+    rows = _check_batch(work / "opt" / "0.npy")
+    zero_share = float((rows[:, 2] == 0).mean())
+    if not 0.5 <= zero_share <= 0.7:
+        raise RuntimeError(f"opt: zero-probability share {zero_share:.4f} not in [0.5, 0.7]")
+    found = re.search(r"opt schedule: (\d+) checkpoints", log)
+    if found is None:
+        raise RuntimeError("opt: the schedule was not resolved")
+    _line("8 opt", time.monotonic() - t, rows=100_000, checkpoints=found.group(1),
+          label_s=f"{stats.label_seconds:.3f}",
+          configs_per_s=f"{stats.rows / stats.label_seconds:.1f}",
+          mean_samples_per_config=f"{stats.samples_used / stats.rows:.1f}",
+          zero_share=f"{zero_share:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -256,6 +468,9 @@ def main() -> int:
         launches = phase_main_path(work)
         phase_acceptance(work)
         phase_invariance(work)
+        sat = phase_sat()
+        phase_relabel(work)
+        phase_prune_opt(work)
     default = check["default"]
     kernels = {"kernels": [{
         "name": "mc_counts",
@@ -266,7 +481,14 @@ def main() -> int:
         "max_abs_err": max(check[k]["max_abs_err"] for k in check),
         "ms": default["kernel_ms"],
         "plain_ms": default["plain_ms"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "collide2d_tpu_torch/csrc/sat_kernel.cu",
+        "replaces": f"collide2d_tpu/ops/sat_pallas.py:{line}",
+        **sat[name],
+    } for name, line in (("sat_label", 96), ("sat_count", 100),
+                         ("obb_label", 268), ("obb_count", 303))]}
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

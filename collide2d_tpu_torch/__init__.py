@@ -1,11 +1,13 @@
 """collide2d_tpu_torch — the 2D convex collision engine on PyTorch and CUDA.
 
 A port of ``collide2d_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
-This package covers the ``generate`` main path on rectangles: the annulus
+This package covers the rectangle model on one GPU: the annulus
 configuration sampler, the adaptive Monte Carlo driver with its Wald /
-rule-of-three stopping rule, the fused Monte Carlo kernel
-(``csrc/mc_kernel.cu``, built with nvcc at first use), and the
-``generate`` / ``ztest`` / ``compare`` commands (``collide2d-torch``).
+rule-of-three stopping rule and noise-aware pruning, the fused Monte
+Carlo kernel (``csrc/mc_kernel.cu``), the SAT and oriented-box label and
+count kernels (``csrc/sat_kernel.cu``; both built with nvcc at first use),
+`CollisionProbabilityModel`, and the ``generate`` / ``relabel`` /
+``ztest`` / ``compare`` commands (``collide2d-torch``).
 
 It imports torch and never jax. Nothing is built or launched at import.
 """
@@ -17,14 +19,20 @@ from collide2d_tpu_torch.mc.estimator import (
     configs_from_numpy,
 )
 from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+from collide2d_tpu_torch.models.collision_model import (
+    CollisionProbabilityModel,
+    example_configs,
+)
 from collide2d_tpu_torch.ops.sat import obb_collide, sat_rects, sat_rects_reference
 
 __all__ = [
     "AdaptiveConfig",
+    "CollisionProbabilityModel",
     "Configs",
     "adaptive_collision_probabilities",
     "collision_probability",
     "configs_from_numpy",
+    "example_configs",
     "obb_collide",
     "sat_rects",
     "sat_rects_reference",

@@ -1,6 +1,7 @@
 """Command-line interface of the port (console script ``collide2d-torch``):
 
     collide2d-torch generate ...   # generate_dataset.cu
+    collide2d-torch relabel  ...   # compute_collision_probability.cu
     collide2d-torch ztest    ...   # ztest.cu
     collide2d-torch compare  ...   # label-agreement report
 
@@ -20,8 +21,10 @@ import sys
 
 from collide2d_tpu_torch.data.pipeline import (
     GenerateConfig,
+    RelabelConfig,
     ZTestConfig,
     generate_dataset,
+    relabel_dataset,
     ztest,
 )
 
@@ -39,16 +42,20 @@ def _bool_flag(value: str) -> bool:
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    """Flags shared by generate and ztest, ported or rejected."""
+    """Flags shared by generate, relabel and ztest, ported or rejected."""
     p.add_argument("--schedule", default="reference",
                    choices=["reference", "tuned", "opt"],
                    help="convergence-checkpoint schedule: 'reference' (the "
-                        "mode's reference cadence) or 'tuned' (one extra "
-                        "rule-of-three checkpoint, same CI guarantees); "
-                        "'opt' is not ported yet and is rejected")
+                        "mode's reference cadence), 'tuned' (one extra "
+                        "rule-of-three checkpoint) or 'opt' (generate and "
+                        "relabel: checkpoints placed from a probe of the "
+                        "workload's cp distribution); all keep the same CI "
+                        "guarantees")
     p.add_argument("--prune_sigma", type=float, default=0.0,
-                   help="noise-aware pruning; not ported yet: only 0 is "
-                        "accepted")
+                   help="noise-aware pruning: configurations that cannot "
+                        "touch within this many std-devs get cp=0 without "
+                        "sampling (0 = off, the reference; at 6 the label "
+                        "error is ~1e-8, far below every accuracy bin)")
     p.add_argument("--ladder", default="eighth",
                    choices=["half", "quarter", "eighth", "sixteenth"],
                    help="repack bucket ladder granularity")
@@ -68,10 +75,6 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def _reject_unported(parser: argparse.ArgumentParser,
                      args: argparse.Namespace) -> None:
     """Fail loudly on every flag whose feature the port lacks."""
-    if args.schedule == "opt":
-        parser.error("--schedule opt is not supported by collide2d-torch yet")
-    if args.prune_sigma > 0:
-        parser.error("--prune_sigma > 0 is not supported by collide2d-torch yet")
     if args.checkpoint_every > 0:
         parser.error("--checkpoint_every > 0 is not supported by "
                      "collide2d-torch yet")
@@ -169,6 +172,7 @@ def generate_config(args: argparse.Namespace) -> GenerateConfig:
         shuffle=not args.no_shuffle,
         overlap_batches=args.overlap_batches,
         schedule=_schedule_arg(args),
+        prune_sigma=args.prune_sigma,
         verbose=args.verbose,
         impl=args.impl,
         ladder=args.ladder,
@@ -178,6 +182,58 @@ def generate_config(args: argparse.Namespace) -> GenerateConfig:
 
 def _run_generate(args: argparse.Namespace) -> int:
     generate_dataset(generate_config(args))
+    return 0
+
+
+def _add_relabel(sub) -> None:
+    d = RelabelConfig()
+    p = sub.add_parser(
+        "relabel",
+        help="recompute collision probabilities for an existing dataset",
+    )
+    p.add_argument("--data_in", default=d.data_in, help="where to read the data")
+    p.add_argument("--data_out", default=d.data_out, help="where to write the data")
+    p.add_argument("--max_samples", type=int, default=d.max_samples)
+    p.add_argument("--robot_width", "-w", type=float, default=d.robot_width)
+    p.add_argument("--robot_height", type=float, default=d.robot_height)
+    p.add_argument("--shuffle", type=_bool_flag, default=d.shuffle,
+                   help="whether or not to shuffle data")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="multi-device runs; not ported yet")
+    p.add_argument("--sample_parallel", type=int, default=0,
+                   help="multi-device sample sharding; not ported yet")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from checkpoints; not ported yet")
+    p.add_argument("--overlap_batches", type=int, default=d.overlap_batches,
+                   help="cross-batch pipelining depth (see generate "
+                        "--overlap_batches); outputs do not depend on it")
+    _add_common(p)
+    p.set_defaults(func=_run_relabel)
+
+
+def relabel_config(args: argparse.Namespace) -> RelabelConfig:
+    """The `RelabelConfig` of parsed ``relabel`` arguments."""
+    return RelabelConfig(
+        data_in=args.data_in,
+        data_out=args.data_out,
+        max_samples=args.max_samples,
+        robot_width=args.robot_width,
+        robot_height=args.robot_height,
+        shuffle=args.shuffle,
+        seed=args.seed,
+        verbose=args.verbose,
+        impl=args.impl,
+        schedule=_schedule_arg(args),
+        prune_sigma=args.prune_sigma,
+        ladder=args.ladder,
+        overlap_batches=args.overlap_batches,
+        device=args.device,
+    )
+
+
+def _run_relabel(args: argparse.Namespace) -> int:
+    relabel_dataset(relabel_config(args))
     return 0
 
 
@@ -222,6 +278,7 @@ def _run_ztest(args: argparse.Namespace) -> int:
         verbose=args.verbose,
         impl=args.impl,
         schedule=_schedule_arg(args),
+        prune_sigma=args.prune_sigma,
         ladder=args.ladder,
         device=args.device,
     ))
@@ -261,14 +318,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="collide2d-torch",
         description="2D convex collision engine on PyTorch/CUDA "
-                    "(dataset generation / validation)",
+                    "(dataset generation / relabeling / validation)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
+    _add_relabel(sub)
     _add_ztest(sub)
     _add_compare(sub)
     args = parser.parse_args(argv)
-    if args.command in ("generate", "ztest"):
+    if args.command in ("generate", "relabel", "ztest"):
         _reject_unported(parser, args)
     return args
 

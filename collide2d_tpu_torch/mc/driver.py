@@ -558,14 +558,7 @@ class AdaptiveRun:
         shape_noise = True
         if impl == "cuda":
             shape_noise = bool((configs.std_dev[:, 3:] != 0.0).any())
-        state = _LoopState(
-            uids=torch.arange(c, dtype=torch.int32, device=device),
-            active=configs,
-            n_true=torch.zeros((c,), dtype=torch.int32, device=device),
-            done=torch.zeros((c,), dtype=torch.bool, device=device),
-            k_frozen=torch.zeros((c,), dtype=torch.int32, device=device),
-            n_frozen=torch.ones((c,), dtype=torch.int32, device=device),
-        )
+        state, num_real = self._initial_state(configs, robot_wh, cfg)
         outs = _OutState(
             k=torch.zeros((c + 1,), dtype=torch.int32, device=device),
             n=torch.zeros((c + 1,), dtype=torch.int32, device=device),
@@ -575,8 +568,56 @@ class AdaptiveRun:
             key, state, outs, robot_wh, cfg, impl=impl, acc_bins=acc_bins,
             bin_acc=bin_acc, shape_noise=shape_noise, progress=progress,
         )
-        self.scheduler = AdaptiveScheduler(cfg, self.ops, num_real=c, impl=impl)
+        self.scheduler = AdaptiveScheduler(cfg, self.ops, num_real=num_real,
+                                           impl=impl)
         self._host_outs = None
+
+    def _initial_state(self, configs, robot_wh: torch.Tensor,
+                       cfg: AdaptiveConfig) -> tuple[_LoopState | None, int]:
+        """The loop's first buffer and its count of real rows.
+
+        With ``cfg.prune_sigma > 0`` (one mask readback), rows that
+        `possible_collision_mask` rules out are marked done with cp = 0
+        and zero samples and never enter the loop; the kept rows start in
+        a ladder bucket padded with uid -1, their uids the original row
+        ids, so their labels equal an unpruned run's. When every row is
+        pruned there is no buffer (None) and the scheduler stops at once.
+        """
+        c = configs.num
+        device = configs.position.device
+        self.pruned = None
+        if cfg.prune_sigma > 0:
+            from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+
+            keep = possible_collision_mask(configs, robot_wh, cfg.prune_sigma)
+            keep = keep.cpu().numpy()
+            self.pruned = ~keep
+            keep0 = np.flatnonzero(keep)
+            if keep0.size == 0:
+                return None, 0
+            bucket = min(_round_up_bucket(keep0.size, cfg.min_active, cfg.ladder), c)
+            pad0 = np.concatenate([keep0, np.full(bucket - keep0.size, keep0[0])])
+            gather = torch.as_tensor(pad0, dtype=torch.int64, device=device)
+            real = torch.arange(bucket, device=device) < keep0.size
+            uids = torch.where(real, gather, -1).to(torch.int32)
+            active = type(configs)(*(a.index_select(0, gather) for a in configs))
+            done = ~real
+            num_real = int(keep0.size)
+        else:
+            uids = torch.arange(c, dtype=torch.int32, device=device)
+            active = configs
+            done = torch.zeros((c,), dtype=torch.bool, device=device)
+            num_real = c
+        n = uids.shape[0]
+        state = _LoopState(
+            uids=uids,
+            active=active,
+            n_true=torch.zeros((n,), dtype=torch.int32, device=device),
+            done=done,
+            k_frozen=torch.zeros((n,), dtype=torch.int32, device=device),
+            n_frozen=torch.ones((n,), dtype=torch.int32, device=device),
+        )
+        return state, num_real
 
     def pipeline_ready(self) -> bool:
         """True once this run's initial phase has been DISPATCHED — the
@@ -604,7 +645,10 @@ class AdaptiveRun:
             written
         ].astype(np.float32)
         out_n[written] = n_np[written]
-        return out_cp, out_n, f_np.copy()
+        done = f_np.copy()
+        if self.pruned is not None:
+            done[self.pruned] = True  # cp 0, no samples
+        return out_cp, out_n, done
 
 
 def run_interleaved(makers, overlap: int, on_done, *,

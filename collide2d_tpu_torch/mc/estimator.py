@@ -214,6 +214,43 @@ def collision_probability(key, configs: Configs, robot_wh, n_samples: int, *,
         float(n_samples), dtype=torch.float32, device=counts.device)
 
 
+def collision_probability_pruned(key, configs: Configs, robot_wh, n_samples: int,
+                                 *, sigma_margin: float = 6.0,
+                                 step_samples: int = 0,
+                                 use_vertices: bool = False,
+                                 impl: str = "threefry") -> np.ndarray:
+    """Fixed-budget probabilities with noise-aware broad-phase pruning.
+
+    Rows that cannot touch within ``sigma_margin`` standard deviations
+    (`ops.broad_phase.possible_collision_mask`) get 0 without sampling;
+    the candidates are gathered into a ladder bucket (padded with the
+    first candidate) and sampled with their ORIGINAL row ids as uids, so
+    each candidate's estimate equals the unpruned `collision_probability`
+    bit for bit on every impl (streams are keyed by uid). One host
+    readback of the mask; returns a host float32 (C,) array."""
+    from collide2d_tpu_torch.mc.driver import _round_up_bucket
+    from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+
+    c = configs.num
+    dev = configs.position.device
+    robot = torch.as_tensor(robot_wh, dtype=torch.float32, device=dev)
+    mask = possible_collision_mask(configs, robot, sigma_margin).cpu().numpy()
+    out = np.zeros((c,), np.float32)
+    idx = np.flatnonzero(mask)
+    if idx.size == 0:
+        return out
+    bucket = min(_round_up_bucket(idx.size, 256), c)
+    padded = np.concatenate([idx, np.full(bucket - idx.size, idx[0])])
+    gather = torch.as_tensor(padded, dtype=torch.int64, device=dev)
+    sub = Configs(*(a.index_select(0, gather) for a in configs))
+    counts = mc_round(key, gather.to(torch.int32), sub, robot, 0,
+                      n_batch=int(n_samples), step_samples=step_samples,
+                      use_vertices=use_vertices, impl=impl)
+    out[idx] = counts.cpu().numpy().astype(np.float32)[: idx.size] / np.float32(
+        n_samples)
+    return out
+
+
 @dataclass(frozen=True)
 class AdaptiveConfig:
     """Adaptive-stop schedule and accuracy targets (reference defaults:
@@ -223,7 +260,8 @@ class AdaptiveConfig:
     two-phase schedule (ztest.cu:332 uses 10000). ``schedule`` is None,
     explicit cumulative checkpoints, or "tuned" (one extra checkpoint at
     the rule-of-three point, where zero-probability rows can first
-    converge)."""
+    converge); the pipeline resolves "opt" into explicit checkpoints
+    (`mc.schedule_sim.optimize_checkpoints`) before it builds this."""
 
     accuracy_bins: Sequence[float] = (0.0, 0.01, 0.1, 1.0)
     bin_accuracy: Sequence[float] = (0.0001, 0.001, 0.01)
@@ -238,6 +276,11 @@ class AdaptiveConfig:
     impl: str = "auto"  # 'auto' | 'cuda' | 'threefry'
     schedule: Sequence[int] | str | None = None
     ladder: str = "eighth"  # repack bucket ladder (driver._round_up_bucket)
+    # Noise-aware broad phase (0 = off, the reference's behaviour): rows
+    # that cannot touch within this many standard deviations are emitted
+    # as cp = 0 with zero samples and never enter the loop
+    # (ops.broad_phase.possible_collision_mask).
+    prune_sigma: float = 0.0
 
     def __post_init__(self):
         if self.ladder not in ("half", "quarter", "eighth", "sixteenth"):

@@ -1,0 +1,138 @@
+"""The rectangle model: collision labels and probabilities in one object.
+
+Counterpart of ``collide2d_tpu/models/collision_model.py`` for a
+rectangular robot: the deterministic SAT label (`collide`, the
+reference's ``convex_collide``, utils.cu:159-184) and the Monte Carlo
+entry points (`forward`, `forward_pruned`, `label`). Inputs and outputs
+are torch tensors on one device; on a CUDA device `collide` runs the
+kernels of ``csrc/sat_kernel.cu``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from collide2d_tpu_torch.mc import prng
+from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+from collide2d_tpu_torch.mc.estimator import (
+    AdaptiveConfig,
+    Configs,
+    collision_probability,
+    collision_probability_pruned,
+)
+from collide2d_tpu_torch.ops import sat_cuda
+from collide2d_tpu_torch.ops.geometry import rects_from_params
+from collide2d_tpu_torch.ops.sat import obb_collide, sat_rects
+
+COLLIDE_IMPLS = ("auto", "cuda", "torch")
+
+
+class CollisionProbabilityModel:
+    """Collision labels and probabilities for a rectangular robot.
+
+    ``robot_wh`` defaults to the reference's 4.07 x 1.74 vehicle
+    (generate_dataset.cu:60-61); it is the model's only state, kept as a
+    float32 numpy array and moved to the data's device per call."""
+
+    def __init__(self, robot_wh: Sequence[float] = (4.07, 1.74)):
+        self.robot_wh = np.asarray(robot_wh, np.float32)
+
+    def _robot_ext(self, position: torch.Tensor) -> torch.Tensor:
+        """The robot's (w, h) broadcast to ``position``'s shape, built on
+        its device without a host-to-device copy."""
+        w, h = (float(v) for v in self.robot_wh)
+        col = position[..., 0]
+        return torch.stack([torch.full_like(col, w), torch.full_like(col, h)], -1)
+
+    # ---- deterministic narrow phase -------------------------------------
+    def collide(self, position: torch.Tensor, pose_theta: torch.Tensor,
+                obstacle_wh: torch.Tensor, *, precision: str = "f32",
+                impl: str = "auto", method: str = "vertex") -> torch.Tensor:
+        """SAT label of the robot at (position, pose_theta) against an
+        axis-aligned obstacle at the origin: int32 (C,), 1 = collide.
+
+        ``precision='bf16'`` rounds the vertex coordinates to bfloat16
+        before the float32 test: labels of pairs within ~0.4% of touching
+        can differ from the f32 path (coarse labeling only).
+        ``method='obb'`` skips the vertices: the closed-form oriented-box
+        test on the parameters (f32 only); labels equal the vertex path
+        except on exactly-touching roundings. ``impl``: 'auto' and 'cuda'
+        run the kernel on CUDA tensors and its plain version on CPU
+        tensors (`ops.sat_cuda`); 'torch' runs `ops.sat` (the JAX
+        package's ``jnp`` path)."""
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"precision must be 'f32' or 'bf16', got "
+                             f"{precision!r}")
+        if method not in ("vertex", "obb"):
+            raise ValueError(f"method must be 'vertex' or 'obb', got "
+                             f"{method!r}")
+        if impl not in COLLIDE_IMPLS:
+            raise ValueError(f"impl must be one of {COLLIDE_IMPLS}, got {impl!r}")
+        position = torch.as_tensor(position, dtype=torch.float32)
+        dev = position.device
+        pose_theta = torch.broadcast_to(
+            torch.as_tensor(pose_theta, dtype=torch.float32, device=dev),
+            position.shape[:-1])
+        obstacle_wh = torch.broadcast_to(
+            torch.as_tensor(obstacle_wh, dtype=torch.float32, device=dev),
+            position.shape)
+        robot_ext = self._robot_ext(position)
+        if method == "obb":
+            if precision != "f32":
+                raise ValueError("method='obb' supports precision='f32' "
+                                 "only (the bf16 contract is about vertex "
+                                 "coordinate rounding)")
+            args = (position, robot_ext, pose_theta, torch.zeros_like(position),
+                    obstacle_wh, torch.zeros_like(pose_theta))
+            if impl == "torch":
+                return obb_collide(*args)
+            return sat_cuda.obb_collide_cuda(*args)
+        robot = rects_from_params(position, robot_ext, pose_theta)
+        obstacle = rects_from_params(torch.zeros_like(position), obstacle_wh,
+                                     torch.zeros_like(pose_theta))
+        if impl != "torch":
+            return sat_cuda.sat_rects_cuda(robot, obstacle, precision=precision)
+        if precision == "bf16":
+            robot = robot.to(torch.bfloat16).to(torch.float32)
+            obstacle = obstacle.to(torch.bfloat16).to(torch.float32)
+        return sat_rects(robot, obstacle)
+
+    # ---- Monte Carlo -----------------------------------------------------
+    def forward(self, key, configs: Configs, n_samples: int) -> torch.Tensor:
+        """Fixed-budget Monte Carlo probabilities on the threefry path (the
+        JAX model's ``jnp`` streams): float32 (C,)."""
+        return collision_probability(key, configs, self.robot_wh, n_samples)
+
+    def forward_pruned(self, key, configs: Configs, n_samples: int, *,
+                       sigma_margin: float = 6.0, impl: str = "auto") -> np.ndarray:
+        """Fixed-budget Monte Carlo with noise-aware pruning: rows that
+        cannot touch within ``sigma_margin`` standard deviations get 0
+        without sampling (`mc.estimator.collision_probability_pruned`).
+        Host float32 (C,)."""
+        return collision_probability_pruned(
+            key, configs, self.robot_wh, n_samples,
+            sigma_margin=sigma_margin, impl=impl)
+
+    def label(self, key, configs: Configs,
+              cfg: AdaptiveConfig = AdaptiveConfig()):
+        """Adaptive labeling to each bin's CI accuracy. Returns (cp,
+        n_samples, converged) as host numpy arrays in row order."""
+        return adaptive_collision_probabilities(key, configs, self.robot_wh, cfg)
+
+
+def example_configs(n: int = 8, seed: int = 0, device="cpu") -> Configs:
+    """Small deterministic `Configs` batch: the JAX package's
+    `example_configs` draws (threefry), so both give the same rows."""
+    k1, k2, k3, k4 = prng.split(prng.PRNGKey(seed), 4)
+    std_dev = prng.uniform(k4, (n, 5), 0.0, 0.55, device)
+    std_dev[:, 3:] = 0.0
+    return Configs(
+        position=prng.uniform(k1, (n, 2), -6.0, 6.0, device),
+        pose_theta=prng.uniform(k2, (n,), 0.0, 2.0 * math.pi, device),
+        obstacle_wh=prng.uniform(k3, (n, 2), 0.1, 5.0, device),
+        std_dev=std_dev,
+    )

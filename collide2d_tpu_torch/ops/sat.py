@@ -7,7 +7,9 @@ Counterpart of ``collide2d_tpu/ops/sat.py`` for rectangles:
   ``<`` separation, so touching rectangles collide;
 - `sat_rects` tests the 4 unique axes, column by column;
 - `obb_collide` is the closed-form oriented-box test the Monte Carlo
-  threefry path uses.
+  threefry path uses;
+- `rect_columns_collide` and `obb_overlap` are their tests on coordinate
+  columns, shared with the SAT kernels' plain versions (`ops.sat_cuda`).
 
 Projections stay an explicit ``ax*x + ay*y`` of separately rounded
 float32 operations: a contraction (matmul, einsum) may fuse them into an
@@ -51,6 +53,15 @@ def sat_rects(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     y1 = [r1[..., k, 1] for k in range(4)]
     x2 = [r2[..., k, 0] for k in range(4)]
     y2 = [r2[..., k, 1] for k in range(4)]
+    return rect_columns_collide(x1, y1, x2, y2).to(torch.int32)
+
+
+def rect_columns_collide(x1, y1, x2, y2) -> torch.Tensor:
+    """The 4-axis test on coordinate columns: ``x1``..``y2`` are lists of
+    the 4 vertex columns of each rectangle (same shapes). Boolean, True =
+    collide. The axes are the first two edges of each rectangle (edges 2
+    and 3 are exact negations); each projection is a separate multiply
+    and add, in `sat_pallas._sat_body`'s order."""
     axes = [
         (x1[1] - x1[0], y1[1] - y1[0]),
         (x1[2] - x1[1], y1[2] - y1[1]),
@@ -71,7 +82,7 @@ def sat_rects(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
             mx2 = torch.maximum(mx2, p)
         sep = (mx1 < mn2) | (mx2 < mn1)
         separated = sep if separated is None else separated | sep
-    return (~separated).to(torch.int32)
+    return ~separated
 
 
 def obb_collide(c1, ext1, th1, c2, ext2, th2) -> torch.Tensor:
@@ -89,6 +100,14 @@ def obb_collide(c1, ext1, th1, c2, ext2, th2) -> torch.Tensor:
     dy = c1[..., 1] - c2[..., 1]
     c1_, s1_ = torch.cos(th1), torch.sin(th1)
     c2_, s2_ = torch.cos(th2), torch.sin(th2)
+    return obb_overlap(dx, dy, c1_, s1_, hx1, hy1, c2_, s2_, hx2, hy2).to(
+        torch.int32)
+
+
+def obb_overlap(dx, dy, c1_, s1_, hx1, hy1, c2_, s2_, hx2, hy2) -> torch.Tensor:
+    """The closed-form test on the centre offset ``(dx, dy)`` = c1 - c2,
+    each box's cos/sin and half extents. Boolean, True = collide. Same
+    float operation order as `sat_pallas._obb_body`."""
     cd = (c1_ * c2_ + s1_ * s2_).abs()
     sd = (s1_ * c2_ - c1_ * s2_).abs()
     d_a1 = (dx * c1_ + dy * s1_).abs()
@@ -99,4 +118,4 @@ def obb_collide(c1, ext1, th1, c2, ext2, th2) -> torch.Tensor:
     sep = sep | (d_a2 > hy1 + hx2 * sd + hy2 * cd)
     sep = sep | (d_b1 > hx2 + hx1 * cd + hy1 * sd)
     sep = sep | (d_b2 > hy2 + hx1 * sd + hy1 * cd)
-    return (~sep).to(torch.int32)
+    return ~sep

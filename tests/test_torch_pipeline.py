@@ -148,8 +148,6 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("flags,name", [
     (["--data_parallel"], "--data_parallel"),
-    (["--prune_sigma", "6"], "--prune_sigma"),
-    (["--schedule", "opt"], "--schedule opt"),
     (["--checkpoint_every", "4"], "--checkpoint_every"),
     (["--resume"], "--resume"),
     (["--trace_dir", "t"], "--trace_dir"),
