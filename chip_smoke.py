@@ -10,8 +10,9 @@ raises, and the script then exits non-zero without printing a result):
 
 1. the card's name and power limit (nvidia-smi); build the kernels from
    this checkout, one nvcc per source, started together: the fused Monte
-   Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu) and the SAT
-   kernels (collide2d_tpu_torch/csrc/sat_kernel.cu);
+   Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu), the SAT kernels
+   (csrc/sat_kernel.cu), the k-gon SAT kernel (csrc/polygon_kernel.cu)
+   and the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -40,11 +41,41 @@ raises, and the script then exits non-zero without printing a result):
 8. ``generate -n 1 -b 100000 --seed 7`` with ``--prune_sigma 6`` against
    the same call without it: rows `possible_collision_mask` keeps are
    bitwise equal, pruned rows have cp = 0; then ``--schedule opt``: files
-   as in phase 3; checkpoints, mean samples per configuration, configs/s.
+   as in phase 3; checkpoints, mean samples per configuration, configs/s;
+9. the k-gon SAT kernel: `PolygonCollisionProbabilityModel.collide` and
+   `CollisionProbabilityModel.collide_polygons` on 2^20 configurations of
+   the polylabel workload (plain, bf16, ``broad_phase=True`` and
+   ``'prune'``, which must equal the plain call) launch it and equal the
+   torch path; then the kernel against its plain version on the same
+   packed tensors at 2^23 pairs (k = 8 f32 and bf16, k1 = 4 against k2 = 6,
+   and the model's k1 = 4 against k2 = 8): 0 labels differ, collision share
+   in (0, 1); kernel ms (CUDA events, 20 launches after a warm-up), plain
+   ms, pairs/s and GB/s;
+10. the fused k-gon Monte Carlo kernel against its plain version, same
+   Philox stream, on C = 100,000 rows of the polylabel workload (k = 8, the
+   4.07 x 1.74 robot as a 4-gon, 2 kept axes) x n = 4096 samples and the
+   tail's 256 rows x 100,000: sum |dcount| <= 1e-5 * C * n; samples/s of
+   both; then the agreement gate against the threefry path on the card
+   (4,096 `example_polygon_configs` rows at k = 6, 65,536 samples each):
+   max z < 6 and a share with z > 3 of at most 3 x 0.27%;
+11. ``polylabel --device cuda`` on the 100,000-row k = 8 workload (an .npz
+   written as polylabel reads it): finite cp in [0, 1], samples within the
+   cap, kernel launches > 0; configs/s, mean samples per configuration,
+   converged share; the same call again under torch.profiler, which must
+   write the same labels (kernel launches per round, device busy share);
+   ``polylabel`` with another seed on the first 16,384 rows: mean |d| <=
+   1e-3 and a share within +-0.005 of at least 0.93; ``--prune_sigma 6``
+   on those rows: rows that `possible_collision_mask` keeps are bitwise the
+   first run's, pruned rows have cp = 0.
 
 The second-to-last lines are the card (name, power limit) and one JSON
-object describing each kernel of the path; the last line is
-``{"ok": true, "device": {...}}``.
+object describing each kernel of the path, with ``bound_ms``: the larger
+of the bytes the function must move over 3.35 TB/s and the FP32
+operations its source writes for these inputs over 67 TFLOP/s (an FMA
+counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
+integer Philox rounds are not counted, so the Monte Carlo bounds are
+floors). No single PyTorch call computes any of these functions, so
+``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -74,6 +105,48 @@ SAT_PAIRS = 1 << 23
 # rectangle (bf16: half) or 6 f32 rows of each box, plus a 4-byte label.
 SAT_BYTES = {"sat_label": 68, "sat_label_bf16": 36, "sat_count": 64,
              "sat_count_bf16": 32, "obb_label": 52, "obb_count": 48}
+# FP32 operations per pair written in csrc/sat_kernel.cu: 8 shift adds,
+# 4 axes x (2 subs, 8 projections of 3, 12 min/max, 2 compares); the box
+# test's 4 shift adds and differences, cd/sd 6, 4 projections of 3, 4
+# reaches of 4 and 4 compares.
+SAT_OPS = {"sat_label": 168, "sat_count": 168, "obb_label": 42, "obb_count": 42}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_FP32_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, FMA = 2
+# FP32 operations of one normal in the Monte Carlo kernels: (b + 0.5) *
+# 2^-22 - 1 (3), erf_inv's x * -x, w < 5, w - 2.5 or sqrt(w) - 3, 8 Horner
+# steps and p * x (20), * sqrt(2) (1).
+NORMAL_OPS = 24
+POLY_K, POLY_ROBOT = 8, ((-2.035, -0.87), (2.035, -0.87), (2.035, 0.87),
+                         (-2.035, 0.87))
+POLY_ROWS = 100_000
+POLY_HEAD = 16_384
+
+
+def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the byte and the
+    operation bound, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mc_ops_per_sample(shape_noise: bool) -> int:
+    """csrc/mc_kernel.cu: 3 (5) normals, the box test's 38 operations (dx,
+    dy, delta, the offset, u, v, four tests), 4 more for noisy extents."""
+    return (5 if shape_noise else 3) * NORMAL_OPS + 38 + (4 if shape_noise else 0)
+
+
+def mc_poly_ops_per_sample(k: int, k2: int, k2a: int) -> int:
+    """csrc/mc_polygon_kernel.cu: 3 normals, dx/dy/dtheta and (u1, u2) (9),
+    each kept robot axis 5K + 5 (translation 3, K blends of 3, min/max,
+    2 adds, 2 compares), each obstacle normal 5 K2 + 5."""
+    return 3 * NORMAL_OPS + 9 + k2a * (5 * k + 5) + k * (5 * k2 + 5)
+
+
+def sat_poly_ops_per_pair(k1: int, k2: int) -> int:
+    """csrc/polygon_kernel.cu: (k1 + k2) axes x (2 for the axis, k1 + k2
+    projections of 3, 2 (k1 + k2 - 2) min/max, 2 compares) = 5 (k1 + k2)^2."""
+    return 5 * (k1 + k2) ** 2
 
 
 def _line(phase: str, seconds: float, **fields) -> None:
@@ -114,7 +187,7 @@ def phase_build():
     from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    names = ("mc_kernel", "sat_kernel")
+    names = ("mc_kernel", "sat_kernel", "polygon_kernel", "mc_polygon_kernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(cuda_build.build, names))
     for name in names:
@@ -447,6 +520,336 @@ def phase_prune_opt(work: Path) -> None:
           zero_share=f"{zero_share:.4f}")
 
 
+def _polygon_workload(n: int, seed: int = 0):
+    """The polylabel workload of the JAX package's `bench_e2e_polygons`
+    (utils/benchmarks.py:1599-1620), drawn on the card: annulus positions
+    (`sample_configuration_batch`, r_offset (4.07 + 1.74) / 4, spread 4)
+    over 4,096-row pose and sigma tables (sigmas sqrt(U(0, 0.3)) for x, y
+    and theta), per-row ellipse k-gons with semi-axes in [0.5, 2.5]."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import PolygonConfigs
+    from collide2d_tpu_torch.mc.noise import sample_configuration_batch
+
+    dev = torch.device("cuda")
+    k_tab, k_cfg, _, k_geo = prng.split(prng.PRNGKey(seed), 4)
+    t_pose, t_sd = prng.split(k_tab, 2)
+    lo = torch.tensor([0.1, 0.1, 0.0], device=dev)
+    hi = torch.tensor([5.0, 5.0, 2.0 * math.pi], device=dev)
+    poses = prng.uniform(t_pose, (4096, 3), device=dev) * (hi - lo) + lo
+    std_devs = torch.sqrt(prng.uniform(t_sd, (4096, 5), 0.0, 0.3, dev))
+    std_devs[:, 3:] = 0.0
+    pos, _, _, pose, sd = sample_configuration_batch(
+        prng.fold_in(k_cfg, 0), poses, std_devs, num_configs=n,
+        r_offset=(4.07 + 1.74) / 4, spread=4.0)
+    ka, kb = prng.split(prng.fold_in(k_geo, 0), 2)
+    ang = prng.uniform(ka, (n, POLY_K), 0.0, 2.0 * math.pi, dev).sort(dim=-1).values
+    ab = prng.uniform(kb, (n, 1, 2), 0.5, 2.5, dev)
+    verts = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1) * ab
+    return PolygonConfigs(pos, pose[:, 2], verts.contiguous(), sd[:, :3].contiguous())
+
+
+def _random_polygons(g, n: int, k: int, spread: float) -> torch.Tensor:
+    """(n, k, 2) convex k-gons on the card: ellipse points at sorted angles,
+    semi-axes in [0.3, 2.5], shifted by up to ``spread``."""
+    dev = torch.device("cuda")
+    ang = (torch.rand((n, k), generator=g, device=dev) * (2 * math.pi)).sort(-1).values
+    ab = torch.rand((n, 1, 2), generator=g, device=dev) * 2.2 + 0.3
+    shift = (torch.rand((n, 1, 2), generator=g, device=dev) * 2 - 1) * spread
+    return torch.stack([torch.cos(ang), torch.sin(ang)], -1) * ab + shift
+
+
+def phase_polygon_sat() -> dict:
+    """Phase 9: returns kernel 6's launches on the model path, its largest
+    error against the plain version, and its times at k = 8 f32."""
+    from collide2d_tpu_torch.models.collision_model import (
+        CollisionProbabilityModel,
+        PolygonCollisionProbabilityModel,
+    )
+    from collide2d_tpu_torch.ops import polygon_cuda
+
+    t = time.monotonic()
+    configs = _polygon_workload(1 << 20, seed=9)
+    model = PolygonCollisionProbabilityModel(np.asarray(POLY_ROBOT, np.float32))
+    robot = model._placed_robot(configs)
+    polygon_cuda.reset_launches()
+    labels = {
+        "plain": model.collide(configs),
+        "bf16": model.collide(configs, precision="bf16"),
+        "aabb": model.collide(configs, broad_phase=True),
+        "prune": model.collide(configs, broad_phase="prune"),
+        "collide_polygons": CollisionProbabilityModel().collide_polygons(
+            robot, configs.obstacle_verts),
+    }
+    torch.cuda.synchronize()
+    launches = polygon_cuda.LAUNCHES
+    if launches < len(labels):
+        raise RuntimeError(f"the model path launched the k-gon kernel {launches} "
+                           f"times for {len(labels)} calls")
+    want = model.collide(configs, impl="torch")
+    for name in ("plain", "aabb", "prune", "collide_polygons"):
+        if not torch.equal(labels[name], want):
+            raise RuntimeError(f"collide ({name}): "
+                               f"{int((labels[name] != want).sum())} labels differ "
+                               "from the torch path")
+    share = float(want.float().mean())
+    if not 0.0 < share < 1.0:
+        raise RuntimeError(f"degenerate collision share {share} on the model path")
+    bf16_differ = int((labels["bf16"] != want).sum())
+    _line("9 k-gon model", time.monotonic() - t, configs=1 << 20, k=POLY_K,
+          robot_k=4, kernel_launches=launches, collision_share=f"{share:.4f}",
+          bf16_labels_differ_from_f32=bf16_differ)
+
+    result = {"launches": launches, "max_abs_err": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(10)
+    n = SAT_PAIRS
+    for tag, k1, k2, bf16 in (("k8", 8, 8, False), ("k8_bf16", 8, 8, True),
+                              ("k4_k6", 4, 6, False), ("k4_k8", 4, 8, False)):
+        t = time.monotonic()
+        pack = polygon_cuda.pack_polygons_bf16 if bf16 else polygon_cuda.pack_polygons
+        a = pack(_random_polygons(g, n, k1, 3.0))
+        b = pack(_random_polygons(g, n, k2, 3.0))
+        got = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
+        want = polygon_cuda.sat_polygons_plain(a, b, k1, k2).reshape(-1).float()
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        share = float(want.mean())
+        if differ:
+            raise RuntimeError(f"sat_polygons ({tag}): {differ} labels differ "
+                               "from the plain version")
+        if not 0.0 < share < 1.0:
+            raise RuntimeError(f"degenerate collision share {share} ({tag})")
+        kernel_ms = _events_ms(
+            lambda: polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2), reps=20)
+        plain_ms = _events_ms(
+            lambda: polygon_cuda.sat_polygons_plain(a, b, k1, k2), reps=1)
+        nbytes = (2 * k1 + 2 * k2) * a.element_size() + 4
+        bound, bound_by = _bound_ms(nbytes * n, sat_poly_ops_per_pair(k1, k2) * n)
+        _line("9 k-gon sat", time.monotonic() - t, case=tag, k1=k1, k2=k2,
+              pairs=n, labels_differ=differ, collision_share=f"{share:.4f}",
+              kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+              bound_ms=f"{bound:.4f}", bound_by=bound_by,
+              kernel_pairs_per_s=f"{n / kernel_ms * 1e3:.4e}",
+              plain_pairs_per_s=f"{n / plain_ms * 1e3:.4e}", bytes_per_pair=nbytes,
+              kernel_gb_per_s=f"{nbytes * n / (kernel_ms * 1e-3) / 1e9:.1f}")
+        if tag == "k8":
+            result.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=bound_by)
+        del a, b, got, want
+    return result
+
+
+def phase_mc_polygon() -> dict:
+    """Phase 10: returns kernel 7's largest error and times at C = 100,000
+    x n = 4096."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import mc_round
+    from collide2d_tpu_torch.models.collision_model import example_polygon_configs
+    from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda
+
+    dev = torch.device("cuda")
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    a_keep = mc_polygon_cuda.dedup_robot_axes(robot)
+    result = {"max_abs_err": 0}
+    for key, c, n in (("workload", POLY_ROWS, N_CHECK),
+                      ("tail", TAIL_ROWS, TAIL_SAMPLES)):
+        t = time.monotonic()
+        configs = _polygon_workload(c, seed=11)
+        params = mc_polygon_cuda.pack_polygon_mc_params(configs, robot, a_keep)
+        dims = dict(k=POLY_K, k2=len(robot), k2a=len(a_keep))
+        uids = torch.arange(c, dtype=torch.int32, device=dev)
+        seed = mc_cuda.round_seed(prng.PRNGKey(12), 3)
+        got = mc_polygon_cuda.mc_poly_counts(params, uids, seed, n, **dims)
+        want = mc_polygon_cuda.mc_poly_counts_plain(params, uids, seed, n,
+                                                    max_elems=1 << 22, **dims)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        total = int(diff.sum())
+        if total > MISMATCH_BOUND * c * n:
+            raise RuntimeError(
+                f"k-gon kernel disagrees with its plain version: sum|dcount|="
+                f"{total} > {MISMATCH_BOUND} * C * n ({key})")
+        if not 0 < int(got.sum()) < c * n:
+            raise RuntimeError("degenerate k-gon counts: all hits or none")
+        kernel_ms = _events_ms(lambda: mc_polygon_cuda.mc_poly_counts(
+            params, uids, seed, n, **dims), reps=20)
+        plain_ms = _events_ms(lambda: mc_polygon_cuda.mc_poly_counts_plain(
+            params, uids, seed, n, max_elems=1 << 22, **dims), reps=1)
+        bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
+                                    c * n * mc_poly_ops_per_sample(**dims))
+        result["max_abs_err"] = max(result["max_abs_err"], int(diff.max()))
+        if key == "workload":
+            result.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=bound_by)
+        _line("10 k-gon mc", time.monotonic() - t, case=key, C=c, n=n,
+              table_rows=params.shape[1], kept_axes=len(a_keep),
+              sum_abs_dcount=total, rows_differ=int((diff > 0).sum()),
+              kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+              bound_ms=f"{bound:.4f}", bound_by=bound_by,
+              kernel_samples_per_s=f"{c * n / kernel_ms * 1e3:.4e}",
+              plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
+
+    # The agreement gate of the JAX package's `bench_agreement_polygons`
+    # (utils/benchmarks.py:1334-1405): the kernel against the threefry path.
+    t = time.monotonic()
+    c, n = 4096, 1 << 16
+    configs = example_polygon_configs(c, k=6, seed=7, device=dev)
+    uids = torch.arange(c, dtype=torch.int32, device=dev)
+    cp = {}
+    for impl in ("cuda", "threefry"):
+        counts = mc_round(prng.PRNGKey(8), uids, configs, robot, 0, n_batch=n,
+                          impl=impl)
+        cp[impl] = counts.cpu().numpy().astype(np.float64) / n
+    diff = np.abs(cp["cuda"] - cp["threefry"])
+    pooled = (cp["cuda"] + cp["threefry"]) / 2.0
+    var = pooled * (1.0 - pooled) * (2.0 / n)
+    z = np.where(var > 0, diff / np.sqrt(np.maximum(var, 1e-300)), 0.0)
+    frac3, max_z = float((z > 3.0).mean()), float(z.max())
+    if not (max_z < 6.0 and frac3 <= 3 * 0.0027):
+        raise RuntimeError(f"k-gon agreement gate failed: max z {max_z:.2f}, "
+                           f"share z > 3 {frac3:.4f}")
+    _line("10 k-gon agreement", time.monotonic() - t, configs=c, n_samples=n,
+          max_z=f"{max_z:.3f}", frac_z_gt3=f"{frac3:.5f}",
+          mean_abs_diff=f"{diff.mean():.3e}",
+          frac_within_005=f"{(diff <= 0.005).mean():.4f}")
+    return result
+
+
+def _polylabel(argv) -> float:
+    """``collide2d-torch polylabel`` in process; returns its seconds."""
+    from collide2d_tpu_torch import cli
+
+    t = time.monotonic()
+    rc, _ = _quiet(cli.main, ["polylabel", *argv])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"polylabel exited {rc}")
+    return time.monotonic() - t
+
+
+def _profiled(fn):
+    """``fn()`` under torch.profiler: (its result, device kernels launched,
+    device busy microseconds, kernel-7 microseconds), or None for the
+    numbers when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's start-up, not measured
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        result = fn()
+    spans, kernels, k7_us = [], 0, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if not e.name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+        if "mc_poly_counts_kernel" in e.name:
+            k7_us += e.time_range.end - e.time_range.start
+    if not spans:
+        return result, None, None, None
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return result, kernels, busy, k7_us
+
+
+def phase_polylabel(work: Path) -> int:
+    """Phase 11: returns kernel 7's launches on the main path."""
+    from collide2d_tpu_torch.data.validate import compare_labels
+    from collide2d_tpu_torch.ops import mc_polygon_cuda
+    from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+
+    t = time.monotonic()
+    configs = _polygon_workload(POLY_ROWS, seed=0)
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    fields = {name: getattr(configs, name).cpu().numpy() for name in configs._fields}
+    src = work / "polys.npz"
+    np.savez(src, robot_verts=robot, **fields)
+    head = work / "polys_head.npz"
+    np.savez(head, robot_verts=robot,
+             **{name: a[:POLY_HEAD] for name, a in fields.items()})
+    setup_s = time.monotonic() - t
+
+    def outputs(path):
+        with np.load(path) as d:
+            return d["cp"], d["n_samples"], d["converged"]
+
+    out = work / "polylabels.npz"
+    mc_polygon_cuda.reset_launches()
+    seconds = _polylabel(["--device", "cuda", "--data_in", str(src),
+                          "--data_out", str(out), "--seed", "7"])
+    launches = mc_polygon_cuda.LAUNCHES
+    if launches <= 0:
+        raise RuntimeError("polylabel never launched the k-gon kernel")
+    cp, n_used, done = outputs(out)
+    if cp.shape != (POLY_ROWS,) or not (np.isfinite(cp).all() and (cp >= 0).all()
+                                        and (cp <= 1).all()):
+        raise RuntimeError("polylabel: cp not finite in [0, 1]")
+    if not ((n_used > 0).all() and (n_used <= 4_000_000 + 100_032).all()):
+        raise RuntimeError(f"polylabel: n_samples outside the cap "
+                           f"[{n_used.min()}, {n_used.max()}]")
+    _line("11 polylabel", time.monotonic() - t, rows=POLY_ROWS, k=POLY_K,
+          setup_s=f"{setup_s:.2f}", call_s=f"{seconds:.3f}",
+          configs_per_s=f"{POLY_ROWS / seconds:.1f}",
+          mean_samples_per_config=f"{n_used.mean():.1f}",
+          converged_share=f"{done.mean():.4f}", zero_share=f"{(cp == 0).mean():.4f}",
+          kernel_launches=launches)
+
+    t = time.monotonic()
+    prof_out = work / "polylabels_profiled.npz"
+    mc_polygon_cuda.reset_launches()
+    t_call = time.monotonic()
+    _, kernels, busy_us, k7_us = _profiled(lambda: _polylabel([
+        "--device", "cuda", "--data_in", str(src), "--data_out", str(prof_out),
+        "--seed", "7"]))
+    wall_us = (time.monotonic() - t_call) * 1e6
+    rounds = mc_polygon_cuda.LAUNCHES
+    if not all(np.array_equal(a, b) for a, b in zip(outputs(prof_out), (cp, n_used, done))):
+        raise RuntimeError("the profiled polylabel run wrote other labels")
+    if kernels is None:
+        profile = dict(device_activity="not measured")
+    else:
+        # the busy share of the profiled call, and its device busy time over
+        # the unprofiled call's seconds (the same rounds, bitwise the same
+        # labels), which the tracer's host overhead does not stretch
+        profile = dict(device_kernels=kernels, rounds=rounds,
+                       kernels_per_round=f"{kernels / rounds:.1f}",
+                       device_busy_s=f"{busy_us / 1e6:.4f}",
+                       device_busy_share=f"{busy_us / wall_us:.4f}",
+                       busy_over_unprofiled_call=f"{busy_us / 1e6 / seconds:.4f}",
+                       mc_poly_kernel_share_of_busy=f"{k7_us / busy_us:.4f}")
+    _line("11 polylabel profile", time.monotonic() - t, labels_bitwise_equal=True,
+          wall_s=f"{wall_us / 1e6:.3f}", **profile)
+
+    t = time.monotonic()
+    ind = work / "polylabels_seed8.npz"
+    _polylabel(["--device", "cuda", "--data_in", str(head), "--data_out", str(ind),
+                "--seed", "8"])
+    report = compare_labels(cp[:POLY_HEAD], outputs(ind)[0])
+    if report.mean_abs_diff > 1e-3 or report.frac_within_tolerance < 0.93:
+        raise RuntimeError(f"polylabel misses the acceptance bar: {report}")
+    pruned_out = work / "polylabels_pruned.npz"
+    _polylabel(["--device", "cuda", "--data_in", str(head), "--data_out",
+                str(pruned_out), "--seed", "7", "--prune_sigma", "6"])
+    head_cfgs = type(configs)(*(a[:POLY_HEAD] for a in configs))
+    keep = possible_collision_mask(head_cfgs, robot, 6.0).cpu().numpy()
+    for got, want in zip(outputs(pruned_out), (cp, n_used, done)):
+        if not np.array_equal(got[keep], want[:POLY_HEAD][keep]):
+            raise RuntimeError("pruned polylabel: kept rows differ from the "
+                               "unpruned run")
+    if (outputs(pruned_out)[0][~keep] != 0).any():
+        raise RuntimeError("pruned polylabel: a pruned row has cp != 0")
+    _line("11 polylabel check", time.monotonic() - t, rows=POLY_HEAD,
+          mean_abs_d=f"{report.mean_abs_diff:.3e}",
+          share_within_tol=f"{report.frac_within_tolerance:.4f}",
+          pruned_share=f"{1.0 - keep.mean():.4f}", kept_rows_bitwise_equal=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -471,7 +874,12 @@ def main() -> int:
         sat = phase_sat()
         phase_relabel(work)
         phase_prune_opt(work)
+        poly_sat = phase_polygon_sat()
+        poly_mc = phase_mc_polygon()
+        poly_mc["launches"] = phase_polylabel(work)
     default = check["default"]
+    mc_bound, mc_bound_by = _bound_ms(C_CHECK * 72,
+                                      C_CHECK * N_CHECK * mc_ops_per_sample(False))
     kernels = {"kernels": [{
         "name": "mc_counts",
         "route": "cuda",
@@ -481,14 +889,34 @@ def main() -> int:
         "max_abs_err": max(check[k]["max_abs_err"] for k in check),
         "ms": default["kernel_ms"],
         "plain_ms": default["plain_ms"],
+        "bound_ms": mc_bound,
+        "bound_by": mc_bound_by,
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",
         "source": "collide2d_tpu_torch/csrc/sat_kernel.cu",
         "replaces": f"collide2d_tpu/ops/sat_pallas.py:{line}",
         **sat[name],
+        **dict(zip(("bound_ms", "bound_by"), _bound_ms(
+            SAT_BYTES[name] * SAT_PAIRS, SAT_OPS[name] * SAT_PAIRS))),
+        "library_ms": None,
     } for name, line in (("sat_label", 96), ("sat_count", 100),
-                         ("obb_label", 268), ("obb_count", 303))]}
+                         ("obb_label", 268), ("obb_count", 303))] + [{
+        "name": "sat_polygons",
+        "route": "cuda",
+        "source": "collide2d_tpu_torch/csrc/polygon_kernel.cu",
+        "replaces": "collide2d_tpu/ops/polygon_pallas.py:92",
+        **poly_sat,
+        "library_ms": None,
+    }, {
+        "name": "mc_poly_counts",
+        "route": "cuda",
+        "source": "collide2d_tpu_torch/csrc/mc_polygon_kernel.cu",
+        "replaces": "collide2d_tpu/ops/mc_polygon_pallas.py:254",
+        **poly_mc,
+        "library_ms": None,
+    }]}
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,13 +1,15 @@
 """collide2d_tpu_torch — the 2D convex collision engine on PyTorch and CUDA.
 
 A port of ``collide2d_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
-This package covers the rectangle model on one GPU: the annulus
-configuration sampler, the adaptive Monte Carlo driver with its Wald /
-rule-of-three stopping rule and noise-aware pruning, the fused Monte
-Carlo kernel (``csrc/mc_kernel.cu``), the SAT and oriented-box label and
-count kernels (``csrc/sat_kernel.cu``; both built with nvcc at first use),
-`CollisionProbabilityModel`, and the ``generate`` / ``relabel`` /
-``ztest`` / ``compare`` commands (``collide2d-torch``).
+This package covers the rectangle and convex k-gon models on one GPU: the
+annulus configuration sampler, the adaptive Monte Carlo driver with its
+Wald / rule-of-three stopping rule and noise-aware pruning, the fused
+Monte Carlo kernels (``csrc/mc_kernel.cu``, ``csrc/mc_polygon_kernel.cu``),
+the SAT and oriented-box label and count kernels (``csrc/sat_kernel.cu``)
+and the k-gon SAT kernel (``csrc/polygon_kernel.cu``; all built with nvcc
+at first use), `CollisionProbabilityModel`,
+`PolygonCollisionProbabilityModel`, and the ``generate`` / ``relabel`` /
+``ztest`` / ``compare`` / ``polylabel`` commands (``collide2d-torch``).
 
 It imports torch and never jax. Nothing is built or launched at import.
 """
@@ -15,25 +17,39 @@ It imports torch and never jax. Nothing is built or launched at import.
 from collide2d_tpu_torch.mc.estimator import (
     AdaptiveConfig,
     Configs,
+    PolygonConfigs,
     collision_probability,
     configs_from_numpy,
+    polygon_configs_from_numpy,
 )
 from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
 from collide2d_tpu_torch.models.collision_model import (
     CollisionProbabilityModel,
+    PolygonCollisionProbabilityModel,
     example_configs,
+    example_polygon_configs,
 )
-from collide2d_tpu_torch.ops.sat import obb_collide, sat_rects, sat_rects_reference
+from collide2d_tpu_torch.ops.sat import (
+    obb_collide,
+    sat_polygons,
+    sat_rects,
+    sat_rects_reference,
+)
 
 __all__ = [
     "AdaptiveConfig",
     "CollisionProbabilityModel",
     "Configs",
+    "PolygonCollisionProbabilityModel",
+    "PolygonConfigs",
     "adaptive_collision_probabilities",
     "collision_probability",
     "configs_from_numpy",
     "example_configs",
+    "example_polygon_configs",
     "obb_collide",
+    "polygon_configs_from_numpy",
+    "sat_polygons",
     "sat_rects",
     "sat_rects_reference",
 ]

@@ -4,6 +4,7 @@
     collide2d-torch relabel  ...   # compute_collision_probability.cu
     collide2d-torch ztest    ...   # ztest.cu
     collide2d-torch compare  ...   # label-agreement report
+    collide2d-torch polylabel ...  # adaptive labels of convex k-gon configurations
 
 Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
 after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
@@ -75,10 +76,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def _reject_unported(parser: argparse.ArgumentParser,
                      args: argparse.Namespace) -> None:
     """Fail loudly on every flag whose feature the port lacks."""
-    if args.checkpoint_every > 0:
-        parser.error("--checkpoint_every > 0 is not supported by "
+    if args.checkpoint_every != 0:
+        parser.error("--checkpoint_every other than 0 is not supported by "
                      "collide2d-torch yet")
-    if args.trace_dir:
+    if getattr(args, "trace_dir", ""):
         parser.error("--trace_dir is not supported by collide2d-torch yet")
     for flag in ("resume", "data_parallel"):
         if getattr(args, flag, False):
@@ -312,21 +313,112 @@ def _run_compare(args: argparse.Namespace) -> int:
     return 0 if report.frac_within_tolerance >= 0.95 else 1
 
 
+def _add_polylabel(sub) -> None:
+    p = sub.add_parser(
+        "polylabel",
+        help="adaptively label convex k-gon configurations",
+    )
+    p.add_argument("--data_in", required=True,
+                   help=".npz with obstacle_verts (C,K,2), position (C,2), "
+                        "pose_theta (C,), std_dev (C,3), robot_verts (K2,2) "
+                        "[optional mask (C,K) bool for padded K-gons]")
+    p.add_argument("--data_out", required=True,
+                   help="output .npz: cp (C,), n_samples (C,), converged (C,)")
+    p.add_argument("--max_samples", type=int, default=4_000_000,
+                   help="per-configuration sample cap")
+    p.add_argument("--accuracy_bins", type=float, nargs="+",
+                   default=[0.0, 0.01, 0.1, 1.0])
+    p.add_argument("--bin_accuracy", type=float, nargs="+",
+                   default=[1e-4, 1e-3, 1e-2])
+    p.add_argument("--impl", default="auto",
+                   choices=["auto", "cuda", "threefry"], help=_IMPL_HELP)
+    p.add_argument("--schedule", default="reference",
+                   choices=["reference", "tuned"],
+                   help="convergence-checkpoint schedule: 'reference' or "
+                        "'tuned' (one extra rule-of-three checkpoint); both "
+                        "keep the same CI guarantees")
+    p.add_argument("--prune_sigma", type=float, default=0.0,
+                   help="noise-aware pruning: configurations that cannot "
+                        "touch within this many std-devs get cp=0 without "
+                        "sampling (0 = off)")
+    p.add_argument("--ladder", default="eighth",
+                   choices=["half", "quarter", "eighth", "sixteenth"],
+                   help="repack bucket ladder granularity")
+    p.add_argument("--seed", type=int, default=None,
+                   help="PRNG seed (default: time-based)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the labeling runs on")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="multi-device runs; not ported yet")
+    p.add_argument("--sample_parallel", type=int, default=0,
+                   help="multi-device sample sharding; not ported yet")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="mid-run checkpoints; not ported yet: only 0 is "
+                        "accepted")
+    p.add_argument("--verbose", type=_bool_flag, default=False)
+    p.set_defaults(func=_run_polylabel)
+
+
+def _run_polylabel(args: argparse.Namespace) -> int:
+    import time
+
+    import numpy as np
+
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, PolygonConfigs
+
+    data = np.load(args.data_in)
+    for field in ("obstacle_verts", "position", "pose_theta", "std_dev",
+                  "robot_verts"):
+        if field not in data:
+            raise SystemExit(f"polylabel: {args.data_in} missing '{field}'")
+    cfgs = PolygonConfigs.from_padded(
+        data["position"], data["pose_theta"], data["obstacle_verts"],
+        data["std_dev"], mask=data["mask"] if "mask" in data else None,
+        device=args.device,
+    )
+    cfg = AdaptiveConfig(
+        accuracy_bins=tuple(args.accuracy_bins),
+        bin_accuracy=tuple(args.bin_accuracy),
+        max_samples=args.max_samples,
+        impl=args.impl,
+        prune_sigma=args.prune_sigma,
+        schedule=_schedule_arg(args),
+        ladder=args.ladder,
+    )
+    seed = args.seed if args.seed is not None else int(time.time())
+    progress = None
+    if args.verbose:
+        def progress(num_left, n_samples, round):
+            print(f"[polylabel] round {round}: left={num_left} "
+                  f"n_samples={n_samples}", flush=True)
+    cp, n_used, done = adaptive_collision_probabilities(
+        prng.PRNGKey(seed), cfgs, np.asarray(data["robot_verts"], np.float32),
+        cfg, progress=progress)
+    np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
+    print(f"labeled {cfgs.num} configurations -> {args.data_out} "
+          f"(converged {float(done.mean()):.1%})")
+    return 0
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse a command line; flags of unported features exit with an
     error that names them."""
     parser = argparse.ArgumentParser(
         prog="collide2d-torch",
         description="2D convex collision engine on PyTorch/CUDA "
-                    "(dataset generation / relabeling / validation)",
+                    "(dataset generation / relabeling / validation / "
+                    "k-gon labeling)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
     _add_relabel(sub)
     _add_ztest(sub)
     _add_compare(sub)
+    _add_polylabel(sub)
     args = parser.parse_args(argv)
-    if args.command in ("generate", "relabel", "ztest"):
+    if args.command in ("generate", "relabel", "ztest", "polylabel"):
         _reject_unported(parser, args)
     return args
 

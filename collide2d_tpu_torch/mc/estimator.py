@@ -1,11 +1,12 @@
 """Monte Carlo collision-probability estimator with adaptive stopping.
 
-Counterpart of ``collide2d_tpu/mc/estimator.py`` for rectangle `Configs`.
-Two ways to draw a round's counts:
+Counterpart of ``collide2d_tpu/mc/estimator.py`` for rectangle `Configs`
+and convex k-gon `PolygonConfigs`. Two ways to draw a round's counts:
 
-- ``'cuda'`` — the fused kernel (`ops.mc_cuda`): Philox streams keyed by
-  (round seed, row uid, sample index). On CUDA tensors the kernel runs;
-  on CPU tensors its plain version gives the same counts.
+- ``'cuda'`` — the fused kernel (`ops.mc_cuda` for rectangles,
+  `ops.mc_polygon_cuda` for k-gons): Philox streams keyed by (round seed,
+  row uid, sample index). On CUDA tensors the kernel runs; on CPU tensors
+  its plain version gives the same counts.
 - ``'threefry'`` — the per-draw reference: the JAX package's ``jnp`` path
   (`_counts_chunk` through `_mc_round_threefry`) with the same threefry
   draws, so it reproduces that path's counts up to the rare sample within
@@ -27,9 +28,14 @@ import torch
 
 from collide2d_tpu_torch.mc import prng, stats
 from collide2d_tpu_torch.mc.noise import NoiseParams, sampled_obstacle_vertices
-from collide2d_tpu_torch.ops import mc_cuda
-from collide2d_tpu_torch.ops.geometry import rects_from_params
-from collide2d_tpu_torch.ops.sat import obb_collide, sat_rects
+from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda
+from collide2d_tpu_torch.ops.geometry import rects_from_params, transform_vertices
+from collide2d_tpu_torch.ops.sat import (
+    _normalize_padding,
+    obb_collide,
+    sat_polygons,
+    sat_rects,
+)
 
 IMPLS = ("cuda", "threefry")
 # Samples per kernel sub-tile on the TPU path; the round plan keeps this
@@ -56,10 +62,82 @@ class Configs(NamedTuple):
         return self.position.shape[0]
 
 
+class PolygonConfigs(NamedTuple):
+    """A batch of C convex k-gon configurations, as tensors on one device.
+
+    Noise is pose noise (x, y, theta) on the obstacle: the rectangle
+    model's width/height noise has no k-gon analogue, so std_dev has 3
+    columns. The robot is passed where rectangle calls pass ``robot_wh``:
+    a (K2, 2) vertex array in the robot frame.
+
+    position:       (C, 2)    robot centre in the obstacle frame
+    pose_theta:     (C,)      robot orientation
+    obstacle_verts: (C, K, 2) CCW convex vertices in the obstacle frame,
+                              rotated about the origin by the theta noise;
+                              short polygons repeat their last vertex (or
+                              build with `from_padded` and a mask)
+    std_dev:        (C, 3)    noise sigmas (x, y, theta)
+    """
+
+    position: torch.Tensor
+    pose_theta: torch.Tensor
+    obstacle_verts: torch.Tensor
+    std_dev: torch.Tensor
+
+    @property
+    def num(self) -> int:
+        return self.position.shape[0]
+
+    @classmethod
+    def from_padded(cls, position, pose_theta, obstacle_verts, std_dev,
+                    mask=None, *, device=None) -> "PolygonConfigs":
+        """Build configs from arbitrarily padded fixed-K vertices (arrays or
+        tensors, as float32 on ``device``): with a ``mask`` ((C, K) bool,
+        True = real vertex) padded slots become the last real vertex, the
+        repeat-padding the SAT contract needs."""
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+        position, pose_theta = f32(position), f32(pose_theta)
+        obstacle_verts, std_dev = f32(obstacle_verts), f32(std_dev)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=device)
+        c = position.shape[0] if position.dim() else -1
+        ok = (
+            position.dim() == 2 and tuple(position.shape) == (c, 2)
+            and tuple(pose_theta.shape) == (c,)
+            and obstacle_verts.dim() == 3
+            and obstacle_verts.shape[0] == c and obstacle_verts.shape[2] == 2
+            and tuple(std_dev.shape) == (c, 3)
+            and (mask is None or mask.shape == obstacle_verts.shape[:2])
+        )
+        if not ok:
+            raise ValueError(
+                "PolygonConfigs.from_padded: expected position (C, 2), "
+                "pose_theta (C,), obstacle_verts (C, K, 2), std_dev (C, 3) "
+                "[pose-noise sigmas x/y/theta], optional mask (C, K); got "
+                f"position {tuple(position.shape)}, pose_theta "
+                f"{tuple(pose_theta.shape)}, obstacle_verts "
+                f"{tuple(obstacle_verts.shape)}, std_dev {tuple(std_dev.shape)}"
+                + ("" if mask is None else f", mask {tuple(mask.shape)}")
+            )
+        return cls(position, pose_theta,
+                   _normalize_padding(obstacle_verts, mask), std_dev)
+
+
 def configs_from_numpy(configs, device) -> Configs:
     """The JAX package's `Configs` (or any 4-field tuple of arrays), taken
     as numpy arrays, as the port's float32 tensors on ``device``."""
     return Configs(*(
+        torch.as_tensor(np.asarray(a, np.float32), device=device)
+        for a in configs
+    ))
+
+
+def polygon_configs_from_numpy(configs, device) -> PolygonConfigs:
+    """The JAX package's `PolygonConfigs` (or any 4-field tuple of arrays),
+    taken as numpy arrays, as the port's float32 tensors on ``device``."""
+    return PolygonConfigs(*(
         torch.as_tensor(np.asarray(a, np.float32), device=device)
         for a in configs
     ))
@@ -135,10 +213,30 @@ def _per_config_keys(key, uids: torch.Tensor):
     return prng.fold_in_many(key, uids)
 
 
+def _counts_chunk_polygons(keys, configs: PolygonConfigs,
+                           robot_verts: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """`_counts_chunk` for k-gons: the obstacle is rotated about the origin
+    by the theta draw and translated by the (x, y) draw, then tested
+    against the placed robot k-gon with true-normal SAT."""
+    z = prng.normal(keys, (n_lanes, 3))
+    d = z * configs.std_dev[:, None, :]  # (C, S, 3)
+    robot = transform_vertices(
+        robot_verts[None], configs.position[:, 0], configs.position[:, 1],
+        configs.pose_theta,
+    )[:, None]  # (C, 1, K2, 2)
+    obstacle = transform_vertices(
+        configs.obstacle_verts[:, None], d[..., 0], d[..., 1], d[..., 2]
+    )  # (C, S, K, 2)
+    hit = sat_polygons(robot.expand(-1, obstacle.shape[1], -1, -1), obstacle)
+    return hit.sum(dim=-1, dtype=torch.int32)
+
+
 def _counts_chunk(keys, configs: Configs, robot_wh: torch.Tensor,
                   n_lanes: int, use_vertices: bool) -> torch.Tensor:
     """Collision count over ``n_lanes`` threefry samples per configuration
     (``keys``: a batched key pair, one key per configuration)."""
+    if isinstance(configs, PolygonConfigs):
+        return _counts_chunk_polygons(keys, configs, robot_wh, n_lanes)
     z = prng.normal(keys, (n_lanes, 5))
     d = z * configs.std_dev[:, None, :]
     if use_vertices:
@@ -183,9 +281,17 @@ def _mc_round_threefry(key, uids, configs: Configs, robot_wh, chunk_offset: int,
 
 def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
              n_batch: int, step_samples: int = 0, use_vertices: bool = False,
-             impl: str = "threefry", shape_noise: bool = True) -> torch.Tensor:
-    """One round: int32 (C,) collision counts of ``n_batch`` samples."""
+             impl: str = "threefry", shape_noise: bool = True,
+             poly_a_keep: tuple[int, ...] | None = None) -> torch.Tensor:
+    """One round: int32 (C,) collision counts of ``n_batch`` samples.
+    `PolygonConfigs` batches take ``robot_wh`` as (K2, 2) robot vertices;
+    ``poly_a_keep`` is their kernel's robot-axis subset
+    (`ops.mc_polygon_cuda.dedup_robot_axes`; None = worked out here)."""
     impl = resolve_impl(impl)
+    if impl == "cuda" and isinstance(configs, PolygonConfigs):
+        return mc_polygon_cuda.mc_round_polygons_cuda(
+            key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
+            a_keep=poly_a_keep)
     if impl == "cuda":
         return mc_cuda.mc_round_cuda(key, uids, configs, robot_wh,
                                      chunk_offset, n_batch=n_batch,
@@ -242,7 +348,7 @@ def collision_probability_pruned(key, configs: Configs, robot_wh, n_samples: int
     bucket = min(_round_up_bucket(idx.size, 256), c)
     padded = np.concatenate([idx, np.full(bucket - idx.size, idx[0])])
     gather = torch.as_tensor(padded, dtype=torch.int64, device=dev)
-    sub = Configs(*(a.index_select(0, gather) for a in configs))
+    sub = type(configs)(*(a.index_select(0, gather) for a in configs))
     counts = mc_round(key, gather.to(torch.int32), sub, robot, 0,
                       n_batch=int(n_samples), step_samples=step_samples,
                       use_vertices=use_vertices, impl=impl)
@@ -336,7 +442,9 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
                  n_samples_after: int, n_rounds: int, nb: int,
                  chunk_step: int, *, step_samples: int, impl: str,
                  accuracy_bins, bin_accuracy, use_vertices: bool = False,
-                 shape_noise: bool = True) -> tuple[_LoopState, torch.Tensor]:
+                 shape_noise: bool = True,
+                 poly_a_keep: tuple[int, ...] | None = None,
+                 ) -> tuple[_LoopState, torch.Tensor]:
     """``n_rounds`` same-plan rounds with convergence and label freezing.
 
     Round r draws with tag ``chunk_offset + r * chunk_step`` and tests
@@ -349,7 +457,8 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
         counts = mc_round(key, state.uids, state.active, robot_wh,
                           int(chunk_offset) + r * int(chunk_step), n_batch=nb,
                           step_samples=step_samples, use_vertices=use_vertices,
-                          impl=impl, shape_noise=shape_noise)
+                          impl=impl, shape_noise=shape_noise,
+                          poly_a_keep=poly_a_keep)
         n_true = n_true + counts
         n_after = int(n_samples_after) + r * int(nb)
         conv = stats.is_converged(n_after, n_true, accuracy_bins, bin_accuracy)

@@ -58,6 +58,20 @@ def rects_from_params(center, extents, angle) -> torch.Tensor:
     return transform_vertices(base, center[..., 0], center[..., 1], angle)
 
 
+def polygon_aabb(vertices: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Axis-aligned bounding box ``(lo, hi)``, each ``B + (2,)``, of
+    ``B + (k, 2)`` vertices; an optional ``B + (k,)`` bool ``mask`` (True
+    = real vertex) keeps padded slots out of the box."""
+    if mask is None:
+        return vertices.amin(dim=-2), vertices.amax(dim=-2)
+    m = mask[..., None]
+    inf = float("inf")
+    lo = torch.where(m, vertices, inf).amin(dim=-2)
+    hi = torch.where(m, vertices, -inf).amax(dim=-2)
+    return lo, hi
+
+
 def polygon_edges(vertices: torch.Tensor) -> torch.Tensor:
     """Cyclic edge vectors v[i+1] - v[i]: ``B+(k,2)`` -> ``B+(k,2)``."""
     return torch.roll(vertices, shifts=-1, dims=-2) - vertices

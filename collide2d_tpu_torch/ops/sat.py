@@ -1,6 +1,6 @@
 """Separating-Axis-Theorem narrow phase on torch tensors.
 
-Counterpart of ``collide2d_tpu/ops/sat.py`` for rectangles:
+Counterpart of ``collide2d_tpu/ops/sat.py``:
 
 - `sat_rects_reference` reproduces the reference's ``convex_collide``
   (utils.cu:159-184) bit for bit: edge vectors as axes, all 8 axes, strict
@@ -8,8 +8,11 @@ Counterpart of ``collide2d_tpu/ops/sat.py`` for rectangles:
 - `sat_rects` tests the 4 unique axes, column by column;
 - `obb_collide` is the closed-form oriented-box test the Monte Carlo
   threefry path uses;
-- `rect_columns_collide` and `obb_overlap` are their tests on coordinate
-  columns, shared with the SAT kernels' plain versions (`ops.sat_cuda`).
+- `sat_polygons` is the convex k-gon test on true edge normals, with
+  repeat-last padding (or a vertex mask);
+- `rect_columns_collide`, `polygon_columns_collide` and `obb_overlap` are
+  the tests on coordinate columns, shared with the SAT kernels' plain
+  versions (`ops.sat_cuda`, `ops.polygon_cuda`).
 
 Projections stay an explicit ``ax*x + ay*y`` of separately rounded
 float32 operations: a contraction (matmul, einsum) may fuse them into an
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from collide2d_tpu_torch.ops.geometry import polygon_edges
+from collide2d_tpu_torch.ops.geometry import edge_normals, polygon_edges
 
 
 def _project_all(axes: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
@@ -83,6 +86,78 @@ def rect_columns_collide(x1, y1, x2, y2) -> torch.Tensor:
         sep = (mx1 < mn2) | (mx2 < mn1)
         separated = sep if separated is None else separated | sep
     return ~separated
+
+
+def sat_polygons(p1: torch.Tensor, p2: torch.Tensor,
+                 mask1: torch.Tensor | None = None,
+                 mask2: torch.Tensor | None = None) -> torch.Tensor:
+    """Convex k-gon pairs, SAT on true perpendicular edge normals.
+
+    ``p1``/``p2``: ``B + (k, 2)`` CCW convex vertices, padded to a fixed k
+    by REPEATING the last real vertex, or with ``B + (k,)`` bool masks
+    (True = real vertex) whose padded slots are first rewritten to the
+    last real vertex. Repeat-padding needs no masks in the test: a
+    duplicate never moves an interval, the edge between duplicates is the
+    zero axis (never separating), and the edge from the last slot back to
+    vertex 0 is the real closing edge. Touching polygons collide (strict
+    ``<`` separation). Returns int32 ``B``.
+
+    ``k1 + k2 <= 32`` runs the test unrolled over coordinate columns; a
+    larger pair projects all axes at once (the same labels: the same
+    separately rounded projections, exact min/max)."""
+    p1 = _normalize_padding(p1, mask1)
+    p2 = _normalize_padding(p2, mask2)
+    k1, k2 = p1.shape[-2], p2.shape[-2]
+    if k1 + k2 > 32:
+        axes = torch.cat([edge_normals(p1), edge_normals(p2)], dim=-2)
+        proj1 = _project_all(axes, p1)
+        proj2 = _project_all(axes, p2)
+        separated = ((proj1.amax(dim=-1) < proj2.amin(dim=-1))
+                     | (proj2.amax(dim=-1) < proj1.amin(dim=-1)))
+        return (~separated.any(dim=-1)).to(torch.int32)
+    return polygon_columns_collide(
+        [p1[..., i, 0] for i in range(k1)], [p1[..., i, 1] for i in range(k1)],
+        [p2[..., i, 0] for i in range(k2)], [p2[..., i, 1] for i in range(k2)],
+    ).to(torch.int32)
+
+
+def polygon_columns_collide(x1, y1, x2, y2) -> torch.Tensor:
+    """The k-gon test on coordinate columns: ``x1``/``y1`` the k1 vertex
+    columns of the first polygon, ``x2``/``y2`` the k2 of the second (same
+    shapes). Boolean, True = collide. Axis of edge i -> i+1 is
+    ``(y[i+1] - y[i], x[i] - x[i+1])``; each projection is a separate
+    multiply and add, in `polygon_pallas._polygon_sat_body`'s order."""
+    separated = None
+    for xs, ys in ((x1, y1), (x2, y2)):
+        k = len(xs)
+        for i in range(k):
+            j = (i + 1) % k
+            ax = ys[j] - ys[i]
+            ay = xs[i] - xs[j]
+            mn1 = mx1 = ax * x1[0] + ay * y1[0]
+            for x, y in zip(x1[1:], y1[1:]):
+                p = ax * x + ay * y
+                mn1 = torch.minimum(mn1, p)
+                mx1 = torch.maximum(mx1, p)
+            mn2 = mx2 = ax * x2[0] + ay * y2[0]
+            for x, y in zip(x2[1:], y2[1:]):
+                p = ax * x + ay * y
+                mn2 = torch.minimum(mn2, p)
+                mx2 = torch.maximum(mx2, p)
+            sep = (mx1 < mn2) | (mx2 < mn1)
+            separated = sep if separated is None else separated | sep
+    return ~separated
+
+
+def _normalize_padding(p: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Rewrite masked-out (padded) slots to the last real vertex, making
+    any padding equivalent to the repeat-last convention."""
+    if mask is None:
+        return p
+    last_real = mask.to(torch.int64).sum(dim=-1, keepdim=True) - 1  # B+(1,)
+    idx = last_real[..., None].expand(*last_real.shape, 2)  # B+(1, 2)
+    last_vertex = torch.gather(p, -2, idx)
+    return torch.where(mask[..., None], p, last_vertex)
 
 
 def obb_collide(c1, ext1, th1, c2, ext2, th2) -> torch.Tensor:

@@ -5,22 +5,27 @@ there without the suite's conftest:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
-Tolerance of the Monte Carlo kernel against its plain version: the two
-share the Philox stream, the 23-bit codes, the erf_inv polynomial and the
-separation test, but round ``sincosf`` and contracted multiply-adds
-their own way, which can flip only a sample within an ulp of touching:
-the counts may differ by at most 1e-5 of all samples. The SAT kernels
-round every operation as their plain versions do: labels bitwise, counts
-exact.
+Tolerance of the Monte Carlo kernels (rectangles and k-gons) against
+their plain versions: the two share the Philox stream, the 23-bit codes,
+the erf_inv polynomial and the separation test, but round ``sincosf``,
+``log1pf`` and contracted multiply-adds their own way, which can flip
+only a sample within an ulp of touching: the counts may differ by at most
+1e-5 of all samples. The SAT kernels (rectangles, boxes and k-gons) round
+every operation as their plain versions do: labels bitwise, counts exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from collide2d_tpu_torch import cli
 from collide2d_tpu_torch.mc.estimator import configs_from_numpy
-from collide2d_tpu_torch.models.collision_model import CollisionProbabilityModel
-from collide2d_tpu_torch.ops import mc_cuda, sat_cuda
+from collide2d_tpu_torch.models.collision_model import (
+    CollisionProbabilityModel,
+    PolygonCollisionProbabilityModel,
+    example_polygon_configs,
+)
+from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda, polygon_cuda, sat_cuda
 from collide2d_tpu_torch.utils import cuda_build
 
 pytestmark = pytest.mark.gpu
@@ -162,3 +167,107 @@ def test_sat_call_raises_when_the_build_fails(cuda, monkeypatch):
         CollisionProbabilityModel().collide(r1[:, 0], r1[:, 0, 0], r2[:, 2],
                                             method="obb")
     assert sat_cuda.LAUNCHES == before
+
+
+ROBOT_4GON = np.array([[-2.035, -0.87], [2.035, -0.87], [2.035, 0.87],
+                       [-2.035, 0.87]], np.float32)
+
+
+def _polygons(rng, n, k, cuda, spread=3.0):
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (n, k)), axis=-1)
+    ab = rng.uniform(0.3, 2.5, (n, 1, 2))
+    shift = rng.uniform(-spread, spread, (n, 1, 2))
+    p = np.stack([np.cos(ang), np.sin(ang)], -1) * ab + shift
+    return torch.from_numpy(p.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("k1,k2,bf16", [
+    (4, 4, False), (6, 6, False), (8, 8, False), (16, 16, False), (4, 8, False),
+    (3, 5, False), (8, 8, True), (6, 12, True)])
+def test_polygon_kernel_matches_plain(cuda, k1, k2, bf16):
+    n = 1 << 20
+    rng = np.random.default_rng(k1 * 17 + k2)
+    pack = polygon_cuda.pack_polygons_bf16 if bf16 else polygon_cuda.pack_polygons
+    a, b = pack(_polygons(rng, n, k1, cuda)), pack(_polygons(rng, n, k2, cuda))
+    before = polygon_cuda.LAUNCHES
+    got = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
+    want = polygon_cuda.sat_polygons_plain(a, b, k1, k2).reshape(-1).float()
+    torch.cuda.synchronize()
+    assert polygon_cuda.LAUNCHES == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < n
+
+
+def test_polygon_kernel_refuses_k_above_16(cuda):
+    a = polygon_cuda.pack_polygons(torch.zeros((4096, 17, 2), device=cuda))
+    b = polygon_cuda.pack_polygons(torch.zeros((4096, 4, 2), device=cuda))
+    before = polygon_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="K1, K2 <= 16"):
+        polygon_cuda.sat_polygons_cuda_t(a, b, k1=17, k2=4)
+    assert polygon_cuda.LAUNCHES == before
+
+
+def test_polygon_models_launch_the_kernel(cuda):
+    configs = example_polygon_configs(5000, k=7, seed=3, device=cuda)
+    model = PolygonCollisionProbabilityModel(ROBOT_4GON)
+    polygon_cuda.reset_launches()
+    want = model.collide(configs, impl="torch")
+    for bp in (False, True, "prune"):
+        assert torch.equal(model.collide(configs, broad_phase=bp), want)
+    robot = model._placed_robot(configs)
+    got = CollisionProbabilityModel().collide_polygons(robot, configs.obstacle_verts)
+    assert torch.equal(got, want) and got.device.type == "cuda"
+    assert polygon_cuda.LAUNCHES == 4
+
+
+@pytest.mark.parametrize("a_keep", [(0, 1), (0, 1, 2, 3)])
+def test_mc_polygon_kernel_matches_plain(cuda, a_keep):
+    c, n = 2048, 8192
+    configs = example_polygon_configs(c, k=6, seed=4, device=cuda)
+    params = mc_polygon_cuda.pack_polygon_mc_params(configs, ROBOT_4GON, a_keep)
+    uids = torch.from_numpy(np.random.default_rng(5).permutation(4 * c)[:c]
+                            .astype(np.int32)).to(cuda)
+    dims = dict(k=6, k2=4, k2a=len(a_keep))
+    before = mc_polygon_cuda.LAUNCHES
+    got = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, n, **dims)
+    want = mc_polygon_cuda.mc_poly_counts_plain(params, uids, SEED, n,
+                                                max_elems=1 << 22, **dims)
+    torch.cuda.synchronize()
+    assert mc_polygon_cuda.LAUNCHES == before + 1
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+
+
+def test_mc_polygon_counts_invariant_under_split_and_compaction(cuda):
+    c, n, cut = 1000, 10_000, 4096 + 77
+    configs = example_polygon_configs(c, k=8, seed=6, device=cuda)
+    params = mc_polygon_cuda.pack_polygon_mc_params(configs, ROBOT_4GON, (0, 1))
+    uids = torch.arange(c, dtype=torch.int32, device=cuda)
+    dims = dict(k=8, k2=4, k2a=2)
+    whole = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, n, **dims)
+    first = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, cut, **dims)
+    second = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, n - cut,
+                                            offset=cut, **dims)
+    assert torch.equal(first + second, whole)
+    keep = torch.randperm(c, generator=torch.Generator().manual_seed(1))[:300].to(cuda)
+    sub = mc_polygon_cuda.mc_poly_counts(params[keep].contiguous(),
+                                         uids[keep].contiguous(), SEED, n, **dims)
+    assert torch.equal(sub, whole[keep])
+
+
+def test_polylabel_on_cuda(cuda, tmp_path):
+    b = example_polygon_configs(2000, k=8, seed=7)
+    np.savez(tmp_path / "in.npz", robot_verts=ROBOT_4GON,
+             position=(b.position * 0.6).numpy(), pose_theta=b.pose_theta.numpy(),
+             obstacle_verts=b.obstacle_verts.numpy(), std_dev=b.std_dev.numpy())
+    mc_polygon_cuda.reset_launches()
+    assert cli.main(["polylabel", "--device", "cuda", "--data_in",
+                     str(tmp_path / "in.npz"), "--data_out",
+                     str(tmp_path / "out.npz"), "--seed", "3"]) == 0
+    assert mc_polygon_cuda.LAUNCHES > 0
+    with np.load(tmp_path / "out.npz") as d:
+        cp, n_used, done = d["cp"], d["n_samples"], d["converged"]
+    assert cp.shape == (2000,) and np.isfinite(cp).all()
+    assert (cp >= 0).all() and (cp <= 1).all() and 0 < cp.mean() < 1
+    assert (n_used > 0).all() and done.mean() > 0.5
