@@ -11,8 +11,10 @@ raises, and the script then exits non-zero without printing a result):
 1. the card's name and power limit (nvidia-smi); build the kernels from
    this checkout, one nvcc per source, started together: the fused Monte
    Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu), the SAT kernels
-   (csrc/sat_kernel.cu), the k-gon SAT kernel (csrc/polygon_kernel.cu)
-   and the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu);
+   (csrc/sat_kernel.cu), the k-gon SAT kernel (csrc/polygon_kernel.cu),
+   the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu) and the
+   query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
+   csrc/toi_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -66,7 +68,33 @@ raises, and the script then exits non-zero without printing a result):
    ``polylabel`` with another seed on the first 16,384 rows: mean |d| <=
    1e-3 and a share within +-0.005 of at least 0.93; ``--prune_sigma 6``
    on those rows: rows that `possible_collision_mask` keeps are bitwise the
-   first run's, pruned rows have cp = 0.
+   first run's, pruned rows have cp = 0;
+12. signed distance: ``CollisionProbabilityModel.distance(impl='auto')`` on
+   2^23 rectangle rows (drawn as in phase 6) launches kernel 8 and
+   ``PolygonCollisionProbabilityModel.distance`` on 2^20 polylabel rows
+   kernel 9; ``distance <= 0`` differs from kernel 4's / kernel 6's labels
+   on 0 rows, values within 2e-5 of ``impl='torch'`` on 2^16 rows; then
+   kernel 8 at 2^23 box pairs and kernel 9 at 2^22 pairs of the JAX bench's
+   k-gons (k = 8, and the model's 4 against 8) against their plain
+   versions: max abs diff <= 2e-5, 0 signs differ; kernel ms (CUDA events,
+   20 launches after a warm-up), plain ms, pairs/s and GB/s;
+13. contact manifold: both models' ``contact_manifold`` on 2^20 polylabel
+   and 2^20 rectangle rows launch kernel 10; against ``impl='torch'`` on
+   2^16 rows and the kernel against its plain version at 2^22 pairs (k = 8,
+   margin 0 and 0.1): counts differ on at most 1e-5 of pairs, points,
+   depths and normal within 2e-5 where they agree; kernel ms, plain ms,
+   pairs/s (phases 12-14 also time each model call whole, 5 calls after a
+   warm-up);
+14. time of impact: ``CollisionProbabilityModel.time_of_impact(impl=
+   'auto')`` on 2^21 rows (unit speed toward the obstacle, omega U(-1, 1),
+   every 4th row 0) launches kernel 12 (against ``impl='torch'`` on 2^16
+   rows: hits differ on at most 1e-3, |dt| <= 1e-3, as the polygon-distance
+   loop may stop a step of ~tol/bound apart); then the kernel against its
+   plain version at the JAX bench's 2^21 pairs (t_max 8, 64 iterations,
+   tol 1e-4): hits differ on at most 1e-4 of pairs, t within 1e-5 where
+   both hit; the rotating share, mean, maximum and warp-maximum
+   advancement steps (the plain version counts them), kernel ms, plain ms,
+   queries/s.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path, with ``bound_ms``: the larger
@@ -74,7 +102,10 @@ of the bytes the function must move over 3.35 TB/s and the FP32
 operations its source writes for these inputs over 67 TFLOP/s (an FMA
 counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
 integer Philox rounds are not counted, so the Monte Carlo bounds are
-floors). No single PyTorch call computes any of these functions, so
+floors; the query kernels count an IEEE ``sqrtf`` or division as one
+operation and leave out ``sincosf``; kernel 12's work depends on the data,
+so its bound counts the distance evaluations this run's lanes take). No
+single PyTorch call computes any of these functions, so
 ``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -187,7 +218,8 @@ def phase_build():
     from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    names = ("mc_kernel", "sat_kernel", "polygon_kernel", "mc_polygon_kernel")
+    names = ("mc_kernel", "sat_kernel", "polygon_kernel", "mc_polygon_kernel",
+             "distance_kernel", "manifold_kernel", "toi_kernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(cuda_build.build, names))
     for name in names:
@@ -850,6 +882,357 @@ def phase_polylabel(work: Path) -> int:
     return launches
 
 
+def _rect_rows(n: int, seed: int):
+    """``n`` rows of the rectangle model's scene, drawn on the card as in
+    phase 6: robot position U(-6, 6)^2, angle U(0, 2 pi), obstacle extents
+    U(0.1, 5)^2."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.rand((n, 2), generator=g, device=dev) * 12.0 - 6.0
+    theta = torch.rand((n,), generator=g, device=dev) * (2.0 * math.pi)
+    wh = torch.rand((n, 2), generator=g, device=dev) * 4.9 + 0.1
+    return pos, theta, wh, g
+
+
+def _bench_polygons(g, n: int, k: int) -> torch.Tensor:
+    """The JAX bench's k-gons (utils/benchmarks.py:186-197) on the card:
+    regular k-gons of radius U(0.5, 1) at a random rotation, centres
+    U(0, 10)^2."""
+    dev = torch.device("cuda")
+    centers = torch.rand((n, 1, 2), generator=g, device=dev) * 10.0
+    radius = torch.rand((n, 1, 1), generator=g, device=dev) * 0.5 + 0.5
+    rot = torch.rand((n, 1), generator=g, device=dev) * (2 * math.pi)
+    ang = rot + torch.arange(k, device=dev, dtype=torch.float32) * (2 * math.pi / k)
+    return centers + radius * torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+
+
+def _bucket(k: int) -> int:
+    return 4 if k <= 4 else 8 if k <= 8 else 16
+
+
+# FP32 operations per pair written in csrc/obb_distance.cuh (kernel 8 adds
+# the offset's 2 shifts and 2 differences): cos/sin of the relative angle
+# 6, 4 projections of 3, 4 radii of 4 with their differences and max 23,
+# the relative sine 3, 4 vertex pairs x 36 (4 scaled half extents, 4
+# vertices of 4, 2 point-box distances of 7, 2 mins), sqrt and select 2.
+OBB_DISTANCE_OPS = 194
+# One distance evaluation of kernel 12: the advanced angles 4 and offset
+# 10, the distance without kernel 8's offset (190), the stop tests and the
+# step 5 (sincosf not counted); a rotating lane adds 21 (relative velocity,
+# circumradii, bound, hit test), a translating lane's window is 96.
+TOI_EVAL_OPS, TOI_SETUP_OPS, TOI_WINDOW_OPS = 209, 21, 96
+
+
+def polygon_distance_ops(k1: int, k2: int) -> int:
+    """csrc/distance_kernel.cu at the K buckets: A = K1 + K2 axes x (the
+    axis 2, |n|^2 3, A projections of 3, 2 (A - 2) min/max, the gap 4, 1/|n|
+    2, select and max 2) = A (5A + 9); each of the A segments 7 (edge, |e|^2,
+    test, reciprocal) and each of the 2 K1 K2 point-segment tests 17; sqrt
+    and select 2."""
+    k1, k2 = _bucket(k1), _bucket(k2)
+    a = k1 + k2
+    return a * (5 * a + 9) + 7 * a + 34 * k1 * k2 + 2
+
+
+def manifold_ops(k1: int, k2: int) -> int:
+    """csrc/manifold_kernel.cu at the K buckets: each face of one body
+    against the other's KO vertices 15 + 4 KO (normal, 1/|n|, offset, KO
+    projections of 3 and mins, separation, select, compare); the reference
+    bias 4; each incident face 13; the two clips, the depths and the filter
+    67."""
+    k1, k2 = _bucket(k1), _bucket(k2)
+    return k1 * (15 + 4 * k2) + k2 * (15 + 4 * k1) + 4 + 13 * max(k1, k2) + 67
+
+
+def _compare(fn, plain, reps: int = 20):
+    """(kernel ms over ``reps`` launches after a warm-up, plain ms of one
+    call)."""
+    return _events_ms(fn, reps=reps), _events_ms(plain, reps=1)
+
+
+def phase_distance() -> dict:
+    """Phase 12: kernels 8 and 9 on the models' `distance` and against their
+    plain versions; returns each kernel's entry of the kernels line."""
+    from collide2d_tpu_torch.models.collision_model import (
+        CollisionProbabilityModel,
+        PolygonCollisionProbabilityModel,
+    )
+    from collide2d_tpu_torch.ops import distance_cuda, polygon_cuda, sat_cuda
+
+    t = time.monotonic()
+    pos, theta, wh, g = _rect_rows(SAT_PAIRS, seed=12)
+    configs = _polygon_workload(1 << 20, seed=12)
+    model = CollisionProbabilityModel()
+    pmodel = PolygonCollisionProbabilityModel(np.asarray(POLY_ROBOT, np.float32))
+    distance_cuda.reset_launches()
+    d_rect = model.distance(pos, theta, wh, impl="auto")
+    d_poly = pmodel.distance(configs, impl="auto")
+    torch.cuda.synchronize()
+    launches = dict(distance_cuda.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a distance kernel was never launched: {launches}")
+    sign = {"rect": int(((d_rect <= 0).to(torch.int32)
+                         != model.collide(pos, theta, wh, method="obb")).sum()),
+            "poly": int(((d_poly <= 0).to(torch.int32) != pmodel.collide(configs)).sum())}
+    if any(sign.values()):
+        raise RuntimeError(f"distance <= 0 differs from the SAT labels: {sign}")
+    sub = slice(0, 1 << 16)
+    head = type(configs)(*(a[sub] for a in configs))
+    vs_torch = {
+        "rect": float((d_rect[sub] - model.distance(pos[sub], theta[sub], wh[sub],
+                                                     impl="torch")).abs().max()),
+        "poly": float((d_poly[sub] - pmodel.distance(head, impl="torch")).abs().max())}
+    if max(vs_torch.values()) > 2e-5:
+        raise RuntimeError(f"the kernels' distances differ from impl='torch': {vs_torch}")
+    # the whole calls, packing and vertex placement included
+    call_ms = {"rect": _events_ms(lambda: model.distance(pos, theta, wh, impl="auto"), 5),
+               "kgon": _events_ms(lambda: pmodel.distance(configs, impl="auto"), 5)}
+    _line("12 distance model", time.monotonic() - t, rect_rows=SAT_PAIRS,
+          kgon_rows=1 << 20, launches=launches,
+          sign_mismatch_vs_kernel4=sign["rect"], sign_mismatch_vs_kernel6=sign["poly"],
+          max_abs_vs_torch_rect=f"{vs_torch['rect']:.3e}",
+          max_abs_vs_torch_kgon=f"{vs_torch['poly']:.3e}",
+          overlap_share_rect=f"{float((d_rect < 0).float().mean()):.4f}",
+          rect_call_ms=f"{call_ms['rect']:.3f}", kgon_call_ms=f"{call_ms['kgon']:.3f}")
+    del d_rect, d_poly, configs
+
+    result = {}
+    t = time.monotonic()
+    n = SAT_PAIRS  # the JAX bench: both boxes U(-6, 6)^2, U(0.1, 5)^2, U(0, 2 pi)
+    pos2, theta2, wh2, _ = _rect_rows(n, seed=13)
+    a = sat_cuda.pack_obbs(pos, wh, theta)
+    b = sat_cuda.pack_obbs(pos2, wh2, theta2)
+    got = distance_cuda.obb_distance_cuda_t(a, b)
+    want = distance_cuda.obb_distance_plain(a, b).reshape(-1)
+    err = float((got - want).abs().max())
+    differ = int(((got <= 0) != (want <= 0)).sum())
+    if err > 2e-5 or differ:
+        raise RuntimeError(f"obb_distance: max |d| {err} or {differ} signs from the plain version")
+    ms, plain_ms = _compare(lambda: distance_cuda.obb_distance_cuda_t(a, b),
+                            lambda: distance_cuda.obb_distance_plain(a, b))
+    bound, bound_by = _bound_ms(52 * n, OBB_DISTANCE_OPS * n)
+    result["obb_distance"] = dict(launches=launches["obb_distance"], max_abs_err=err,
+                                  ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=bound_by)
+    _line("12 obb_distance", time.monotonic() - t, pairs=n, max_abs_diff=f"{err:.3e}",
+          bitwise_equal=bool(torch.equal(got, want)), sign_mismatch=differ,
+          kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+          bound_by=bound_by, kernel_pairs_per_s=f"{n / ms * 1e3:.4e}",
+          kernel_gb_per_s=f"{52 * n / (ms * 1e-3) / 1e9:.1f}")
+    del a, b, got, want, pos, theta, wh, pos2, theta2, wh2
+
+    n = 1 << 22
+    for tag, k1, k2 in (("k8", 8, 8), ("k4_k8", 4, 8)):
+        t = time.monotonic()
+        a = polygon_cuda.pack_polygons(_bench_polygons(g, n, k1))
+        b = polygon_cuda.pack_polygons(_bench_polygons(g, n, k2))
+        got = distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2)
+        want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+        label = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
+        err = float((got - want).abs().max())
+        differ = int(((got <= 0) != (want <= 0)).sum())
+        vs_label = int(((got <= 0) != (label > 0)).sum())
+        if err > 2e-5 or differ or vs_label:
+            raise RuntimeError(f"polygon_distance ({tag}): max |d| {err}, {differ} signs "
+                               f"from the plain version, {vs_label} from kernel 6")
+        ms, plain_ms = _compare(
+            lambda: distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2),
+            lambda: distance_cuda.polygon_distance_plain(a, b, k1, k2))
+        nbytes = (2 * k1 + 2 * k2) * 4 + 4
+        bound, bound_by = _bound_ms(nbytes * n, polygon_distance_ops(k1, k2) * n)
+        if tag == "k8":
+            result["polygon_distance"] = dict(
+                launches=launches["polygon_distance"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        else:
+            result["polygon_distance"]["max_abs_err"] = max(
+                result["polygon_distance"]["max_abs_err"], err)
+        _line("12 polygon_distance", time.monotonic() - t, case=tag, pairs=n,
+              max_abs_diff=f"{err:.3e}", bitwise_equal=bool(torch.equal(got, want)),
+              sign_mismatch=differ, sign_mismatch_vs_kernel6=vs_label,
+              overlap_share=f"{float((want < 0).float().mean()):.4f}",
+              kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+              bound_by=bound_by, ops_per_pair=polygon_distance_ops(k1, k2),
+              kernel_pairs_per_s=f"{n / ms * 1e3:.4e}",
+              kernel_gb_per_s=f"{nbytes * n / (ms * 1e-3) / 1e9:.1f}")
+        del a, b, got, want, label
+    return result
+
+
+def _manifold_diff(got, want):
+    """Count mismatches and the largest difference of points and depths on
+    the valid slots and of the normal, where the counts agree."""
+    count, points, depths, normal = got
+    w_count, w_points, w_depths, w_normal = want
+    same = count == w_count
+    valid = (torch.arange(2, device=count.device)[None] < w_count[:, None]) & same[:, None]
+    live = (w_count > 0) & same
+    diffs = ((points - w_points).abs().amax(-1)[valid], (depths - w_depths).abs()[valid],
+             (normal - w_normal).abs().amax(-1)[live])
+    return int((~same).sum()), max((float(d.max()) for d in diffs if d.numel()),
+                                   default=0.0)
+
+
+def phase_manifold() -> dict:
+    """Phase 13: kernel 10 on both models' `contact_manifold` and against
+    its plain version; returns its entry of the kernels line."""
+    from collide2d_tpu_torch.models.collision_model import (
+        CollisionProbabilityModel,
+        PolygonCollisionProbabilityModel,
+    )
+    from collide2d_tpu_torch.ops import manifold_cuda, polygon_cuda
+
+    t = time.monotonic()
+    rows = 1 << 20
+    configs = _polygon_workload(rows, seed=13)
+    pos, theta, wh, g = _rect_rows(rows, seed=14)
+    model = CollisionProbabilityModel()
+    pmodel = PolygonCollisionProbabilityModel(np.asarray(POLY_ROBOT, np.float32))
+    manifold_cuda.reset_launches()
+    got = {"kgon": pmodel.contact_manifold(configs),
+           "rect": model.contact_manifold(pos, theta, wh)}
+    torch.cuda.synchronize()
+    launches = manifold_cuda.LAUNCHES
+    if launches < len(got):
+        raise RuntimeError(f"the models launched kernel 10 {launches} times for "
+                           f"{len(got)} calls")
+    sub = slice(0, 1 << 16)
+    want = {"kgon": pmodel.contact_manifold(type(configs)(*(a[sub] for a in configs)),
+                                            impl="torch"),
+            "rect": model.contact_manifold(pos[sub], theta[sub], wh[sub], impl="torch")}
+    report = {}
+    for key in got:
+        differ, err = _manifold_diff(tuple(a[sub] for a in got[key]), want[key])
+        if differ > 1e-5 * (1 << 16) or err > 2e-5:
+            raise RuntimeError(f"contact_manifold ({key}): {differ} counts differ from "
+                               f"impl='torch', values by {err}")
+        report[key] = (differ, err, float((got[key][0] > 0).float().mean()))
+    call_ms = {"kgon": _events_ms(lambda: pmodel.contact_manifold(configs), 5),
+               "rect": _events_ms(lambda: model.contact_manifold(pos, theta, wh), 5)}
+    _line("13 manifold model", time.monotonic() - t, rows=rows, launches=launches,
+          **{f"{k}_counts_differ_vs_torch": v[0] for k, v in report.items()},
+          **{f"{k}_max_abs_vs_torch": f"{v[1]:.3e}" for k, v in report.items()},
+          **{f"{k}_contact_share": f"{v[2]:.4f}" for k, v in report.items()},
+          **{f"{k}_call_ms": f"{v:.3f}" for k, v in call_ms.items()})
+    del got, want, configs
+
+    n = 1 << 22
+    result = {"launches": launches, "max_abs_err": 0.0}
+    a = polygon_cuda.pack_polygons(_bench_polygons(g, n, 8))
+    b = polygon_cuda.pack_polygons(_bench_polygons(g, n, 8))
+    for margin in (0.0, 0.1):
+        t = time.monotonic()
+        out = manifold_cuda.polygon_manifold_cuda_t(a, b, k1=8, k2=8, margin=margin)
+        ref = manifold_cuda.polygon_manifold_plain(a, b, 8, 8, margin)
+        differ, err = _manifold_diff(manifold_cuda.unpack_manifold(out, n),
+                                     manifold_cuda.unpack_manifold(ref, n))
+        if differ > 1e-5 * n or err > 2e-5:
+            raise RuntimeError(f"polygon_manifold (margin {margin}): {differ} counts "
+                               f"differ from the plain version, values by {err}")
+        ms, plain_ms = _compare(
+            lambda: manifold_cuda.polygon_manifold_cuda_t(a, b, k1=8, k2=8, margin=margin),
+            lambda: manifold_cuda.polygon_manifold_plain(a, b, 8, 8, margin))
+        bound, bound_by = _bound_ms((128 + 36) * n, manifold_ops(8, 8) * n)
+        counts = torch.bincount(ref[0].reshape(-1).to(torch.int64), minlength=3)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        if margin == 0.0:
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        _line("13 polygon_manifold", time.monotonic() - t, k=8, margin=margin, pairs=n,
+              counts_differ=differ, max_abs_diff=f"{err:.3e}",
+              bitwise_equal=bool(torch.equal(out, ref)),
+              count_shares="/".join(f"{float(c) / n:.4f}" for c in counts),
+              kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+              bound_by=bound_by, ops_per_pair=manifold_ops(8, 8),
+              kernel_pairs_per_s=f"{n / ms * 1e3:.4e}",
+              kernel_gb_per_s=f"{164 * n / (ms * 1e-3) / 1e9:.1f}")
+        del out, ref
+    return result
+
+
+def _toi_agreement(got, want):
+    """(hit/miss mismatches, largest |dt| where both hit)."""
+    hit_g, hit_w = torch.isfinite(got), torch.isfinite(want)
+    both = hit_g & hit_w
+    dt = float((got[both] - want[both]).abs().max()) if bool(both.any()) else 0.0
+    return int((hit_g != hit_w).sum()), dt
+
+
+def phase_toi() -> dict:
+    """Phase 14: kernel 12 on `CollisionProbabilityModel.time_of_impact` and
+    against its plain version at the JAX bench's shape; returns its entry of
+    the kernels line."""
+    from collide2d_tpu_torch.models.collision_model import CollisionProbabilityModel
+    from collide2d_tpu_torch.ops import toi_cuda
+
+    t = time.monotonic()
+    rows = 1 << 21
+    kw = dict(t_max=8.0, iters=64, tol=1e-4)
+    pos, theta, wh, g = _rect_rows(rows, seed=15)
+    vel = -pos / pos.norm(dim=-1, keepdim=True)  # unit speed toward the obstacle
+    omega = torch.rand((rows,), generator=g, device="cuda") * 2.0 - 1.0
+    omega[::4] = 0.0  # translation only: the exact window
+    model = CollisionProbabilityModel()
+    toi_cuda.reset_launches()
+    t_auto = model.time_of_impact(pos, theta, wh, vel, omega, impl="auto", **kw)
+    torch.cuda.synchronize()
+    launches = toi_cuda.LAUNCHES
+    if launches <= 0:
+        raise RuntimeError("time_of_impact never launched kernel 12")
+    sub = slice(0, 1 << 16)
+    t_torch = model.time_of_impact(pos[sub], theta[sub], wh[sub], vel[sub], omega[sub],
+                                   impl="torch", **kw)
+    differ, dt = _toi_agreement(t_auto[sub], t_torch)
+    # The torch path advances on the polygon distance, an equivalent form:
+    # its loop can stop a step of at most ~tol / bound away.
+    if differ > 1e-3 * (1 << 16) or dt > 1e-3:
+        raise RuntimeError(f"time_of_impact: {differ} hits differ from impl='torch', "
+                           f"|dt| {dt}")
+    call_ms = _events_ms(lambda: model.time_of_impact(pos, theta, wh, vel, omega,
+                                                      impl="auto", **kw), 5)
+    _line("14 toi model", time.monotonic() - t, rows=rows, launches=launches,
+          call_ms=f"{call_ms:.3f}",
+          hit_share=f"{float(torch.isfinite(t_auto).float().mean()):.4f}",
+          rotating_share=f"{float((omega != 0).float().mean()):.4f}",
+          hits_differ_vs_torch=differ, max_abs_dt_vs_torch=f"{dt:.3e}")
+    del t_auto, t_torch
+
+    t = time.monotonic()
+    n = 1 << 21  # the JAX bench (utils/benchmarks.py:474-498)
+    unif = lambda lo, hi, *s: torch.rand(s, generator=g, device="cuda") * (hi - lo) + lo  # noqa: E731
+    c2 = unif(3.0, 6.0, n, 2)
+    zeros = torch.zeros_like(c2)
+    b1 = toi_cuda.pack_moving_obbs(zeros, unif(0.5, 3.0, n, 2), unif(0.0, 7.0, n), zeros,
+                                   unif(-1.0, 1.0, n))
+    b2 = toi_cuda.pack_moving_obbs(c2, unif(0.5, 3.0, n, 2), unif(0.0, 7.0, n),
+                                   -c2 / c2.norm(dim=-1, keepdim=True), unif(-1.0, 1.0, n))
+    got = toi_cuda.moving_obb_toi_cuda_t(b1, b2, **kw)
+    want, steps = toi_cuda.moving_obb_toi_plain(b1, b2, return_steps=True, **kw)
+    want, steps = want.reshape(-1), steps.reshape(-1)
+    differ, dt = _toi_agreement(got, want)
+    if differ > 1e-4 * n or dt > 1e-5:
+        raise RuntimeError(f"moving_obb_toi: {differ} hits differ from the plain version, "
+                           f"|dt| {dt}")
+    ms, plain_ms = _compare(lambda: toi_cuda.moving_obb_toi_cuda_t(b1, b2, **kw),
+                            lambda: toi_cuda.moving_obb_toi_plain(b1, b2, **kw))
+    rotating = (b1[7] != 0).reshape(-1) | (b2[7] != 0).reshape(-1)
+    evals = torch.where(rotating, steps + 1, 0).to(torch.float64)
+    ops = (float(evals.sum()) * TOI_EVAL_OPS + int(rotating.sum()) * TOI_SETUP_OPS
+           + int((~rotating).sum()) * TOI_WINDOW_OPS)
+    bound, bound_by = _bound_ms(68 * n, ops)
+    warp_steps = steps.reshape(-1, 32).amax(dim=1).to(torch.float64)
+    _line("14 moving_obb_toi", time.monotonic() - t, pairs=n, t_max=8.0, iters=64,
+          tol=1e-4, hits_differ=differ, max_abs_dt=f"{dt:.3e}",
+          bitwise_equal=bool(torch.equal(got, want)),
+          hit_share=f"{float(torch.isfinite(want).float().mean()):.4f}",
+          rotating_share=f"{float(rotating.float().mean()):.4f}",
+          mean_steps=f"{float(steps.double().mean()):.2f}", max_steps=int(steps.max()),
+          mean_warp_max_steps=f"{float(warp_steps.mean()):.2f}",
+          kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
+          bound_by=bound_by, kernel_queries_per_s=f"{n / ms * 1e3:.4e}")
+    return dict(launches=launches, max_abs_err=dt, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -877,6 +1260,9 @@ def main() -> int:
         poly_sat = phase_polygon_sat()
         poly_mc = phase_mc_polygon()
         poly_mc["launches"] = phase_polylabel(work)
+    queries = phase_distance()
+    queries["polygon_manifold"] = phase_manifold()
+    queries["moving_obb_toi"] = phase_toi()
     default = check["default"]
     mc_bound, mc_bound_by = _bound_ms(C_CHECK * 72,
                                       C_CHECK * N_CHECK * mc_ops_per_sample(False))
@@ -916,7 +1302,18 @@ def main() -> int:
         "replaces": "collide2d_tpu/ops/mc_polygon_pallas.py:254",
         **poly_mc,
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"collide2d_tpu_torch/csrc/{source}",
+        "replaces": f"collide2d_tpu/ops/{replaces}",
+        **queries[name],
+        "library_ms": None,
+    } for name, source, replaces in (
+        ("obb_distance", "distance_kernel.cu", "distance_pallas.py:125"),
+        ("polygon_distance", "distance_kernel.cu", "distance_pallas.py:229"),
+        ("polygon_manifold", "manifold_kernel.cu", "manifold_pallas.py:181"),
+        ("moving_obb_toi", "toi_kernel.cu", "toi_pallas.py:81"))]}
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -4,16 +4,22 @@ Counterpart of ``collide2d_tpu/models/collision_model.py``:
 
 - `CollisionProbabilityModel`, a rectangular robot: the deterministic SAT
   label (`collide`, the reference's ``convex_collide``, utils.cu:159-184),
-  convex k-gon pairs (`collide_polygons`) and the Monte Carlo entry
-  points (`forward`, `forward_pruned`, `label`);
+  convex k-gon pairs (`collide_polygons`), the geometry queries
+  (`distance`, `closest_points`, `contact_manifold`, `time_of_impact`) and
+  the Monte Carlo entry points (`forward`, `forward_pruned`, `label`);
 - `PolygonCollisionProbabilityModel`, a convex k-gon robot against
-  `PolygonConfigs` obstacles: `collide` and the same Monte Carlo entry
-  points.
+  `PolygonConfigs` obstacles: `collide`, `distance`, `closest_points`,
+  `contact_manifold` and the same Monte Carlo entry points.
 
 Inputs and outputs are torch tensors on one device; on a CUDA device the
 labels run the kernels of ``csrc/sat_kernel.cu`` and
-``csrc/polygon_kernel.cu``. The distance, contact and trajectory queries
-come with their slices.
+``csrc/polygon_kernel.cu``, and the queries those of
+``csrc/distance_kernel.cu``, ``csrc/manifold_kernel.cu`` and
+``csrc/toi_kernel.cu``. The queries' ``impl``: 'auto' and 'cuda' run the
+kernel on CUDA tensors and its plain version on CPU tensors; 'torch' runs
+`ops.distance` / `ops.manifold` / `ops.toi` (the JAX package's ``jnp``
+path), the only differentiable one: the kernels have no backward and
+raise on inputs that require grad.
 """
 
 from __future__ import annotations
@@ -33,7 +39,16 @@ from collide2d_tpu_torch.mc.estimator import (
     collision_probability,
     collision_probability_pruned,
 )
-from collide2d_tpu_torch.ops import polygon_cuda, sat_cuda
+from collide2d_tpu_torch.ops import (
+    distance,
+    distance_cuda,
+    manifold,
+    manifold_cuda,
+    polygon_cuda,
+    sat_cuda,
+    toi,
+    toi_cuda,
+)
 from collide2d_tpu_torch.ops.broad_phase import candidate_mask, collide_polygons_pruned
 from collide2d_tpu_torch.ops.geometry import rects_from_params, transform_vertices
 from collide2d_tpu_torch.ops.sat import (
@@ -46,7 +61,7 @@ from collide2d_tpu_torch.ops.sat import (
 COLLIDE_IMPLS = ("auto", "cuda", "torch")
 
 
-def _check_impl(impl: str, precision: str) -> None:
+def _check_impl(impl: str, precision: str = "f32") -> None:
     if precision not in ("f32", "bf16"):
         raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
     if impl not in COLLIDE_IMPLS:
@@ -168,6 +183,80 @@ class CollisionProbabilityModel:
         return _collide_polygons(p1, p2, mask1, mask2, broad_phase=broad_phase,
                                  precision=precision, impl=impl)
 
+    # ---- geometry queries -------------------------------------------------
+    def _scene(self, position, pose_theta, obstacle_wh):
+        """The `collide` scene in param form: (robot centre, extents, angle,
+        obstacle centre, extents, angle), broadcast on the data's device."""
+        position = torch.as_tensor(position, dtype=torch.float32)
+        dev = position.device
+        pose_theta = torch.broadcast_to(
+            torch.as_tensor(pose_theta, dtype=torch.float32, device=dev),
+            position.shape[:-1])
+        obstacle_wh = torch.broadcast_to(
+            torch.as_tensor(obstacle_wh, dtype=torch.float32, device=dev),
+            position.shape)
+        return (position, self._robot_ext(position), pose_theta,
+                torch.zeros_like(position), obstacle_wh,
+                torch.zeros_like(pose_theta))
+
+    def distance(self, position, pose_theta, obstacle_wh, *,
+                 impl: str = "torch") -> torch.Tensor:
+        """Signed distance of the `collide` scene: float32 (C,), positive =
+        clearance, negative = -(penetration depth), zero = touching.
+        'torch' (default) is differentiable (`ops.distance`): the gradient
+        through ``position`` gives the contact normal. 'auto'/'cuda' run
+        kernel 8 (`ops.distance_cuda.rect_distance_cuda`): values to f32
+        rounding, sign bitwise `collide(method='obb')`'s."""
+        _check_impl(impl)
+        scene = self._scene(position, pose_theta, obstacle_wh)
+        if impl == "torch":
+            return distance.rect_signed_distance(*scene)
+        return distance_cuda.rect_distance_cuda(*scene)
+
+    def closest_points(self, position, pose_theta, obstacle_wh):
+        """Witness points and contact normal of the `distance` scene:
+        ``(dist, pa, pb, normal)``, ``pa`` on the robot, ``pb`` on the
+        obstacle, ``pb - pa = dist * normal``
+        (`ops.distance.polygon_closest_points`)."""
+        return distance.rect_closest_points(
+            *self._scene(position, pose_theta, obstacle_wh))
+
+    def contact_manifold(self, position, pose_theta, obstacle_wh, *,
+                         margin: float = 0.0, impl: str = "auto"):
+        """Contact manifold of the `distance` scene (robot = body 1, obstacle
+        = body 2): ``(count, points, depths, normal)``
+        (`ops.manifold.polygon_contact_manifold`). ``margin > 0`` keeps
+        speculative contacts. 'auto'/'cuda' run kernel 10 on the boxes'
+        vertices (values to f32 rounding; face choices at exact separation
+        ties may differ); 'torch' runs `ops.manifold`."""
+        _check_impl(impl)
+        scene = self._scene(position, pose_theta, obstacle_wh)
+        if impl == "torch":
+            return manifold.rect_contact_manifold(*scene, margin=margin)
+        c1, ext1, th1, c2, ext2, th2 = scene
+        return manifold_cuda.polygon_manifold_cuda(
+            rects_from_params(c1, ext1, th1), rects_from_params(c2, ext2.abs(), th2),
+            margin=margin)
+
+    def time_of_impact(self, position, pose_theta, obstacle_wh, velocity,
+                       omega=0.0, *, t_max: float = 1.0, iters: int = 64,
+                       tol: float = 1e-4, impl: str = "torch") -> torch.Tensor:
+        """First time the robot, starting at (position, pose_theta) and
+        moving rigidly with ``velocity`` (B+(2,)) and angular rate
+        ``omega`` about its centre, hits the static obstacle: t in
+        [0, t_max] (a certified impact, d(t) <= tol) or +inf
+        (`ops.toi.rect_time_of_impact`). 'auto'/'cuda' run kernel 12
+        (`ops.toi_cuda.rect_toi_cuda`); 'torch' runs `ops.toi`."""
+        _check_impl(impl)
+        c1, ext1, th1, c2, ext2, th2 = self._scene(position, pose_theta,
+                                                    obstacle_wh)
+        args = (c1, ext1, th1, velocity, omega, c2, ext2, th2,
+                torch.zeros_like(c1), 0.0)
+        kw = dict(t_max=t_max, iters=iters, tol=tol)
+        if impl == "torch":
+            return toi.rect_time_of_impact(*args, **kw)
+        return toi_cuda.rect_toi_cuda(*args, **kw)
+
     # ---- Monte Carlo -----------------------------------------------------
     def forward(self, key, configs: Configs, n_samples: int) -> torch.Tensor:
         """Fixed-budget Monte Carlo probabilities on the threefry path (the
@@ -216,6 +305,37 @@ class PolygonCollisionProbabilityModel:
                                  configs.obstacle_verts, None, None,
                                  broad_phase=broad_phase, precision=precision,
                                  impl=impl)
+
+    def distance(self, configs: PolygonConfigs, *, impl: str = "torch") -> torch.Tensor:
+        """Signed distance at zero noise per configuration: float32 (C,),
+        positive = clearance, negative = -(penetration depth). 'torch'
+        (default) is differentiable (`ops.distance`); 'auto'/'cuda' run
+        kernel 9 (values to f32 rounding, sign bitwise `collide`'s)."""
+        _check_impl(impl)
+        robot = self._placed_robot(configs)
+        if impl == "torch":
+            return distance.polygon_signed_distance(robot, configs.obstacle_verts)
+        return distance_cuda.polygon_distance_cuda(robot, configs.obstacle_verts)
+
+    def closest_points(self, configs: PolygonConfigs):
+        """Witness points and contact normal per configuration: ``(dist, pa,
+        pb, normal)``, ``pa`` on the placed robot, ``pb`` on the obstacle
+        (`ops.distance.polygon_closest_points`)."""
+        return distance.polygon_closest_points(self._placed_robot(configs),
+                                               configs.obstacle_verts)
+
+    def contact_manifold(self, configs: PolygonConfigs, *, margin: float = 0.0,
+                         impl: str = "auto"):
+        """Contact manifold per configuration, the placed robot as body 1 and
+        the obstacle as body 2: ``(count, points, depths, normal)``.
+        'auto'/'cuda' run kernel 10; 'torch' runs `ops.manifold`."""
+        _check_impl(impl)
+        robot = self._placed_robot(configs)
+        if impl == "torch":
+            return manifold.polygon_contact_manifold(robot, configs.obstacle_verts,
+                                                     margin=margin)
+        return manifold_cuda.polygon_manifold_cuda(robot, configs.obstacle_verts,
+                                                   margin=margin)
 
     def forward(self, key, configs: PolygonConfigs, n_samples: int) -> torch.Tensor:
         """Fixed-budget Monte Carlo probabilities on the threefry path (the

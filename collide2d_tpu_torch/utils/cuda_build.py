@@ -2,9 +2,10 @@
 
 Each ``collide2d_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, under
-``collide2d_tpu_torch/build/`` (listed in .gitignore). The file name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads straight away. The library is written under a
+``collide2d_tpu_torch/build/`` (listed in .gitignore); a source may
+include the shared ``csrc/*.cuh`` headers. The file name carries a hash of
+the source, the headers and the flags, so an edited source or header
+rebuilds and an unchanged one loads straight away. The library is written under a
 temporary name and published with ``os.replace``, so processes that build
 at the same time never load a half-written file. There is no fallback: a
 missing ``nvcc`` or a failed build raises.
@@ -46,12 +47,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: hashed by source and flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: hashed by the source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and the flags,
+    so an edited header rebuilds every library too."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

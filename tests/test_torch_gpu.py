@@ -12,6 +12,7 @@ the erf_inv polynomial and the separation test, but round ``sincosf``,
 only a sample within an ulp of touching: the counts may differ by at most
 1e-5 of all samples. The SAT kernels (rectangles, boxes and k-gons) round
 every operation as their plain versions do: labels bitwise, counts exact.
+The bars of the geometry-query kernels stand above their tests below.
 """
 
 import numpy as np
@@ -25,7 +26,15 @@ from collide2d_tpu_torch.models.collision_model import (
     PolygonCollisionProbabilityModel,
     example_polygon_configs,
 )
-from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda, polygon_cuda, sat_cuda
+from collide2d_tpu_torch.ops import (
+    distance_cuda,
+    manifold_cuda,
+    mc_cuda,
+    mc_polygon_cuda,
+    polygon_cuda,
+    sat_cuda,
+    toi_cuda,
+)
 from collide2d_tpu_torch.utils import cuda_build
 
 pytestmark = pytest.mark.gpu
@@ -271,3 +280,142 @@ def test_polylabel_on_cuda(cuda, tmp_path):
     assert cp.shape == (2000,) and np.isfinite(cp).all()
     assert (cp >= 0).all() and (cp <= 1).all() and 0 < cp.mean() < 1
     assert (n_used > 0).all() and done.mean() > 0.5
+
+
+# ---- the geometry-query kernels (8, 9, 10, 12) --------------------------
+# Kernels 8, 9 and 10 round every operation as their plain versions do
+# (__fmul_rn/__fadd_rn, IEEE sqrt and division): their values are held to
+# 2e-5 (the JAX tests' bar), their signs exactly, and kernel 10's counts
+# may differ on at most 1e-5 of pairs (a face separation within an ulp of
+# another). Kernel 12 evaluates its angles with sincosf where the plain
+# version has torch's cos/sin: hit/miss may differ on at most 1e-4 of
+# pairs (lanes whose d(t) lies within rounding of tol), t within 1e-5
+# where both hit.
+
+
+def _boxes(cuda, n, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda lo, hi, *s: torch.from_numpy(  # noqa: E731
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    return f(-6, 6, n, 2), f(0.1, 5, n, 2), f(0, 2 * np.pi, n)
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.37])
+def test_obb_distance_kernel_matches_plain(cuda, shift):
+    n = 1 << 20
+    a = sat_cuda.pack_obbs(*_boxes(cuda, n, 20))
+    b = sat_cuda.pack_obbs(*_boxes(cuda, n, 21))
+    before = dict(distance_cuda.LAUNCHES)
+    got = distance_cuda.obb_distance_cuda_t(a, b, shift)
+    want = distance_cuda.obb_distance_plain(a, b, shift).reshape(-1)
+    label = sat_cuda.obb_collide_cuda_t(a, b, shift)
+    torch.cuda.synchronize()
+    assert distance_cuda.LAUNCHES["obb_distance"] == before["obb_distance"] + 1
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got <= 0, label > 0)
+    assert 0 < float(label.mean()) < 1
+
+
+@pytest.mark.parametrize("k1,k2", [(8, 8), (4, 8), (3, 5), (16, 16), (6, 12)])
+def test_polygon_distance_kernel_matches_plain(cuda, k1, k2):
+    n = 1 << 18
+    rng = np.random.default_rng(k1 * 31 + k2)
+    a = polygon_cuda.pack_polygons(_polygons(rng, n, k1, cuda))
+    b = polygon_cuda.pack_polygons(_polygons(rng, n, k2, cuda))
+    before = distance_cuda.LAUNCHES["polygon_distance"]
+    got = distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2)
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    label = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
+    torch.cuda.synchronize()
+    assert distance_cuda.LAUNCHES["polygon_distance"] == before + 1
+    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got <= 0, label > 0)
+    assert 0 < float(label.mean()) < 1
+
+
+def _manifold_agreement(got, want):
+    """(count mismatches, largest value difference where counts agree)."""
+    from collide2d_tpu_torch.ops.manifold_cuda import unpack_manifold
+
+    n = got.shape[1] * got.shape[2]
+    g, w = unpack_manifold(got, n), unpack_manifold(want, n)
+    same = g[0] == w[0]
+    valid = (torch.arange(2, device=got.device)[None] < w[0][:, None]) & same[:, None]
+    live = (w[0] > 0) & same
+    diffs = ((g[1] - w[1]).abs().amax(-1)[valid], (g[2] - w[2]).abs()[valid],
+             (g[3] - w[3]).abs().amax(-1)[live])
+    return int((~same).sum()), max((float(d.max()) for d in diffs if d.numel()),
+                                   default=0.0)
+
+
+@pytest.mark.parametrize("k1,k2,margin", [(8, 8, 0.0), (8, 8, 0.1), (4, 8, 0.0),
+                                          (5, 16, 0.05)])
+def test_polygon_manifold_kernel_matches_plain(cuda, k1, k2, margin):
+    n = 1 << 18
+    rng = np.random.default_rng(k1 * 13 + k2)
+    a = polygon_cuda.pack_polygons(_polygons(rng, n, k1, cuda))
+    b = polygon_cuda.pack_polygons(_polygons(rng, n, k2, cuda))
+    before = manifold_cuda.LAUNCHES
+    got = manifold_cuda.polygon_manifold_cuda_t(a, b, k1=k1, k2=k2, margin=margin)
+    want = manifold_cuda.polygon_manifold_plain(a, b, k1, k2, margin)
+    torch.cuda.synchronize()
+    assert manifold_cuda.LAUNCHES == before + 1
+    assert got.shape == (9, 8, n // 8)
+    differ, err = _manifold_agreement(got, want)
+    assert differ <= 1e-5 * n and err <= 2e-5
+    assert 0 < int((want[0] > 0).sum()) < n
+
+
+def test_moving_obb_toi_kernel_matches_plain(cuda):
+    n = 1 << 16
+    rng = np.random.default_rng(22)
+    f = lambda lo, hi, *s: torch.from_numpy(  # noqa: E731
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    c2 = f(3, 6, n, 2) * torch.where(f(0, 1, n, 2) < 0.5, -1.0, 1.0)
+    v2 = -c2 / c2.norm(dim=-1, keepdim=True)
+    w1, w2 = f(-1, 1, n), f(-1, 1, n)
+    w1[::4] = 0.0
+    w2[::4] = 0.0  # every 4th pair translates only: the exact window
+    b1 = toi_cuda.pack_moving_obbs(torch.zeros_like(c2), f(0.5, 3, n, 2), f(0, 7, n),
+                                   torch.zeros_like(c2), w1)
+    b2 = toi_cuda.pack_moving_obbs(c2, f(0.5, 3, n, 2), f(0, 7, n), v2, w2)
+    kw = dict(t_max=8.0, iters=64, tol=1e-4)
+    before = toi_cuda.LAUNCHES
+    got = toi_cuda.moving_obb_toi_cuda_t(b1, b2, **kw)
+    want = toi_cuda.moving_obb_toi_plain(b1, b2, **kw).reshape(-1)
+    torch.cuda.synchronize()
+    assert toi_cuda.LAUNCHES == before + 1
+    hit_g, hit_w = torch.isfinite(got), torch.isfinite(want)
+    assert int((hit_g != hit_w).sum()) <= 1e-4 * n
+    both = hit_g & hit_w
+    assert float((got[both] - want[both]).abs().max()) <= 1e-5
+    assert 0 < int(hit_w.sum()) < n
+
+
+def test_query_models_launch_the_kernels(cuda):
+    n = 5000  # padded to the alignment and sliced back
+    pos, wh, th = _boxes(cuda, n, 23)
+    model = CollisionProbabilityModel()
+    distance_cuda.reset_launches()
+    manifold_cuda.reset_launches()
+    toi_cuda.reset_launches()
+    d = model.distance(pos, th, wh, impl="auto")
+    assert d.device.type == "cuda" and d.shape == (n,)
+    assert torch.equal((d <= 0).to(torch.int32), model.collide(pos, th, wh, method="obb"))
+    assert float((d - model.distance(pos, th, wh)).abs().max()) <= 2e-5
+    count = model.contact_manifold(pos, th, wh)[0]
+    assert count.shape == (n,) and count.dtype == torch.int32
+    t = model.time_of_impact(pos, th, wh, -pos, 0.5, t_max=4.0, impl="auto")
+    assert t.shape == (n,) and bool(torch.isfinite(t).any())
+    pmodel = PolygonCollisionProbabilityModel(ROBOT_4GON)
+    configs = example_polygon_configs(n, k=8, seed=3, device=cuda)
+    pd = pmodel.distance(configs, impl="cuda")
+    assert torch.equal((pd <= 0).to(torch.int32), pmodel.collide(configs))
+    pmodel.contact_manifold(configs)
+    torch.cuda.synchronize()
+    assert distance_cuda.LAUNCHES == {"obb_distance": 1, "polygon_distance": 1}
+    assert manifold_cuda.LAUNCHES == 2 and toi_cuda.LAUNCHES == 1
+    with pytest.raises(ValueError, match="impl='torch'"):
+        model.distance(pos.clone().requires_grad_(True), th, wh, impl="cuda")
+    assert distance_cuda.LAUNCHES["obb_distance"] == 1
