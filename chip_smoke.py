@@ -12,9 +12,10 @@ raises, and the script then exits non-zero without printing a result):
    this checkout, one nvcc per source, started together: the fused Monte
    Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu), the SAT kernels
    (csrc/sat_kernel.cu), the k-gon SAT kernel (csrc/polygon_kernel.cu),
-   the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu) and the
+   the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu), the
    query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
-   csrc/toi_kernel.cu);
+   csrc/toi_kernel.cu) and the trajectory kernels (csrc/mc_toi_kernel.cu,
+   csrc/mc_moving_polygon_kernel.cu, csrc/screen_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -94,7 +95,44 @@ raises, and the script then exits non-zero without printing a result):
    tol 1e-4): hits differ on at most 1e-4 of pairs, t within 1e-5 where
    both hit; the rotating share, mean, maximum and warp-maximum
    advancement steps (the plain version counts them), kernel ms, plain ms,
-   queries/s.
+   queries/s;
+15. kernel 13 (fused trajectory Monte Carlo, rectangles) against its plain
+   version on the same Philox stream: 100,000 translation-only rows of the
+   JAX bench's trajectory workload (utils/benchmarks.py:527-540, seed 5,
+   shape noise on) x 4,096 samples, and 8,192 rotating rows x 2,048 with 48
+   advancement steps and tol 1e-4: sum |dcount| <= 1e-5 of the samples;
+   samples/s, mean and warp-maximum advancement steps (from the plain
+   version); then the agreement gate against the threefry window path
+   (4,096 rows x 65,536 samples: max z < 6, share with z > 3 <= 3 x 0.27%);
+16. ``movelabel --device cuda`` on the 100,000 translation-only rows at the
+   4e6 cap and reference bins: finite cp in [0, 1], samples within the cap,
+   kernel-13 launches > 0 and kernel-15 launches 0; configs/s, mean
+   samples, converged share; the same call under torch.profiler (the same
+   labels; device busy share, kernel 13's share of it); another seed on
+   the first 16,384 rows: mean |d| <= 1e-3 and a share within +-0.005 of
+   at least 0.93, or, where the rows' binomial noise alone predicts a
+   share below 0.93, both within 4 standard deviations of that prediction
+   (`_relabel_bar`); ``--prune_sigma 6`` on them (kept rows bitwise, pruned
+   rows cp = 0); then 8,192 rotating rows under 'auto' (the threefry
+   screened cascade, stage A on kernel 15; launches > 0), the same run
+   through the API with ``screen_impl='torch'`` (counts within 1e-5 of the
+   samples), and ``--impl cuda`` (kernel 13's advancement loop), each at a
+   10,000-sample cap (the cascade is host-bound); configs/s of each;
+17. kernel 14 (translation-only k-gon trajectories) against its plain
+   version on 100,000 `example_polygon_configs` k = 8 rows with velocity
+   U(-2, 2)^2 and t_max U(0.5, 3) x 4,096 samples (2 kept robot axes):
+   sum |dcount| <= 1e-5 of the samples; at zero velocity its counts equal
+   kernel 7's bit for bit; the agreement gate as in phase 15;
+   `PolygonCollisionProbabilityModel.label` and ``movelabel`` on the
+   100,000 rows (kernel-14 launches > 0, the same labels, the checks of
+   phase 16); ``movelabel`` on 4,096 rotating k = 6 rows of the JAX bench
+   (utils/benchmarks.py:646-677; the threefry cascade, cap 4,000): finite
+   cp in [0, 1], configs/s;
+18. kernel 15 (stage A of the rotating cascade) against its plain version
+   at the JAX bench's step, 8,192 rotating rows x 512 lanes: flags differ
+   on at most 1e-5 of lanes, t0 equal where they agree; kernel ms, plain
+   ms, lanes/s; then one threefry step of the cascade at that shape, whole
+   (kernel 15 or the torch screen) and its draws alone (host clock).
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path, with ``bound_ms``: the larger
@@ -103,9 +141,10 @@ operations its source writes for these inputs over 67 TFLOP/s (an FMA
 counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
 integer Philox rounds are not counted, so the Monte Carlo bounds are
 floors; the query kernels count an IEEE ``sqrtf`` or division as one
-operation and leave out ``sincosf``; kernel 12's work depends on the data,
-so its bound counts the distance evaluations this run's lanes take). No
-single PyTorch call computes any of these functions, so
+operation and leave out ``sincosf``; kernel 12's and 13's work depends on
+the data, so their bounds count the distance evaluations this run's lanes
+take; kernel 15's is the larger of 28 bytes a lane and its counted
+operations). No single PyTorch call computes any of these functions, so
 ``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -219,7 +258,8 @@ def phase_build():
 
     t = time.monotonic()
     names = ("mc_kernel", "sat_kernel", "polygon_kernel", "mc_polygon_kernel",
-             "distance_kernel", "manifold_kernel", "toi_kernel")
+             "distance_kernel", "manifold_kernel", "toi_kernel", "mc_toi_kernel",
+             "mc_moving_polygon_kernel", "screen_kernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(cuda_build.build, names))
     for name in names:
@@ -758,10 +798,10 @@ def _polylabel(argv) -> float:
     return time.monotonic() - t
 
 
-def _profiled(fn):
+def _profiled(fn, kernel: str = "mc_poly_counts_kernel"):
     """``fn()`` under torch.profiler: (its result, device kernels launched,
-    device busy microseconds, kernel-7 microseconds), or None for the
-    numbers when the profiler saw no device activity."""
+    device busy microseconds, microseconds of the kernels named ``kernel``),
+    or None for the numbers when the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -777,7 +817,7 @@ def _profiled(fn):
         spans.append((e.time_range.start, e.time_range.end))
         if not e.name.startswith(("Memcpy", "Memset")):
             kernels += 1
-        if "mc_poly_counts_kernel" in e.name:
+        if kernel in e.name:
             k7_us += e.time_range.end - e.time_range.start
     if not spans:
         return result, None, None, None
@@ -1233,6 +1273,580 @@ def phase_toi() -> dict:
                 bound_ms=bound, bound_by=bound_by)
 
 
+# ---- the trajectory slice (kernels 13, 14, 15) ---------------------------
+
+ROBOT_WH = (4.07, 1.74)
+TRAJ_ROWS, TRAJ_HEAD = 100_000, 16_384
+ROT_ROWS, ROT_SAMPLES = 8192, 2048
+SCREEN_LANES = 512
+# The rotating runs take the threefry cascade, which is host-bound (tens of
+# small launches and one readback a step): their cap is cut so the phase
+# stays near a minute.
+ROT_CAP, ROT_KGON_ROWS, ROT_KGON_CAP = 10_000, 4096, 4_000
+# FP32 operations a sample of kernel 13 beyond its normals: the obstacle's
+# offset, angle and extents 9, the offsets and the hit test 5; a
+# translating sample adds the window (TOI_WINDOW_OPS), a rotating one
+# TOI_EVAL_OPS an evaluation.
+MC_TOI_NOISE_OPS = 14
+# Kernel 15, a lane: the obstacle 11, the t = 0 test 46, the window
+# TOI_WINDOW_OPS, the segment-invariant projections of the obstacle axes
+# 12, each segment 113 (bounds 3, cd/sd 8, the rotated offsets, speeds and
+# radii 30, 4 axes x 17, the ANDs 4), the flags and warm start 5.
+SCREEN_LANE_OPS, SCREEN_SEG_OPS = 11 + 46 + 12 + 5, 113
+
+
+def mc_moving_poly_ops_per_sample(k: int, k2: int, k2a: int) -> int:
+    """csrc/mc_moving_polygon_kernel.cu: kernel 7's normals, offsets and
+    (u1, u2) (3 normals + 9), the relative velocity in the obstacle frame
+    (6), each kept robot axis 5K + 13 (translation 3, K blends of 3,
+    min/max, 2 adds, the speed 3, the window 8 with its division), each
+    obstacle normal 5 K2 + 13, the hit test 3."""
+    return 3 * NORMAL_OPS + 9 + 6 + k2a * (5 * k + 13) + k * (5 * k2 + 13) + 3
+
+
+def _moving_rects(n: int, rotating: bool, seed: int = 5):
+    """The JAX bench's trajectory rows (utils/benchmarks.py:527-540) on the
+    card: position U(-6, 6)^2, angle U(0, 2 pi), obstacle U(0.5, 5)^2,
+    sigmas U(0, 0.3) (shape noise on), velocity U(-2, 2)^2, omega
+    U(-0.5, 0.5) or 0, t_max U(0.5, 3)."""
+    from collide2d_tpu_torch.mc.moving import moving_configs
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    pos = f32(rng.uniform(-6, 6, (n, 2)))
+    theta = f32(rng.uniform(0, 2 * np.pi, n))
+    wh = f32(rng.uniform(0.5, 5, (n, 2)))
+    sd = f32(rng.uniform(0, 0.3, (n, 5)))
+    vel = f32(rng.uniform(-2, 2, (n, 2)))
+    omega = f32(rng.uniform(-0.5, 0.5, n) * (1.0 if rotating else 0.0))
+    t_max = f32(rng.uniform(0.5, 3, n))
+    return moving_configs(pos, theta, wh, sd, vel, omega, t_max, device="cuda")
+
+
+def _moving_kgons(n: int, seed: int = 7):
+    """Translation-only k = 8 trajectories: `example_polygon_configs(n, k=8,
+    seed)` with velocity U(-2, 2)^2 and t_max U(0.5, 3)."""
+    from collide2d_tpu_torch.mc.moving import moving_polygon_configs
+    from collide2d_tpu_torch.models.collision_model import example_polygon_configs
+
+    b = example_polygon_configs(n, k=POLY_K, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    return moving_polygon_configs(
+        b.position, b.pose_theta, b.obstacle_verts, b.std_dev,
+        rng.uniform(-2, 2, (n, 2)), 0.0, rng.uniform(0.5, 3, n), device="cuda")
+
+
+def _rotating_kgons(n: int, k: int = 6):
+    """The JAX bench's rotating k-gon trajectories (utils/benchmarks.py:
+    646-677): its numpy rows (seed 7) and its convex polygons (rotated
+    regular k-gons of radius U(0.5, 1) centred in a 10 x 10 box, drawn with
+    the threefry streams of `_random_convex_polygons`, :186-197)."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.moving import moving_polygon_configs
+
+    kc, kr, ka = prng.split(prng.PRNGKey(2), 3)
+    centers = prng.uniform(kc, (n, 1, 2), 0.0, 10.0, "cuda")
+    radius = prng.uniform(kr, (n, 1, 1), 0.5, 1.0, "cuda")
+    rot = prng.uniform(ka, (n, 1), 0.0, 2 * np.pi, "cuda")
+    ang = rot + torch.arange(k, dtype=torch.float32, device="cuda") * float(
+        np.float32(2 * np.pi / k))
+    polys = centers + radius * torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    rng = np.random.default_rng(7)
+    pos = rng.uniform(-6, 6, (n, 2))
+    theta = rng.uniform(0, 2 * np.pi, n)
+    sd = rng.uniform(0, 0.3, (n, 3))
+    vel = rng.uniform(-2, 2, (n, 2))
+    omega = rng.uniform(-0.5, 0.5, n)
+    t_max = rng.uniform(0.5, 3, n)
+    return moving_polygon_configs(pos, theta, polys, sd, vel, omega, t_max,
+                                  device="cuda")
+
+
+def _save_npz(path: Path, configs, **extra) -> Path:
+    np.savez(path, **{f: getattr(configs, f).cpu().numpy() for f in configs._fields},
+             **extra)
+    return path
+
+
+def _movelabel(argv) -> float:
+    """``collide2d-torch movelabel`` in process; returns its seconds."""
+    from collide2d_tpu_torch import cli
+
+    t = time.monotonic()
+    rc, _ = _quiet(cli.main, ["movelabel", "--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"movelabel exited {rc}")
+    return time.monotonic() - t
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the host clock, synchronised, after
+    one warm-up call (for calls that read back to the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t) * 1e3 / reps
+
+
+def _labels(path: Path):
+    with np.load(path) as d:
+        return d["cp"], d["n_samples"], d["converged"]
+
+
+def _check_labels(name: str, labels, rows: int, cap: int) -> None:
+    cp, n_used, _ = labels
+    if cp.shape != (rows,) or not (np.isfinite(cp).all() and (cp >= 0).all()
+                                   and (cp <= 1).all()):
+        raise RuntimeError(f"{name}: cp not finite in [0, 1]")
+    if not ((n_used > 0).all() and (n_used <= cap + 100_032).all()):
+        raise RuntimeError(f"{name}: n_samples outside the cap "
+                           f"[{n_used.min()}, {n_used.max()}]")
+
+
+def _agreement_gate(name: str, configs, robot, phase: str) -> dict:
+    """The kernel against the threefry window path on the card: 65,536
+    samples of each row, max z < 6 and a share with z > 3 of at most 3 x
+    0.27% (the JAX bench's agreement gate)."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import mc_round
+
+    t = time.monotonic()
+    c, n = configs.num, 1 << 16
+    uids = torch.arange(c, dtype=torch.int32, device="cuda")
+    cp = {}
+    for impl in ("cuda", "threefry"):
+        counts = mc_round(prng.PRNGKey(8), uids, configs, robot, 0, n_batch=n,
+                          impl=impl, ca_iters=0)
+        cp[impl] = counts.cpu().numpy().astype(np.float64) / n
+    diff = np.abs(cp["cuda"] - cp["threefry"])
+    pooled = (cp["cuda"] + cp["threefry"]) / 2.0
+    var = pooled * (1.0 - pooled) * (2.0 / n)
+    z = np.where(var > 0, diff / np.sqrt(np.maximum(var, 1e-300)), 0.0)
+    frac3, max_z = float((z > 3.0).mean()), float(z.max())
+    if not (max_z < 6.0 and frac3 <= 3 * 0.0027):
+        raise RuntimeError(f"{name} agreement gate failed: max z {max_z:.2f}, "
+                           f"share z > 3 {frac3:.4f}")
+    _line(phase, time.monotonic() - t, kernel=name, configs=c, n_samples=n,
+          max_z=f"{max_z:.3f}", frac_z_gt3=f"{frac3:.5f}",
+          mean_abs_diff=f"{diff.mean():.3e}", mean_cp=f"{cp['threefry'].mean():.4f}")
+    return dict(max_z=max_z, frac3=frac3)
+
+
+def phase_mc_toi() -> dict:
+    """Phase 15: kernel 13 against its plain version on the same Philox
+    stream (translation-only rows at the main path's width, rotating rows
+    at the JAX bench's shape), then its agreement gate; returns its entry of
+    the kernels line (times of the translation run) and the rotating run's
+    steps."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.ops import mc_cuda, mc_toi_cuda
+
+    result = {"max_abs_err": 0}
+    seed = mc_cuda.round_seed(prng.PRNGKey(12), 3)
+    for key, c, n, rotating, ca_iters in (("translation", TRAJ_ROWS, N_CHECK, False, 0),
+                                          ("rotating", ROT_ROWS, ROT_SAMPLES, True, 48)):
+        t = time.monotonic()
+        params = mc_toi_cuda.pack_mc_toi_params(_moving_rects(c, rotating), ROBOT_WH)
+        uids = torch.arange(c, dtype=torch.int32, device="cuda")
+        kw = dict(ca_iters=ca_iters, tol=1e-4)
+        got = mc_toi_cuda.mc_toi_counts(params, uids, seed, n, **kw)
+        want, steps, warp_steps = mc_toi_cuda.mc_toi_counts_plain(
+            params, uids, seed, n, max_elems=1 << 24, return_steps=True, **kw)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        total = int(diff.sum())
+        if total > MISMATCH_BOUND * c * n:
+            raise RuntimeError(f"kernel 13 disagrees with its plain version: "
+                               f"sum|dcount|={total} > {MISMATCH_BOUND} * C * n ({key})")
+        if not 0 < int(got.sum()) < c * n:
+            raise RuntimeError(f"degenerate kernel-13 counts ({key})")
+        ms = _events_ms(lambda: mc_toi_cuda.mc_toi_counts(params, uids, seed, n, **kw),
+                        reps=20 if not rotating else 5)
+        plain_ms = _events_ms(lambda: mc_toi_cuda.mc_toi_counts_plain(
+            params, uids, seed, n, max_elems=1 << 24, **kw), reps=1)
+        evals = float((steps + (n if rotating else 0)).sum())  # + the final check
+        ops = c * n * (5 * NORMAL_OPS + MC_TOI_NOISE_OPS) + (
+            evals * TOI_EVAL_OPS if rotating else c * n * TOI_WINDOW_OPS)
+        bound, bound_by = _bound_ms(c * 68, ops)
+        mean_steps = float(steps.sum()) / (c * n)
+        warp_max = float(warp_steps.sum()) / (c * -(-n // 32))
+        result["max_abs_err"] = max(result["max_abs_err"], int(diff.max()))
+        result[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                           mean_steps=mean_steps, warp_max_steps=warp_max)
+        _line("15 mc_toi", time.monotonic() - t, case=key, C=c, n=n, ca_iters=ca_iters,
+              sum_abs_dcount=total, rows_differ=int((diff > 0).sum()),
+              hit_share=f"{float(want.sum()) / (c * n):.4f}",
+              mean_steps=f"{mean_steps:.2f}", mean_warp_max_steps=f"{warp_max:.2f}",
+              kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
+              bound_by=bound_by, kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}",
+              plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
+        del params, got, want, steps, warp_steps
+    _agreement_gate("mc_toi", _moving_rects(4096, False, seed=6), ROBOT_WH, "15 agreement")
+    out = result["translation"]
+    return dict(max_abs_err=result["max_abs_err"], ms=out["ms"], plain_ms=out["plain_ms"],
+                bound_ms=out["bound_ms"], bound_by=out["bound_by"],
+                rotating=result["rotating"])
+
+
+def _relabel_bar(name: str, full_cp, full_n, head_path: Path, out: Path,
+                 extra=()) -> dict:
+    """Another seed on the first rows against the first run's labels. The
+    bar: mean |d| <= 1e-3 and a share within +-0.005 of at least 0.93, or,
+    where the rows' own binomial noise predicts a share below 0.93 (many
+    rows at mid cp, whose 1e-2 bin lets two runs differ by ~0.007), both
+    numbers within 4 standard deviations of that prediction."""
+    from collide2d_tpu_torch.data.validate import compare_labels
+
+    _movelabel(["--data_in", str(head_path), "--data_out", str(out), "--seed", "8",
+                *extra])
+    other = _labels(out)
+    report = compare_labels(full_cp[:TRAJ_HEAD], other[0])
+    share, mean_d = report.frac_within_tolerance, report.mean_abs_diff
+    exp = _expected_agreement(full_cp[:TRAJ_HEAD], full_n[:TRAJ_HEAD], *other[:2])
+    fields = dict(mean_abs_d=f"{mean_d:.3e}", share_within_tol=f"{share:.4f}",
+                  expected_mean_abs_d=f"{exp['mean_d']:.3e}",
+                  expected_share_within_tol=f"{exp['share']:.4f}",
+                  share_cp_in_0p1_0p9=f"{exp['mid']:.4f}")
+    fixed = mean_d <= 1e-3 and share >= 0.93
+    predicted = (share >= exp["share"] - 4 * exp["share_sd"]
+                 and mean_d <= exp["mean_d"] + 4 * exp["mean_d_sd"])
+    if not (fixed or (exp["share"] < 0.93 and predicted)):
+        raise RuntimeError(f"{name} misses the relabel bar: {report} {fields}")
+    fields["bar"] = "fixed" if fixed else "binomial_prediction"
+    return fields
+
+
+def _expected_agreement(cp_a, n_a, cp_b, n_b) -> dict:
+    """What two independent runs' binomial noise alone predicts: each
+    row's difference taken as normal with sd^2 = p (1 - p) (1/n_a + 1/n_b)
+    at the pooled p. Returns the expected share within +-0.005 and mean
+    |d|, their standard deviations over the rows, and the share of rows
+    with pooled cp in (0.1, 0.9)."""
+    from math import erf
+
+    p = (cp_a.astype(np.float64) + cp_b) / 2.0
+    sd = np.sqrt(p * (1.0 - p) * (1.0 / np.maximum(n_a, 1) + 1.0 / np.maximum(n_b, 1)))
+    within = np.where(sd > 0, np.vectorize(erf)(0.005 / (np.maximum(sd, 1e-300)
+                                                         * np.sqrt(2.0))), 1.0)
+    rows = p.size
+    return dict(share=float(within.mean()),
+                share_sd=float(np.sqrt((within * (1 - within)).sum())) / rows,
+                mean_d=float((sd * np.sqrt(2 / np.pi)).mean()),
+                mean_d_sd=float(np.sqrt((sd * sd * (1 - 2 / np.pi)).sum())) / rows,
+                mid=float(((p > 0.1) & (p < 0.9)).mean()))
+
+
+def _prune_check(name: str, head_cfgs, robot, full, head_path: Path, out: Path) -> str:
+    from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+
+    _movelabel(["--data_in", str(head_path), "--data_out", str(out), "--seed", "7",
+                "--prune_sigma", "6"])
+    keep = possible_collision_mask(head_cfgs, robot, 6.0).cpu().numpy()
+    pruned = _labels(out)
+    for got, want in zip(pruned, full):
+        if not np.array_equal(got[keep], want[:TRAJ_HEAD][keep]):
+            raise RuntimeError(f"{name} --prune_sigma 6: kept rows differ")
+    if (pruned[0][~keep] != 0).any():
+        raise RuntimeError(f"{name} --prune_sigma 6: a pruned row has cp != 0")
+    return f"{1.0 - keep.mean():.4f}"
+
+
+def _reset_trajectory_counts() -> None:
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda, mc_toi_cuda, screen_cuda
+
+    for mod in (mc_toi_cuda, mc_moving_polygon_cuda, screen_cuda):
+        mod.reset_launches()
+
+
+def _trajectory_counts() -> dict:
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda, mc_toi_cuda, screen_cuda
+
+    torch.cuda.synchronize()
+    return {"13": mc_toi_cuda.LAUNCHES, "14": mc_moving_polygon_cuda.LAUNCHES,
+            "15": screen_cuda.LAUNCHES}
+
+
+def phase_movelabel_rects(work: Path) -> dict:
+    """Phase 16: ``movelabel --device cuda`` on rectangles; returns kernel
+    13's and kernel 15's launches on their paths."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+
+    t = time.monotonic()
+    configs = _moving_rects(TRAJ_ROWS, rotating=False)
+    src = _save_npz(work / "moves.npz", configs)
+    head_cfgs = type(configs)(*(a[:TRAJ_HEAD] for a in configs))
+    head = _save_npz(work / "moves_head.npz", head_cfgs)
+    out = work / "movelabels.npz"
+    _reset_trajectory_counts()
+    seconds = _movelabel(["--data_in", str(src), "--data_out", str(out), "--seed", "7"])
+    counts = _trajectory_counts()
+    if counts["13"] <= 0 or counts["15"] != 0:
+        raise RuntimeError(f"translation-only movelabel launched {counts}")
+    full = _labels(out)
+    _check_labels("movelabel", full, TRAJ_ROWS, 4_000_000)
+    launches = {"13": counts["13"]}
+    _line("16 movelabel", time.monotonic() - t, rows=TRAJ_ROWS, motion="translation",
+          call_s=f"{seconds:.3f}", configs_per_s=f"{TRAJ_ROWS / seconds:.1f}",
+          mean_samples_per_config=f"{full[1].mean():.1f}",
+          converged_share=f"{full[2].mean():.4f}", zero_share=f"{(full[0] == 0).mean():.4f}",
+          mean_cp=f"{full[0].mean():.4f}", kernel13_launches=counts["13"],
+          kernel15_launches=counts["15"])
+    t = time.monotonic()
+    t_call = time.monotonic()
+    _, kernels, busy_us, k13_us = _profiled(lambda: _movelabel([
+        "--data_in", str(src), "--data_out", str(work / "movelabels_profiled.npz"),
+        "--seed", "7"]), kernel="mc_toi_counts_kernel")
+    wall_us = (time.monotonic() - t_call) * 1e6
+    if not all(np.array_equal(a, b) for a, b in
+               zip(_labels(work / "movelabels_profiled.npz"), full)):
+        raise RuntimeError("the profiled movelabel run wrote other labels")
+    profile = (dict(device_activity="not measured") if kernels is None else dict(
+        device_kernels=kernels, device_busy_s=f"{busy_us / 1e6:.4f}",
+        device_busy_share=f"{busy_us / wall_us:.4f}",
+        busy_over_unprofiled_call=f"{busy_us / 1e6 / seconds:.4f}",
+        mc_toi_kernel_share_of_busy=f"{k13_us / busy_us:.4f}"))
+    _line("16 movelabel profile", time.monotonic() - t, labels_bitwise_equal=True,
+          wall_s=f"{wall_us / 1e6:.3f}", **profile)
+
+    t = time.monotonic()
+    bar = _relabel_bar("movelabel", full[0], full[1], head,
+                       work / "movelabels_seed8.npz")
+    pruned_share = _prune_check("movelabel", head_cfgs, ROBOT_WH, full, head,
+                                work / "movelabels_pruned.npz")
+    _line("16 movelabel check", time.monotonic() - t, rows=TRAJ_HEAD, **bar,
+          pruned_share=pruned_share, kept_rows_bitwise_equal=True)
+
+    # rotating rows: 'auto' is the threefry screened cascade, stage A on
+    # kernel 15; the same run through the API with the torch screen
+    t = time.monotonic()
+    rot = _moving_rects(ROT_ROWS, rotating=True)
+    rot_src = _save_npz(work / "moves_rot.npz", rot)
+    rot_out = work / "movelabels_rot.npz"
+    cap = ["--max_samples", str(ROT_CAP)]
+    _reset_trajectory_counts()
+    rot_s = _movelabel(["--data_in", str(rot_src), "--data_out", str(rot_out),
+                        "--seed", "7", *cap])
+    counts = _trajectory_counts()
+    if counts["15"] <= 0 or counts["13"] != 0:
+        raise RuntimeError(f"rotating movelabel (auto) launched {counts}")
+    launches["15"] = counts["15"]
+    labels = _labels(rot_out)
+    _check_labels("rotating movelabel", labels, ROT_ROWS, ROT_CAP)
+    t_api = time.monotonic()
+    torch_screen = adaptive_collision_probabilities(
+        prng.PRNGKey(7), rot, np.asarray(ROBOT_WH, np.float32),
+        AdaptiveConfig(max_samples=ROT_CAP, screen_impl="torch"))
+    torch.cuda.synchronize()
+    api_s = time.monotonic() - t_api
+    k_cuda = np.rint(labels[0].astype(np.float64) * labels[1])
+    k_torch = np.rint(torch_screen[0].astype(np.float64) * torch_screen[1])
+    dcount = float(np.abs(k_cuda - k_torch).sum())
+    if dcount > MISMATCH_BOUND * float(labels[1].sum()):
+        raise RuntimeError(f"kernel-15 cascade differs from the torch screen's: "
+                           f"sum|dcount| {dcount}")
+    _line("16 movelabel rotating", time.monotonic() - t, rows=ROT_ROWS, cap=ROT_CAP,
+          impl="auto", kernel15_launches=counts["15"], call_s=f"{rot_s:.3f}",
+          configs_per_s=f"{ROT_ROWS / rot_s:.1f}",
+          torch_screen_configs_per_s=f"{ROT_ROWS / api_s:.1f}",
+          sum_abs_dcount_vs_torch_screen=dcount,
+          rows_differ=int((k_cuda != k_torch).sum()),
+          mean_samples_per_config=f"{labels[1].mean():.1f}",
+          converged_share=f"{labels[2].mean():.4f}", mean_cp=f"{labels[0].mean():.4f}")
+
+    t = time.monotonic()
+    _reset_trajectory_counts()
+    cuda_s = _movelabel(["--data_in", str(rot_src), "--data_out",
+                         str(work / "movelabels_rot_cuda.npz"), "--seed", "7", "--impl",
+                         "cuda", *cap])
+    counts = _trajectory_counts()
+    if counts["13"] <= 0:
+        raise RuntimeError(f"rotating movelabel (--impl cuda) launched {counts}")
+    cuda_labels = _labels(work / "movelabels_rot_cuda.npz")
+    _check_labels("rotating movelabel --impl cuda", cuda_labels, ROT_ROWS, ROT_CAP)
+    _line("16 movelabel rotating cuda", time.monotonic() - t, rows=ROT_ROWS, cap=ROT_CAP,
+          kernel13_launches=counts["13"], call_s=f"{cuda_s:.3f}",
+          configs_per_s=f"{ROT_ROWS / cuda_s:.1f}",
+          mean_cp=f"{cuda_labels[0].mean():.4f}",
+          mean_cp_cascade=f"{labels[0].mean():.4f}")
+    return launches
+
+
+def phase_mc_moving_polygon(work: Path) -> dict:
+    """Phase 17: kernel 14 against its plain version and kernel 7, its
+    agreement gate, and the k-gon trajectory paths; returns its entry of the
+    kernels line."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.models.collision_model import PolygonCollisionProbabilityModel
+    from collide2d_tpu_torch.ops import mc_cuda, mc_moving_polygon_cuda as mmp
+    from collide2d_tpu_torch.ops import mc_polygon_cuda
+
+    t = time.monotonic()
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    a_keep = mc_polygon_cuda.dedup_robot_axes(robot)
+    dims = dict(k=POLY_K, k2=len(robot), k2a=len(a_keep))
+    c, n = TRAJ_ROWS, N_CHECK
+    configs = _moving_kgons(c)
+    params = mmp.pack_moving_polygon_mc_params(configs, robot, a_keep)
+    uids = torch.arange(c, dtype=torch.int32, device="cuda")
+    seed = mc_cuda.round_seed(prng.PRNGKey(12), 3)
+    got = mmp.mc_moving_poly_counts(params, uids, seed, n, **dims)
+    want = mmp.mc_moving_poly_counts_plain(params, uids, seed, n, max_elems=1 << 22, **dims)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    total = int(diff.sum())
+    if total > MISMATCH_BOUND * c * n:
+        raise RuntimeError(f"kernel 14 disagrees with its plain version: "
+                           f"sum|dcount|={total}")
+    if not 0 < int(got.sum()) < c * n:
+        raise RuntimeError("degenerate kernel-14 counts")
+    ms = _events_ms(lambda: mmp.mc_moving_poly_counts(params, uids, seed, n, **dims), 20)
+    plain_ms = _events_ms(lambda: mmp.mc_moving_poly_counts_plain(
+        params, uids, seed, n, max_elems=1 << 22, **dims), 1)
+    bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
+                                c * n * mc_moving_poly_ops_per_sample(**dims))
+    # zero velocity: kernel 7's counts bit for bit on the same stream
+    still = configs._replace(velocity=torch.zeros_like(configs.velocity))
+    k14 = mmp.mc_moving_poly_counts(mmp.pack_moving_polygon_mc_params(still, robot, a_keep),
+                                    uids, seed, n, **dims)
+    k7 = mc_polygon_cuda.mc_poly_counts(
+        mc_polygon_cuda.pack_polygon_mc_params(still, robot, a_keep), uids, seed, n, **dims)
+    if not torch.equal(k14, k7):
+        raise RuntimeError(f"kernel 14 at zero velocity differs from kernel 7 on "
+                           f"{int((k14 != k7).sum())} rows")
+    result = dict(max_abs_err=int(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                  bound_by=bound_by)
+    _line("17 mc_moving_poly", time.monotonic() - t, C=c, n=n, k=POLY_K,
+          table_rows=params.shape[1], kept_axes=len(a_keep), sum_abs_dcount=total,
+          rows_differ=int((diff > 0).sum()), hit_share=f"{float(want.sum()) / (c * n):.4f}",
+          zero_velocity_equals_kernel7=True, kernel_ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}",
+          plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
+    del params, got, want, k14, k7, still
+    _agreement_gate("mc_moving_poly", _moving_kgons(4096, seed=8), robot, "17 agreement")
+
+    # the model and the CLI on the 100,000 rows
+    t = time.monotonic()
+    model = PolygonCollisionProbabilityModel(robot)
+    _reset_trajectory_counts()
+    t_call = time.monotonic()
+    cp_model, n_model, _ = model.label(prng.PRNGKey(7), configs)
+    model_s = time.monotonic() - t_call
+    counts = _trajectory_counts()
+    if counts["14"] <= 0:
+        raise RuntimeError(f"PolygonCollisionProbabilityModel.label launched {counts}")
+    src = _save_npz(work / "moving_polys.npz", configs, robot_verts=robot)
+    head_cfgs = type(configs)(*(a[:TRAJ_HEAD] for a in configs))
+    head = _save_npz(work / "moving_polys_head.npz", head_cfgs, robot_verts=robot)
+    out = work / "moving_polylabels.npz"
+    _reset_trajectory_counts()
+    seconds = _movelabel(["--data_in", str(src), "--data_out", str(out), "--seed", "7"])
+    counts = _trajectory_counts()
+    if counts["14"] <= 0 or counts["13"] or counts["15"]:
+        raise RuntimeError(f"k-gon movelabel launched {counts}")
+    result["launches"] = counts["14"]
+    full = _labels(out)
+    _check_labels("k-gon movelabel", full, TRAJ_ROWS, 4_000_000)
+    if not np.array_equal(full[0], cp_model):
+        raise RuntimeError("movelabel and PolygonCollisionProbabilityModel.label "
+                           "labeled the same rows differently")
+    _line("17 movelabel k-gon", time.monotonic() - t, rows=TRAJ_ROWS, k=POLY_K,
+          motion="translation", call_s=f"{seconds:.3f}",
+          configs_per_s=f"{TRAJ_ROWS / seconds:.1f}",
+          model_label_configs_per_s=f"{TRAJ_ROWS / model_s:.1f}",
+          mean_samples_per_config=f"{full[1].mean():.1f}",
+          converged_share=f"{full[2].mean():.4f}", zero_share=f"{(full[0] == 0).mean():.4f}",
+          mean_cp=f"{full[0].mean():.4f}", kernel14_launches=counts["14"])
+    t = time.monotonic()
+    bar = _relabel_bar("k-gon movelabel", full[0], full[1], head,
+                       work / "moving_polys_seed8.npz")
+    pruned_share = _prune_check("k-gon movelabel", head_cfgs, robot, full, head,
+                                work / "moving_polys_pruned.npz")
+    _line("17 movelabel k-gon check", time.monotonic() - t, rows=TRAJ_HEAD, **bar,
+          pruned_share=pruned_share, kept_rows_bitwise_equal=True)
+
+    # rotating k-gons: the threefry cascade
+    t = time.monotonic()
+    rot = _rotating_kgons(ROT_KGON_ROWS)
+    rot_src = _save_npz(work / "moving_polys_rot.npz", rot, robot_verts=robot)
+    rot_out = work / "moving_polylabels_rot.npz"
+    _reset_trajectory_counts()
+    rot_s = _movelabel(["--data_in", str(rot_src), "--data_out", str(rot_out), "--seed",
+                        "7", "--max_samples", str(ROT_KGON_CAP)])
+    counts = _trajectory_counts()
+    labels = _labels(rot_out)
+    _check_labels("rotating k-gon movelabel", labels, ROT_KGON_ROWS, ROT_KGON_CAP)
+    _line("17 movelabel k-gon rotating", time.monotonic() - t, rows=ROT_KGON_ROWS, k=6,
+          cap=ROT_KGON_CAP, call_s=f"{rot_s:.3f}",
+          configs_per_s=f"{ROT_KGON_ROWS / rot_s:.1f}",
+          mean_samples_per_config=f"{labels[1].mean():.1f}",
+          converged_share=f"{labels[2].mean():.4f}", mean_cp=f"{labels[0].mean():.4f}",
+          kernel_launches="/".join(f"{k}:{v}" for k, v in counts.items()))
+    return result
+
+
+def phase_screen() -> dict:
+    """Phase 18: kernel 15 against its plain version at the JAX bench's
+    step (8,192 rotating rows x 512 lanes); returns its entry of the kernels
+    line."""
+    from collide2d_tpu_torch.ops import screen_cuda
+
+    t = time.monotonic()
+    c, s = ROT_ROWS, SCREEN_LANES
+    params = screen_cuda.pack_screen_params(_moving_rects(c, rotating=True), ROBOT_WH)
+    z = torch.randn((c, s, 5), generator=torch.Generator(device="cuda").manual_seed(18),
+                    device="cuda")
+    flags, t0 = screen_cuda.rotating_screen(z, params)
+    want_f, want_t = screen_cuda.rotating_screen_plain(z, params)
+    torch.cuda.synchronize()
+    agree = flags == want_f
+    differ = int((~agree).sum())
+    t0_err = float((t0[agree] - want_t[agree]).abs().max())
+    if differ > MISMATCH_BOUND * c * s or t0_err != 0.0:
+        raise RuntimeError(f"kernel 15: {differ} flags differ from the plain version, "
+                           f"t0 by {t0_err} where they agree")
+    ms, plain_ms = _compare(lambda: screen_cuda.rotating_screen(z, params),
+                            lambda: screen_cuda.rotating_screen_plain(z, params))
+    ops = c * s * (SCREEN_LANE_OPS + TOI_WINDOW_OPS + 8 * SCREEN_SEG_OPS)
+    bound, bound_by = _bound_ms(28 * c * s, ops)
+    shares = {f"share_bit{b}": f"{float(((want_f >> b) & 1).float().mean()):.4f}"
+              for b in range(3)}
+    ambiguous = ((want_f & 1) != 0) & ((want_f & 2) == 0)
+    _line("18 screen", time.monotonic() - t, C=c, S=s, flags_differ=differ,
+          bitwise_equal=bool(torch.equal(flags, want_f) and torch.equal(t0, want_t)),
+          ambiguous_share=f"{float(ambiguous.float().mean()):.4f}", **shares,
+          kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+          bound_by=bound_by, kernel_lanes_per_s=f"{c * s / ms * 1e3:.4e}",
+          kernel_gb_per_s=f"{28 * c * s / (ms * 1e-3) / 1e9:.1f}")
+    # one threefry step of the rotating cascade, whole and in parts
+    from collide2d_tpu_torch.mc import moving, prng
+
+    configs = _moving_rects(c, rotating=True)
+    keys = prng.fold_in_many(prng.PRNGKey(3), torch.arange(c, dtype=torch.int32,
+                                                           device="cuda"))
+    draws_ms = _host_ms(lambda: prng.normal(keys, (s, 5)), 3)
+    step_ms = {impl: _host_ms(lambda: moving.counts_chunk_moving(
+        keys, configs, ROBOT_WH, s, screen_impl=impl), 3) for impl in ("cuda", "torch")}
+    _, (_, _, amb) = moving.counts_chunk_moving(keys, configs, ROBOT_WH, s,
+                                                return_screen_masks=True)
+    _line("18 cascade step", time.monotonic() - t, C=c, S=s,
+          draws_ms=f"{draws_ms:.3f}", step_ms_kernel15=f"{step_ms['cuda']:.3f}",
+          step_ms_torch_screen=f"{step_ms['torch']:.3f}",
+          rest_ms=f"{step_ms['cuda'] - draws_ms - ms:.3f}",
+          ambiguous_lane_share=f"{float(amb.float().mean()):.4f}",
+          ambiguous_row_share=f"{float(amb.any(dim=1).float().mean()):.4f}",
+          step_samples_per_s=f"{c * s / step_ms['cuda'] * 1e3:.4e}")
+    flag_err = int((flags - want_f).abs().max())
+    return dict(max_abs_err=float(max(flag_err, t0_err)), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1263,6 +1877,17 @@ def main() -> int:
     queries = phase_distance()
     queries["polygon_manifold"] = phase_manifold()
     queries["moving_obb_toi"] = phase_toi()
+    mc_toi = phase_mc_toi()
+    rotating = mc_toi.pop("rotating")
+    _line("15 mc_toi steps", 0.0, rotating_mean_steps=f"{rotating['mean_steps']:.2f}",
+          rotating_warp_max_steps=f"{rotating['warp_max_steps']:.2f}",
+          rotating_kernel_ms=f"{rotating['ms']:.4f}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        traj_launches = phase_movelabel_rects(Path(tmp))
+        moving_poly = phase_mc_moving_polygon(Path(tmp))
+    screen = phase_screen()
+    mc_toi["launches"] = traj_launches["13"]
+    screen["launches"] = traj_launches["15"]
     default = check["default"]
     mc_bound, mc_bound_by = _bound_ms(C_CHECK * 72,
                                       C_CHECK * N_CHECK * mc_ops_per_sample(False))
@@ -1313,7 +1938,18 @@ def main() -> int:
         ("obb_distance", "distance_kernel.cu", "distance_pallas.py:125"),
         ("polygon_distance", "distance_kernel.cu", "distance_pallas.py:229"),
         ("polygon_manifold", "manifold_kernel.cu", "manifold_pallas.py:181"),
-        ("moving_obb_toi", "toi_kernel.cu", "toi_pallas.py:81"))]}
+        ("moving_obb_toi", "toi_kernel.cu", "toi_pallas.py:81"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"collide2d_tpu_torch/csrc/{source}",
+        "replaces": f"collide2d_tpu/ops/{replaces}",
+        **entry,
+        "library_ms": None,
+    } for name, source, replaces, entry in (
+        ("mc_toi_counts", "mc_toi_kernel.cu", "mc_toi_pallas.py:170", mc_toi),
+        ("mc_moving_poly_counts", "mc_moving_polygon_kernel.cu",
+         "mc_moving_polygon_pallas.py:182", moving_poly),
+        ("rotating_screen", "screen_kernel.cu", "screen_pallas.py:99", screen))]}
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

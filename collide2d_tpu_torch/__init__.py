@@ -6,13 +6,16 @@ annulus configuration sampler, the adaptive Monte Carlo driver with its
 Wald / rule-of-three stopping rule and noise-aware pruning, the fused
 Monte Carlo kernels (``csrc/mc_kernel.cu``, ``csrc/mc_polygon_kernel.cu``),
 the SAT and oriented-box label and count kernels (``csrc/sat_kernel.cu``),
-the k-gon SAT kernel (``csrc/polygon_kernel.cu``), the geometry queries
+the k-gon SAT kernel (``csrc/polygon_kernel.cu``), trajectory labels
+(`MovingConfigs`, `MovingPolygonConfigs`, with the fused trajectory kernels
+``csrc/mc_toi_kernel.cu``, ``csrc/mc_moving_polygon_kernel.cu`` and the
+rotating cascade's screen ``csrc/screen_kernel.cu``), the geometry queries
 (signed distance, witness points, contact manifolds, time of impact) with
 their kernels (``csrc/distance_kernel.cu``, ``csrc/manifold_kernel.cu``,
 ``csrc/toi_kernel.cu``; all built with nvcc at first use),
 `CollisionProbabilityModel`, `PolygonCollisionProbabilityModel`, and the
-``generate`` / ``relabel`` / ``ztest`` / ``compare`` / ``polylabel``
-commands (``collide2d-torch``).
+``generate`` / ``relabel`` / ``ztest`` / ``compare`` / ``polylabel`` /
+``movelabel`` commands (``collide2d-torch``).
 
 It imports torch and never jax. Nothing is built or launched at import.
 """
@@ -26,6 +29,13 @@ from collide2d_tpu_torch.mc.estimator import (
     polygon_configs_from_numpy,
 )
 from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+from collide2d_tpu_torch.mc.moving import (
+    MovingConfigs,
+    MovingPolygonConfigs,
+    moving_configs,
+    moving_polygon_configs,
+    trajectory_collision_probability,
+)
 from collide2d_tpu_torch.models.collision_model import (
     CollisionProbabilityModel,
     PolygonCollisionProbabilityModel,
@@ -59,6 +69,8 @@ __all__ = [
     "AdaptiveConfig",
     "CollisionProbabilityModel",
     "Configs",
+    "MovingConfigs",
+    "MovingPolygonConfigs",
     "PolygonCollisionProbabilityModel",
     "PolygonConfigs",
     "adaptive_collision_probabilities",
@@ -66,6 +78,8 @@ __all__ = [
     "configs_from_numpy",
     "example_configs",
     "example_polygon_configs",
+    "moving_configs",
+    "moving_polygon_configs",
     "obb_collide",
     "polygon_closest_points",
     "polygon_configs_from_numpy",
@@ -81,4 +95,5 @@ __all__ = [
     "sat_polygons",
     "sat_rects",
     "sat_rects_reference",
+    "trajectory_collision_probability",
 ]

@@ -5,6 +5,7 @@
     collide2d-torch ztest    ...   # ztest.cu
     collide2d-torch compare  ...   # label-agreement report
     collide2d-torch polylabel ...  # adaptive labels of convex k-gon configurations
+    collide2d-torch movelabel ...  # adaptive labels of trajectories (moving robots)
 
 Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
 after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
@@ -313,17 +314,9 @@ def _run_compare(args: argparse.Namespace) -> int:
     return 0 if report.frac_within_tolerance >= 0.95 else 1
 
 
-def _add_polylabel(sub) -> None:
-    p = sub.add_parser(
-        "polylabel",
-        help="adaptively label convex k-gon configurations",
-    )
-    p.add_argument("--data_in", required=True,
-                   help=".npz with obstacle_verts (C,K,2), position (C,2), "
-                        "pose_theta (C,), std_dev (C,3), robot_verts (K2,2) "
-                        "[optional mask (C,K) bool for padded K-gons]")
-    p.add_argument("--data_out", required=True,
-                   help="output .npz: cp (C,), n_samples (C,), converged (C,)")
+def _add_label_flags(p: argparse.ArgumentParser, impl_help: str = _IMPL_HELP) -> None:
+    """Flags shared by the adaptive-labeling commands (polylabel,
+    movelabel), ported or rejected."""
     p.add_argument("--max_samples", type=int, default=4_000_000,
                    help="per-configuration sample cap")
     p.add_argument("--accuracy_bins", type=float, nargs="+",
@@ -331,16 +324,16 @@ def _add_polylabel(sub) -> None:
     p.add_argument("--bin_accuracy", type=float, nargs="+",
                    default=[1e-4, 1e-3, 1e-2])
     p.add_argument("--impl", default="auto",
-                   choices=["auto", "cuda", "threefry"], help=_IMPL_HELP)
+                   choices=["auto", "cuda", "threefry"], help=impl_help)
     p.add_argument("--schedule", default="reference",
                    choices=["reference", "tuned"],
                    help="convergence-checkpoint schedule: 'reference' or "
                         "'tuned' (one extra rule-of-three checkpoint); both "
                         "keep the same CI guarantees")
     p.add_argument("--prune_sigma", type=float, default=0.0,
-                   help="noise-aware pruning: configurations that cannot "
-                        "touch within this many std-devs get cp=0 without "
-                        "sampling (0 = off)")
+                   help="noise-aware pruning (with a trajectory's motion "
+                        "reach): configurations that cannot touch within this "
+                        "many std-devs get cp=0 without sampling (0 = off)")
     p.add_argument("--ladder", default="eighth",
                    choices=["half", "quarter", "eighth", "sixteenth"],
                    help="repack bucket ladder granularity")
@@ -356,17 +349,60 @@ def _add_polylabel(sub) -> None:
                    help="mid-run checkpoints; not ported yet: only 0 is "
                         "accepted")
     p.add_argument("--verbose", type=_bool_flag, default=False)
-    p.set_defaults(func=_run_polylabel)
 
 
-def _run_polylabel(args: argparse.Namespace) -> int:
+def _label(name: str, args: argparse.Namespace, configs, robot, **cfg_extra):
+    """Run the adaptive driver for a labeling command and write
+    ``args.data_out``: cp, n_samples, converged."""
     import time
 
     import numpy as np
 
     from collide2d_tpu_torch.mc import prng
     from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
-    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, PolygonConfigs
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+
+    cfg = AdaptiveConfig(
+        accuracy_bins=tuple(args.accuracy_bins),
+        bin_accuracy=tuple(args.bin_accuracy),
+        max_samples=args.max_samples,
+        impl=args.impl,
+        prune_sigma=args.prune_sigma,
+        schedule=_schedule_arg(args),
+        ladder=args.ladder,
+        **cfg_extra,
+    )
+    seed = args.seed if args.seed is not None else int(time.time())
+    progress = None
+    if args.verbose:
+        def progress(num_left, n_samples, round):
+            print(f"[{name}] round {round}: left={num_left} "
+                  f"n_samples={n_samples}", flush=True)
+    cp, n_used, done = adaptive_collision_probabilities(
+        prng.PRNGKey(seed), configs, robot, cfg, progress=progress)
+    np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
+    return done
+
+
+def _add_polylabel(sub) -> None:
+    p = sub.add_parser(
+        "polylabel",
+        help="adaptively label convex k-gon configurations",
+    )
+    p.add_argument("--data_in", required=True,
+                   help=".npz with obstacle_verts (C,K,2), position (C,2), "
+                        "pose_theta (C,), std_dev (C,3), robot_verts (K2,2) "
+                        "[optional mask (C,K) bool for padded K-gons]")
+    p.add_argument("--data_out", required=True,
+                   help="output .npz: cp (C,), n_samples (C,), converged (C,)")
+    _add_label_flags(p)
+    p.set_defaults(func=_run_polylabel)
+
+
+def _run_polylabel(args: argparse.Namespace) -> int:
+    import numpy as np
+
+    from collide2d_tpu_torch.mc.estimator import PolygonConfigs
 
     data = np.load(args.data_in)
     for field in ("obstacle_verts", "position", "pose_theta", "std_dev",
@@ -378,26 +414,82 @@ def _run_polylabel(args: argparse.Namespace) -> int:
         data["std_dev"], mask=data["mask"] if "mask" in data else None,
         device=args.device,
     )
-    cfg = AdaptiveConfig(
-        accuracy_bins=tuple(args.accuracy_bins),
-        bin_accuracy=tuple(args.bin_accuracy),
-        max_samples=args.max_samples,
-        impl=args.impl,
-        prune_sigma=args.prune_sigma,
-        schedule=_schedule_arg(args),
-        ladder=args.ladder,
-    )
-    seed = args.seed if args.seed is not None else int(time.time())
-    progress = None
-    if args.verbose:
-        def progress(num_left, n_samples, round):
-            print(f"[polylabel] round {round}: left={num_left} "
-                  f"n_samples={n_samples}", flush=True)
-    cp, n_used, done = adaptive_collision_probabilities(
-        prng.PRNGKey(seed), cfgs, np.asarray(data["robot_verts"], np.float32),
-        cfg, progress=progress)
-    np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
+    done = _label("polylabel", args, cfgs,
+                  np.asarray(data["robot_verts"], np.float32))
     print(f"labeled {cfgs.num} configurations -> {args.data_out} "
+          f"(converged {float(done.mean()):.1%})")
+    return 0
+
+
+def _add_movelabel(sub) -> None:
+    p = sub.add_parser(
+        "movelabel",
+        help="adaptively label TRAJECTORY configurations: P(a moving robot "
+             "hits the noisy obstacle over t in [0, t_max])",
+    )
+    p.add_argument("--data_in", required=True,
+                   help=".npz with position (C,2), pose_theta (C,), obstacle_wh "
+                        "(C,2), std_dev (C,5), velocity (C,2) [optional omega "
+                        "(C,), t_max (C,), robot_wh (2,)]; k-gon trajectories: "
+                        "obstacle_verts (C,K,2) and robot_verts (K2,2) instead "
+                        "of obstacle_wh/robot_wh, with std_dev (C,3) pose noise")
+    p.add_argument("--data_out", required=True,
+                   help="output .npz: cp (C,), n_samples (C,), converged (C,)")
+    p.add_argument("--robot_width", "-w", type=float, default=4.07,
+                   help="robot width when data_in has no robot_wh "
+                        "(generate_dataset.cu:60)")
+    p.add_argument("--robot_height", type=float, default=1.74)
+    p.add_argument("--ca_iters", type=int, default=48,
+                   help="conservative-advancement budget per ROTATING sample "
+                        "(translation-only samples take the exact window)")
+    p.add_argument("--ca_tol", type=float, default=1e-4,
+                   help="contact certification tolerance of the advancement")
+    _add_label_flags(p, _IMPL_HELP + "; trajectory batches: 'auto' runs the "
+                        "fused kernels on translation-only batches and the "
+                        "threefry screened cascade on rotating ones (mc.driver)")
+    p.set_defaults(func=_run_movelabel)
+
+
+def movelabel_inputs(path: str, args: argparse.Namespace, device):
+    """The trajectory batch and robot of a ``movelabel`` input ``.npz``:
+    (`MovingConfigs`, robot (2,)) or (`MovingPolygonConfigs`, robot
+    vertices (K2, 2))."""
+    import numpy as np
+
+    from collide2d_tpu_torch.mc.moving import moving_configs, moving_polygon_configs
+
+    data = np.load(path)
+    poly = "obstacle_verts" in data
+    for field in ("position", "pose_theta",
+                  "obstacle_verts" if poly else "obstacle_wh", "std_dev",
+                  "velocity"):
+        if field not in data:
+            raise SystemExit(f"movelabel: {path} missing '{field}'")
+    motion = dict(omega=data["omega"] if "omega" in data else 0.0,
+                  t_max=data["t_max"] if "t_max" in data else 1.0, device=device)
+    if poly:
+        if "robot_verts" not in data:
+            raise SystemExit("movelabel: polygon input (obstacle_verts present) "
+                             "requires 'robot_verts' (K2, 2)")
+        cfgs = moving_polygon_configs(data["position"], data["pose_theta"],
+                                      data["obstacle_verts"], data["std_dev"],
+                                      data["velocity"], **motion)
+        return cfgs, np.asarray(data["robot_verts"], np.float32)
+    cfgs = moving_configs(data["position"], data["pose_theta"], data["obstacle_wh"],
+                          data["std_dev"], data["velocity"], **motion)
+    robot = (np.asarray(data["robot_wh"], np.float32) if "robot_wh" in data
+             else np.asarray([args.robot_width, args.robot_height], np.float32))
+    return cfgs, robot
+
+
+def _run_movelabel(args: argparse.Namespace) -> int:
+    cfgs, robot = movelabel_inputs(args.data_in, args, args.device)
+    try:
+        done = _label("movelabel", args, cfgs, robot, ca_iters=args.ca_iters,
+                      ca_tol=args.ca_tol)
+    except ValueError as e:  # e.g. --impl cuda on rotating k-gon rows
+        raise SystemExit(f"movelabel: {e}") from e
+    print(f"labeled {cfgs.num} trajectories -> {args.data_out} "
           f"(converged {float(done.mean()):.1%})")
     return 0
 
@@ -409,7 +501,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         prog="collide2d-torch",
         description="2D convex collision engine on PyTorch/CUDA "
                     "(dataset generation / relabeling / validation / "
-                    "k-gon labeling)",
+                    "k-gon and trajectory labeling)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
@@ -417,8 +509,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     _add_ztest(sub)
     _add_compare(sub)
     _add_polylabel(sub)
+    _add_movelabel(sub)
     args = parser.parse_args(argv)
-    if args.command in ("generate", "relabel", "ztest", "polylabel"):
+    if args.command in ("generate", "relabel", "ztest", "polylabel", "movelabel"):
         _reject_unported(parser, args)
     return args
 

@@ -1,18 +1,21 @@
 """Monte Carlo collision-probability estimator with adaptive stopping.
 
-Counterpart of ``collide2d_tpu/mc/estimator.py`` for rectangle `Configs`
-and convex k-gon `PolygonConfigs`. Two ways to draw a round's counts:
+Counterpart of ``collide2d_tpu/mc/estimator.py`` for rectangle `Configs`,
+convex k-gon `PolygonConfigs` and their trajectory forms (`mc.moving`'s
+`MovingConfigs`, `MovingPolygonConfigs`). Two ways to draw a round's counts:
 
 - ``'cuda'`` — the fused kernel (`ops.mc_cuda` for rectangles,
-  `ops.mc_polygon_cuda` for k-gons): Philox streams keyed by (round seed,
-  row uid, sample index). On CUDA tensors the kernel runs; on CPU tensors
-  its plain version gives the same counts.
+  `ops.mc_polygon_cuda` for k-gons, `ops.mc_toi_cuda` and
+  `ops.mc_moving_polygon_cuda` for trajectories): Philox streams keyed by
+  (round seed, row uid, sample index). On CUDA tensors the kernel runs; on
+  CPU tensors its plain version gives the same counts.
 - ``'threefry'`` — the per-draw reference: the JAX package's ``jnp`` path
   (`_counts_chunk` through `_mc_round_threefry`) with the same threefry
   draws, so it reproduces that path's counts up to the rare sample within
   an ulp of a separation boundary.
 
-``'auto'`` resolves to ``'cuda'`` on every device. `_fused_round` runs a
+``'auto'`` resolves to ``'cuda'`` on every device (trajectory batches:
+see `mc_round` and `mc.driver._resolve_trajectory`). `_fused_round` runs a
 run of same-plan rounds, the `mc.stats` convergence test and label
 freezing, as its JAX namesake does inside one program.
 """
@@ -27,8 +30,19 @@ import numpy as np
 import torch
 
 from collide2d_tpu_torch.mc import prng, stats
+from collide2d_tpu_torch.mc.moving import (
+    MovingConfigs,
+    MovingPolygonConfigs,
+    counts_chunk_moving,
+    counts_chunk_moving_polygons,
+)
 from collide2d_tpu_torch.mc.noise import NoiseParams, sampled_obstacle_vertices
-from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda
+from collide2d_tpu_torch.ops import (
+    mc_cuda,
+    mc_moving_polygon_cuda,
+    mc_polygon_cuda,
+    mc_toi_cuda,
+)
 from collide2d_tpu_torch.ops.geometry import rects_from_params, transform_vertices
 from collide2d_tpu_torch.ops.sat import (
     _normalize_padding,
@@ -232,9 +246,20 @@ def _counts_chunk_polygons(keys, configs: PolygonConfigs,
 
 
 def _counts_chunk(keys, configs: Configs, robot_wh: torch.Tensor,
-                  n_lanes: int, use_vertices: bool) -> torch.Tensor:
+                  n_lanes: int, use_vertices: bool, ca_iters: int = 48,
+                  ca_tol: float = 1e-4, screen_impl: str = "auto") -> torch.Tensor:
     """Collision count over ``n_lanes`` threefry samples per configuration
-    (``keys``: a batched key pair, one key per configuration)."""
+    (``keys``: a batched key pair, one key per configuration).
+    ``ca_iters``/``ca_tol`` (the advancement budget and contact tolerance)
+    and ``screen_impl`` (stage A of the rectangle cascade,
+    `mc.moving.counts_chunk_moving`) apply to trajectory batches only."""
+    if isinstance(configs, MovingConfigs):
+        return counts_chunk_moving(keys, configs, robot_wh, n_lanes,
+                                   ca_iters=ca_iters, tol=ca_tol,
+                                   screen_impl=screen_impl)
+    if isinstance(configs, MovingPolygonConfigs):
+        return counts_chunk_moving_polygons(keys, configs, robot_wh, n_lanes,
+                                            ca_iters=ca_iters, tol=ca_tol)
     if isinstance(configs, PolygonConfigs):
         return _counts_chunk_polygons(keys, configs, robot_wh, n_lanes)
     z = prng.normal(keys, (n_lanes, 5))
@@ -263,7 +288,9 @@ def _counts_chunk(keys, configs: Configs, robot_wh: torch.Tensor,
 
 def _mc_round_threefry(key, uids, configs: Configs, robot_wh, chunk_offset: int,
                        n_steps: int, *, step_samples: int,
-                       use_vertices: bool = False) -> torch.Tensor:
+                       use_vertices: bool = False, ca_iters: int = 48,
+                       ca_tol: float = 1e-4,
+                       screen_impl: str = "auto") -> torch.Tensor:
     """Threefry round: ``n_steps`` steps of ``step_samples`` lanes; step i
     draws with tag ``chunk_offset + i`` folded into each uid's key, so a
     row's stream is continuous across rounds whatever the compaction."""
@@ -275,19 +302,45 @@ def _mc_round_threefry(key, uids, configs: Configs, robot_wh, chunk_offset: int,
     for i in range(int(n_steps)):
         step_keys = prng.fold_in_pair(k0, k1, int(chunk_offset) + i)
         counts += _counts_chunk(step_keys, configs, robot_wh, step_samples,
-                                use_vertices)
+                                use_vertices, ca_iters, ca_tol, screen_impl)
     return counts
 
 
 def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
              n_batch: int, step_samples: int = 0, use_vertices: bool = False,
              impl: str = "threefry", shape_noise: bool = True,
-             poly_a_keep: tuple[int, ...] | None = None) -> torch.Tensor:
+             poly_a_keep: tuple[int, ...] | None = None, ca_iters: int = 48,
+             ca_tol: float = 1e-4, screen_impl: str = "auto") -> torch.Tensor:
     """One round: int32 (C,) collision counts of ``n_batch`` samples.
     `PolygonConfigs` batches take ``robot_wh`` as (K2, 2) robot vertices;
     ``poly_a_keep`` is their kernel's robot-axis subset
-    (`ops.mc_polygon_cuda.dedup_robot_axes`; None = worked out here)."""
+    (`ops.mc_polygon_cuda.dedup_robot_axes`; None = worked out here).
+
+    Trajectory batches: `MovingConfigs` run kernel 13 on 'cuda' (its
+    advancement loop on rotating rows unless ``ca_iters == 0``).
+    `MovingPolygonConfigs` run kernel 14 on 'cuda', which has no
+    advancement loop: it needs ``ca_iters == 0``, the caller's assertion
+    that the batch is translation-only (the adaptive driver checks omega
+    once); 'auto' resolves to kernel 14 only then, else to the threefry
+    path."""
+    if isinstance(configs, MovingPolygonConfigs):
+        if impl == "auto":
+            impl = "cuda" if ca_iters == 0 else "threefry"
+        elif impl == "cuda" and ca_iters > 0:
+            raise ValueError(
+                "impl='cuda' supports only TRANSLATION-ONLY MovingPolygonConfigs "
+                "batches (pass ca_iters=0 after verifying omega == 0 everywhere, "
+                "as the adaptive driver does; rotating trajectory k-gons run the "
+                "threefry CA path — use 'threefry' or 'auto')")
     impl = resolve_impl(impl)
+    if impl == "cuda" and isinstance(configs, MovingPolygonConfigs):
+        return mc_moving_polygon_cuda.mc_round_moving_polygons_cuda(
+            key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
+            a_keep=poly_a_keep)
+    if impl == "cuda" and isinstance(configs, MovingConfigs):
+        return mc_toi_cuda.mc_round_moving_cuda(
+            key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
+            shape_noise=shape_noise, ca_iters=ca_iters, tol=ca_tol)
     if impl == "cuda" and isinstance(configs, PolygonConfigs):
         return mc_polygon_cuda.mc_round_polygons_cuda(
             key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
@@ -304,18 +357,21 @@ def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
     return _mc_round_threefry(key, uids, configs, robot_wh, chunk_offset,
                               n_batch // step_samples,
                               step_samples=step_samples,
-                              use_vertices=use_vertices)
+                              use_vertices=use_vertices, ca_iters=ca_iters,
+                              ca_tol=ca_tol, screen_impl=screen_impl)
 
 
 def collision_probability(key, configs: Configs, robot_wh, n_samples: int, *,
                           step_samples: int = 0, use_vertices: bool = False,
-                          impl: str = "threefry") -> torch.Tensor:
-    """Fixed-sample-count Monte Carlo collision probability: float32 (C,)."""
+                          impl: str = "threefry", ca_iters: int = 48,
+                          ca_tol: float = 1e-4) -> torch.Tensor:
+    """Fixed-sample-count Monte Carlo collision probability: float32 (C,).
+    ``ca_iters``/``ca_tol`` apply to trajectory batches."""
     uids = torch.arange(configs.num, dtype=torch.int32,
                         device=configs.position.device)
     counts = mc_round(key, uids, configs, robot_wh, 0, n_batch=int(n_samples),
                       step_samples=step_samples, use_vertices=use_vertices,
-                      impl=impl)
+                      impl=impl, ca_iters=ca_iters, ca_tol=ca_tol)
     return counts.to(torch.float32) / torch.tensor(
         float(n_samples), dtype=torch.float32, device=counts.device)
 
@@ -387,6 +443,12 @@ class AdaptiveConfig:
     # as cp = 0 with zero samples and never enter the loop
     # (ops.broad_phase.possible_collision_mask).
     prune_sigma: float = 0.0
+    # Trajectory batches (mc.moving): the advancement budget and contact
+    # tolerance of rotating samples, and the rectangle cascade's stage A
+    # ('auto' = kernel 15 on CUDA tensors, 'torch' = the torch screen).
+    ca_iters: int = 48
+    ca_tol: float = 1e-4
+    screen_impl: str = "auto"
 
     def __post_init__(self):
         if self.ladder not in ("half", "quarter", "eighth", "sixteenth"):
@@ -444,6 +506,8 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
                  accuracy_bins, bin_accuracy, use_vertices: bool = False,
                  shape_noise: bool = True,
                  poly_a_keep: tuple[int, ...] | None = None,
+                 ca_iters: int = 48, ca_tol: float = 1e-4,
+                 screen_impl: str = "auto",
                  ) -> tuple[_LoopState, torch.Tensor]:
     """``n_rounds`` same-plan rounds with convergence and label freezing.
 
@@ -458,7 +522,8 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
                           int(chunk_offset) + r * int(chunk_step), n_batch=nb,
                           step_samples=step_samples, use_vertices=use_vertices,
                           impl=impl, shape_noise=shape_noise,
-                          poly_a_keep=poly_a_keep)
+                          poly_a_keep=poly_a_keep, ca_iters=ca_iters,
+                          ca_tol=ca_tol, screen_impl=screen_impl)
         n_true = n_true + counts
         n_after = int(n_samples_after) + r * int(nb)
         conv = stats.is_converged(n_after, n_true, accuracy_bins, bin_accuracy)

@@ -6,10 +6,17 @@ Counterpart of ``collide2d_tpu/models/collision_model.py``:
   label (`collide`, the reference's ``convex_collide``, utils.cu:159-184),
   convex k-gon pairs (`collide_polygons`), the geometry queries
   (`distance`, `closest_points`, `contact_manifold`, `time_of_impact`) and
-  the Monte Carlo entry points (`forward`, `forward_pruned`, `label`);
+  the Monte Carlo entry points (`forward`, `forward_pruned`, `label`,
+  `trajectory_probability`);
 - `PolygonCollisionProbabilityModel`, a convex k-gon robot against
   `PolygonConfigs` obstacles: `collide`, `distance`, `closest_points`,
   `contact_manifold` and the same Monte Carlo entry points.
+
+`label` takes static batches and trajectory batches (`mc.moving`'s
+`MovingConfigs` / `MovingPolygonConfigs`) alike; on the card the trajectory
+rounds run kernels 13-15 (``csrc/mc_toi_kernel.cu``,
+``csrc/mc_moving_polygon_kernel.cu``, ``csrc/screen_kernel.cu``) as
+`mc.driver` resolves them.
 
 Inputs and outputs are torch tensors on one device; on a CUDA device the
 labels run the kernels of ``csrc/sat_kernel.cu`` and
@@ -39,6 +46,7 @@ from collide2d_tpu_torch.mc.estimator import (
     collision_probability,
     collision_probability_pruned,
 )
+from collide2d_tpu_torch.mc.moving import trajectory_collision_probability
 from collide2d_tpu_torch.ops import (
     distance,
     distance_cuda,
@@ -275,9 +283,20 @@ class CollisionProbabilityModel:
 
     def label(self, key, configs: Configs,
               cfg: AdaptiveConfig = AdaptiveConfig()):
-        """Adaptive labeling to each bin's CI accuracy. Returns (cp,
+        """Adaptive labeling to each bin's CI accuracy of `Configs` (static
+        labels) or `MovingConfigs` (trajectory labels). Returns (cp,
         n_samples, converged) as host numpy arrays in row order."""
         return adaptive_collision_probabilities(key, configs, self.robot_wh, cfg)
+
+    def trajectory_probability(self, key, configs, n_samples: int, *,
+                               ca_iters: int = 48, tol: float = 1e-4) -> torch.Tensor:
+        """Fixed-budget P(the motion collides) of a `MovingConfigs` batch: the
+        robot starts at each row's (position, pose_theta) and moves with
+        (velocity, omega) for t_max. The threefry path with `forward`'s
+        noise model and streams: at zero motion and ``tol=0`` the estimates
+        are bitwise `forward`'s. float32 (C,)."""
+        return trajectory_collision_probability(key, configs, self.robot_wh,
+                                                n_samples, ca_iters=ca_iters, tol=tol)
 
 
 class PolygonCollisionProbabilityModel:
@@ -353,9 +372,20 @@ class PolygonCollisionProbabilityModel:
 
     def label(self, key, configs: PolygonConfigs,
               cfg: AdaptiveConfig = AdaptiveConfig()):
-        """Adaptive labeling to each bin's CI accuracy. Returns (cp,
-        n_samples, converged) as host numpy arrays in row order."""
+        """Adaptive labeling to each bin's CI accuracy of `PolygonConfigs`
+        (static labels) or `MovingPolygonConfigs` (trajectory labels).
+        Returns (cp, n_samples, converged) as host numpy arrays in row
+        order."""
         return adaptive_collision_probabilities(key, configs, self.robot_verts, cfg)
+
+    def trajectory_probability(self, key, configs, n_samples: int, *,
+                               ca_iters: int = 48, tol: float = 1e-4) -> torch.Tensor:
+        """Fixed-budget P(the motion collides) of a `MovingPolygonConfigs`
+        batch, on the threefry path with `forward`'s noise model and
+        streams (at zero motion the per-sample decisions are `forward`'s).
+        float32 (C,)."""
+        return trajectory_collision_probability(key, configs, self.robot_verts,
+                                                n_samples, ca_iters=ca_iters, tol=tol)
 
 
 def example_polygon_configs(n: int = 8, k: int = 6, seed: int = 0,

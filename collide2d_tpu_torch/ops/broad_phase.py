@@ -1,8 +1,7 @@
 """Broad phase: AABB overlap, the noise-aware pruning mask, and the
 compacted k-gon narrow phase.
 
-Counterpart of ``collide2d_tpu/ops/broad_phase.py`` (the trajectory
-branch of `possible_collision_mask` comes with its slice). Same float32
+Counterpart of ``collide2d_tpu/ops/broad_phase.py``. Same float32
 operation order as the JAX functions:
 
 - `candidate_mask` — AABB overlap of polygon pairs, a necessary condition
@@ -104,7 +103,10 @@ def possible_collision_mask(configs, robot_wh,
     `PolygonConfigs` (``robot_wh`` = (K2, 2) robot vertices; the
     circumscribed radii are the largest vertex norms, exact for rotation
     about the origin, which is how the noise model rotates both bodies).
-    Returns bool (C,) on the configs' device."""
+    Trajectory batches (`mc.moving`, with ``velocity`` and ``t_max``) add
+    the distance the robot's centre travels, |v| t_max; rotation about its
+    own centre never grows its circumscribed ball. Returns bool (C,) on
+    the configs' device."""
     robot = torch.as_tensor(robot_wh, dtype=torch.float32,
                             device=configs.position.device)
     sd = configs.std_dev
@@ -118,6 +120,9 @@ def possible_collision_mask(configs, robot_wh,
         oh = configs.obstacle_wh[:, 1].abs() + sigma_margin * sd[:, 4]
         r_obs = 0.5 * torch.hypot(ow, oh)
     reach = sigma_margin * torch.hypot(sd[:, 0], sd[:, 1])
+    if hasattr(configs, "velocity"):
+        reach = reach + (torch.hypot(configs.velocity[:, 0], configs.velocity[:, 1])
+                         * configs.t_max.abs())
     dist = torch.hypot(configs.position[:, 0], configs.position[:, 1])
     return dist <= r_rob + r_obs + reach
 

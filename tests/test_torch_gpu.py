@@ -419,3 +419,148 @@ def test_query_models_launch_the_kernels(cuda):
     with pytest.raises(ValueError, match="impl='torch'"):
         model.distance(pos.clone().requires_grad_(True), th, wh, impl="cuda")
     assert distance_cuda.LAUNCHES["obb_distance"] == 1
+
+
+# ---- the trajectory kernels (13, 14, 15) ---------------------------------
+# Kernel 13 and 14 share kernel 1's / kernel 7's stream with their plain
+# versions; sincosf, log1pf and the advancement's tolerance band can flip
+# only a sample within an ulp of a boundary or of tol: counts may differ by
+# at most 1e-5 of all samples. Kernel 14 at zero velocity equals kernel 7
+# bit for bit. Kernel 15 rounds every operation as its plain version:
+# flags may differ on at most 1e-5 of lanes (cos/sin of the card), t0 is
+# equal where they agree.
+
+
+def _moving_rects(cuda, c, seed, rotating_share=0.5, shape_noise=True):
+    from collide2d_tpu_torch.mc.moving import moving_configs
+
+    rng = np.random.default_rng(seed)
+    sd = rng.uniform(0, 0.4, (c, 5)).astype(np.float32)
+    if not shape_noise:
+        sd[:, 3:] = 0.0
+    omega = rng.uniform(-0.5, 0.5, c).astype(np.float32)
+    omega[rng.uniform(size=c) >= rotating_share] = 0.0
+    return moving_configs(rng.uniform(-6, 6, (c, 2)), rng.uniform(0, 2 * np.pi, c),
+                          rng.uniform(0.5, 5, (c, 2)), sd, rng.uniform(-2, 2, (c, 2)),
+                          omega, rng.uniform(0.5, 3, c), device=cuda)
+
+
+@pytest.mark.parametrize("shape_noise,ca_iters", [(True, 48), (False, 48), (True, 0)])
+def test_mc_toi_kernel_matches_plain(cuda, shape_noise, ca_iters):
+    from collide2d_tpu_torch.ops import mc_toi_cuda
+
+    c, n = 1024, 4096
+    params = mc_toi_cuda.pack_mc_toi_params(
+        _moving_rects(cuda, c, 30, shape_noise=shape_noise), ROBOT)
+    uids = torch.from_numpy(np.random.default_rng(31).permutation(4 * c)[:c]
+                            .astype(np.int32)).to(cuda)
+    kw = dict(shape_noise=shape_noise, ca_iters=ca_iters, tol=1e-4)
+    before = mc_toi_cuda.LAUNCHES
+    got = mc_toi_cuda.mc_toi_counts(params, uids, SEED, n, **kw)
+    want = mc_toi_cuda.mc_toi_counts_plain(params, uids, SEED, n,
+                                           max_elems=1 << 22, **kw)
+    torch.cuda.synchronize()
+    assert mc_toi_cuda.LAUNCHES == before + 1
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+    # split and compaction leave the counts unchanged
+    first = mc_toi_cuda.mc_toi_counts(params, uids, SEED, 1000, **kw)
+    second = mc_toi_cuda.mc_toi_counts(params, uids, SEED, n - 1000, offset=1000, **kw)
+    assert torch.equal(first + second, got)
+    keep = torch.arange(0, c, 3, device=cuda)
+    assert torch.equal(mc_toi_cuda.mc_toi_counts(params[keep].contiguous(),
+                                                 uids[keep].contiguous(), SEED, n,
+                                                 **kw), got[keep])
+
+
+def _moving_polygons(cuda, c, seed, k=6, still=False):
+    from collide2d_tpu_torch.mc.moving import moving_polygon_configs
+
+    b = example_polygon_configs(c, k=k, seed=seed, device=cuda)
+    rng = np.random.default_rng(seed)
+    vel = np.zeros((c, 2), np.float32) if still else rng.uniform(-2, 2, (c, 2))
+    return b, moving_polygon_configs(b.position, b.pose_theta, b.obstacle_verts,
+                                     b.std_dev, vel, 0.0, rng.uniform(0.5, 3, c),
+                                     device=cuda)
+
+
+@pytest.mark.parametrize("a_keep", [(0, 1), (0, 1, 2, 3)])
+def test_mc_moving_polygon_kernel_matches_plain(cuda, a_keep):
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
+
+    c, n = 2048, 8192
+    _, configs = _moving_polygons(cuda, c, 32)
+    params = mmp.pack_moving_polygon_mc_params(configs, ROBOT_4GON, a_keep)
+    uids = torch.arange(c, dtype=torch.int32, device=cuda)
+    dims = dict(k=6, k2=4, k2a=len(a_keep))
+    before = mmp.LAUNCHES
+    got = mmp.mc_moving_poly_counts(params, uids, SEED, n, **dims)
+    want = mmp.mc_moving_poly_counts_plain(params, uids, SEED, n, max_elems=1 << 22,
+                                           **dims)
+    torch.cuda.synchronize()
+    assert mmp.LAUNCHES == before + 1
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+
+
+def test_mc_moving_polygon_kernel_at_zero_velocity_is_kernel_7(cuda):
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
+
+    c, n = 2048, 8192
+    static, configs = _moving_polygons(cuda, c, 33, k=8, still=True)
+    uids = torch.arange(c, dtype=torch.int32, device=cuda)
+    dims = dict(k=8, k2=4, k2a=2)
+    moving = mmp.mc_moving_poly_counts(
+        mmp.pack_moving_polygon_mc_params(configs, ROBOT_4GON, (0, 1)), uids, SEED, n,
+        **dims)
+    still = mc_polygon_cuda.mc_poly_counts(
+        mc_polygon_cuda.pack_polygon_mc_params(static, ROBOT_4GON, (0, 1)), uids,
+        SEED, n, **dims)
+    assert torch.equal(moving, still) and 0 < int(still.sum()) < c * n
+
+
+def test_screen_kernel_matches_plain(cuda):
+    from collide2d_tpu_torch.ops import screen_cuda
+
+    c, s = 1024, 512
+    configs = _moving_rects(cuda, c, 34, rotating_share=1.0)
+    z = torch.randn((c, s, 5), generator=torch.Generator(device=cuda).manual_seed(35),
+                    device=cuda)
+    params = screen_cuda.pack_screen_params(configs, ROBOT)
+    before = screen_cuda.LAUNCHES
+    flags, t0 = screen_cuda.rotating_screen(z, params)
+    want_f, want_t = screen_cuda.rotating_screen_plain(z, params)
+    torch.cuda.synchronize()
+    assert screen_cuda.LAUNCHES == before + 1
+    agree = flags == want_f
+    assert int((~agree).sum()) <= 1e-5 * c * s
+    assert torch.equal(t0[agree], want_t[agree])
+    for bit in (1, 2, 4):
+        assert 0 < int(((want_f & bit) != 0).sum()) < c * s
+
+
+def test_movelabel_on_cuda_launches_the_trajectory_kernels(cuda, tmp_path):
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda, mc_toi_cuda, screen_cuda
+
+    rects = _moving_rects(cuda, 512, 36, rotating_share=0.0)
+    fields = {f: getattr(rects, f).cpu().numpy() for f in rects._fields}
+    fields["position"] = fields["position"] * 0.5
+    np.savez(tmp_path / "trans.npz", **fields)
+    fields["omega"] = np.full(512, 0.3, np.float32)
+    np.savez(tmp_path / "rot.npz", **fields)
+    _, polys = _moving_polygons(cuda, 512, 37)
+    np.savez(tmp_path / "poly.npz", robot_verts=ROBOT_4GON,
+             **{f: getattr(polys, f).cpu().numpy() for f in polys._fields})
+    cap = ["--max_samples", "40000", "--seed", "3", "--device", "cuda"]
+    for name, extra, kernel in (("trans", [], "13"), ("rot", [], "15"),
+                                ("rot", ["--impl", "cuda"], "13"), ("poly", [], "14")):
+        for mod in (mc_toi_cuda, mc_moving_polygon_cuda, screen_cuda):
+            mod.reset_launches()
+        out = tmp_path / f"{name}_{kernel}.npz"
+        assert cli.main(["movelabel", "--data_in", str(tmp_path / f"{name}.npz"),
+                         "--data_out", str(out), *cap, *extra]) == 0
+        launches = {"13": mc_toi_cuda.LAUNCHES, "14": mc_moving_polygon_cuda.LAUNCHES,
+                    "15": screen_cuda.LAUNCHES}
+        assert launches[kernel] > 0, (name, extra, launches)
+        with np.load(out) as d:
+            assert np.isfinite(d["cp"]).all() and 0 < d["cp"].mean() < 1
