@@ -14,8 +14,9 @@ raises, and the script then exits non-zero without printing a result):
    (csrc/sat_kernel.cu), the k-gon SAT kernel (csrc/polygon_kernel.cu),
    the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu), the
    query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
-   csrc/toi_kernel.cu) and the trajectory kernels (csrc/mc_toi_kernel.cu,
-   csrc/mc_moving_polygon_kernel.cu, csrc/screen_kernel.cu);
+   csrc/toi_kernel.cu), the trajectory kernels (csrc/mc_toi_kernel.cu,
+   csrc/mc_moving_polygon_kernel.cu, csrc/screen_kernel.cu) and the scene
+   raycast kernel (csrc/raycast_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -27,8 +28,14 @@ raises, and the script then exits non-zero without printing a result):
    cp in [0, 1], kernel launches > 0, zero-probability share in
    [0.5, 0.7]; configs/s and mean samples per configuration;
 4. the acceptance bar: ``ztest --cps_only true`` with another seed on the
-   first 16,384 rows of batch 0, then ``compare``: mean |d| <= 1e-3 and a
-   share within +-0.005 of at least 0.93;
+   first 32,768 rows of batch 0, then ``compare`` (its exit code printed):
+   mean |d| <= 1e-3 and a share within +-0.005 of at least 0.93; beside
+   them the binomial prediction of both (`_expected_agreement` on each
+   row's sample counts, recovered from the labels by the stopping rule:
+   `mc.schedule_sim.stopping_counts`), and the phase fails when the share
+   lies more than 4 sd below it or the mean |d| more than 4 sd above it (a
+   bias, not noise); whether 0.95 held, and whether the prediction meets
+   it;
 5. stream invariance: ``generate -n 2 -b 16384`` with
    ``--overlap_batches 1`` and ``3`` at one seed give bitwise-equal files;
 6. the SAT kernels at N = 2^23 pairs (the JAX bench's size), inputs drawn
@@ -133,6 +140,28 @@ raises, and the script then exits non-zero without printing a result):
    on at most 1e-5 of lanes, t0 equal where they agree; kernel ms, plain
    ms, lanes/s; then one threefry step of the cascade at that shape, whole
    (kernel 15 or the torch screen) and its draws alone (host clock).
+19. kernel 11 (scene raycast): ``scene_raycast(impl='auto')`` on the JAX
+   bench's scene (utils/benchmarks.py:1963-1976: 2^22 rays, origins
+   U(-50, 50)^2, directions standard normal, 64 regular 8-gons in a 40-side
+   box) and on a single ray launches it; then the kernel against its plain
+   version at t_max inf and 4, on 4,096 shapes (past one shared-memory
+   tile) x 2^16 rays with the default tile and a 61-shape tile (equal), and
+   on 1,000 masked mixed-k shapes: t, index or normal differ on at most
+   1e-5 of the rays (bitwise expected); kernel ms, plain ms, rays/s, the
+   bound, the kernel's share of it, and the bound with the division at its
+   SASS count and by the Pallas estimate;
+20. the dense scene queries at `bench_scene`'s shape (N = 2,048 8-gons in a
+   40-side box, row tile 64): kernel-6 and kernel-10 launches > 0; the
+   matrix equals `ops.sat.sat_polygons` on the same card tensors bit for
+   bit, symmetric with a false diagonal; the pairs (capacity 16,384) equal
+   the matrix's upper triangle; the manifolds against kernel 10's plain
+   version and `ops.manifold` (`_scene_manifold_check`); ms of each call,
+   the matrix's pairs/s (N^2 / time) and kernel 6's share of it;
+21. the swept query at `bench_scene_swept`'s shape (N = 32,768, window
+   128, capacity 16,384, area side 2,560): the certificate false, the
+   pairs equal the dense query's, the swept manifolds as in phase 20, a
+   window of 4 fails closed (count 0, zero pairs, the flag raised);
+   dense-equivalent (N^2 / time) and narrow (N * window / time) pairs/s.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path, with ``bound_ms``: the larger
@@ -140,12 +169,15 @@ of the bytes the function must move over 3.35 TB/s and the FP32
 operations its source writes for these inputs over 67 TFLOP/s (an FMA
 counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
 integer Philox rounds are not counted, so the Monte Carlo bounds are
-floors; the query kernels count an IEEE ``sqrtf`` or division as one
-operation and leave out ``sincosf``; kernel 12's and 13's work depends on
-the data, so their bounds count the distance evaluations this run's lanes
-take; kernel 15's is the larger of 28 bytes a lane and its counted
-operations). No single PyTorch call computes any of these functions, so
-``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
+floors; the query kernels, kernel 11 among them (`raycast_ops`, 32 bytes
+a ray), count an IEEE ``sqrtf`` or division as one operation and leave
+out ``sincosf``; phase 19 also prints kernel 11's bound with its division
+at the 7 instructions of its SASS fast path; kernel 12's and 13's work
+depends on the data, so their bounds count the distance evaluations this
+run's lanes take; kernel 15's is the larger of 28 bytes a lane and its
+counted operations). No single PyTorch call computes any of these
+functions, so ``library_ms`` is null. The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -259,7 +291,7 @@ def phase_build():
     t = time.monotonic()
     names = ("mc_kernel", "sat_kernel", "polygon_kernel", "mc_polygon_kernel",
              "distance_kernel", "manifold_kernel", "toi_kernel", "mc_toi_kernel",
-             "mc_moving_polygon_kernel", "screen_kernel")
+             "mc_moving_polygon_kernel", "screen_kernel", "raycast_kernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(cuda_build.build, names))
     for name in names:
@@ -372,13 +404,20 @@ def phase_main_path(work: Path) -> int:
     return launches
 
 
-def phase_acceptance(work: Path) -> None:
+ACCEPT_ROWS = 32_768
+
+
+def phase_acceptance(work: Path) -> dict:
+    """Phase 4: ``ztest`` with another seed on the first rows of batch 0,
+    ``compare``, and the binomial prediction of the agreement."""
     from collide2d_tpu_torch import cli
     from collide2d_tpu_torch.data.validate import compare_labels
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+    from collide2d_tpu_torch.mc.schedule_sim import stopping_counts
 
     t = time.monotonic()
     data = work / "main"
-    rows = np.load(data / "0.npy")[:16_384]
+    rows = np.load(data / "0.npy")[:ACCEPT_ROWS]
     head, inp, out = (work / f"ztest_{x}.npy" for x in ("head", "in", "cps"))
     np.save(head, rows)
     np.save(inp, rows[:, [0, 1, 3, 4]].astype(np.float32))
@@ -388,14 +427,35 @@ def phase_acceptance(work: Path) -> None:
         "--cps_only", "true", "--seed", "8"])
     if rc != 0:
         raise RuntimeError(f"ztest exited {rc}")
-    report = compare_labels(rows, np.load(out))
-    if report.mean_abs_diff > 1e-3 or report.frac_within_tolerance < 0.93:
-        raise RuntimeError(f"acceptance bar missed: {report}")
+    other = np.load(out)
+    report = compare_labels(rows, other)
+    share, mean_d = report.frac_within_tolerance, report.mean_abs_diff
+    # Neither file keeps per-row counts: derive them from the stopping rule
+    # on generate's cadence (1,000 a round to 20,000, then 100,000) and
+    # ztest's fixed 10,000, both rounded up to the kernel's 64-sample granule.
+    bins = dict(accuracy_bins=tuple(np.load(data / "meta" / "accuracy_bins.npy").tolist()),
+                bin_accuracy=tuple(np.load(data / "meta" / "bin_accuracy.npy").tolist()))
+    n_gen = stopping_counts(rows[:, 2], AdaptiveConfig(**bins))
+    n_zt = stopping_counts(other, AdaptiveConfig(**bins, fixed_batch=10_000))
+    exp = _expected_agreement(rows[:, 2], n_gen, other, n_zt)
     rc, _ = _quiet(cli.main, ["compare", str(head), str(out)])
-    _line("4 ztest+compare", time.monotonic() - t, rows=16_384,
-          mean_abs_d=f"{report.mean_abs_diff:.3e}",
-          share_within_tol=f"{report.frac_within_tolerance:.4f}",
-          tol=report.tolerance, compare_exit=rc)
+    fields = dict(
+        rows=ACCEPT_ROWS, mean_abs_d=f"{mean_d:.3e}",
+        predicted_mean_abs_d=f"{exp['mean_d']:.3e}+-{exp['mean_d_sd']:.1e}",
+        share_within_tol=f"{share:.4f}",
+        predicted_share=f"{exp['share']:.4f}+-{exp['share_sd']:.4f}",
+        share_sd_from_prediction=f"{(share - exp['share']) / exp['share_sd']:.2f}",
+        share_cp_in_0p1_0p9=f"{exp['mid']:.4f}",
+        mean_samples_generate=f"{n_gen.mean():.0f}", mean_samples_ztest=f"{n_zt.mean():.0f}",
+        counts="stopping_rule", tol=report.tolerance, compare_exit=rc,
+        bar_0p95_held=share >= 0.95, prediction_meets_0p95=exp["share"] >= 0.95)
+    if mean_d > 1e-3 or share < 0.93:
+        raise RuntimeError(f"acceptance bar missed: {report} {fields}")
+    if (share < exp["share"] - 4 * exp["share_sd"]
+            or mean_d > exp["mean_d"] + 4 * exp["mean_d_sd"]):
+        raise RuntimeError(f"a bias beyond 4 sd of the binomial prediction: {fields}")
+    _line("4 ztest+compare", time.monotonic() - t, **fields)
+    return fields
 
 
 def phase_invariance(work: Path) -> None:
@@ -934,12 +994,12 @@ def _rect_rows(n: int, seed: int):
     return pos, theta, wh, g
 
 
-def _bench_polygons(g, n: int, k: int) -> torch.Tensor:
+def _bench_polygons(g, n: int, k: int, area_side: float = 10.0) -> torch.Tensor:
     """The JAX bench's k-gons (utils/benchmarks.py:186-197) on the card:
     regular k-gons of radius U(0.5, 1) at a random rotation, centres
-    U(0, 10)^2."""
+    U(0, area_side)^2."""
     dev = torch.device("cuda")
-    centers = torch.rand((n, 1, 2), generator=g, device=dev) * 10.0
+    centers = torch.rand((n, 1, 2), generator=g, device=dev) * area_side
     radius = torch.rand((n, 1, 1), generator=g, device=dev) * 0.5 + 0.5
     rot = torch.rand((n, 1), generator=g, device=dev) * (2 * math.pi)
     ang = rot + torch.arange(k, device=dev, dtype=torch.float32) * (2 * math.pi / k)
@@ -1847,6 +1907,294 @@ def phase_screen() -> dict:
                 bound_ms=bound, bound_by=bound_by)
 
 
+RAYS, RAY_SHAPES, RAY_K = 1 << 22, 64, 8
+# FP32 operations written in csrc/raycast_kernel.cu. A (ray, face): no and
+# nd 6, num 1, the divisor's test and select 2, the division 1, the parallel
+# test 2, lo and hi 6, the entry's test and 3 selects 4, the exit's min 1.
+# A (ray, shape): the hit's 4 tests, the inside test, max and select 2, the
+# argmin's test and 5 updates. `bound_ms` counts the IEEE division as one
+# operation, as the other query kernels count theirs; the secondary
+# `bound_ms_div_sass` counts it at the RAYCAST_DIV_SASS instructions of its
+# fast path in the SASS (MUFU.RCP, FCHK and the FFMA refinement,
+# `cuobjdump -sass` of the built library). A ray moves 32 bytes: origin and
+# direction in (16), t, index and normal out (16).
+RAYCAST_FACE_OPS, RAYCAST_SHAPE_OPS, RAYCAST_DIV_SASS = 23, 13, 7
+RAYCAST_RAY_BYTES = 32
+RAYCAST_PALLAS_FACE_OPS = 16  # the Pallas cost estimate (raycast_pallas.py:138)
+SCENE_N, SCENE_CAPACITY = 2048, 16_384
+# The most face ties whose manifold may choose other faces than
+# ops.manifold: the larger of a handful and 5% of the ties.
+TIE_OTHER_FACES_MIN, TIE_OTHER_FACES_SHARE = 3, 0.05
+SWEPT_N, SWEPT_WINDOW = 32_768, 128
+
+
+def raycast_ops(rays: int, shapes: int, kp: int, div_ops: int = 1) -> int:
+    return rays * shapes * (kp * (RAYCAST_FACE_OPS - 1 + div_ops) + RAYCAST_SHAPE_OPS)
+
+
+def _ray_agreement(got, want):
+    """(rays whose t, index or normal differ, largest |difference| of t and
+    normal where both hit)."""
+    t, idx, nrm = got
+    w_t, w_idx, w_nrm = want
+    differ = (t != w_t) | (idx != w_idx) | (nrm != w_nrm).any(-1)
+    both = torch.isfinite(t) & torch.isfinite(w_t)
+    err = max(float((t - w_t)[both].abs().max()) if bool(both.any()) else 0.0,
+              float((nrm - w_nrm).abs().max()))
+    return int(differ.sum()), err
+
+
+def phase_raycast() -> dict:
+    """Phase 19: kernel 11 on `scene_raycast(impl='auto')` and against its
+    plain version; returns its entry of the kernels line."""
+    from collide2d_tpu_torch.ops import raycast, raycast_cuda
+
+    t = time.monotonic()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    # the JAX bench (utils/benchmarks.py:1963-1976): 64 regular 8-gons in a
+    # 40-side box, origins U(-50, 50)^2, directions standard normal
+    polys = _bench_polygons(g, RAY_SHAPES, RAY_K, area_side=40.0)
+    origin = torch.rand((RAYS, 2), generator=g, device=dev) * 100.0 - 50.0
+    direction = torch.randn((RAYS, 2), generator=g, device=dev)
+    raycast_cuda.reset_launches()
+    main_out = raycast.scene_raycast(origin, direction, polys)
+    one = raycast.scene_raycast(origin[7], direction[7], polys)
+    torch.cuda.synchronize()
+    launches = raycast_cuda.LAUNCHES
+    if launches < 2:
+        raise RuntimeError(f"scene_raycast launched kernel 11 {launches} times for 2 calls")
+    if not (one[0] == main_out[0][7] and one[1] == main_out[1][7]):
+        raise RuntimeError("a single ray differs from the same ray in the batch")
+    _line("19 scene_raycast", time.monotonic() - t, rays=RAYS, shapes=RAY_SHAPES,
+          k=RAY_K, launches=launches,
+          hit_share=f"{float(torch.isfinite(main_out[0]).float().mean()):.4f}")
+    del main_out
+
+    result = {"launches": launches, "max_abs_err": 0.0}
+    g2 = torch.Generator(device=dev).manual_seed(20)
+    big = _bench_polygons(g2, 4096, RAY_K, area_side=320.0)
+    mixed = _bench_polygons(g2, 1000, RAY_K, area_side=40.0)
+    mask = torch.arange(RAY_K, device=dev)[None] < torch.randint(
+        3, RAY_K + 1, (1000, 1), generator=g2, device=dev)
+    mixed = torch.where(mask[..., None], mixed, 1e3)  # garbage padding, masked out
+    r16 = 1 << 16
+    o16 = torch.rand((r16, 2), generator=g2, device=dev) * 340.0 - 10.0
+    d16 = torch.randn((r16, 2), generator=g2, device=dev)
+    # (case, table, origin, direction, t_max, tile_shapes)
+    cases = (("bench", raycast_cuda.pack_scene_tables(polys), origin, direction, math.inf, 0),
+             ("bench_tmax4", None, origin, direction, 4.0, 0),
+             ("tiled_4096", raycast_cuda.pack_scene_tables(big), o16, d16, math.inf, 0),
+             ("tiled_4096_tile61", None, o16, d16, math.inf, 61),
+             ("mixed_k_mask", raycast_cuda.pack_scene_tables(mixed, mask), origin[:r16],
+              direction[:r16], math.inf, 0))
+    table, first_tile = None, None
+    for tag, tab, o, d, t_max, tile in cases:
+        t = time.monotonic()
+        table = table if tab is None else tab
+        got = raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max, tile_shapes=tile)
+        want = raycast_cuda.scene_raycast_plain(o, d, table, t_max=t_max)
+        torch.cuda.synchronize()
+        differ, err = _ray_agreement(got, want)
+        r = o.shape[0]
+        if differ > 1e-5 * r:
+            raise RuntimeError(f"scene_raycast ({tag}): {differ} rays differ from the "
+                               f"plain version (max |d| {err})")
+        if tag == "tiled_4096":
+            first_tile = got
+        if tag == "tiled_4096_tile61" and not all(map(torch.equal, got, first_tile)):
+            raise RuntimeError("kernel 11 depends on its shared-memory tile size")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        fields = dict(case=tag, rays=r, shapes=table.shape[0], faces=table.shape[1],
+                      t_max=t_max, rays_differ=differ, max_abs_diff=f"{err:.3e}",
+                      bitwise_equal=all(map(torch.equal, got, want)),
+                      hit_share=f"{float(torch.isfinite(want[0]).float().mean()):.4f}")
+        if tag in ("bench", "tiled_4096"):
+            ms, plain_ms = _compare(
+                lambda: raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max),
+                lambda: raycast_cuda.scene_raycast_plain(o, d, table, t_max=t_max))
+            shapes, kp = table.shape[0], table.shape[1]
+            nbytes = RAYCAST_RAY_BYTES * r
+            bound, bound_by = _bound_ms(nbytes, raycast_ops(r, shapes, kp))
+            div_sass = _bound_ms(nbytes, raycast_ops(r, shapes, kp, RAYCAST_DIV_SASS))[0]
+            pallas = _bound_ms(nbytes, RAYCAST_PALLAS_FACE_OPS * r * shapes * kp)[0]
+            fields.update(
+                kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+                bound_by=bound_by, share_of_bound=f"{bound / ms:.3f}",
+                bound_ms_div_sass=f"{div_sass:.4f}",
+                bound_ms_pallas_estimate=f"{pallas:.4f}",
+                kernel_rays_per_s=f"{r / ms * 1e3:.4e}",
+                plain_rays_per_s=f"{r / plain_ms * 1e3:.4e}")
+            if tag == "bench":
+                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        _line("19 scene_raycast kernel", time.monotonic() - t, **fields)
+        del got, want
+    return result
+
+
+def _scene_manifold_check(tag: str, man, polys) -> dict:
+    """The manifolds of a scene call on its listed pairs, against kernel
+    10's plain version (counts differ on at most 1e-5 of the pairs, values
+    within 1e-5; bitwise expected) and against `ops.manifold` on the same
+    card tensors, with face ties allowed: a pair whose two best face
+    separations (over both bodies) lie within 16 ulps of its largest
+    |coordinate| may choose another reference face (its count or normal
+    then differs); every other pair has the same count, the normal within
+    1e-5 and points and depths within 1e-5 of max(1, that coordinate). The
+    two round the unit normal differently, and at the swept scene's
+    coordinates of up to 2,560 an ulp is 2.4e-4. Rounding moves a tie's
+    choice now and then, never most of them: more than
+    `TIE_OTHER_FACES_MIN` or `TIE_OTHER_FACES_SHARE` of the ties choosing
+    other faces fails."""
+    from collide2d_tpu_torch.ops import manifold_cuda, polygon_cuda
+    from collide2d_tpu_torch.ops.distance_cuda import pad_pairs
+    from collide2d_tpu_torch.ops.manifold import _face_separations, polygon_contact_manifold
+
+    pairs, count = man[0], int(man[1])
+    got = tuple(a[:count] for a in man[2:6])
+    p1 = polys.index_select(0, pairs[:count, 0].long())
+    p2 = polys.index_select(0, pairs[:count, 1].long())
+    a, b = pad_pairs(p1, p2, 8 * polygon_cuda.LANE_BLOCK)
+    plain = manifold_cuda.unpack_manifold(manifold_cuda.polygon_manifold_plain(
+        polygon_cuda.pack_polygons(a), polygon_cuda.pack_polygons(b), 8, 8), count)
+    differ_plain, err_plain = _manifold_diff(got, plain)
+
+    scale = torch.maximum(p1.abs().amax((1, 2)), p2.abs().amax((1, 2))).clamp(min=1.0)
+    seps = torch.cat([_face_separations(p1, p2)[0], _face_separations(p2, p1)[0]], -1)
+    top = seps.topk(2, dim=-1).values
+    tie = top[:, 0] - top[:, 1] <= 16 * scale * 2.0 ** -23
+    want = polygon_contact_manifold(p1, p2)
+    other = (got[0] != want[0]) | ((got[3] - want[3]).abs().amax(-1) > 1e-5)
+    keep = ~other
+    valid = (torch.arange(2, device=polys.device)[None] < want[0][:, None]) & keep[:, None]
+    rel = torch.cat([((got[1] - want[1]).abs().amax(-1) / scale[:, None])[valid],
+                     ((got[2] - want[2]).abs() / scale[:, None])[valid]])
+    untied, err = int((other & ~tie).sum()), float(rel.max()) if rel.numel() else 0.0
+    ties, at_ties = int(tie.sum()), int((other & tie).sum())
+    if differ_plain > 1e-5 * count or err_plain > 1e-5 or untied or err > 1e-5:
+        raise RuntimeError(f"{tag}: manifold counts differ on {differ_plain} pairs from kernel "
+                           f"10's plain version (values by {err_plain}); {untied} pairs "
+                           f"without a face tie chose other faces than ops.manifold, values "
+                           f"differ by {err} of their scale")
+    if at_ties > max(TIE_OTHER_FACES_MIN, TIE_OTHER_FACES_SHARE * ties):
+        raise RuntimeError(f"{tag}: {at_ties} of {ties} face ties chose other faces than "
+                           f"ops.manifold: a face choice that rounding does not explain")
+    if count and not bool((got[0] > 0).all()):
+        raise RuntimeError(f"{tag}: a listed pair has no contact point")
+    return dict(manifold_counts_differ_plain=differ_plain,
+                manifold_max_abs_diff_plain=f"{err_plain:.3e}",
+                manifold_face_ties=ties,
+                manifold_tie_share=f"{ties / max(count, 1):.4f}",
+                manifold_other_faces_at_ties_torch=at_ties,
+                manifold_max_rel_diff_torch=f"{err:.3e}")
+
+
+def _scene_counts():
+    from collide2d_tpu_torch.ops import manifold_cuda, polygon_cuda
+
+    torch.cuda.synchronize()
+    return polygon_cuda.LAUNCHES, manifold_cuda.LAUNCHES
+
+
+def _reset_scene_counts() -> None:
+    from collide2d_tpu_torch.ops import manifold_cuda, polygon_cuda
+
+    polygon_cuda.reset_launches()
+    manifold_cuda.reset_launches()
+
+
+def phase_scene_dense() -> None:
+    """Phase 20: the dense scene queries at `bench_scene`'s shape."""
+    from collide2d_tpu_torch.ops import scene
+    from collide2d_tpu_torch.ops.sat import sat_polygons
+
+    t = time.monotonic()
+    n = SCENE_N
+    g = torch.Generator(device="cuda").manual_seed(21)
+    polys = _bench_polygons(g, n, 8, area_side=40.0)  # utils/benchmarks.py:1837-1844
+    _reset_scene_counts()
+    m = scene.scene_collision_matrix(polys, row_tile=64)
+    pairs, count, overflow = scene.scene_colliding_pairs(polys, capacity=SCENE_CAPACITY)
+    man = scene.scene_contact_manifolds(polys, capacity=SCENE_CAPACITY)
+    k6, k10 = _scene_counts()
+    if k6 <= 0 or k10 <= 0:
+        raise RuntimeError(f"the dense scene path launched kernel 6 {k6} and kernel 10 "
+                           f"{k10} times")
+    eye = torch.eye(n, dtype=torch.bool, device="cuda")
+    want = (sat_polygons(polys[:, None], polys[None]) == 1) & ~eye
+    if not (torch.equal(m, want) and torch.equal(m, m.T)) or bool(m.diagonal().any()):
+        raise RuntimeError(f"the matrix differs from sat_polygons on {int((m != want).sum())} "
+                           "pairs, or is not symmetric with a false diagonal")
+    want_pairs = torch.triu(m, 1).nonzero().to(torch.int32)
+    c = int(count)
+    if bool(overflow) or c != len(want_pairs) or not torch.equal(pairs[:c], want_pairs) \
+            or bool(pairs[c:].any()):
+        raise RuntimeError(f"scene_colliding_pairs: count {c}, {len(want_pairs)} in the matrix")
+    if not (torch.equal(man[0], pairs) and int(man[1]) == c):
+        raise RuntimeError("scene_contact_manifolds listed other pairs")
+    man_fields = _scene_manifold_check("dense manifolds", man, polys)
+    ms = {"matrix": _events_ms(lambda: scene.scene_collision_matrix(polys), 5),
+          "pairs": _events_ms(lambda: scene.scene_colliding_pairs(
+              polys, capacity=SCENE_CAPACITY), 5),
+          "manifolds": _events_ms(lambda: scene.scene_contact_manifolds(
+              polys, capacity=SCENE_CAPACITY), 5)}
+    _, kernels, busy_us, k6_us = _profiled(lambda: scene.scene_collision_matrix(polys),
+                                           kernel="polygon_sat_kernel")
+    prof = {} if busy_us is None else dict(
+        matrix_device_kernels=kernels, matrix_busy_ms=f"{busy_us / 1e3:.3f}",
+        kernel6_share_of_busy=f"{k6_us / busy_us:.4f}",
+        kernel6_share_of_call=f"{k6_us / 1e3 / ms['matrix']:.4f}")
+    _line("20 dense scene", time.monotonic() - t, shapes=n, k=8, row_tile=64,
+          kernel6_launches=k6, kernel10_launches=k10, colliding_pairs=c,
+          matrix_equal_sat_polygons=True, **man_fields,
+          **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
+          matrix_pairs_per_s=f"{n * n / ms['matrix'] * 1e3:.4e}", **prof)
+
+
+def phase_scene_swept() -> None:
+    """Phase 21: the swept query at `bench_scene_swept`'s shape."""
+    from collide2d_tpu_torch.ops import scene
+
+    t = time.monotonic()
+    n, w = SWEPT_N, SWEPT_WINDOW
+    side = max(40.0, n * 4.0 / (w / 2.5))  # utils/benchmarks.py:1871-1886
+    g = torch.Generator(device="cuda").manual_seed(22)
+    polys = _bench_polygons(g, n, 8, area_side=side)
+    _reset_scene_counts()
+    pairs, count, overflow, exceeded = scene.scene_colliding_pairs_swept(
+        polys, capacity=SCENE_CAPACITY, window=w)
+    man = scene.scene_contact_manifolds(polys, capacity=SCENE_CAPACITY,
+                                        broad_phase="swept", window=w)
+    k6, k10 = _scene_counts()
+    if k6 <= 0 or k10 <= 0:
+        raise RuntimeError(f"the swept scene path launched kernel 6 {k6} and kernel 10 "
+                           f"{k10} times")
+    if bool(exceeded) or bool(overflow):
+        raise RuntimeError(f"window_exceeded {bool(exceeded)}, overflow {bool(overflow)}")
+    dense = scene.scene_colliding_pairs(polys, capacity=SCENE_CAPACITY, row_tile=256)
+    if not (torch.equal(pairs, dense[0]) and int(count) == int(dense[1])):
+        raise RuntimeError(f"the swept pairs ({int(count)}) differ from the dense "
+                           f"query's ({int(dense[1])})")
+    if not (torch.equal(man[0], pairs) and int(man[1]) == int(count)) or bool(man[6]):
+        raise RuntimeError("the swept manifolds listed other pairs")
+    man_fields = _scene_manifold_check("swept manifolds", man, polys)
+    narrow = scene.scene_contact_manifolds(polys, capacity=SCENE_CAPACITY,
+                                           broad_phase="swept", window=4)
+    if not (bool(narrow[6]) and int(narrow[1]) == 0 and not bool(narrow[0].any())):
+        raise RuntimeError("a window of 4 did not fail closed")
+    ms = _events_ms(lambda: scene.scene_colliding_pairs_swept(
+        polys, capacity=SCENE_CAPACITY, window=w), 5)
+    dense_ms = _events_ms(lambda: scene.scene_colliding_pairs(
+        polys, capacity=SCENE_CAPACITY, row_tile=256), 1)
+    _line("21 swept scene", time.monotonic() - t, shapes=n, k=8, window=w,
+          area_side=side, kernel6_launches=k6, kernel10_launches=k10,
+          colliding_pairs=int(count), window_exceeded=False, equal_dense=True,
+          window4_fails_closed=True, **man_fields, swept_ms=f"{ms:.3f}",
+          dense_ms=f"{dense_ms:.3f}",
+          dense_equivalent_pairs_per_s=f"{n * n / ms * 1e3:.4e}",
+          narrow_pairs_per_s=f"{n * w / ms * 1e3:.4e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1886,6 +2234,9 @@ def main() -> int:
         traj_launches = phase_movelabel_rects(Path(tmp))
         moving_poly = phase_mc_moving_polygon(Path(tmp))
     screen = phase_screen()
+    raycast = phase_raycast()
+    phase_scene_dense()
+    phase_scene_swept()
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
     default = check["default"]
@@ -1949,7 +2300,8 @@ def main() -> int:
         ("mc_toi_counts", "mc_toi_kernel.cu", "mc_toi_pallas.py:170", mc_toi),
         ("mc_moving_poly_counts", "mc_moving_polygon_kernel.cu",
          "mc_moving_polygon_pallas.py:182", moving_poly),
-        ("rotating_screen", "screen_kernel.cu", "screen_pallas.py:99", screen))]}
+        ("rotating_screen", "screen_kernel.cu", "screen_pallas.py:99", screen),
+        ("scene_raycast", "raycast_kernel.cu", "raycast_pallas.py:48", raycast))]}
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

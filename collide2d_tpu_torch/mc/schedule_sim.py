@@ -47,6 +47,7 @@ from collide2d_tpu_torch.mc.stats import _LOG_INV_ALPHA, Z_SCORE
 
 __all__ = [
     "round_boundaries",
+    "stopping_counts",
     "simulate_convergence",
     "ProfileOps",
     "simulate_schedule",
@@ -89,6 +90,29 @@ def _is_converged_np(n, k, accuracy_bins, bin_accuracy):
     bin_idx = np.where(match.any(axis=-1), last, 0)
     target = np.asarray(bin_accuracy, np.float32)[bin_idx]
     return slack <= target
+
+
+def stopping_counts(cp, cfg, impl: str = "cuda"):
+    """Per-row sample counts recovered from final labels alone (batch files
+    and ``ztest --cps_only`` keep no counts): the first round boundary of
+    ``cfg``'s schedule at which a count k with float32(k) / float32(n) ==
+    cp meets the row's bin accuracy; the final boundary for rows that never
+    do. A row whose running estimate met the criterion only late gets an
+    earlier boundary than the driver's, so the counts are a lower bound."""
+    cp = np.asarray(cp, np.float32)
+    out = np.full(cp.shape, 0, np.int64)
+    open_ = np.ones(cp.shape, bool)
+    bounds = round_boundaries(cfg, impl=impl)
+    for n in bounds:
+        k = np.rint(cp.astype(np.float64) * n)
+        same = k.astype(np.float32) / np.float32(n) == cp
+        first = open_ & same & _is_converged_np(n, k, cfg.accuracy_bins, cfg.bin_accuracy)
+        out[first] = n
+        open_ &= ~first
+        if not open_.any():
+            break
+    out[open_] = bounds[-1]
+    return out
 
 
 def simulate_convergence(cp, cfg, seed: int = 0, impl: str = "cuda"):

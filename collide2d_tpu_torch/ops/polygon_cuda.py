@@ -18,7 +18,9 @@ needs no masks inside the test (see `ops.sat.sat_polygons`).
 
 Labels are float32 (8M,) in {0, 1}, bitwise the Pallas kernel's.
 `sat_polygons_cuda` is the drop-in for `ops.sat.sat_polygons` on
-repeat-padded (N, K, 2) inputs: it pads N, packs and returns int32 (N,).
+repeat-padded (N, K, 2) inputs: it packs, pads N and returns int32 (N,);
+`sat_columns_cuda` takes the packed columns of any N (the scene queries
+build and roll them).
 """
 
 from __future__ import annotations
@@ -59,6 +61,32 @@ def pack_polygons(p: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pack_polygons needs N % 8 == 0, got N={n}")
     # (N, K, 2) -> (2, K, N): coordinate-major, so rows are x0.., then y0..
     return p.permute(2, 1, 0).contiguous().view(2 * k, 8, n // 8)
+
+
+def soa_columns(p: torch.Tensor) -> torch.Tensor:
+    """(N, K, 2) -> (2K, N): rows x0..x_{K-1}, y0..y_{K-1}, `pack_polygons`'
+    order before its (8, N/8) view, for any N."""
+    return p.permute(2, 1, 0).reshape(2 * p.shape[1], p.shape[0])
+
+
+def pad_columns(cols: torch.Tensor) -> torch.Tensor:
+    """(R, N) columns -> (R, M), M = N rounded up to the kernel's pair
+    multiple (8 * `LANE_BLOCK`), padded with copies of the last column."""
+    pad = (-cols.shape[1]) % (8 * LANE_BLOCK)
+    if pad:
+        cols = torch.cat([cols, cols[:, -1:].expand(-1, pad)], dim=1)
+    return cols
+
+
+def sat_columns_cuda(a: torch.Tensor, b: torch.Tensor, *, k1: int,
+                     k2: int) -> torch.Tensor:
+    """`sat_polygons_cuda_t` on (2K1, N) x (2K2, N) `soa_columns` of any N:
+    pads N (`pad_columns`), runs and slices the padding away -> float32
+    (N,) in {0, 1}."""
+    n = a.shape[1]
+    a, b = pad_columns(a).contiguous(), pad_columns(b).contiguous()
+    out = sat_polygons_cuda_t(a.view(2 * k1, 8, -1), b.view(2 * k2, 8, -1), k1=k1, k2=k2)
+    return out[:n]
 
 
 def pack_polygons_bf16(p: torch.Tensor) -> torch.Tensor:
@@ -149,10 +177,7 @@ def sat_polygons_cuda(p1: torch.Tensor, p2: torch.Tensor, *,
     n, k1, k2 = p1.shape[0], p1.shape[1], p2.shape[1]
     if n == 0:
         return torch.zeros((0,), dtype=torch.int32, device=p1.device)
-    padded = -(-n // (8 * LANE_BLOCK)) * (8 * LANE_BLOCK)
-    if padded != n:
-        p1 = torch.cat([p1, p1[-1:].expand(padded - n, k1, 2)])
-        p2 = torch.cat([p2, p2[-1:].expand(padded - n, k2, 2)])
-    pack = pack_polygons_bf16 if precision == "bf16" else pack_polygons
-    out = sat_polygons_cuda_t(pack(p1), pack(p2), k1=k1, k2=k2)
-    return out[:n].to(torch.int32)
+    a, b = soa_columns(p1), soa_columns(p2)
+    if precision == "bf16":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    return sat_columns_cuda(a, b, k1=k1, k2=k2).to(torch.int32)

@@ -564,3 +564,108 @@ def test_movelabel_on_cuda_launches_the_trajectory_kernels(cuda, tmp_path):
         assert launches[kernel] > 0, (name, extra, launches)
         with np.load(out) as d:
             assert np.isfinite(d["cp"]).all() and 0 < d["cp"].mean() < 1
+
+
+# Kernel 11 (scene raycast): bitwise its plain version is expected (the same
+# separately rounded products and sums, IEEE division); the bar is t, index
+# or normal differing on at most 1e-5 of the rays.
+@pytest.mark.parametrize("n_shapes,k,tile,t_max", [
+    (64, 8, 0, float("inf")), (64, 8, 0, 4.0),
+    (600, 8, 0, float("inf")),  # 4,800 faces: past one 3,072-face tile
+    (600, 8, 37, float("inf")), (200, 5, 0, 10.0)])
+def test_raycast_kernel_matches_plain(cuda, n_shapes, k, tile, t_max):
+    from collide2d_tpu_torch.ops import raycast_cuda
+
+    rng = np.random.default_rng(n_shapes + k + tile)
+    polys = _polygons(rng, n_shapes, k, cuda, spread=30.0)
+    mask = torch.from_numpy(np.arange(k)[None] < rng.integers(3, k + 1, (n_shapes, 1))).to(cuda)
+    table = raycast_cuda.pack_scene_tables(polys, mask)
+    r = 1 << 15
+    g = torch.Generator(device=cuda).manual_seed(41)
+    o = torch.rand((r, 2), generator=g, device=cuda) * 80.0 - 40.0
+    d = torch.randn((r, 2), generator=g, device=cuda)
+    before = raycast_cuda.LAUNCHES
+    got = raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max, tile_shapes=tile)
+    want = raycast_cuda.scene_raycast_plain(o, d, table, t_max=t_max)
+    torch.cuda.synchronize()
+    assert raycast_cuda.LAUNCHES == before + 1
+    differ = (got[0] != want[0]) | (got[1] != want[1]) | (got[2] != want[2]).any(-1)
+    assert int(differ.sum()) <= 1e-5 * r
+    assert got[1].dtype == torch.int32 and got[2].shape == (r, 2)
+    assert 0 < int(torch.isfinite(want[0]).sum()) < r
+
+
+def test_scene_raycast_auto_launches_kernel_11(cuda):
+    from collide2d_tpu_torch.ops import raycast, raycast_cuda
+
+    polys = _polygons(np.random.default_rng(42), 32, 6, cuda, spread=10.0)
+    o = torch.zeros((3, 4, 2), device=cuda)
+    d = torch.randn((3, 4, 2), generator=torch.Generator(device=cuda).manual_seed(43),
+                    device=cuda)
+    before = raycast_cuda.LAUNCHES
+    t, idx, nrm = raycast.scene_raycast(o, d, polys)
+    one = raycast.scene_raycast(o[1, 2], d[1, 2], polys)
+    torch.cuda.synchronize()
+    assert raycast_cuda.LAUNCHES == before + 2
+    assert t.shape == (3, 4) and nrm.shape == (3, 4, 2) and one[0].shape == ()
+    assert one[0] == t[1, 2] and one[1] == idx[1, 2]
+    ref = raycast.scene_raycast(o.cpu(), d.cpu(), polys.cpu(), impl="torch")
+    hit = torch.isfinite(ref[0])
+    assert torch.equal(torch.isfinite(t.cpu()), hit)
+    assert float((t.cpu()[hit] - ref[0][hit]).abs().max()) <= 1e-4
+    with pytest.raises(ValueError, match="impl='torch'"):
+        raycast.scene_raycast(o.requires_grad_(True), d, polys)
+
+
+def test_scene_raycast_takes_a_host_scene_to_the_rays_card(cuda):
+    # a scene built on the host as numpy runs on the rays' card (kernel 11,
+    # results on the card); a CPU tensor scene against card rays raises
+    from collide2d_tpu_torch.ops import raycast, raycast_cuda
+
+    polys = _polygons(np.random.default_rng(45), 32, 6, cuda, spread=10.0)
+    o = torch.zeros((64, 2), device=cuda)
+    d = torch.randn((64, 2), generator=torch.Generator(device=cuda).manual_seed(46),
+                    device=cuda)
+    before = raycast_cuda.LAUNCHES
+    got = raycast.scene_raycast(o, d, polys.cpu().numpy())
+    torch.cuda.synchronize()
+    assert raycast_cuda.LAUNCHES == before + 1
+    assert all(x.device.type == "cuda" for x in got)
+    want = raycast.scene_raycast(o, d, polys)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="more than one device"):
+        raycast.scene_raycast(o, d, polys.cpu())
+
+
+def test_scene_functions_on_cuda_match_cpu(cuda):
+    from collide2d_tpu_torch.ops import manifold_cuda, polygon_cuda, scene
+
+    rng = np.random.default_rng(44)
+    polys = _polygons(rng, 300, 8, cuda, spread=25.0)
+    host = polys.cpu()
+    polygon_cuda.reset_launches()
+    manifold_cuda.reset_launches()
+    assert torch.equal(scene.scene_collision_matrix(polys, row_tile=37).cpu(),
+                       scene.scene_collision_matrix(host, row_tile=37))
+    for got, want in ((scene.scene_colliding_pairs(polys, capacity=512),
+                       scene.scene_colliding_pairs(host, capacity=512)),
+                      (scene.scene_colliding_pairs_swept(polys, capacity=512, window=40),
+                       scene.scene_colliding_pairs_swept(host, capacity=512, window=40))):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    got = scene.scene_contact_manifolds(polys, capacity=512, broad_phase="swept", window=40)
+    want = scene.scene_contact_manifolds(host, capacity=512, broad_phase="swept", window=40)
+    torch.cuda.synchronize()
+    assert polygon_cuda.LAUNCHES > 0 and manifold_cuda.LAUNCHES > 0
+    c = int(want[1])
+    assert int(got[1]) == c >= 3 and not bool(want[6])
+    assert torch.equal(got[0].cpu(), want[0])
+    # kernel 10 against ops.manifold at coordinates up to ~28, where an ulp
+    # is 1.9e-6 and a depth is a difference of two such projections
+    count, points, depths, normal = (a.cpu()[:c] for a in got[2:6])
+    assert int((count != want[2][:c]).sum()) <= 1e-5 * c
+    valid = torch.arange(2)[None] < want[2][:c, None]
+    assert float((points - want[3][:c]).abs().amax(-1)[valid].max()) <= 1e-4
+    assert float((depths - want[4][:c]).abs()[valid].max()) <= 1e-4
+    assert float((normal - want[5][:c]).abs().max()) <= 2e-5
+    with pytest.raises(ValueError, match="CPU"):
+        scene.scene_collision_matrix(torch.zeros((4, 17, 2), device=cuda))
