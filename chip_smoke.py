@@ -9,14 +9,15 @@ Phases (each prints its result and seconds on its own line; any failure
 raises, and the script then exits non-zero without printing a result):
 
 1. the card's name and power limit (nvidia-smi); build the kernels from
-   this checkout, one nvcc per source, started together: the fused Monte
+   this checkout, one nvcc per library, started together: the fused Monte
    Carlo kernel (collide2d_tpu_torch/csrc/mc_kernel.cu), the SAT kernels
    (csrc/sat_kernel.cu), the k-gon SAT kernel (csrc/polygon_kernel.cu),
-   the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu), the
-   query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
+   the fused k-gon Monte Carlo kernel (csrc/mc_polygon_kernel.cu, one
+   library per shape: k = 8 and the gate's k = 6, 4-gon robot, 2 kept
+   axes), the query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
    csrc/toi_kernel.cu), the trajectory kernels (csrc/mc_toi_kernel.cu,
-   csrc/mc_moving_polygon_kernel.cu, csrc/screen_kernel.cu) and the scene
-   raycast kernel (csrc/raycast_kernel.cu);
+   csrc/mc_moving_polygon_kernel.cu at k = 8, csrc/screen_kernel.cu) and
+   the scene raycast kernel (csrc/raycast_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -65,7 +66,10 @@ raises, and the script then exits non-zero without printing a result):
    Philox stream, on C = 100,000 rows of the polylabel workload (k = 8, the
    4.07 x 1.74 robot as a 4-gon, 2 kept axes) x n = 4096 samples and the
    tail's 256 rows x 100,000: sum |dcount| <= 1e-5 * C * n; samples/s of
-   both; then the agreement gate against the threefry path on the card
+   both; the counts' fingerprint (their sum and the sum of counts[c] *
+   (c % 9973): equal fingerprints say the bits held across versions) and
+   the kernel's issue floor (below); then the agreement gate against the
+   threefry path on the card
    (4,096 `example_polygon_configs` rows at k = 6, 65,536 samples each):
    max z < 6 and a share with z > 3 of at most 3 x 0.27%;
 11. ``polylabel --device cuda`` on the 100,000-row k = 8 workload (an .npz
@@ -128,8 +132,9 @@ raises, and the script then exits non-zero without printing a result):
 17. kernel 14 (translation-only k-gon trajectories) against its plain
    version on 100,000 `example_polygon_configs` k = 8 rows with velocity
    U(-2, 2)^2 and t_max U(0.5, 3) x 4,096 samples (2 kept robot axes):
-   sum |dcount| <= 1e-5 of the samples; at zero velocity its counts equal
-   kernel 7's bit for bit; the agreement gate as in phase 15;
+   sum |dcount| <= 1e-5 of the samples; the fingerprint and issue floor
+   as in phase 10; at zero velocity its counts equal kernel 7's bit for
+   bit; the agreement gate as in phase 15;
    `PolygonCollisionProbabilityModel.label` and ``movelabel`` on the
    100,000 rows (kernel-14 launches > 0, the same labels, the checks of
    phase 16); ``movelabel`` on 4,096 rotating k = 6 rows of the JAX bench
@@ -175,9 +180,16 @@ out ``sincosf``; phase 19 also prints kernel 11's bound with its division
 at the 7 instructions of its SASS fast path; kernel 12's and 13's work
 depends on the data, so their bounds count the distance evaluations this
 run's lanes take; kernel 15's is the larger of 28 bytes a lane and its
-counted operations). No single PyTorch call computes any of these
-functions, so ``library_ms`` is null. The last line is ``{"ok": true,
-"device": {...}}``.
+counted operations). Kernels 7 and 14 also carry ``issue_floor_ms``: the
+fewest SASS instructions one iteration of their sample loop can issue
+(`_shortest_iteration` on ``cuobjdump -sass`` of the built library), over
+the samples an iteration evaluates, times the samples, over 132 SMs x 128
+lanes x the SM clock's maximum (nvidia-smi). ``bound_ms`` keeps its
+convention, comparable across kernels; these kernels must not contract
+a multiply and an add, so each counted operation is a whole instruction
+and they cannot come near it, while the issue floor counts what the card
+must issue. No single PyTorch call computes any of these functions, so
+``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -286,17 +298,27 @@ def _events_ms(fn, reps: int) -> float:
 
 
 def phase_build():
+    from collide2d_tpu_torch.ops.mc_polygon_cuda import shape_defines
     from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    names = ("mc_kernel", "sat_kernel", "polygon_kernel", "mc_polygon_kernel",
-             "distance_kernel", "manifold_kernel", "toi_kernel", "mc_toi_kernel",
-             "mc_moving_polygon_kernel", "screen_kernel", "raycast_kernel")
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = list(pool.map(cuda_build.build, names))
-    for name in names:
-        cuda_build.load(name)
-    _line("1 build", time.monotonic() - t, kernels=",".join(f"{n}.cu" for n in names),
+    # kernels 7 and 14 build once per shape: phases 10, 11 and 17 launch
+    # them at k = 8 against the 4-gon robot's 2 kept axes, phase 10's
+    # agreement gate kernel 7 at k = 6
+    jobs = [(name, ()) for name in (
+        "mc_kernel", "sat_kernel", "polygon_kernel", "distance_kernel",
+        "manifold_kernel", "toi_kernel", "mc_toi_kernel", "screen_kernel",
+        "raycast_kernel")] + [
+        ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2)),
+        ("mc_polygon_kernel", shape_defines(6, 4, 2)),
+        ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
+    for job in jobs:
+        cuda_build.load(*job)
+    _line("1 build", time.monotonic() - t,
+          kernels=",".join(f"{name}.cu" + "".join(f":{v}" for _, v in defs)
+                           for name, defs in jobs),
           libraries=",".join(lib.name for lib in libs))
 
 
@@ -808,15 +830,20 @@ def phase_mc_polygon() -> dict:
             params, uids, seed, n, max_elems=1 << 22, **dims), reps=1)
         bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
                                     c * n * mc_poly_ops_per_sample(**dims))
+        floor = issue_floor("mc_polygon_kernel", mc_polygon_cuda.shape_defines(**dims),
+                            "mc_poly_counts_kernel", "mc_poly_batch_samples", c * n)
         result["max_abs_err"] = max(result["max_abs_err"], int(diff.max()))
         if key == "workload":
             result.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=bound_by)
+                          bound_by=bound_by, issue_floor_ms=floor["issue_floor_ms"])
+        counts_sum, counts_fp = _fingerprint(got)
         _line("10 k-gon mc", time.monotonic() - t, case=key, C=c, n=n,
               table_rows=params.shape[1], kept_axes=len(a_keep),
               sum_abs_dcount=total, rows_differ=int((diff > 0).sum()),
+              counts_sum=counts_sum, counts_fingerprint=counts_fp,
               kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
               bound_ms=f"{bound:.4f}", bound_by=bound_by,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
               kernel_samples_per_s=f"{c * n / kernel_ms * 1e3:.4e}",
               plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
 
@@ -1770,6 +1797,10 @@ def phase_mc_moving_polygon(work: Path) -> dict:
         params, uids, seed, n, max_elems=1 << 22, **dims), 1)
     bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
                                 c * n * mc_moving_poly_ops_per_sample(**dims))
+    floor = issue_floor("mc_moving_polygon_kernel", mc_polygon_cuda.shape_defines(**dims),
+                        "mc_moving_poly_counts_kernel", "mc_moving_poly_batch_samples",
+                        c * n)
+    counts_sum, counts_fp = _fingerprint(got)
     # zero velocity: kernel 7's counts bit for bit on the same stream
     still = configs._replace(velocity=torch.zeros_like(configs.velocity))
     k14 = mmp.mc_moving_poly_counts(mmp.pack_moving_polygon_mc_params(still, robot, a_keep),
@@ -1780,12 +1811,14 @@ def phase_mc_moving_polygon(work: Path) -> dict:
         raise RuntimeError(f"kernel 14 at zero velocity differs from kernel 7 on "
                            f"{int((k14 != k7).sum())} rows")
     result = dict(max_abs_err=int(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                  bound_by=bound_by)
+                  bound_by=bound_by, issue_floor_ms=floor["issue_floor_ms"])
     _line("17 mc_moving_poly", time.monotonic() - t, C=c, n=n, k=POLY_K,
           table_rows=params.shape[1], kept_axes=len(a_keep), sum_abs_dcount=total,
           rows_differ=int((diff > 0).sum()), hit_share=f"{float(want.sum()) / (c * n):.4f}",
+          counts_sum=counts_sum, counts_fingerprint=counts_fp,
           zero_velocity_equals_kernel7=True, kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
           kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}",
           plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
     del params, got, want, k14, k7, still
@@ -2195,6 +2228,118 @@ def phase_scene_swept() -> None:
           narrow_pairs_per_s=f"{n * w / ms * 1e3:.4e}")
 
 
+# ---- kernels 7 and 14: the counts' fingerprint and the issue floor ----
+
+
+def _fingerprint(counts: torch.Tensor) -> tuple[int, int]:
+    """(sum of the counts, sum of counts[c] * (c % 9973)): equal fingerprints
+    on the same inputs say the bits held."""
+    c = counts.to(torch.int64)
+    weight = torch.arange(c.shape[0], device=c.device, dtype=torch.int64) % 9973
+    return int(c.sum()), int((c * weight).sum())
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _shortest_iteration(ins: list, start: int, end: int) -> tuple[int, int]:
+    """(instructions, LDS) on the shortest path through one iteration of the
+    loop whose body is [start, end] (``end``: its backward branch): every
+    conditional forward branch may go either way, nested loops run no
+    second time, calls cost their one instruction. The fewest instructions a
+    warp can issue for one iteration."""
+    body = [x for x in ins if start <= x[0] <= end]
+    addrs = [x[0] for x in body]
+    best = [None] * len(body)
+    best[0] = (0, 0)
+    for i, (addr, pred, op, args) in enumerate(body):
+        if best[i] is None:
+            continue
+        here = (best[i][0] + 1, best[i][1] + op.startswith("LDS"))
+        if addr == end:
+            return here
+        succ = []
+        if op.startswith("BRA"):
+            target = re.search(r"0x([0-9a-f]+)", args)
+            t = int(target.group(1), 16) if target else None
+            if t is not None and addr < t <= end:
+                succ.append(next(j for j, a in enumerate(addrs) if a >= t))
+            # BRA.DIV / BRA.CONV branch only when the warp has diverged
+            if pred or op != "BRA":
+                succ.append(i + 1)
+        elif not op.startswith(("EXIT", "RET")) or pred:
+            succ.append(i + 1)
+        for j in succ:
+            if best[j] is None or here < best[j]:
+                best[j] = here
+    raise RuntimeError("no path through the loop")
+
+
+def sass_loops(lib: Path, kernel: str) -> dict:
+    """The SASS of the kernel whose mangled name holds ``kernel`` in the
+    library (``cuobjdump -sass``): its instruction and ``LDS`` counts; for
+    each backward branch (a loop), the instructions, ``LDS`` and ``CALL`` in
+    its body, innermost first; and the shortest path through one iteration
+    of the largest loop (`_shortest_iteration`). ``NOP`` padding is not
+    counted."""
+    from collide2d_tpu_torch.utils import cuda_build
+
+    tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    body = next(part for part in text.split("Function : ")[1:]
+                if kernel in part.split("\n", 1)[0])
+    ins = [(int(a, 16), pred.strip(), op, args)
+           for a, pred, op, args in _SASS_LINE.findall(body) if op != "NOP"]
+
+    def count(lo, hi):
+        ops = [op for a, _, op, _ in ins if lo <= a <= hi]
+        return dict(instructions=len(ops), lds=sum(op.startswith("LDS") for op in ops),
+                    calls=sum(op.startswith("CALL") for op in ops))
+
+    loops = []  # a loop closes with a predicated backward branch; an
+    # unpredicated one returns from out-of-line code (a divergent vote)
+    for a, pred, op, args in ins:
+        target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" and pred else None
+        if target and int(target.group(1), 16) < a:
+            loops.append(dict(start=int(target.group(1), 16), end=a,
+                              **count(int(target.group(1), 16), a)))
+    loops.sort(key=lambda x: x["instructions"])
+    main = loops[-1]
+    return dict(text=body, loops=loops,
+                shortest=_shortest_iteration(ins, main["start"], main["end"]),
+                **count(0, 1 << 62))
+
+
+def _sm_clock_hz() -> tuple[float, float]:
+    """(the SM clock now, its maximum), in Hz, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    now, top = (float(x) * 1e6 for x in out.splitlines()[0].split(","))
+    return now, top
+
+
+def issue_floor(name: str, defines, kernel: str, batch_fn: str, samples: int) -> dict:
+    """Kernel 7's or 14's issue floor for ``samples`` samples: the shortest
+    path through one iteration of its sample loop over the S samples an
+    iteration evaluates (SASS instructions a sample), times the samples,
+    over 132 SMs x 128 lanes x the SM clock's maximum; beside it the
+    static SASS and LDS of the loop a sample."""
+    from collide2d_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.build(name, defines)
+    batch = getattr(cuda_build.load(name, defines), batch_fn)()
+    sass = sass_loops(lib, kernel)
+    per_sample, lds = (x / batch for x in sass["shortest"])
+    now, top = _sm_clock_hz()
+    return dict(sass_per_sample=per_sample, lds_per_sample=lds,
+                static_sass_per_sample=sass["loops"][-1]["instructions"] / batch,
+                issue_floor_ms=per_sample * samples / (132 * 128 * top) * 1e3,
+                sm_clock_mhz=now / 1e6, sm_clock_max_mhz=top / 1e6)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2208,7 +2353,6 @@ def main() -> int:
 
     if Path(collide2d_tpu_torch.__file__).resolve().parent != HERE / "collide2d_tpu_torch":
         raise SystemExit("chip_smoke: imported collide2d_tpu_torch from outside this checkout")
-
     phase_build()
     check = phase_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

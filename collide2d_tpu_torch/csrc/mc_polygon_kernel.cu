@@ -1,5 +1,5 @@
 // Fused Monte Carlo collision counts for convex k-gon configurations, on
-// Hopper.
+// Hopper (kernel 7).
 //
 // Replaces the TPU kernel collide2d_tpu/ops/mc_polygon_pallas.py::
 // _mc_poly_kernel. For each configuration row c it returns the int32 number
@@ -17,33 +17,37 @@
 //
 // with (ct, st) = sincos(dtheta) and (u1, u2) = R(dtheta)^T (dx, dy).
 //
-// What bounds it on this card: operations, not memory. A round reads a
-// row's table once (ROWS floats: 144 at K = 8, K2 = 4, K2A = 2) and writes
-// 4 bytes, while each sample costs one Philox4x32-10, 3 erf_inv (a log1pf
-// and a degree-8 polynomial each), one sincosf and the test's
-// K2A (5K + 5) + K (5 K2 + 5) + 9 FP32 operations: 299 at K = 8, K2 = 4,
-// K2A = 2, against ~40 for the rectangle kernel (mc_kernel.cu). Every
-// blend, projection and translation term is __fmul_rn / __fadd_rn, so the
-// kernel and its plain version differ only where sincosf and log1pf round
+// What bounds it on this card: instruction issue. A round reads a row's
+// table once (144 floats at K = 8, K2 = 4, K2A = 2) and writes 4 bytes,
+// while each sample costs one Philox4x32-10, 3 erf_inv (a log1pf and a
+// degree-8 polynomial each), one sincosf and the test's K2A (5K + 5) +
+// K (5 K2 + 5) + 9 FP32 operations (299 at that shape). Every blend,
+// projection and translation term is __fmul_rn / __fadd_rn, so the kernel
+// and its plain version differ only where sincosf and log1pf round
 // differently from torch; that forbids FMA contraction there, and each of
 // those operations costs a full instruction.
 //
-// Design, as kernel 1's: the grid is (configuration, 4,096-sample chunk), so
-// the adaptive tail's 256 rows still fill the card. A block of 256 threads
-// stages its row's table in shared memory once (ROWS x 4 bytes, 4.6 KB at
-// K = K2 = 16; dynamic, raised above 48 KB when a large K needs it), each
-// thread loops over 16 samples reading the table as broadcasts, sums its
-// hits in a register, a warp shuffle reduces them and one int32 atomicAdd
-// per warp lands the warp's sum in counts[c]. Integer sums do not depend on
-// order, so counts are deterministic. Every axis is tested for every sample
-// (no early exit), as the TPU kernel does, so the work does not depend on
-// the data.
-//
-// Randomness: kernel 1's stream with shape noise off. Philox4x32-10 keyed by
-// the round's two seed words (the folded threefry key), counter (sample
-// index low, sample index high, uid, 0), words 0-2. Counts are a pure
-// function of (key, uid, round tag, sample index): they do not change with
-// grid shape, repacking, row order or cross-batch overlap.
+// Design (csrc/mc_polygon.cuh has the shared parts):
+// - one library per shape: K, K2 and K2A come from the build's -D defines,
+//   so every vertex and axis loop unrolls and every table offset is a
+//   constant; any shape builds (K > 16 and K2A = 0 too);
+// - the grid is (configuration, 4,096-sample chunk), so the adaptive
+//   tail's 256 rows still fill the card; a block of 256 threads stages its
+//   row's table in shared memory once, in 16-byte slots;
+// - each thread evaluates S = 2 samples at once: every slot it loads, a
+//   broadcast, serves S samples, and the S independent chains hide each
+//   other's latency; a thread's 16 samples are index begin + thread + 256 m,
+//   m < 16, in batches of S, so S changes no sample's owner or order. S = 2
+//   takes 46 registers, 5 blocks an SM, and beat S = 4 (69 registers, 3
+//   blocks: 8.75 against 8.43 ms at 100k x 4,096, K = 8, on an H100) and
+//   S = 8 (spills); asking the launch bound for 3 or 4 blocks an SM instead
+//   of 2 cost 4-7%;
+// - hits are summed in a register, a warp shuffle reduces them and one
+//   int32 atomicAdd per warp lands the warp's sum in counts[c]. Integer sums
+//   do not depend on order, and each sample's operations and their order
+//   are fixed, so counts are the same whatever S, grid or block size.
+// Every axis is tested for every sample (no early exit), as the TPU kernel
+// does, so the work does not depend on the data.
 //
 // The wrapper allocates `counts` zeroed; the kernel only accumulates into it
 // and allocates nothing.
@@ -51,170 +55,92 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mc_polygon.cuh"
+
+#if !defined(MC_POLY_K) || !defined(MC_POLY_K2) || !defined(MC_POLY_K2A)
+#error "build one library per shape: -DMC_POLY_K=k -DMC_POLY_K2=k2 -DMC_POLY_K2A=k2a"
+#endif
+
 namespace {
 
+using namespace collide2d;
+using namespace collide2d::mc_polygon;
+
+constexpr int K = MC_POLY_K, K2 = MC_POLY_K2, K2A = MC_POLY_K2A;
+constexpr int S = 2;
 constexpr int kThreads = 256;
 constexpr int kSamplesPerThread = 16;
 constexpr long long kSamplesPerBlock =
     static_cast<long long>(kThreads) * kSamplesPerThread;
 constexpr int kDefaultSharedBytes = 48 * 1024;
+static_assert(kSamplesPerThread % S == 0, "S must divide 16");
+using T = Table<K, K2, K2A>;
+// the wrapper's table width: the unpadded row padded to 8 floats
+constexpr int kRows = (T::kWidth + 7) / 8 * 8;
 
-struct Philox4 {
-  uint32_t v[4];
-};
-
-// Philox4x32-10, the same function as mc_kernel.cu's.
-__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  Philox4 out = {{c0, c1, c2, c3}};
-  return out;
-}
-
-// XLA's float32 erf_inv, as mc_kernel.cu's (log1pf stands in for XLA's
-// Cephes log1p; 23-bit codes keep |x| <= 1 - 2^-23).
-__device__ __forceinline__ float erfinv_f32(float x) {
-  float w = -log1pf(x * -x);
-  const bool lt = w < 5.0f;
-  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
-  float p = lt ? 2.81022636e-08f : -0.000200214257f;
-  p = (lt ? 3.43273939e-07f : 0.000100950558f) + p * w;
-  p = (lt ? -3.5233877e-06f : 0.00134934322f) + p * w;
-  p = (lt ? -4.39150654e-06f : -0.00367342844f) + p * w;
-  p = (lt ? 0.00021858087f : 0.00573950773f) + p * w;
-  p = (lt ? -0.00125372503f : -0.0076224613f) + p * w;
-  p = (lt ? -0.00417768164f : 0.00943887047f) + p * w;
-  p = (lt ? 0.246640727f : 1.00167406f) + p * w;
-  p = (lt ? 1.50140941f : 2.83297682f) + p * w;
-  return p * x;
-}
-
-// One standard normal from a Philox word: its top 23 bits b give
-// z = sqrt(2) * erfinv((b + 0.5) * 2^-22 - 1), finite by construction.
-__device__ __forceinline__ float normal_from_word(uint32_t word) {
-  const float u =
-      (static_cast<float>(word >> 9) + 0.5f) * 2.384185791015625e-07f - 1.0f;
-  return 1.41421356f * erfinv_f32(u);
-}
-
-// a*b + c*d with both products and the sum rounded on their own.
-__device__ __forceinline__ float dot2(float a, float b, float c, float d) {
-  return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
-}
-
-// First row of each table block (mc_polygon_cuda.py::_offsets).
-struct Layout {
-  int k, k2, k2a;
-  int ax, ay, rmin, rmax, nx, ny, nmin, nmax, p1, p2, q1, q2;
-};
-
-__device__ __forceinline__ Layout make_layout(int k, int k2, int k2a) {
-  Layout L;
-  L.k = k;
-  L.k2 = k2;
-  L.k2a = k2a;
-  L.ax = 3;
-  L.ay = 3 + k2a;
-  L.rmin = 3 + 2 * k2a;
-  L.rmax = 3 + 3 * k2a;
-  L.nx = 3 + 4 * k2a;
-  L.ny = L.nx + k;
-  L.nmin = L.nx + 2 * k;
-  L.nmax = L.nx + 3 * k;
-  L.p1 = L.nx + 4 * k;
-  L.p2 = L.p1 + k2a * k;
-  L.q1 = L.p2 + k2a * k;
-  L.q2 = L.q1 + k * k2;
-  return L;
-}
-
-// True when the sampled obstacle does NOT touch the robot (`_poly_separated`).
-__device__ __forceinline__ bool poly_separated(const float* __restrict__ t,
-                                               const Layout& L, float z_dx,
-                                               float z_dy, float z_th) {
-  const float dx = __fmul_rn(z_dx, t[0]);
-  const float dy = __fmul_rn(z_dy, t[1]);
-  const float th = __fmul_rn(z_th, t[2]);
-  float st, ct;
-  sincosf(th, &st, &ct);
-  const float u1 = dot2(ct, dx, st, dy);
-  const float u2 = __fsub_rn(__fmul_rn(ct, dy), __fmul_rn(st, dx));
-  bool sep = false;
-  for (int i = 0; i < L.k2a; ++i) {
-    const float at = dot2(t[L.ax + i], dx, t[L.ay + i], dy);
-    const float* p1 = t + L.p1 + i * L.k;
-    const float* p2 = t + L.p2 + i * L.k;
-    float mn = dot2(ct, p1[0], st, p2[0]);
-    float mx = mn;
-    for (int j = 1; j < L.k; ++j) {
-      const float p = dot2(ct, p1[j], st, p2[j]);
-      mn = fminf(mn, p);
-      mx = fmaxf(mx, p);
-    }
-    sep = sep | (__fadd_rn(mx, at) < t[L.rmin + i]) |
-          (t[L.rmax + i] < __fadd_rn(mn, at));
-  }
-  for (int j = 0; j < L.k; ++j) {
-    const float bt = dot2(t[L.nx + j], u1, t[L.ny + j], u2);
-    const float* q1 = t + L.q1 + j * L.k2;
-    const float* q2 = t + L.q2 + j * L.k2;
-    float mn = dot2(ct, q1[0], st, q2[0]);
-    float mx = mn;
-    for (int i = 1; i < L.k2; ++i) {
-      const float p = dot2(ct, q1[i], st, q2[i]);
-      mn = fminf(mn, p);
-      mx = fmaxf(mx, p);
-    }
-    sep = sep | (mx < __fadd_rn(t[L.nmin + j], bt)) |
-          (__fadd_rn(t[L.nmax + j], bt) < mn);
-  }
-  return sep;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     mc_poly_counts_kernel(const float* __restrict__ params,
                           const int32_t* __restrict__ uids,
-                          int32_t* __restrict__ counts, int rows, int k,
-                          int k2, int k2a, long long n, long long offset,
-                          uint32_t seed0, uint32_t seed1) {
-  extern __shared__ float table[];
+                          int32_t* __restrict__ counts, long long n,
+                          long long offset, uint32_t seed0, uint32_t seed1) {
+  extern __shared__ float4 table[];
   const int c = blockIdx.x;
-  const float* row = params + static_cast<long long>(c) * rows;
-  for (int i = threadIdx.x; i < rows; i += kThreads) table[i] = __ldg(row + i);
-  __syncthreads();
-  const Layout L = make_layout(k, k2, k2a);
+  const float* row = params + static_cast<long long>(c) * kRows;
+  for (int e = threadIdx.x; e < T::kSlots; e += kThreads) {
+    table[e] = table_slot<K, K2, K2A>(row, e);
+  }
+  const float sigma_x = __ldg(row), sigma_y = __ldg(row + 1);
+  const float sigma_th = __ldg(row + 2);
   const uint32_t uid = static_cast<uint32_t>(__ldg(uids + c));
+  __syncthreads();
 
   int hits = 0;
-  const long long begin = static_cast<long long>(blockIdx.y) * kSamplesPerBlock;
-  long long end = begin + kSamplesPerBlock;
+  const long long begin =
+      static_cast<long long>(blockIdx.y) * kSamplesPerBlock + threadIdx.x;
+  long long end = static_cast<long long>(blockIdx.y) * kSamplesPerBlock +
+                  kSamplesPerBlock;
   if (end > n) end = n;
-  for (long long j = begin + threadIdx.x; j < end; j += kThreads) {
-    const unsigned long long idx = static_cast<unsigned long long>(offset + j);
-    const Philox4 r = philox4x32_10(static_cast<uint32_t>(idx),
-                                    static_cast<uint32_t>(idx >> 32), uid, 0u,
-                                    seed0, seed1);
-    hits += poly_separated(table, L, normal_from_word(r.v[0]),
-                           normal_from_word(r.v[1]), normal_from_word(r.v[2]))
-                ? 0
-                : 1;
+#pragma unroll 1
+  for (int b = 0; b < kSamplesPerThread / S; ++b) {
+    if (begin + static_cast<long long>(kThreads) * (b * S) >= end) break;
+    Pose p[S];
+    bool sep[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const long long j = begin + static_cast<long long>(kThreads) * (b * S + s);
+      p[s] = sample_pose(static_cast<unsigned long long>(offset + j), uid, seed0,
+                         seed1, sigma_x, sigma_y, sigma_th);
+      sep[s] = false;
+    }
+#pragma unroll
+    for (int i = 0; i < K2A; ++i) {
+      const float4 a = table[T::kRobot + i];  // (ax, ay, rmin, rmax)
+      float mn[S], mx[S];
+      blend_min_max<K>(table + T::kP + i * T::kPSlots, p, mn, mx);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float at = dot2(a.x, p[s].dx, a.y, p[s].dy);
+        sep[s] = sep[s] | (__fadd_rn(mx[s], at) < a.z) |
+                 (a.w < __fadd_rn(mn[s], at));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float4 nv = table[T::kNormal + j];  // (nx, ny, nmin, nmax)
+      float mn[S], mx[S];
+      blend_min_max<K2>(table + T::kQ + j * T::kQSlots, p, mn, mx);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float bt = dot2(nv.x, p[s].u1, nv.y, p[s].u2);
+        sep[s] = sep[s] | (mx[s] < __fadd_rn(nv.z, bt)) |
+                 (__fadd_rn(nv.w, bt) < mn[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const long long j = begin + static_cast<long long>(kThreads) * (b * S + s);
+      hits += (j < end && !sep[s]) ? 1 : 0;
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -227,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). `rows` is the table width the
-// wrapper checked against (k, k2, k2a). Launches on `stream`, does not
+// Plain C entry point (bound with ctypes). (rows, k, k2, k2a) must be the
+// shape this library was built for. Launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = ok).
 extern "C" int mc_poly_counts_launch(const float* params, const int32_t* uids,
                                      int32_t* counts, int num_configs,
@@ -237,11 +163,11 @@ extern "C" int mc_poly_counts_launch(const float* params, const int32_t* uids,
                                      uint32_t seed0, uint32_t seed1,
                                      void* stream) {
   if (num_configs <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (k < 1 || k2 < 1 || k2a < 0 || k2a > k2 || rows < 3)
+  if (k != K || k2 != K2 || k2a != K2A || rows != kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long chunks = (n + kSamplesPerBlock - 1) / kSamplesPerBlock;
   if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shared = static_cast<size_t>(rows) * sizeof(float);
+  const size_t shared = static_cast<size_t>(T::kSlots) * sizeof(float4);
   if (shared > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         mc_poly_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,7 +178,7 @@ extern "C" int mc_poly_counts_launch(const float* params, const int32_t* uids,
                   static_cast<unsigned>(chunks));
   mc_poly_counts_kernel<<<grid, kThreads, shared,
                           static_cast<cudaStream_t>(stream)>>>(
-      params, uids, counts, rows, k, k2, k2a, n, offset, seed0, seed1);
+      params, uids, counts, n, offset, seed0, seed1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,3 +186,6 @@ extern "C" int mc_poly_counts_launch(const float* params, const int32_t* uids,
 extern "C" long long mc_poly_max_samples_per_round() {
   return 65535LL * kSamplesPerBlock;
 }
+
+// Samples a thread evaluates at once (S): one iteration of the sample loop.
+extern "C" int mc_poly_batch_samples() { return S; }

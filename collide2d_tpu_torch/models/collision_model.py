@@ -388,12 +388,24 @@ class PolygonCollisionProbabilityModel:
                                                 n_samples, ca_iters=ca_iters, tol=tol)
 
 
+def _example_device(device) -> torch.device:
+    """The device the example builders draw on: the card unless the caller
+    asks for another; a card that is not there raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the example builders run on the card by default and "
+                           "no CUDA device is available; pass device='cpu' to build "
+                           "the rows on the host")
+    return dev
+
+
 def example_polygon_configs(n: int = 8, k: int = 6, seed: int = 0,
-                            device="cpu") -> PolygonConfigs:
+                            device="cuda") -> PolygonConfigs:
     """Small deterministic `PolygonConfigs` batch, convex by construction
     (vertices on per-configuration ellipses at sorted angles): the JAX
     package's `example_polygon_configs` draws (threefry), so both give the
-    same rows."""
+    same rows. On the card unless ``device`` says otherwise."""
+    device = _example_device(device)
     k1, k2, k3, k4, k5 = prng.split(prng.PRNGKey(seed), 5)
     ang = prng.uniform(k1, (n, k), 0.0, 2.0 * math.pi, device).sort(dim=-1).values
     ab = prng.uniform(k2, (n, 1, 2), 0.5, 3.0, device)
@@ -406,9 +418,11 @@ def example_polygon_configs(n: int = 8, k: int = 6, seed: int = 0,
     )
 
 
-def example_configs(n: int = 8, seed: int = 0, device="cpu") -> Configs:
+def example_configs(n: int = 8, seed: int = 0, device="cuda") -> Configs:
     """Small deterministic `Configs` batch: the JAX package's
-    `example_configs` draws (threefry), so both give the same rows."""
+    `example_configs` draws (threefry), so both give the same rows. On the
+    card unless ``device`` says otherwise."""
+    device = _example_device(device)
     k1, k2, k3, k4 = prng.split(prng.PRNGKey(seed), 4)
     std_dev = prng.uniform(k4, (n, 5), 0.0, 0.55, device)
     std_dev[:, 3:] = 0.0

@@ -21,8 +21,9 @@ counts equal kernel 7's bit for bit. Translation-only by contract: the
 caller guarantees omega == 0 (the adaptive driver reads it back once).
 
 `mc_moving_poly_counts` routes on the device: a CUDA tensor launches
-``csrc/mc_moving_polygon_kernel.cu`` (built at first use) and counts the
-launch in ``LAUNCHES``; a failed build or launch raises; a CPU tensor runs
+``csrc/mc_moving_polygon_kernel.cu`` (built at first use once per shape,
+as kernel 7: `mc_polygon_cuda.shape_defines`) and counts the launch in
+``LAUNCHES``; a failed build or launch raises; a CPU tensor runs
 `mc_moving_poly_counts_plain`. Stream: kernel 7's (Philox keyed by the
 round's seed words, counter (sample index, uid, 0), words 0-2).
 """
@@ -179,10 +180,10 @@ def _check_inputs(params, uids, n, k, k2, k2a) -> None:
         raise ValueError(f"n must be >= 0, got {n}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
+def _kernel_lib(k: int, k2: int, k2a: int) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_KERNEL)
+    lib = cuda_build.load(_KERNEL, mc_polygon_cuda.shape_defines(k, k2, k2a))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.mc_moving_poly_counts_launch.restype = ctypes.c_int
     lib.mc_moving_poly_counts_launch.argtypes = [p, p, p, i, i, i, i, i, ll, ll,
@@ -209,7 +210,7 @@ def mc_moving_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int
     counts = torch.zeros((params.shape[0],), dtype=torch.int32, device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
-    lib = _kernel_lib()
+    lib = _kernel_lib(k, k2, k2a)
     if int(n) > lib.mc_moving_poly_max_samples_per_round():
         raise ValueError(f"n={n} exceeds the kernel's "
                          f"{lib.mc_moving_poly_max_samples_per_round()} samples "

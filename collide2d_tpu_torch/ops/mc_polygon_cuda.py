@@ -18,9 +18,11 @@ axis and a translation term per axis (`_poly_separated`).
 `mc_poly_counts` returns, for each table row, the int32 number of
 colliding samples among ``n`` draws:
 
-- on a CUDA tensor it launches ``csrc/mc_polygon_kernel.cu`` (built at
-  first use by `utils.cuda_build`) and counts the launch in ``LAUNCHES``;
-  anything the kernel does not take raises;
+- on a CUDA tensor it launches ``csrc/mc_polygon_kernel.cu``, built at
+  first use by `utils.cuda_build` once per shape (K, K2, K2A), which
+  `shape_defines` passes as ``-D`` defines so the kernel's loops unroll,
+  and counts the launch in ``LAUNCHES``; anything the kernel does not take
+  raises;
 - on a CPU tensor it runs `mc_poly_counts_plain`, the same function in
   torch operations.
 
@@ -231,10 +233,16 @@ def _check_inputs(params: torch.Tensor, uids: torch.Tensor, n: int, k: int,
         raise ValueError(f"n must be >= 0, got {n}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
+def shape_defines(k: int, k2: int, k2a: int) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines that specialise kernels 7 and 14 to one shape: K
+    obstacle vertices, K2 robot vertices, K2A kept robot axes."""
+    return (("MC_POLY_K", int(k)), ("MC_POLY_K2", int(k2)), ("MC_POLY_K2A", int(k2a)))
+
+
+def _kernel_lib(k: int, k2: int, k2a: int) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_KERNEL)
+    lib = cuda_build.load(_KERNEL, shape_defines(k, k2, k2a))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.mc_poly_counts_launch.restype = ctypes.c_int
     lib.mc_poly_counts_launch.argtypes = [p, p, p, i, i, i, i, i, ll, ll, u, u, p]
@@ -263,7 +271,7 @@ def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
                          device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
-    lib = _kernel_lib()
+    lib = _kernel_lib(k, k2, k2a)
     if int(n) > lib.mc_poly_max_samples_per_round():
         raise ValueError(
             f"n={n} exceeds the kernel's {lib.mc_poly_max_samples_per_round()} "

@@ -3,9 +3,13 @@
 Each ``collide2d_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, under
 ``collide2d_tpu_torch/build/`` (listed in .gitignore); a source may
-include the shared ``csrc/*.cuh`` headers. The file name carries a hash of
-the source, the headers and the flags, so an edited source or header
-rebuilds and an unchanged one loads straight away. The library is written under a
+include the shared ``csrc/*.cuh`` headers. A source specialised to a shape
+builds once per shape: ``defines``, ``(name, value)`` pairs, become ``-D``
+flags (kernels 7 and 14 take their polygon sizes this way, so their loops
+unroll and their table offsets are constants). The file name carries a
+hash of the source, the headers, the flags and the defines, so an edited
+source or header or another shape builds anew and an unchanged one loads
+straight away. The library is written under a
 temporary name and published with ``os.replace``, so processes that build
 at the same time never load a half-written file. There is no fallback: a
 missing ``nvcc`` or a failed build raises.
@@ -46,26 +50,36 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
+Defines = tuple[tuple[str, int], ...]
+
+
+def define_flags(defines: Defines = ()) -> list[str]:
+    """``-DNAME=value`` for each pair of ``defines``."""
+    return [f"-D{k}={int(v)}" for k, v in defines]
+
+
+def library_path(name: str, defines: Defines = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to: hashed by the source, every
-    ``csrc/*.cuh`` header (a source may include any of them) and the flags,
-    so an edited header rebuilds every library too."""
+    ``csrc/*.cuh`` header (a source may include any of them), the flags and
+    the defines, so an edited header rebuilds every library too and each
+    shape has a library of its own."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *define_flags(defines)]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
+def build(name: str, defines: Defines = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``defines`` unless its hashed
+    library exists."""
     src = CSRC_DIR / f"{name}.cu"
-    lib = library_path(name)
+    lib = library_path(name, defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *define_flags(defines), "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -76,7 +90,7 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
-    process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: Defines = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``'s library for
+    ``defines``, once per process."""
+    return ctypes.CDLL(str(build(name, defines)))

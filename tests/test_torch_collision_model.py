@@ -39,7 +39,7 @@ ROBOT = (4.07, 1.74)
 
 @pytest.fixture(scope="module")
 def configs():
-    return jm.example_configs(N, seed=3), tm.example_configs(N, seed=3)
+    return jm.example_configs(N, seed=3), tm.example_configs(N, seed=3, device="cpu")
 
 
 def _key(seed):
@@ -51,6 +51,32 @@ def test_example_configs_match_jax(configs):
     for a, b in zip(jc, tc):
         assert b.dtype == torch.float32
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def test_example_builders_default_to_the_card():
+    # Whether there is a card is decided here, at run time: the builders
+    # draw on it by default, and without one they raise rather than fall
+    # back to the host.
+    if torch.cuda.is_available():
+        assert tm.example_configs(4).position.device.type == "cuda"
+        assert tm.example_polygon_configs(4).obstacle_verts.device.type == "cuda"
+    else:
+        for build in (tm.example_configs, tm.example_polygon_configs):
+            with pytest.raises(RuntimeError, match="pass device='cpu'"):
+                build(4)
+    # device="cpu" gives the JAX example's rows (k-gon vertices within a
+    # cos/sin ulp of the JAX ones, scaled by semi-axes below 3)
+    jc, tc = jm.example_configs(64, seed=5), tm.example_configs(64, seed=5, device="cpu")
+    for a, b in zip(jc, tc):
+        assert b.device.type == "cpu"
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    jp = jm.example_polygon_configs(64, k=7, seed=5)
+    tp = tm.example_polygon_configs(64, k=7, seed=5, device="cpu")
+    for name in ("position", "pose_theta", "std_dev"):
+        np.testing.assert_array_equal(getattr(tp, name).numpy(),
+                                      np.asarray(getattr(jp, name)))
+    np.testing.assert_allclose(tp.obstacle_verts.numpy(), np.asarray(jp.obstacle_verts),
+                               rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("impl", ["auto", "cuda", "torch"])

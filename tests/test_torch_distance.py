@@ -224,7 +224,7 @@ def test_kernel9_wide_k_and_drop_in_vs_jnp():
 def rect_case():
     """`example_configs` rows (the JAX example's draws) and the JAX model's
     distance and witnesses on them."""
-    t = tm.example_configs(256, seed=9)  # the JAX example's threefry draws
+    t = tm.example_configs(256, seed=9, device="cpu")  # the JAX example's threefry draws
     jmodel = jm.CollisionProbabilityModel()
     args = _j(t.position, t.pose_theta, t.obstacle_wh)
     return (t, np.asarray(jax.jit(jmodel.distance)(*args)),
@@ -233,7 +233,7 @@ def rect_case():
 
 @pytest.fixture(scope="module")
 def polygon_case():
-    t = tm.example_polygon_configs(256, k=8, seed=10)
+    t = tm.example_polygon_configs(256, k=8, seed=10, device="cpu")
     b = JPolygonConfigs(*_j(*t))
     jmodel = jm.PolygonCollisionProbabilityModel(ROBOT)
     return t, np.asarray(jax.jit(jmodel.distance)(b)), jax.jit(jmodel.closest_points)(b)
@@ -277,10 +277,10 @@ def test_polygon_model_distance_vs_jax(polygon_case, impl):
 
 def test_cpu_tensors_never_launch_and_grad_raises():
     tdc.reset_launches()
-    b = tm.example_configs(64, seed=11)
+    b = tm.example_configs(64, seed=11, device="cpu")
     model = tm.CollisionProbabilityModel()
     model.distance(b.position, b.pose_theta, b.obstacle_wh, impl="cuda")
-    pb = tm.example_polygon_configs(64, k=6, seed=11)
+    pb = tm.example_polygon_configs(64, k=6, seed=11, device="cpu")
     tm.PolygonCollisionProbabilityModel(ROBOT).distance(pb, impl="cuda")
     assert tdc.LAUNCHES == {"obb_distance": 0, "polygon_distance": 0}
     pos = b.position.clone().requires_grad_(True)

@@ -230,43 +230,85 @@ def test_polygon_models_launch_the_kernel(cuda):
     assert polygon_cuda.LAUNCHES == 4
 
 
-@pytest.mark.parametrize("a_keep", [(0, 1), (0, 1, 2, 3)])
-def test_mc_polygon_kernel_matches_plain(cuda, a_keep):
+# Kernels 7 and 14 build one library per shape (K, K2, K2A): the shapes
+# below cover K from 3 to 20 (past 16, the other k-gon kernels' largest
+# bucket), a rectangle robot with 2 kept axes (deduplicated) and all 4, a
+# hexagon robot with 3 and all 6, and a degenerate robot with none.
+HEXAGON = np.stack([np.cos(np.arange(6) * np.pi / 3),
+                    np.sin(np.arange(6) * np.pi / 3)], -1).astype(np.float32)
+MC_POLY_SHAPES = {  # id: (k, robot, kept robot axes)
+    "k3": (3, ROBOT_4GON, (0, 1)), "k5": (5, ROBOT_4GON, (0, 1)),
+    "k6": (6, ROBOT_4GON, (0, 1)), "k8": (8, ROBOT_4GON, (0, 1)),
+    "k16": (16, ROBOT_4GON, (0, 1)), "k20": (20, ROBOT_4GON, (0, 1)),
+    "k6-4axes": (6, ROBOT_4GON, (0, 1, 2, 3)), "k8-4axes": (8, ROBOT_4GON, (0, 1, 2, 3)),
+    "k6-hexagon": (6, HEXAGON, (0, 1, 2)), "k5-hexagon-6axes": (5, HEXAGON, tuple(range(6))),
+    "k5-no-axes": (5, ROBOT_4GON, ()),
+}
+
+
+@pytest.fixture(scope="module")
+def mc_poly_libraries():
+    """Build kernels 7 and 14 for every shape of MC_POLY_SHAPES at once, one
+    nvcc each (the tests would otherwise build them one after another)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = [(name, mc_polygon_cuda.shape_defines(k, len(robot), len(a_keep)))
+            for k, robot, a_keep in MC_POLY_SHAPES.values()
+            for name in ("mc_polygon_kernel", "mc_moving_polygon_kernel")]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: cuda_build.build(*job), jobs))
+
+
+@pytest.mark.parametrize("shape", list(MC_POLY_SHAPES))
+def test_mc_polygon_kernel_matches_plain(cuda, mc_poly_libraries, shape):
+    k, robot, a_keep = MC_POLY_SHAPES[shape]
     c, n = 2048, 8192
-    configs = example_polygon_configs(c, k=6, seed=4, device=cuda)
-    params = mc_polygon_cuda.pack_polygon_mc_params(configs, ROBOT_4GON, a_keep)
+    configs = example_polygon_configs(c, k=k, seed=4, device=cuda)
+    params = mc_polygon_cuda.pack_polygon_mc_params(configs, robot, a_keep)
     uids = torch.from_numpy(np.random.default_rng(5).permutation(4 * c)[:c]
                             .astype(np.int32)).to(cuda)
-    dims = dict(k=6, k2=4, k2a=len(a_keep))
+    dims = dict(k=k, k2=len(robot), k2a=len(a_keep))
     before = mc_polygon_cuda.LAUNCHES
     got = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, n, **dims)
     want = mc_polygon_cuda.mc_poly_counts_plain(params, uids, SEED, n,
-                                                max_elems=1 << 22, **dims)
+                                                max_elems=1 << 20, **dims)
     torch.cuda.synchronize()
     assert mc_polygon_cuda.LAUNCHES == before + 1
     assert 0 < int(want.sum()) < c * n
     assert int((got - want).abs().sum()) <= 1e-5 * c * n
 
 
-def test_mc_polygon_counts_invariant_under_split_and_compaction(cuda):
-    c, n, cut = 1000, 10_000, 4096 + 77
-    configs = example_polygon_configs(c, k=8, seed=6, device=cuda)
-    params = mc_polygon_cuda.pack_polygon_mc_params(configs, ROBOT_4GON, (0, 1))
+@pytest.mark.parametrize("kernel", ["7", "14"])
+@pytest.mark.parametrize("shape", ["k8", "k20", "k6-hexagon"])
+def test_mc_polygon_counts_invariant_under_split_and_compaction(
+        cuda, mc_poly_libraries, shape, kernel):
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
+
+    k, robot, a_keep = MC_POLY_SHAPES[shape]
+    c, n, cut = 1000, 10_000, 4096 + 77  # ragged chunks and batches
+    _, moving = _moving_polygons(cuda, c, 6, k=k)
+    if kernel == "7":
+        fn = mc_polygon_cuda.mc_poly_counts
+        params = mc_polygon_cuda.pack_polygon_mc_params(moving, robot, a_keep)
+    else:
+        fn = mmp.mc_moving_poly_counts
+        params = mmp.pack_moving_polygon_mc_params(moving, robot, a_keep)
     uids = torch.arange(c, dtype=torch.int32, device=cuda)
-    dims = dict(k=8, k2=4, k2a=2)
-    whole = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, n, **dims)
-    first = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, cut, **dims)
-    second = mc_polygon_cuda.mc_poly_counts(params, uids, SEED, n - cut,
-                                            offset=cut, **dims)
+    dims = dict(k=k, k2=len(robot), k2a=len(a_keep))
+    whole = fn(params, uids, SEED, n, **dims)
+    first = fn(params, uids, SEED, cut, **dims)
+    second = fn(params, uids, SEED, n - cut, offset=cut, **dims)
     assert torch.equal(first + second, whole)
     keep = torch.randperm(c, generator=torch.Generator().manual_seed(1))[:300].to(cuda)
-    sub = mc_polygon_cuda.mc_poly_counts(params[keep].contiguous(),
-                                         uids[keep].contiguous(), SEED, n, **dims)
+    sub = fn(params[keep].contiguous(), uids[keep].contiguous(), SEED, n, **dims)
     assert torch.equal(sub, whole[keep])
+    assert 0 < int(whole.sum()) < c * n
 
 
 def test_polylabel_on_cuda(cuda, tmp_path):
-    b = example_polygon_configs(2000, k=8, seed=7)
+    b = example_polygon_configs(2000, k=8, seed=7, device="cpu")
     np.savez(tmp_path / "in.npz", robot_verts=ROBOT_4GON,
              position=(b.position * 0.6).numpy(), pose_theta=b.pose_theta.numpy(),
              obstacle_verts=b.obstacle_verts.numpy(), std_dev=b.std_dev.numpy())
@@ -484,18 +526,19 @@ def _moving_polygons(cuda, c, seed, k=6, still=False):
                                      device=cuda)
 
 
-@pytest.mark.parametrize("a_keep", [(0, 1), (0, 1, 2, 3)])
-def test_mc_moving_polygon_kernel_matches_plain(cuda, a_keep):
+@pytest.mark.parametrize("shape", list(MC_POLY_SHAPES))
+def test_mc_moving_polygon_kernel_matches_plain(cuda, mc_poly_libraries, shape):
     from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
 
+    k, robot, a_keep = MC_POLY_SHAPES[shape]
     c, n = 2048, 8192
-    _, configs = _moving_polygons(cuda, c, 32)
-    params = mmp.pack_moving_polygon_mc_params(configs, ROBOT_4GON, a_keep)
+    _, configs = _moving_polygons(cuda, c, 32, k=k)
+    params = mmp.pack_moving_polygon_mc_params(configs, robot, a_keep)
     uids = torch.arange(c, dtype=torch.int32, device=cuda)
-    dims = dict(k=6, k2=4, k2a=len(a_keep))
+    dims = dict(k=k, k2=len(robot), k2a=len(a_keep))
     before = mmp.LAUNCHES
     got = mmp.mc_moving_poly_counts(params, uids, SEED, n, **dims)
-    want = mmp.mc_moving_poly_counts_plain(params, uids, SEED, n, max_elems=1 << 22,
+    want = mmp.mc_moving_poly_counts_plain(params, uids, SEED, n, max_elems=1 << 20,
                                            **dims)
     torch.cuda.synchronize()
     assert mmp.LAUNCHES == before + 1
@@ -503,18 +546,21 @@ def test_mc_moving_polygon_kernel_matches_plain(cuda, a_keep):
     assert int((got - want).abs().sum()) <= 1e-5 * c * n
 
 
-def test_mc_moving_polygon_kernel_at_zero_velocity_is_kernel_7(cuda):
+@pytest.mark.parametrize("shape", list(MC_POLY_SHAPES))
+def test_mc_moving_polygon_kernel_at_zero_velocity_is_kernel_7(cuda, mc_poly_libraries,
+                                                               shape):
     from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
 
+    k, robot, a_keep = MC_POLY_SHAPES[shape]
     c, n = 2048, 8192
-    static, configs = _moving_polygons(cuda, c, 33, k=8, still=True)
+    static, configs = _moving_polygons(cuda, c, 33, k=k, still=True)
     uids = torch.arange(c, dtype=torch.int32, device=cuda)
-    dims = dict(k=8, k2=4, k2a=2)
+    dims = dict(k=k, k2=len(robot), k2a=len(a_keep))
     moving = mmp.mc_moving_poly_counts(
-        mmp.pack_moving_polygon_mc_params(configs, ROBOT_4GON, (0, 1)), uids, SEED, n,
+        mmp.pack_moving_polygon_mc_params(configs, robot, a_keep), uids, SEED, n,
         **dims)
     still = mc_polygon_cuda.mc_poly_counts(
-        mc_polygon_cuda.pack_polygon_mc_params(static, ROBOT_4GON, (0, 1)), uids,
+        mc_polygon_cuda.pack_polygon_mc_params(static, robot, a_keep), uids,
         SEED, n, **dims)
     assert torch.equal(moving, still) and 0 < int(still.sum()) < c * n
 

@@ -187,11 +187,11 @@ def jax_model_manifold(kind, margin=0.0):
     """The JAX model's ``jnp`` manifold on the port's example rows (the JAX
     examples' threefry draws), computed once per case: (rows, result)."""
     if kind == "rect":
-        t = tm.example_configs(256, seed=7)
+        t = tm.example_configs(256, seed=7, device="cpu")
         args = [jnp.asarray(a.numpy()) for a in (t.position, t.pose_theta, t.obstacle_wh)]
         return t, jax.jit(functools.partial(jm.CollisionProbabilityModel().contact_manifold,
                                             margin=margin, impl="jnp"))(*args)
-    t = tm.example_polygon_configs(256, k=8, seed=8)
+    t = tm.example_polygon_configs(256, k=8, seed=8, device="cpu")
     b = JPolygonConfigs(*(jnp.asarray(a.numpy()) for a in t))
     return t, jax.jit(functools.partial(
         jm.PolygonCollisionProbabilityModel(ROBOT).contact_manifold, impl="jnp"))(b)
@@ -217,10 +217,10 @@ def test_polygon_model_contact_manifold_vs_jax(impl):
 
 def test_cpu_tensors_never_launch_and_grad_raises():
     tmc.reset_launches()
-    t = tm.example_configs(64, seed=9)
+    t = tm.example_configs(64, seed=9, device="cpu")
     model = tm.CollisionProbabilityModel()
     model.contact_manifold(t.position, t.pose_theta, t.obstacle_wh, impl="cuda")
-    pc = tm.example_polygon_configs(64, k=6, seed=9)
+    pc = tm.example_polygon_configs(64, k=6, seed=9, device="cpu")
     tm.PolygonCollisionProbabilityModel(ROBOT).contact_manifold(pc, impl="cuda")
     assert tmc.LAUNCHES == 0
     pos = t.position.clone().requires_grad_(True)
@@ -244,4 +244,4 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tmc.polygon_manifold_cuda_t(b.bfloat16(), b.bfloat16(), k1=4, k2=4)
     with pytest.raises(ValueError, match="impl"):
         tm.PolygonCollisionProbabilityModel(ROBOT).contact_manifold(
-            tm.example_polygon_configs(8, k=4), impl="pallas")
+            tm.example_polygon_configs(8, k=4, device="cpu"), impl="pallas")

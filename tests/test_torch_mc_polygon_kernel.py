@@ -21,10 +21,15 @@ k-gon path on the CPU, against the JAX package.
 (f) Statistically, the Philox path agrees with the threefry path: per-row
     pooled z-scores with mean z^2 in [0.6, 1.5] and max |z| < 6, rows
     where both estimates are 0 or both 1 skipped.
+(g) Kernels 7 and 14 build one library per shape: the hashed library path
+    differs per (K, K2, K2A) and is stable, and each wrapper loads the
+    library of the shape it is called with (no nvcc needed).
 
 The CUDA kernel itself cannot run here: tests/test_torch_gpu.py holds it
 against this plain version and skips without a card.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -42,7 +47,9 @@ from collide2d_tpu_torch.mc.estimator import (
     polygon_configs_from_numpy,
 )
 from collide2d_tpu_torch.models import collision_model as tm
+from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as tmmp
 from collide2d_tpu_torch.ops import mc_polygon_cuda as tmp
+from collide2d_tpu_torch.utils import cuda_build
 from tests.conftest import deterministic_uniform_stub
 
 # The suite runs one xdist worker per core: one torch thread each keeps
@@ -201,7 +208,7 @@ def test_threefry_counts_match_jax_jnp(seed, k, n):
 
 def test_plain_philox_agrees_with_threefry_statistically():
     c, n = 128, 8192
-    b = tm.example_polygon_configs(n=c, k=6, seed=9)
+    b = tm.example_polygon_configs(n=c, k=6, seed=9, device="cpu")
     p_fry = collision_probability(prng.PRNGKey(21), b, ROBOT, n).numpy()
     p_phx = collision_probability(prng.PRNGKey(77), b, ROBOT, n,
                                   impl="cuda").numpy()
@@ -215,3 +222,37 @@ def test_plain_philox_agrees_with_threefry_statistically():
     assert a.size >= 30
     assert 0.6 <= np.mean(z * z) <= 1.5
     assert np.abs(z).max() < 6
+
+
+SHAPES = [(8, 4, 2), (6, 4, 2), (8, 4, 4), (20, 4, 2), (5, 4, 0), (6, 6, 3)]
+
+
+@pytest.mark.parametrize("source", ["mc_polygon_kernel", "mc_moving_polygon_kernel"])
+def test_library_path_is_one_per_shape_and_stable(source):
+    paths = [cuda_build.library_path(source, tmp.shape_defines(*s)) for s in SHAPES]
+    assert len(set(paths)) == len(SHAPES)
+    assert paths == [cuda_build.library_path(source, tmp.shape_defines(*s))
+                     for s in SHAPES]
+    assert all(p.name.startswith(f"lib{source}-") and p.parent == cuda_build.BUILD_DIR
+               for p in paths)
+    assert cuda_build.define_flags(tmp.shape_defines(8, 4, 2)) == [
+        "-DMC_POLY_K=8", "-DMC_POLY_K2=4", "-DMC_POLY_K2A=2"]
+    # a source built without defines keeps the name it had before defines
+    assert cuda_build.library_path("mc_kernel") == cuda_build.library_path("mc_kernel", ())
+
+
+@pytest.mark.parametrize("module,fn", [(tmp, "mc_poly"), (tmmp, "mc_moving_poly")])
+def test_wrapper_loads_the_library_of_its_shape(monkeypatch, module, fn):
+    from types import SimpleNamespace
+
+    seen = []
+
+    def load(name, defines=()):
+        seen.append((name, defines))
+        return SimpleNamespace(**{f"{fn}_counts_launch": SimpleNamespace(),
+                                  f"{fn}_max_samples_per_round": SimpleNamespace()})
+
+    monkeypatch.setattr(cuda_build, "load", load)
+    lib = module._kernel_lib(20, 6, 3)
+    assert seen == [(module._KERNEL, tmp.shape_defines(20, 6, 3))]
+    assert getattr(lib, f"{fn}_counts_launch").restype is ctypes.c_int

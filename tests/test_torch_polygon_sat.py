@@ -217,7 +217,7 @@ def test_cpu_tensors_never_launch():
     p = torch.from_numpy(_polygons(rng, 100, 5))
     tpc.sat_polygons_cuda(p, p)
     tm.PolygonCollisionProbabilityModel(ROBOT).collide(
-        tm.example_polygon_configs(64, k=5))
+        tm.example_polygon_configs(64, k=5, device="cpu"))
     assert tpc.LAUNCHES == 0
 
 

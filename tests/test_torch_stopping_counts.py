@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 def test_recovered_counts_match_the_driver(fixed_batch):
     cfg = AdaptiveConfig(max_samples=40_000, fixed_batch=fixed_batch, impl="cuda")
     cp, n_used, _ = adaptive_collision_probabilities(
-        prng.PRNGKey(5), example_configs(256, seed=3), (4.07, 1.74), cfg)
+        prng.PRNGKey(5), example_configs(256, seed=3, device="cpu"), (4.07, 1.74), cfg)
     got = stopping_counts(cp, cfg)
     assert (got <= n_used).all()
     assert (got == n_used).mean() >= 0.95

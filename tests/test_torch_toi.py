@@ -167,7 +167,7 @@ def jax_model_toi():
     """`example_configs` rows moving at unit speed (every 4th away from the
     obstacle, every 3rd not rotating) and the JAX model's ``jnp`` times on
     them, computed once: ((rows, velocity, omega), times)."""
-    t = tm.example_configs(256, seed=9)  # the JAX example's threefry draws
+    t = tm.example_configs(256, seed=9, device="cpu")  # the JAX example's threefry draws
     vel = -t.position / t.position.norm(dim=-1, keepdim=True)
     vel[1::4] *= -1.0
     omega = torch.from_numpy(np.random.default_rng(9).uniform(-1, 1, 256)
@@ -198,7 +198,7 @@ def test_model_time_of_impact_head_on_and_vs_jax(impl):
 
 def test_cpu_tensors_never_launch_and_grad_raises():
     ttc.reset_launches()
-    t = tm.example_configs(64, seed=10)
+    t = tm.example_configs(64, seed=10, device="cpu")
     model = tm.CollisionProbabilityModel()
     vel = -t.position
     model.time_of_impact(t.position, t.pose_theta, t.obstacle_wh, vel, 0.5, impl="cuda",
