@@ -22,7 +22,8 @@ raises, and the script then exits non-zero without printing a result):
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
    sum |dcount| <= 1e-5 * C * n; samples/s of both, timed with CUDA
-   events after a warm-up;
+   events after a warm-up; the counts' fingerprint (as in phase 10) and
+   the kernel's issue floor (below) beside its bound;
 3. the main path: ``collide2d-torch generate --device cuda -n 2
    -b 100000 --seed 7`` at the default 64^4-row tables, 4e6 cap and
    reference bins, in process; two (100000, 5) float32 files with finite
@@ -113,8 +114,10 @@ raises, and the script then exits non-zero without printing a result):
    shape noise on) x 4,096 samples, and 8,192 rotating rows x 2,048 with 48
    advancement steps and tol 1e-4: sum |dcount| <= 1e-5 of the samples;
    samples/s, mean and warp-maximum advancement steps (from the plain
-   version); then the agreement gate against the threefry window path
-   (4,096 rows x 65,536 samples: max z < 6, share with z > 3 <= 3 x 0.27%);
+   version), the counts' fingerprint, and the translation run's issue
+   floor beside its bound; then the agreement gate against the threefry
+   window path (4,096 rows x 65,536 samples: max z < 6, share with z > 3
+   <= 3 x 0.27%);
 16. ``movelabel --device cuda`` on the 100,000 translation-only rows at the
    4e6 cap and reference bins: finite cp in [0, 1], samples within the cap,
    kernel-13 launches > 0 and kernel-15 launches 0; configs/s, mean
@@ -180,15 +183,16 @@ out ``sincosf``; phase 19 also prints kernel 11's bound with its division
 at the 7 instructions of its SASS fast path; kernel 12's and 13's work
 depends on the data, so their bounds count the distance evaluations this
 run's lanes take; kernel 15's is the larger of 28 bytes a lane and its
-counted operations). Kernels 7 and 14 also carry ``issue_floor_ms``: the
-fewest SASS instructions one iteration of their sample loop can issue
-(`_shortest_iteration` on ``cuobjdump -sass`` of the built library), over
-the samples an iteration evaluates, times the samples, over 132 SMs x 128
-lanes x the SM clock's maximum (nvidia-smi). ``bound_ms`` keeps its
-convention, comparable across kernels; these kernels must not contract
-a multiply and an add, so each counted operation is a whole instruction
-and they cannot come near it, while the issue floor counts what the card
-must issue. No single PyTorch call computes any of these functions, so
+counted operations). The fused Monte Carlo kernels 1, 7, 13 and 14 also
+carry ``issue_floor_ms``: the fewest SASS instructions one iteration of
+their sample loop can issue (`_shortest_iteration` on ``cuobjdump -sass``
+of the built library; kernel 13's window loop), over the samples an
+iteration evaluates, times the samples, over 132 SMs x 128 lanes x the SM
+clock's maximum (nvidia-smi). ``bound_ms`` keeps its convention,
+comparable across kernels; it leaves out the stream's integer and library
+work, and kernels 7, 13 and 14 must not contract a multiply and an add, so
+they cannot come near it, while the issue floor counts what the card must
+issue. No single PyTorch call computes any of these functions, so
 ``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -322,7 +326,10 @@ def phase_build():
           libraries=",".join(lib.name for lib in libs))
 
 
-def phase_kernel_vs_plain() -> dict:
+def _rect_mc_params(c: int, shape_noise: bool) -> torch.Tensor:
+    """Phase 2's kernel-1 rows on the card: ``c`` annulus configurations of
+    the reference tables (65,536 poses and variances, with shape variance
+    when ``shape_noise``), seed 11."""
     from collide2d_tpu_torch.data.pipeline import GenerateConfig, _sample_tables
     from collide2d_tpu_torch.mc import prng
     from collide2d_tpu_torch.mc.estimator import Configs
@@ -330,24 +337,39 @@ def phase_kernel_vs_plain() -> dict:
     from collide2d_tpu_torch.ops import mc_cuda
 
     dev = torch.device("cuda")
+    poses, variances = _sample_tables(GenerateConfig(
+        num_poses=65_536, num_variances=65_536, shape_variance=shape_noise))
+    cfg = GenerateConfig()
+    pos, _, _, pose, sd = sample_configuration_batch(
+        prng.PRNGKey(11), torch.as_tensor(poses, device=dev),
+        torch.as_tensor(np.sqrt(variances), device=dev),
+        num_configs=c, r_offset=cfg.r_offset, spread=cfg.spread)
+    return mc_cuda.pack_mc_params(Configs(pos, pose[:, 2], pose[:, :2], sd), cfg.robot_wh)
+
+
+# (name, rows, samples, shape noise) of kernel 1's checks: the reference
+# default and shape noise at full batch width, then the adaptive tail's
+# shape (min_active rows, later_batch samples a round).
+MC_CASES = (("default", C_CHECK, N_CHECK, False),
+            ("shape_noise", C_CHECK, N_CHECK, True),
+            ("tail", TAIL_ROWS, TAIL_SAMPLES, False))
+
+
+def mc_kernel_instance(shape_noise: bool) -> str:
+    """Kernel 1's instantiation at these inputs in the SASS: <shape noise,
+    wide indices = false> (csrc/mc_kernel.cu)."""
+    return f"mc_counts_kernelILb{int(shape_noise)}ELb0E"
+
+
+def phase_kernel_vs_plain() -> dict:
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.ops import mc_cuda
+
+    dev = torch.device("cuda")
     result = {}
-    # (name, rows, samples, shape noise): the reference default and shape
-    # noise at full batch width, then the adaptive tail's shape (min_active
-    # rows, later_batch samples a round).
-    cases = (("default", C_CHECK, N_CHECK, False),
-             ("shape_noise", C_CHECK, N_CHECK, True),
-             ("tail", TAIL_ROWS, TAIL_SAMPLES, False))
-    for key, c, n, shape_noise in cases:
+    for key, c, n, shape_noise in MC_CASES:
         t = time.monotonic()
-        poses, variances = _sample_tables(GenerateConfig(
-            num_poses=65_536, num_variances=65_536, shape_variance=shape_noise))
-        cfg = GenerateConfig()
-        pos, _, _, pose, sd = sample_configuration_batch(
-            prng.PRNGKey(11), torch.as_tensor(poses, device=dev),
-            torch.as_tensor(np.sqrt(variances), device=dev),
-            num_configs=c, r_offset=cfg.r_offset, spread=cfg.spread)
-        configs = Configs(pos, pose[:, 2], pose[:, :2], sd)
-        params = mc_cuda.pack_mc_params(configs, cfg.robot_wh)
+        params = _rect_mc_params(c, shape_noise)
         uids = torch.arange(c, dtype=torch.int32, device=dev)
         seed = mc_cuda.round_seed(prng.PRNGKey(12), 3)
         got = mc_cuda.mc_counts(params, uids, seed, n, shape_noise=shape_noise)
@@ -367,13 +389,21 @@ def phase_kernel_vs_plain() -> dict:
         plain_ms = _events_ms(lambda: mc_cuda.mc_counts_plain(
             params, uids, seed, n, shape_noise=shape_noise,
             max_elems=1 << 24), reps=1)
+        # 64 bytes of parameters and a 4-byte uid in, a 4-byte count out
+        bound, bound_by = _bound_ms(c * 72, c * n * mc_ops_per_sample(shape_noise))
+        floor = issue_floor("mc_kernel", (), mc_kernel_instance(shape_noise),
+                            "mc_batch_samples", c * n)
+        counts_sum, counts_fp = _fingerprint(got)
         result[key] = dict(sum_abs_diff=total, max_abs_err=int(diff.max()),
                            rows_differ=int((diff > 0).sum()),
-                           kernel_ms=kernel_ms, plain_ms=plain_ms)
+                           kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by, issue_floor_ms=floor["issue_floor_ms"])
         _line("2 kernel-vs-plain", time.monotonic() - t, case=key,
               shape_noise=shape_noise, C=c, n=n, sum_abs_dcount=total,
-              rows_differ=result[key]["rows_differ"],
-              kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+              rows_differ=result[key]["rows_differ"], counts_sum=counts_sum,
+              counts_fingerprint=counts_fp, kernel_ms=f"{kernel_ms:.4f}",
+              plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
               kernel_samples_per_s=f"{c * n / kernel_ms * 1e3:.4e}",
               plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
     return result
@@ -831,7 +861,7 @@ def phase_mc_polygon() -> dict:
         bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
                                     c * n * mc_poly_ops_per_sample(**dims))
         floor = issue_floor("mc_polygon_kernel", mc_polygon_cuda.shape_defines(**dims),
-                            "mc_poly_counts_kernel", "mc_poly_batch_samples", c * n)
+                            "mc_poly_counts_kernelILb0E", "mc_poly_batch_samples", c * n)
         result["max_abs_err"] = max(result["max_abs_err"], int(diff.max()))
         if key == "workload":
             result.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
@@ -1382,6 +1412,13 @@ MC_TOI_NOISE_OPS = 14
 SCREEN_LANE_OPS, SCREEN_SEG_OPS = 11 + 46 + 12 + 5, 113
 
 
+def mc_toi_kernel_instance(shape_noise: bool, ca_iters: int) -> str:
+    """Kernel 13's instantiation at these inputs in the SASS: <shape noise,
+    advancement loop (ca_iters > 0), wide indices = false>
+    (csrc/mc_toi_kernel.cu)."""
+    return f"mc_toi_counts_kernelILb{int(shape_noise)}ELb{int(ca_iters > 0)}ELb0E"
+
+
 def mc_moving_poly_ops_per_sample(k: int, k2: int, k2a: int) -> int:
     """csrc/mc_moving_polygon_kernel.cu: kernel 7's normals, offsets and
     (u1, u2) (3 normals + 9), the relative velocity in the obstacle frame
@@ -1561,22 +1598,32 @@ def phase_mc_toi() -> dict:
         bound, bound_by = _bound_ms(c * 68, ops)
         mean_steps = float(steps.sum()) / (c * n)
         warp_max = float(warp_steps.sum()) / (c * -(-n // 32))
+        # the window loop's floor (the advancement loop's work depends on
+        # the data: its bound counts the steps taken)
+        floor = {} if rotating else issue_floor(
+            "mc_toi_kernel", (), mc_toi_kernel_instance(True, ca_iters),
+            "mc_toi_batch_samples", c * n)
+        counts_sum, counts_fp = _fingerprint(got)
         result["max_abs_err"] = max(result["max_abs_err"], int(diff.max()))
         result[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                           mean_steps=mean_steps, warp_max_steps=warp_max)
+                           mean_steps=mean_steps, warp_max_steps=warp_max,
+                           issue_floor_ms=floor.get("issue_floor_ms"))
         _line("15 mc_toi", time.monotonic() - t, case=key, C=c, n=n, ca_iters=ca_iters,
               sum_abs_dcount=total, rows_differ=int((diff > 0).sum()),
-              hit_share=f"{float(want.sum()) / (c * n):.4f}",
+              hit_share=f"{float(want.sum()) / (c * n):.4f}", counts_sum=counts_sum,
+              counts_fingerprint=counts_fp,
               mean_steps=f"{mean_steps:.2f}", mean_warp_max_steps=f"{warp_max:.2f}",
               kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
-              bound_by=bound_by, kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}",
+              bound_by=bound_by,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
+              kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}",
               plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
         del params, got, want, steps, warp_steps
     _agreement_gate("mc_toi", _moving_rects(4096, False, seed=6), ROBOT_WH, "15 agreement")
     out = result["translation"]
     return dict(max_abs_err=result["max_abs_err"], ms=out["ms"], plain_ms=out["plain_ms"],
                 bound_ms=out["bound_ms"], bound_by=out["bound_by"],
-                rotating=result["rotating"])
+                issue_floor_ms=out["issue_floor_ms"], rotating=result["rotating"])
 
 
 def _relabel_bar(name: str, full_cp, full_n, head_path: Path, out: Path,
@@ -1798,7 +1845,7 @@ def phase_mc_moving_polygon(work: Path) -> dict:
     bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
                                 c * n * mc_moving_poly_ops_per_sample(**dims))
     floor = issue_floor("mc_moving_polygon_kernel", mc_polygon_cuda.shape_defines(**dims),
-                        "mc_moving_poly_counts_kernel", "mc_moving_poly_batch_samples",
+                        "mc_moving_poly_counts_kernelILb0E", "mc_moving_poly_batch_samples",
                         c * n)
     counts_sum, counts_fp = _fingerprint(got)
     # zero velocity: kernel 7's counts bit for bit on the same stream
@@ -2228,7 +2275,7 @@ def phase_scene_swept() -> None:
           narrow_pairs_per_s=f"{n * w / ms * 1e3:.4e}")
 
 
-# ---- kernels 7 and 14: the counts' fingerprint and the issue floor ----
+# ---- kernels 1, 7, 13 and 14: the counts' fingerprint and the issue floor ----
 
 
 def _fingerprint(counts: torch.Tensor) -> tuple[int, int]:
@@ -2322,11 +2369,14 @@ def _sm_clock_hz() -> tuple[float, float]:
 
 
 def issue_floor(name: str, defines, kernel: str, batch_fn: str, samples: int) -> dict:
-    """Kernel 7's or 14's issue floor for ``samples`` samples: the shortest
-    path through one iteration of its sample loop over the S samples an
-    iteration evaluates (SASS instructions a sample), times the samples,
-    over 132 SMs x 128 lanes x the SM clock's maximum; beside it the
-    static SASS and LDS of the loop a sample."""
+    """A fused Monte Carlo kernel's issue floor for ``samples`` samples
+    (kernels 1, 7, 13, 14): the shortest path through one iteration of the
+    sample loop of the instantiation whose mangled name holds ``kernel``
+    (the one these samples run: 32-bit indices; kernel 13's window loop,
+    with no advancement loop in the function) over the S samples an iteration
+    evaluates (``batch_fn``), SASS instructions a sample, times the samples,
+    over 132 SMs x 128 lanes x the SM clock's maximum; beside it the static
+    SASS and LDS of the loop a sample."""
     from collide2d_tpu_torch.utils import cuda_build
 
     lib = cuda_build.build(name, defines)
@@ -2384,8 +2434,6 @@ def main() -> int:
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
     default = check["default"]
-    mc_bound, mc_bound_by = _bound_ms(C_CHECK * 72,
-                                      C_CHECK * N_CHECK * mc_ops_per_sample(False))
     kernels = {"kernels": [{
         "name": "mc_counts",
         "route": "cuda",
@@ -2395,8 +2443,9 @@ def main() -> int:
         "max_abs_err": max(check[k]["max_abs_err"] for k in check),
         "ms": default["kernel_ms"],
         "plain_ms": default["plain_ms"],
-        "bound_ms": mc_bound,
-        "bound_by": mc_bound_by,
+        "bound_ms": default["bound_ms"],
+        "bound_by": default["bound_by"],
+        "issue_floor_ms": default["issue_floor_ms"],
         "library_ms": None,
     }] + [{
         "name": name,

@@ -3,30 +3,39 @@
 // Replaces the TPU kernel collide2d_tpu/ops/mc_pallas.py::_mc_kernel. For
 // each configuration row c it returns the int32 number of colliding samples
 // among n noise draws: per sample, 3 standard normals (dx, dy, dtheta) or 5
-// with shape noise (+ dw, dh) from 23-bit codes through XLA's float32
-// erf_inv polynomial, then the relative-angle 4-axis oriented-box test of
-// `_obb_separated` (mc_pallas.py:159-204).
+// with shape noise (+ dw, dh) from the shared stream (csrc/mc_stream.cuh:
+// words dx, dy, dtheta, dw of draw block 0, dh of block 1), then the
+// relative-angle 4-axis oriented-box test of `_obb_separated`
+// (mc_pallas.py:159-204).
 //
-// What bounds it on this card: not memory. A round reads 64 bytes of
-// parameters per configuration and writes 4, while every sample costs one
-// Philox4x32-10 (two with shape noise), 3-5 erf_inv (a log1pf, a sqrtf and
-// a degree-8 polynomial each), one sincosf and ~40 FP32 operations. It is
-// bound by instruction issue and by how many SMs have work.
+// What bounds it on this card: instruction issue, not memory. A round reads
+// 64 bytes of parameters per configuration and writes 4, while every sample
+// costs one Philox4x32-10 (two with shape noise), 3-5 erf_inv (a log1pf and
+// a degree-8 polynomial each), one sincosf and ~40 FP32 operations.
 //
-// The trap is the adaptive tail: after repacks the buffer holds as few as
-// 256 configurations (min_active), yet each round still draws 100,000
-// samples per configuration. A thread per configuration would leave most of
-// the 132 SMs idle. So the grid is (configuration, sample chunk): a block
-// of 256 threads takes 4096 consecutive samples of one configuration, each
-// thread sums its hits in a register, a warp shuffle reduces them, and one
-// int32 atomicAdd per warp lands the warp's sum in counts[c]. Integer sums
-// do not depend on order, so the counts are deterministic.
-//
-// Randomness: Philox4x32-10 keyed by the round's two seed words (the folded
-// threefry key, as mc_pallas.py:375-378), with the counter (sample index
-// low, sample index high, uid, draw block). Counts are therefore a pure
-// function of (key, uid, round tag, sample index): they do not change with
-// grid shape, repacking, row order or cross-batch overlap.
+// Design:
+// - the grid is (configuration, 4,096-sample chunk), so the adaptive tail's
+//   256 rows x 100,000 samples still fill the card; a block of 256 threads
+//   keeps its row in registers;
+// - each thread evaluates S = 4 samples at once: their Philox rounds,
+//   polynomials and sincosf are independent chains that hide each other's
+//   latency. A thread's 16 samples are index first + thread + 256 m,
+//   m < 16, in batches of S, so S changes no sample's owner or order.
+//   S = 4 against 1 and 2: see the note at `S`;
+// - the stream's round keys from the launcher, in the constant bank, and
+//   its counter words 1-3 folded once a block (mc_stream.cuh); the sample
+//   index in 32 bits when the launch's indices share their high word
+//   (every launch of the main path), a second instantiation with 64-bit
+//   indices otherwise;
+// - a warp leaves the sample loop together, so erf_inv's vote names the
+//   whole warp;
+// - the four axis tests as one predicate, with no short-circuit branch.
+// Hits are summed in a register, a warp shuffle reduces them, and one int32
+// atomicAdd per warp lands the warp's sum in counts[c]. Integer sums do not
+// depend on order, and each sample's operations are fixed (the expressions
+// below keep the parent's shapes, so nvcc contracts the same products), so
+// counts are a pure function of (key, uid, round tag, sample index): they do
+// not change with S, the grid, repacking, row order or cross-batch overlap.
 //
 // The wrapper (ops/mc_cuda.py) allocates `counts` zeroed; the kernel only
 // accumulates into it and allocates nothing.
@@ -34,70 +43,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mc_stream.cuh"
+
 namespace {
+
+using namespace collide2d::mc_stream;
 
 constexpr int kThreads = 256;
 constexpr int kSamplesPerThread = 16;
 constexpr long long kSamplesPerBlock =
     static_cast<long long>(kThreads) * kSamplesPerThread;
-
-struct Philox4 {
-  uint32_t v[4];
-};
-
-__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  Philox4 out = {{c0, c1, c2, c3}};
-  return out;
-}
-
-// XLA's float32 erf_inv (the polynomial jax.lax.erf_inv lowers to and
-// collide2d_tpu_torch/mc/prng.py::erf_inv evaluates in torch). log1pf
-// stands in for XLA's Cephes log1p there; the two differ by an ulp on a
-// few inputs, which moves a count only for a sample within an ulp of
-// touching. The edge case |x| == 1 never occurs: 23-bit codes keep
-// |x| <= 1 - 2^-23.
-__device__ __forceinline__ float erfinv_f32(float x) {
-  float w = -log1pf(x * -x);
-  const bool lt = w < 5.0f;
-  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
-  float p = lt ? 2.81022636e-08f : -0.000200214257f;
-  p = (lt ? 3.43273939e-07f : 0.000100950558f) + p * w;
-  p = (lt ? -3.5233877e-06f : 0.00134934322f) + p * w;
-  p = (lt ? -4.39150654e-06f : -0.00367342844f) + p * w;
-  p = (lt ? 0.00021858087f : 0.00573950773f) + p * w;
-  p = (lt ? -0.00125372503f : -0.0076224613f) + p * w;
-  p = (lt ? -0.00417768164f : 0.00943887047f) + p * w;
-  p = (lt ? 0.246640727f : 1.00167406f) + p * w;
-  p = (lt ? 1.50140941f : 2.83297682f) + p * w;
-  return p * x;
-}
-
-// One standard normal from a Philox word: its top 23 bits b give
-// z = sqrt(2) * erfinv((b + 0.5) * 2^-22 - 1), finite by construction.
-__device__ __forceinline__ float normal_from_word(uint32_t word) {
-  const float u =
-      (static_cast<float>(word >> 9) + 0.5f) * 2.384185791015625e-07f - 1.0f;
-  return 1.41421356f * erfinv_f32(u);
-}
+// Samples a thread evaluates at once. At 100,000 rows x 4,096 samples on an
+// H100 (one call, each against S = 2 in turns): without shape noise, the
+// main path's case, S = 4 4.18 ms against 4.37 (32 registers, 8 blocks an
+// SM, against 40 and 6) and S = 1 4.66 against 4.35; the adaptive tail
+// (256 x 100,000) S = 4 0.273 against 0.284; with shape noise S = 4 6.96
+// against 6.71 (40 and 42 registers, 6 blocks an SM either way) and S = 1
+// 6.97 against 6.70.
+constexpr int S = 4;
+static_assert(kSamplesPerThread % S == 0, "S must divide 16");
 
 // Parameter columns of one configuration (ops/mc_cuda.py::pack_mc_params).
 struct Params {
@@ -121,18 +85,18 @@ __device__ __forceinline__ bool obb_separated(const Params& q, float z_dx,
   const float dyv = q.py - dy;
   const float u = dxv * q.cos_a + dyv * q.sin_a;
   const float v = -dxv * q.sin_a + dyv * q.cos_a;
-  return (fabsf(u) > q.hx1 + a * cd + b * sd) ||
-         (fabsf(v) > q.hy1 + a * sd + b * cd) ||
-         (fabsf(u * cd_raw - v * sd_raw) > a + q.hx1 * cd + q.hy1 * sd) ||
+  return (fabsf(u) > q.hx1 + a * cd + b * sd) |
+         (fabsf(v) > q.hy1 + a * sd + b * cd) |
+         (fabsf(u * cd_raw - v * sd_raw) > a + q.hx1 * cd + q.hy1 * sd) |
          (fabsf(u * sd_raw + v * cd_raw) > b + q.hx1 * sd + q.hy1 * cd);
 }
 
-template <bool kShapeNoise>
+template <bool kShapeNoise, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     mc_counts_kernel(const float* __restrict__ params,
                      const int32_t* __restrict__ uids,
                      int32_t* __restrict__ counts, long long n,
-                     long long offset, uint32_t seed0, uint32_t seed1) {
+                     long long offset, const __grid_constant__ PhiloxKey key) {
   const int c = blockIdx.x;
   const float* row = params + static_cast<long long>(c) * 16;
   Params q;
@@ -152,28 +116,45 @@ __global__ void __launch_bounds__(kThreads)
   q.theta = __ldg(row + 13);
   const uint32_t uid = static_cast<uint32_t>(__ldg(uids + c));
 
+  const long long first = static_cast<long long>(blockIdx.y) * kSamplesPerBlock;
+  const unsigned long long base = static_cast<unsigned long long>(offset + first);
+  const SampleStream<kWide> draw0(base, uid, 0u, key);
+  const SampleStream<kWide> draw1(base, uid, 1u, key);
+  const long long left = n - first;
+  const int count = left < kSamplesPerBlock ? static_cast<int>(left)
+                                            : static_cast<int>(kSamplesPerBlock);
+
   int hits = 0;
-  const long long begin = static_cast<long long>(blockIdx.y) * kSamplesPerBlock;
-  long long end = begin + kSamplesPerBlock;
-  if (end > n) end = n;
-  for (long long j = begin + threadIdx.x; j < end; j += kThreads) {
-    const unsigned long long idx = static_cast<unsigned long long>(offset + j);
-    const uint32_t lo = static_cast<uint32_t>(idx);
-    const uint32_t hi = static_cast<uint32_t>(idx >> 32);
-    const Philox4 r = philox4x32_10(lo, hi, uid, 0u, seed0, seed1);
-    const float z_dx = normal_from_word(r.v[0]);
-    const float z_dy = normal_from_word(r.v[1]);
-    const float z_th = normal_from_word(r.v[2]);
-    float a, b;
-    if (kShapeNoise) {
-      const Philox4 r2 = philox4x32_10(lo, hi, uid, 1u, seed0, seed1);
-      a = fabsf(q.ow_h + normal_from_word(r.v[3]) * q.swh);
-      b = fabsf(q.oh_h + normal_from_word(r2.v[0]) * q.shh);
-    } else {
-      a = fabsf(q.ow_h);
-      b = fabsf(q.oh_h);
+  // a warp leaves the loop together, when its first lane's batch starts past
+  // the end; lanes past it evaluate samples that are not counted
+  const int warp0 = static_cast<int>(threadIdx.x) & ~31;
+#pragma unroll 1
+  for (int m = 0; m < kSamplesPerThread; m += S) {
+    if (warp0 + kThreads * m >= count) break;
+    const int k0 = static_cast<int>(threadIdx.x) + kThreads * m;
+    bool sep[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int k = k0 + kThreads * s;
+      const Philox4 r = draw0(k, key);
+      const float z_dx = normal_from_word(r.v[0], kWarp);
+      const float z_dy = normal_from_word(r.v[1], kWarp);
+      const float z_th = normal_from_word(r.v[2], kWarp);
+      float a, b;
+      if (kShapeNoise) {
+        const Philox4 r2 = draw1(k, key);
+        a = fabsf(q.ow_h + normal_from_word(r.v[3], kWarp) * q.swh);
+        b = fabsf(q.oh_h + normal_from_word(r2.v[0], kWarp) * q.shh);
+      } else {
+        a = fabsf(q.ow_h);
+        b = fabsf(q.oh_h);
+      }
+      sep[s] = obb_separated(q, z_dx, z_dy, z_th, a, b);
     }
-    hits += obb_separated(q, z_dx, z_dy, z_th, a, b) ? 0 : 1;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      hits += (k0 + kThreads * s < count && !sep[s]) ? 1 : 0;
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -181,6 +162,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   if ((threadIdx.x & 31) == 0 && hits != 0) {
     atomicAdd(counts + c, hits);
+  }
+}
+
+template <bool kShapeNoise>
+void launch(const dim3& grid, cudaStream_t s, bool wide, const float* params,
+            const int32_t* uids, int32_t* counts, long long n, long long offset,
+            const PhiloxKey& key) {
+  if (wide) {
+    mc_counts_kernel<kShapeNoise, true><<<grid, kThreads, 0, s>>>(
+        params, uids, counts, n, offset, key);
+  } else {
+    mc_counts_kernel<kShapeNoise, false><<<grid, kThreads, 0, s>>>(
+        params, uids, counts, n, offset, key);
   }
 }
 
@@ -199,12 +193,12 @@ extern "C" int mc_counts_launch(const float* params, const int32_t* uids,
   const dim3 grid(static_cast<unsigned>(num_configs),
                   static_cast<unsigned>(chunks));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = !narrow_indices(offset, n);
+  const PhiloxKey key = philox_key(seed0, seed1);
   if (shape_noise) {
-    mc_counts_kernel<true><<<grid, kThreads, 0, s>>>(params, uids, counts, n,
-                                                     offset, seed0, seed1);
+    launch<true>(grid, s, wide, params, uids, counts, n, offset, key);
   } else {
-    mc_counts_kernel<false><<<grid, kThreads, 0, s>>>(params, uids, counts, n,
-                                                      offset, seed0, seed1);
+    launch<false>(grid, s, wide, params, uids, counts, n, offset, key);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -213,3 +207,6 @@ extern "C" int mc_counts_launch(const float* params, const int32_t* uids,
 extern "C" long long mc_max_samples_per_round() {
   return 65535LL * kSamplesPerBlock;
 }
+
+// Samples a thread evaluates at once (S): one iteration of the sample loop.
+extern "C" int mc_batch_samples() { return S; }

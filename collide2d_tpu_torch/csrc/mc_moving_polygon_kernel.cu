@@ -34,7 +34,8 @@
 // Design, kernel 7's (one library per shape, the (configuration, 4,096-
 // sample chunk) grid, the row's table staged in 16-byte shared-memory slots,
 // S samples a thread at once sharing every broadcast load; csrc/
-// mc_polygon.cuh), plus: the robot axes' speeds and their IEEE reciprocals
+// mc_polygon.cuh; the stream of csrc/mc_stream.cuh with 32-bit indices
+// unless a launch crosses 2^32), plus: the robot axes' speeds and their IEEE reciprocals
 // depend only on the row, so the block computes them once while it stages
 // the table (the same operations, so the same bits) and a sample divides
 // only on the K obstacle normals. S is 2, as in kernel 7: a sample carries
@@ -55,6 +56,7 @@
 #include <stdint.h>
 
 #include "mc_polygon.cuh"
+#include "mc_stream.cuh"
 
 #if !defined(MC_POLY_K) || !defined(MC_POLY_K2) || !defined(MC_POLY_K2A)
 #error "build one library per shape: -DMC_POLY_K=k -DMC_POLY_K2=k2 -DMC_POLY_K2A=k2a"
@@ -64,6 +66,8 @@ namespace {
 
 using namespace collide2d;
 using namespace collide2d::mc_polygon;
+using collide2d::mc_stream::PhiloxKey;
+using collide2d::mc_stream::SampleStream;
 
 constexpr int K = MC_POLY_K, K2 = MC_POLY_K2, K2A = MC_POLY_K2A;
 constexpr int S = 2;
@@ -102,12 +106,13 @@ __device__ __forceinline__ void axis_window(float m1, float big_m1, float m2,
   exit = fminf(exit, hi);
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
     mc_moving_poly_counts_kernel(const float* __restrict__ params,
                                  const int32_t* __restrict__ uids,
                                  int32_t* __restrict__ counts, long long n,
-                                 long long offset, uint32_t seed0,
-                                 uint32_t seed1) {
+                                 long long offset,
+                                 const __grid_constant__ PhiloxKey key) {
   extern __shared__ float4 table[];
   const int c = blockIdx.x;
   const float* row = params + static_cast<long long>(c) * kRows;
@@ -124,6 +129,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float sigma_x = __ldg(row), sigma_y = __ldg(row + 1);
   const float sigma_th = __ldg(row + 2);
   const uint32_t uid = static_cast<uint32_t>(__ldg(uids + c));
+  const SampleStream<kWide> draw(
+      static_cast<unsigned long long>(offset) +
+          static_cast<unsigned long long>(blockIdx.y) * kSamplesPerBlock,
+      uid, 0u, key);
   __syncthreads();
 
   int hits = 0;
@@ -139,9 +148,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     float w1[S], w2[S], entry[S], exit[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const long long j = begin + static_cast<long long>(kThreads) * (b * S + s);
-      p[s] = sample_pose(static_cast<unsigned long long>(offset + j), uid, seed0,
-                         seed1, sigma_x, sigma_y, sigma_th);
+      p[s] = sample_pose(draw(threadIdx.x + kThreads * (b * S + s), key), sigma_x,
+                         sigma_y, sigma_th);
       w1[s] = dot2(p[s].ct, vx, p[s].st, vy);  // (R^T v_rel)
       w2[s] = __fsub_rn(__fmul_rn(p[s].ct, vy), __fmul_rn(p[s].st, vx));
       entry[s] = -INFINITY;
@@ -190,6 +198,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <bool kWide>
+int launch(const dim3& grid, size_t shared, cudaStream_t s, const float* params,
+           const int32_t* uids, int32_t* counts, long long n, long long offset,
+           const PhiloxKey& key) {
+  if (shared > kDefaultSharedBytes) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(mc_moving_poly_counts_kernel<kWide>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mc_moving_poly_counts_kernel<kWide><<<grid, kThreads, shared, s>>>(
+      params, uids, counts, n, offset, key);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). (rows, k, k2, k2a) must be the
@@ -208,18 +232,15 @@ extern "C" int mc_moving_poly_counts_launch(const float* params,
   const long long chunks = (n + kSamplesPerBlock - 1) / kSamplesPerBlock;
   if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const size_t shared = static_cast<size_t>(kSlots) * sizeof(float4);
-  if (shared > kDefaultSharedBytes) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mc_moving_poly_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dim3 grid(static_cast<unsigned>(num_configs),
                   static_cast<unsigned>(chunks));
-  mc_moving_poly_counts_kernel<<<grid, kThreads, shared,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      params, uids, counts, n, offset, seed0, seed1);
-  return static_cast<int>(cudaGetLastError());
+  const PhiloxKey key = collide2d::mc_stream::philox_key(seed0, seed1);
+  // 32-bit sample indices unless the launch crosses 2^32 (mc_stream.cuh)
+  return collide2d::mc_stream::narrow_indices(offset, n)
+             ? launch<false>(grid, shared, static_cast<cudaStream_t>(stream),
+                             params, uids, counts, n, offset, key)
+             : launch<true>(grid, shared, static_cast<cudaStream_t>(stream),
+                            params, uids, counts, n, offset, key);
 }
 
 // Launch-free constant the wrapper checks against its own sample cap.

@@ -1,6 +1,6 @@
 // What the fused k-gon Monte Carlo kernels share (kernel 7,
 // csrc/mc_polygon_kernel.cu, and kernel 14, csrc/mc_moving_polygon_kernel.cu):
-// the sample stream, the per-row table as it is staged in shared memory, and
+// a sample's pose, the per-row table as it is staged in shared memory, and
 // the blended projections, for one shape fixed at build time.
 //
 // Shape. K obstacle vertices, K2 robot vertices and K2A kept robot axes are
@@ -10,9 +10,8 @@
 // every table read has a constant offset, as the TPU kernel is specialised
 // per static shape.
 //
-// Stream. Kernel 1's Philox4x32-10 with shape noise off: keyed by the
-// round's two seed words, counter (sample index low, sample index high,
-// uid, 0), words 0-2 as 23-bit codes through XLA's float32 erf_inv.
+// Stream. Kernel 1's with shape noise off (csrc/mc_stream.cuh): words 0-2
+// of draw block 0 as the normals dx, dy, dtheta.
 //
 // Staged table. The packed row (C, ROWS) of ops/mc_polygon_cuda.py::
 // _offsets keeps its layout in device memory; a block rearranges its row
@@ -34,83 +33,10 @@
 #include <stdint.h>
 
 #include "fp32_rn.cuh"
+#include "mc_stream.cuh"
 
 namespace collide2d {
 namespace mc_polygon {
-
-struct Philox4 {
-  uint32_t v[4];
-};
-
-// Philox4x32-10, the same function as mc_kernel.cu's.
-__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  Philox4 out = {{c0, c1, c2, c3}};
-  return out;
-}
-
-// XLA's float32 erf_inv, as mc_kernel.cu's (log1pf stands in for XLA's
-// Cephes log1p; 23-bit codes keep |x| <= 1 - 2^-23). The central branch
-// (w < 5, |z| below ~2.9) holds for ~99.6% of draws; when it holds for every
-// active lane of the warp, the warp evaluates that branch's polynomial alone,
-// its coefficients immediates: the same operations on the same values as
-// the general form, which selects each coefficient and costs a select and a
-// register move per step (kernel 7 at S = 4: 8.75 against 9.06 ms at 100k x
-// 4,096, K = 8, on an H100, counts equal).
-__device__ __forceinline__ float erfinv_f32(float x) {
-  float w = -log1pf(x * -x);
-  const bool lt = w < 5.0f;
-  if (__all_sync(__activemask(), lt)) {
-    w = w - 2.5f;
-    float p = 2.81022636e-08f;
-    p = 3.43273939e-07f + p * w;
-    p = -3.5233877e-06f + p * w;
-    p = -4.39150654e-06f + p * w;
-    p = 0.00021858087f + p * w;
-    p = -0.00125372503f + p * w;
-    p = -0.00417768164f + p * w;
-    p = 0.246640727f + p * w;
-    p = 1.50140941f + p * w;
-    return p * x;
-  }
-  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
-  float p = lt ? 2.81022636e-08f : -0.000200214257f;
-  p = (lt ? 3.43273939e-07f : 0.000100950558f) + p * w;
-  p = (lt ? -3.5233877e-06f : 0.00134934322f) + p * w;
-  p = (lt ? -4.39150654e-06f : -0.00367342844f) + p * w;
-  p = (lt ? 0.00021858087f : 0.00573950773f) + p * w;
-  p = (lt ? -0.00125372503f : -0.0076224613f) + p * w;
-  p = (lt ? -0.00417768164f : 0.00943887047f) + p * w;
-  p = (lt ? 0.246640727f : 1.00167406f) + p * w;
-  p = (lt ? 1.50140941f : 2.83297682f) + p * w;
-  return p * x;
-}
-
-// One standard normal from a Philox word: its top 23 bits b give
-// z = sqrt(2) * erfinv((b + 0.5) * 2^-22 - 1), finite by construction.
-__device__ __forceinline__ float normal_from_word(uint32_t word) {
-  const float u =
-      (static_cast<float>(word >> 9) + 0.5f) * 2.384185791015625e-07f - 1.0f;
-  return 1.41421356f * erfinv_f32(u);
-}
 
 // One sample's pose: the translation (dx, dy), cos/sin of the rotation and
 // the translation in the rotated obstacle's frame, (u1, u2) = R^T (dx, dy).
@@ -118,17 +44,15 @@ struct Pose {
   float dx, dy, ct, st, u1, u2;
 };
 
-__device__ __forceinline__ Pose sample_pose(unsigned long long idx,
-                                            uint32_t uid, uint32_t seed0,
-                                            uint32_t seed1, float sigma_x,
-                                            float sigma_y, float sigma_th) {
-  const Philox4 r = philox4x32_10(static_cast<uint32_t>(idx),
-                                  static_cast<uint32_t>(idx >> 32), uid, 0u,
-                                  seed0, seed1);
+__device__ __forceinline__ Pose sample_pose(const mc_stream::Philox4& r,
+                                            float sigma_x, float sigma_y,
+                                            float sigma_th) {
+  using mc_stream::normal_from_word;
+  const unsigned lanes = __activemask();  // the kernels' loops exit by lane
   Pose p;
-  p.dx = __fmul_rn(normal_from_word(r.v[0]), sigma_x);
-  p.dy = __fmul_rn(normal_from_word(r.v[1]), sigma_y);
-  const float th = __fmul_rn(normal_from_word(r.v[2]), sigma_th);
+  p.dx = __fmul_rn(normal_from_word(r.v[0], lanes), sigma_x);
+  p.dy = __fmul_rn(normal_from_word(r.v[1], lanes), sigma_y);
+  const float th = __fmul_rn(normal_from_word(r.v[2], lanes), sigma_th);
   sincosf(th, &p.st, &p.ct);
   p.u1 = dot2(p.ct, p.dx, p.st, p.dy);
   p.u2 = __fsub_rn(__fmul_rn(p.ct, p.dy), __fmul_rn(p.st, p.dx));

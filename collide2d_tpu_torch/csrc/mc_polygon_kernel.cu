@@ -27,7 +27,8 @@
 // differently from torch; that forbids FMA contraction there, and each of
 // those operations costs a full instruction.
 //
-// Design (csrc/mc_polygon.cuh has the shared parts):
+// Design (csrc/mc_polygon.cuh has the parts it shares with kernel 14,
+// csrc/mc_stream.cuh the sample stream of kernels 1, 7, 13 and 14):
 // - one library per shape: K, K2 and K2A come from the build's -D defines,
 //   so every vertex and axis loop unrolls and every table offset is a
 //   constant; any shape builds (K > 16 and K2A = 0 too);
@@ -42,6 +43,9 @@
 //   blocks: 8.75 against 8.43 ms at 100k x 4,096, K = 8, on an H100) and
 //   S = 8 (spills); asking the launch bound for 3 or 4 blocks an SM instead
 //   of 2 cost 4-7%;
+// - the stream's round keys from the launcher and 32-bit sample indices
+//   unless a launch crosses 2^32, as kernel 1's (a second instantiation
+//   takes 64-bit indices);
 // - hits are summed in a register, a warp shuffle reduces them and one
 //   int32 atomicAdd per warp lands the warp's sum in counts[c]. Integer sums
 //   do not depend on order, and each sample's operations and their order
@@ -56,6 +60,7 @@
 #include <stdint.h>
 
 #include "mc_polygon.cuh"
+#include "mc_stream.cuh"
 
 #if !defined(MC_POLY_K) || !defined(MC_POLY_K2) || !defined(MC_POLY_K2A)
 #error "build one library per shape: -DMC_POLY_K=k -DMC_POLY_K2=k2 -DMC_POLY_K2A=k2a"
@@ -65,6 +70,8 @@ namespace {
 
 using namespace collide2d;
 using namespace collide2d::mc_polygon;
+using collide2d::mc_stream::PhiloxKey;
+using collide2d::mc_stream::SampleStream;
 
 constexpr int K = MC_POLY_K, K2 = MC_POLY_K2, K2A = MC_POLY_K2A;
 constexpr int S = 2;
@@ -78,11 +85,13 @@ using T = Table<K, K2, K2A>;
 // the wrapper's table width: the unpadded row padded to 8 floats
 constexpr int kRows = (T::kWidth + 7) / 8 * 8;
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
     mc_poly_counts_kernel(const float* __restrict__ params,
                           const int32_t* __restrict__ uids,
                           int32_t* __restrict__ counts, long long n,
-                          long long offset, uint32_t seed0, uint32_t seed1) {
+                          long long offset,
+                          const __grid_constant__ PhiloxKey key) {
   extern __shared__ float4 table[];
   const int c = blockIdx.x;
   const float* row = params + static_cast<long long>(c) * kRows;
@@ -92,6 +101,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float sigma_x = __ldg(row), sigma_y = __ldg(row + 1);
   const float sigma_th = __ldg(row + 2);
   const uint32_t uid = static_cast<uint32_t>(__ldg(uids + c));
+  const SampleStream<kWide> draw(
+      static_cast<unsigned long long>(offset) +
+          static_cast<unsigned long long>(blockIdx.y) * kSamplesPerBlock,
+      uid, 0u, key);
   __syncthreads();
 
   int hits = 0;
@@ -107,9 +120,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     bool sep[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const long long j = begin + static_cast<long long>(kThreads) * (b * S + s);
-      p[s] = sample_pose(static_cast<unsigned long long>(offset + j), uid, seed0,
-                         seed1, sigma_x, sigma_y, sigma_th);
+      p[s] = sample_pose(draw(threadIdx.x + kThreads * (b * S + s), key), sigma_x,
+                         sigma_y, sigma_th);
       sep[s] = false;
     }
 #pragma unroll
@@ -151,6 +163,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <bool kWide>
+int launch(const dim3& grid, size_t shared, cudaStream_t s, const float* params,
+           const int32_t* uids, int32_t* counts, long long n, long long offset,
+           const PhiloxKey& key) {
+  if (shared > kDefaultSharedBytes) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(mc_poly_counts_kernel<kWide>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mc_poly_counts_kernel<kWide><<<grid, kThreads, shared, s>>>(
+      params, uids, counts, n, offset, key);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). (rows, k, k2, k2a) must be the
@@ -168,18 +196,15 @@ extern "C" int mc_poly_counts_launch(const float* params, const int32_t* uids,
   const long long chunks = (n + kSamplesPerBlock - 1) / kSamplesPerBlock;
   if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const size_t shared = static_cast<size_t>(T::kSlots) * sizeof(float4);
-  if (shared > kDefaultSharedBytes) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mc_poly_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dim3 grid(static_cast<unsigned>(num_configs),
                   static_cast<unsigned>(chunks));
-  mc_poly_counts_kernel<<<grid, kThreads, shared,
-                          static_cast<cudaStream_t>(stream)>>>(
-      params, uids, counts, n, offset, seed0, seed1);
-  return static_cast<int>(cudaGetLastError());
+  const PhiloxKey key = collide2d::mc_stream::philox_key(seed0, seed1);
+  // 32-bit sample indices unless the launch crosses 2^32 (mc_stream.cuh)
+  return collide2d::mc_stream::narrow_indices(offset, n)
+             ? launch<false>(grid, shared, static_cast<cudaStream_t>(stream),
+                             params, uids, counts, n, offset, key)
+             : launch<true>(grid, shared, static_cast<cudaStream_t>(stream),
+                            params, uids, counts, n, offset, key);
 }
 
 // Launch-free constant the wrapper checks against its own sample cap.

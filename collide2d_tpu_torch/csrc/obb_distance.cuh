@@ -4,8 +4,10 @@
 // Shared by csrc/distance_kernel.cu (kernel 8, the static distance) and
 // csrc/toi_kernel.cu (kernel 12, which re-evaluates the distance at every
 // conservative-advancement step and takes the window for non-rotating
-// pairs). Their plain PyTorch versions are ops/distance_cuda.py::
-// obb_signed_distance_tile and ops/toi.py::obb_translation_toi_parts.
+// pairs), and by the trajectory kernels 13 (csrc/mc_toi_kernel.cu) and 15
+// (csrc/screen_kernel.cu). Their plain PyTorch versions are
+// ops/distance_cuda.py::obb_signed_distance_tile and
+// ops/toi.py::obb_translation_toi_parts.
 //
 // Replaces, on the TPU side, collide2d_tpu/ops/distance_pallas.py::
 // obb_signed_distance_tile (:58-110) and collide2d_tpu/ops/toi.py::
@@ -88,43 +90,80 @@ __device__ __forceinline__ float obb_signed_distance(float dx, float dy,
   return gap < 0.0f ? gap : sqrtf(d2);
 }
 
+// A speed s along an axis with its IEEE reciprocal (1 where s == 0).
+struct AxisSpeed {
+  float s, inv;
+};
+
+__device__ __forceinline__ AxisSpeed axis_speed(float s) {
+  AxisSpeed a;
+  a.s = s;
+  a.inv = __fdiv_rn(1.0f, s == 0.0f ? 1.0f : s);
+  return a;
+}
+
 // Hit window (lo, hi) of |p0 + t s| <= r; s == 0 gives every t (|p0| <= r)
 // or the empty window (+inf, -inf).
-__device__ __forceinline__ void axis_interval(float p0, float s, float r,
-                                              float& lo, float& hi) {
-  const bool zero = s == 0.0f;
-  const float inv = __fdiv_rn(1.0f, zero ? 1.0f : s);
-  const float t1 = __fmul_rn(__fsub_rn(-r, p0), inv);
-  const float t2 = __fmul_rn(__fsub_rn(r, p0), inv);
+__device__ __forceinline__ void axis_interval(float p0, const AxisSpeed& v,
+                                              float r, float& lo, float& hi) {
+  const bool zero = v.s == 0.0f;
+  const float t1 = __fmul_rn(__fsub_rn(-r, p0), v.inv);
+  const float t2 = __fmul_rn(__fsub_rn(r, p0), v.inv);
   const bool inside = fabsf(p0) <= r;
   lo = zero ? (inside ? -INFINITY : INFINITY) : fminf(t1, t2);
   hi = zero ? (inside ? INFINITY : -INFINITY) : fmaxf(t1, t2);
 }
 
+// The relative velocity (vx, vy) along box 1's axes (c1, s1) and (-s1, c1).
+// They depend on box 1's angle and the velocity alone, so a caller with
+// many boxes 2 against one box 1 (kernel 13: a row's samples) computes them
+// once.
+struct BoxAxisSpeeds {
+  AxisSpeed x, y;
+};
+
+__device__ __forceinline__ BoxAxisSpeeds box_axis_speeds(float c1, float s1,
+                                                         float vx, float vy) {
+  BoxAxisSpeeds b;
+  b.x = axis_speed(dot2(vx, c1, vy, s1));
+  b.y = axis_speed(dot2(-vx, s1, vy, c1));
+  return b;
+}
+
 // (entry, exit) of the pair's hit window when box 2 translates by t (vx, vy)
 // relative to box 1 and neither rotates: the intersection of the 4 unit SAT
-// axes' windows (exact: they are the Minkowski sum's edge normals).
+// axes' windows (exact: they are the Minkowski sum's edge normals). `axes1`
+// is box_axis_speeds(c1, s1, vx, vy).
+__device__ __forceinline__ void obb_translation_window(
+    float dx, float dy, float c1, float s1, float hx1, float hy1, float c2,
+    float s2, float hx2, float hy2, float vx, float vy,
+    const BoxAxisSpeeds& axes1, float& entry, float& exit) {
+  const float cd = fabsf(dot2(c1, c2, s1, s2));
+  const float sd = fabsf(__fsub_rn(__fmul_rn(s1, c2), __fmul_rn(c1, s2)));
+  float lo, hi, l, h;
+  axis_interval(dot2(dx, c1, dy, s1), axes1.x, radius(hx1, hx2, cd, hy2, sd),
+                lo, hi);
+  axis_interval(dot2(-dx, s1, dy, c1), axes1.y, radius(hy1, hx2, sd, hy2, cd),
+                l, h);
+  lo = fmaxf(lo, l);
+  hi = fminf(hi, h);
+  axis_interval(dot2(dx, c2, dy, s2), axis_speed(dot2(vx, c2, vy, s2)),
+                radius(hx2, hx1, cd, hy1, sd), l, h);
+  lo = fmaxf(lo, l);
+  hi = fminf(hi, h);
+  axis_interval(dot2(-dx, s2, dy, c2), axis_speed(dot2(-vx, s2, vy, c2)),
+                radius(hy2, hx1, sd, hy1, cd), l, h);
+  entry = fmaxf(lo, l);
+  exit = fminf(hi, h);
+}
+
+// The same window with box 1's axis speeds computed here.
 __device__ __forceinline__ void obb_translation_window(
     float dx, float dy, float c1, float s1, float hx1, float hy1, float c2,
     float s2, float hx2, float hy2, float vx, float vy, float& entry,
     float& exit) {
-  const float cd = fabsf(dot2(c1, c2, s1, s2));
-  const float sd = fabsf(__fsub_rn(__fmul_rn(s1, c2), __fmul_rn(c1, s2)));
-  float lo, hi, l, h;
-  axis_interval(dot2(dx, c1, dy, s1), dot2(vx, c1, vy, s1),
-                radius(hx1, hx2, cd, hy2, sd), lo, hi);
-  axis_interval(dot2(-dx, s1, dy, c1), dot2(-vx, s1, vy, c1),
-                radius(hy1, hx2, sd, hy2, cd), l, h);
-  lo = fmaxf(lo, l);
-  hi = fminf(hi, h);
-  axis_interval(dot2(dx, c2, dy, s2), dot2(vx, c2, vy, s2),
-                radius(hx2, hx1, cd, hy1, sd), l, h);
-  lo = fmaxf(lo, l);
-  hi = fminf(hi, h);
-  axis_interval(dot2(-dx, s2, dy, c2), dot2(-vx, s2, vy, c2),
-                radius(hy2, hx1, sd, hy1, cd), l, h);
-  entry = fmaxf(lo, l);
-  exit = fminf(hi, h);
+  obb_translation_window(dx, dy, c1, s1, hx1, hy1, c2, s2, hx2, hy2, vx, vy,
+                         box_axis_speeds(c1, s1, vx, vy), entry, exit);
 }
 
 }  // namespace collide2d

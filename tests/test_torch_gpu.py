@@ -75,6 +75,36 @@ def test_kernel_matches_plain(cuda, shape_noise):
     assert int((got - want).abs().sum()) <= 1e-5 * c * n
 
 
+# S samples a thread at once (4 in kernel 1, 2 in kernel 13): n = 4,097
+# leaves a block of one sample and a batch mostly past the end, n = 1 a
+# single sample; offsets near 2^32 put a block across the high index word
+# (the 64-bit instantiation) or next to it.
+ODD_SAMPLES = [(4097, 0), (1, 0), (4097, (1 << 32) - 1000), (3000, (1 << 32) + 5)]
+
+
+@pytest.mark.parametrize("shape_noise", [False, True])
+@pytest.mark.parametrize("n,offset", ODD_SAMPLES)
+def test_kernel_matches_plain_at_odd_sizes_and_offsets(cuda, n, offset, shape_noise):
+    c = 512
+    params, uids = _case(cuda, c, shape_noise, seed=8)
+    before = mc_cuda.LAUNCHES
+    got = mc_cuda.mc_counts(params, uids, SEED, n, offset=offset, shape_noise=shape_noise)
+    want = mc_cuda.mc_counts_plain(params, uids, SEED, n, offset=offset,
+                                   shape_noise=shape_noise)
+    torch.cuda.synchronize()
+    assert mc_cuda.LAUNCHES == before + 1
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+    # a split at the first sample of the second high word gives the same sums
+    cut = min(n - 1, max(1, (1 << 32) - offset)) if offset else n // 2
+    if 0 < cut < n:
+        first = mc_cuda.mc_counts(params, uids, SEED, cut, offset=offset,
+                                  shape_noise=shape_noise)
+        second = mc_cuda.mc_counts(params, uids, SEED, n - cut, offset=offset + cut,
+                                   shape_noise=shape_noise)
+        assert torch.equal(first + second, got)
+
+
 def test_kernel_counts_invariant_under_split_and_compaction(cuda):
     c, n, cut = 1000, 10_000, 4096 + 77
     params, uids = _case(cuda, c, shape_noise=True, seed=6)
@@ -307,6 +337,33 @@ def test_mc_polygon_counts_invariant_under_split_and_compaction(
     assert 0 < int(whole.sum()) < c * n
 
 
+@pytest.mark.parametrize("kernel", ["7", "14"])
+def test_mc_polygon_counts_across_the_high_index_word(cuda, mc_poly_libraries, kernel):
+    """A launch across 2^32 (64-bit indices) equals its two halves, one on
+    each side (32-bit indices), and the plain version."""
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
+
+    k, robot, a_keep = MC_POLY_SHAPES["k8"]
+    c, n, base, cut = 512, 5000, (1 << 32) - 3000, 3000
+    _, moving = _moving_polygons(cuda, c, 7, k=k)
+    if kernel == "7":
+        fn, plain = mc_polygon_cuda.mc_poly_counts, mc_polygon_cuda.mc_poly_counts_plain
+        params = mc_polygon_cuda.pack_polygon_mc_params(moving, robot, a_keep)
+    else:
+        fn, plain = mmp.mc_moving_poly_counts, mmp.mc_moving_poly_counts_plain
+        params = mmp.pack_moving_polygon_mc_params(moving, robot, a_keep)
+    uids = torch.arange(c, dtype=torch.int32, device=cuda)
+    dims = dict(k=k, k2=len(robot), k2a=len(a_keep))
+    whole = fn(params, uids, SEED, n, offset=base, **dims)
+    first = fn(params, uids, SEED, cut, offset=base, **dims)
+    second = fn(params, uids, SEED, n - cut, offset=base + cut, **dims)
+    want = plain(params, uids, SEED, n, offset=base, max_elems=1 << 20, **dims)
+    torch.cuda.synchronize()
+    assert torch.equal(first + second, whole)
+    assert 0 < int(want.sum()) < c * n
+    assert int((whole - want).abs().sum()) <= 1e-5 * c * n
+
+
 def test_polylabel_on_cuda(cuda, tmp_path):
     b = example_polygon_configs(2000, k=8, seed=7, device="cpu")
     np.savez(tmp_path / "in.npz", robot_verts=ROBOT_4GON,
@@ -513,6 +570,31 @@ def test_mc_toi_kernel_matches_plain(cuda, shape_noise, ca_iters):
     assert torch.equal(mc_toi_cuda.mc_toi_counts(params[keep].contiguous(),
                                                  uids[keep].contiguous(), SEED, n,
                                                  **kw), got[keep])
+
+
+@pytest.mark.parametrize("ca_iters", [0, 48])
+@pytest.mark.parametrize("n,offset", ODD_SAMPLES)
+def test_mc_toi_kernel_matches_plain_at_odd_sizes_and_offsets(cuda, n, offset, ca_iters):
+    from collide2d_tpu_torch.ops import mc_toi_cuda
+
+    c = 512
+    params = mc_toi_cuda.pack_mc_toi_params(_moving_rects(cuda, c, 32), ROBOT)
+    uids = torch.from_numpy(np.random.default_rng(33).permutation(4 * c)[:c]
+                            .astype(np.int32)).to(cuda)
+    kw = dict(ca_iters=ca_iters, tol=1e-4)
+    before = mc_toi_cuda.LAUNCHES
+    got = mc_toi_cuda.mc_toi_counts(params, uids, SEED, n, offset=offset, **kw)
+    want = mc_toi_cuda.mc_toi_counts_plain(params, uids, SEED, n, offset=offset, **kw)
+    torch.cuda.synchronize()
+    assert mc_toi_cuda.LAUNCHES == before + 1
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+    cut = min(n - 1, max(1, (1 << 32) - offset)) if offset else n // 2
+    if 0 < cut < n:
+        first = mc_toi_cuda.mc_toi_counts(params, uids, SEED, cut, offset=offset, **kw)
+        second = mc_toi_cuda.mc_toi_counts(params, uids, SEED, n - cut,
+                                           offset=offset + cut, **kw)
+        assert torch.equal(first + second, got)
 
 
 def _moving_polygons(cuda, c, seed, k=6, still=False):
