@@ -16,8 +16,9 @@ raises, and the script then exits non-zero without printing a result):
    library per shape: k = 8 and the gate's k = 6, 4-gon robot, 2 kept
    axes), the query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
    csrc/toi_kernel.cu), the trajectory kernels (csrc/mc_toi_kernel.cu,
-   csrc/mc_moving_polygon_kernel.cu at k = 8, csrc/screen_kernel.cu) and
-   the scene raycast kernel (csrc/raycast_kernel.cu);
+   csrc/mc_moving_polygon_kernel.cu at k = 8, csrc/screen_kernel.cu), the
+   scene raycast kernel (csrc/raycast_kernel.cu) and the streaming-bandwidth
+   probe (csrc/stream_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -169,7 +170,17 @@ raises, and the script then exits non-zero without printing a result):
    128, capacity 16,384, area side 2,560): the certificate false, the
    pairs equal the dense query's, the swept manifolds as in phase 20, a
    window of 4 fails closed (count 0, zero pairs, the flag raised);
-   dense-equivalent (N^2 / time) and narrow (N * window / time) pairs/s.
+   dense-equivalent (N^2 / time) and narrow (N * window / time) pairs/s;
+22. the bench entry points, in process: the headline of
+   ``python -m collide2d_tpu_torch.bench`` (kernel 16, the
+   streaming-bandwidth probe, and torch's reduction, then kernel 3 at 2^23
+   pairs x 100 calls: ``bandwidth_check`` ok), then every leg of
+   ``run_all(device="cuda")`` (``collide2d-torch bench``): finite positive
+   values, the swept query's certificate false; kernels 1, 3, 6, 7, 10, 11
+   and 16 launched. Then kernel 16 against its plain version on the
+   probe's 2^23 pairs: within 1e-5 x (sum|r1| * s + sum|r2|), and two
+   launches bitwise equal; kernel ms, plain ms and the library call's ms
+   (``r1.sum() * s + r2.sum()``), GB/s and the share of 3.35 TB/s.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path, with ``bound_ms``: the larger
@@ -192,8 +203,9 @@ clock's maximum (nvidia-smi). ``bound_ms`` keeps its convention,
 comparable across kernels; it leaves out the stream's integer and library
 work, and kernels 7, 13 and 14 must not contract a multiply and an add, so
 they cannot come near it, while the issue floor counts what the card must
-issue. No single PyTorch call computes any of these functions, so
-``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
+issue. No single PyTorch call computes any of these functions but kernel
+16's (a sum of each stream), so ``library_ms`` is null for the others.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -312,7 +324,7 @@ def phase_build():
     jobs = [(name, ()) for name in (
         "mc_kernel", "sat_kernel", "polygon_kernel", "distance_kernel",
         "manifold_kernel", "toi_kernel", "mc_toi_kernel", "screen_kernel",
-        "raycast_kernel")] + [
+        "raycast_kernel", "stream_kernel")] + [
         ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2)),
         ("mc_polygon_kernel", shape_defines(6, 4, 2)),
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2))]
@@ -2275,6 +2287,100 @@ def phase_scene_swept() -> None:
           narrow_pairs_per_s=f"{n * w / ms * 1e3:.4e}")
 
 
+# ---- phase 22: the bench entry points and kernel 16 ----
+
+
+STREAM_PAIRS = 1 << 23
+
+
+def _bench_counts() -> dict:
+    """Launches of the kernels the bench legs run (kernel number: count)."""
+    from collide2d_tpu_torch.ops import (manifold_cuda, mc_cuda, mc_polygon_cuda,
+                                         polygon_cuda, raycast_cuda, sat_cuda,
+                                         stream_cuda)
+
+    torch.cuda.synchronize()
+    return {"1": mc_cuda.LAUNCHES, "3": sat_cuda.LAUNCHES["sat_count"],
+            "6": polygon_cuda.LAUNCHES, "7": mc_polygon_cuda.LAUNCHES,
+            "10": manifold_cuda.LAUNCHES, "11": raycast_cuda.LAUNCHES,
+            "16": stream_cuda.LAUNCHES}
+
+
+def _reset_bench_counts() -> None:
+    from collide2d_tpu_torch.ops import (manifold_cuda, mc_cuda, mc_polygon_cuda,
+                                         polygon_cuda, raycast_cuda, sat_cuda,
+                                         stream_cuda)
+
+    for mod in (manifold_cuda, mc_cuda, mc_polygon_cuda, polygon_cuda,
+                raycast_cuda, sat_cuda, stream_cuda):
+        mod.reset_launches()
+
+
+def phase_bench() -> dict:
+    """Phase 22: the bench headline and `run_all` on the card, then kernel
+    16 against its plain version; returns kernel 16's entry of the kernels
+    line."""
+    from collide2d_tpu_torch import bench
+    from collide2d_tpu_torch.ops import sat_cuda, stream_cuda
+    from collide2d_tpu_torch.utils import benchmarks as bm
+
+    t = time.monotonic()
+    probes = []
+    _reset_bench_counts()
+    head = bench.headline(log=probes.append)
+    for probe in probes:
+        _line("22 bench probe", time.monotonic() - t, **{
+            k: probe[k] for k in ("metric", "value", "seconds_per_iter", "bytes")})
+    _line("22 bench headline", time.monotonic() - t, **head)
+    if head["bandwidth_check"] != "ok" or not 0 < head["effective_gbps"] < math.inf:
+        raise RuntimeError(f"bench headline: {head}")
+    t = time.monotonic()
+    legs = [json.loads(line) for line in bm.run_all(device="cuda")]
+    counts = _bench_counts()
+    for leg in legs:
+        print("[22 run_all] " + json.dumps(leg), flush=True)
+        if leg["metric"] == "learned_train":
+            continue
+        if not 0 < leg["value"] < math.inf:
+            raise RuntimeError(f"run_all leg {leg['metric']}: value {leg['value']}")
+    swept = next(leg for leg in legs if leg["metric"] == "scene_swept_pairs_per_sec_effective")
+    if swept["window_exceeded"] or swept["capacity_overflow"]:
+        raise RuntimeError(f"bench_scene_swept lost its certificate: {swept}")
+    _line("22 run_all", time.monotonic() - t, legs=len(legs),
+          launches=",".join(f"{k}:{v}" for k, v in counts.items()))
+    if min(counts.values()) <= 0:
+        raise RuntimeError(f"a kernel of the bench path was never launched: {counts}")
+
+    t = time.monotonic()
+    r1, r2 = bm._random_pairs(STREAM_PAIRS, device="cuda")
+    r1t, r2t = sat_cuda.pack_rects(r1), sat_cuda.pack_rects(r2)
+    del r1, r2
+    s = bm._stream_scale(7)
+    got = stream_cuda.stream_sum(r1t, r2t, s)
+    again = stream_cuda.stream_sum(r1t, r2t, s)
+    want = stream_cuda.stream_sum_plain(r1t, r2t, s)
+    torch.cuda.synchronize()
+    err = abs(float(got) - float(want))
+    tol = 1e-5 * float(r1t.double().abs().sum() * s + r2t.double().abs().sum())
+    if err > tol or not torch.equal(got, again):
+        raise RuntimeError(f"stream_sum: {float(got)} / {float(again)} against the plain "
+                           f"version's {float(want)} (|d| {err}, bound {tol})")
+    ms, plain_ms = _compare(lambda: stream_cuda.stream_sum(r1t, r2t, s),
+                            lambda: stream_cuda.stream_sum_plain(r1t, r2t, s))
+    library_ms = _events_ms(lambda: r1t.sum() * s + r2t.sum(), reps=20)
+    nbytes = stream_cuda.bytes_read(r1t, r2t) + 4
+    bound, bound_by = _bound_ms(nbytes, 2 * r1t.numel() + 2)
+    gbps = (nbytes - 4) / (ms * 1e-3) / 1e9
+    _line("22 stream kernel", time.monotonic() - t, pairs=STREAM_PAIRS, value=float(got),
+          plain_value=float(want), abs_diff=f"{err:.3e}", bound_abs_diff=f"{tol:.3e}",
+          kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{bound:.4f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.3f}",
+          kernel_gb_per_s=f"{gbps:.1f}", share_of_3_35_tb_s=f"{gbps / 3350:.3f}",
+          library_gb_per_s=f"{(nbytes - 4) / (library_ms * 1e-3) / 1e9:.1f}")
+    return {"launches": counts["16"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---- kernels 1, 7, 13 and 14: the counts' fingerprint and the issue floor ----
 
 
@@ -2431,6 +2537,7 @@ def main() -> int:
     raycast = phase_raycast()
     phase_scene_dense()
     phase_scene_swept()
+    stream = phase_bench()
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
     default = check["default"]
@@ -2494,7 +2601,13 @@ def main() -> int:
         ("mc_moving_poly_counts", "mc_moving_polygon_kernel.cu",
          "mc_moving_polygon_pallas.py:182", moving_poly),
         ("rotating_screen", "screen_kernel.cu", "screen_pallas.py:99", screen),
-        ("scene_raycast", "raycast_kernel.cu", "raycast_pallas.py:48", raycast))]}
+        ("scene_raycast", "raycast_kernel.cu", "raycast_pallas.py:48", raycast))] + [{
+        "name": "stream_sum",
+        "route": "cuda",
+        "source": "collide2d_tpu_torch/csrc/stream_kernel.cu",
+        "replaces": "collide2d_tpu/utils/benchmarks.py:990",
+        **stream,
+    }]}
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -16,9 +16,11 @@ their kernels (``csrc/distance_kernel.cu``, ``csrc/manifold_kernel.cu``,
 and the scene queries (`scene_raycast` on ``csrc/raycast_kernel.cu``; the
 N-body collision matrix, pair lists and contact manifolds on the k-gon SAT
 and manifold kernels), `convex_hull`,
-`CollisionProbabilityModel`, `PolygonCollisionProbabilityModel`, and the
+`CollisionProbabilityModel`, `PolygonCollisionProbabilityModel`, the
 ``generate`` / ``relabel`` / ``ztest`` / ``compare`` / ``polylabel`` /
-``movelabel`` commands (``collide2d-torch``).
+``movelabel`` / ``bench`` commands (``collide2d-torch``) and the bench
+headline (``python -m collide2d_tpu_torch.bench``, with the
+streaming-bandwidth probe ``csrc/stream_kernel.cu``).
 
 It imports torch and never jax. Nothing is built or launched at import.
 """

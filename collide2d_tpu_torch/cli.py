@@ -6,6 +6,7 @@
     collide2d-torch compare  ...   # label-agreement report
     collide2d-torch polylabel ...  # adaptive labels of convex k-gon configurations
     collide2d-torch movelabel ...  # adaptive labels of trajectories (moving robots)
+    collide2d-torch bench     ...  # throughput benchmarks (utils/benchmarks.py)
 
 Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
 after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
@@ -494,6 +495,24 @@ def _run_movelabel(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_bench(sub) -> None:
+    p = sub.add_parser("bench", help="throughput benchmarks on the local device")
+    p.add_argument("--pairs", type=int, default=1 << 20)
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--device", default="cuda",
+                   help="cuda: the kernel legs at their on-card sizes; cpu: "
+                        "the torch legs at CPU sizes")
+    p.set_defaults(func=_run_bench)
+
+
+def _run_bench(args: argparse.Namespace) -> int:
+    from collide2d_tpu_torch.utils.benchmarks import run_all
+
+    for line in run_all(pairs=args.pairs, iters=args.iters, device=args.device):
+        print(line, flush=True)
+    return 0
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse a command line; flags of unported features exit with an
     error that names them."""
@@ -501,7 +520,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         prog="collide2d-torch",
         description="2D convex collision engine on PyTorch/CUDA "
                     "(dataset generation / relabeling / validation / "
-                    "k-gon and trajectory labeling)",
+                    "k-gon and trajectory labeling / benchmarks)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
@@ -510,6 +529,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     _add_compare(sub)
     _add_polylabel(sub)
     _add_movelabel(sub)
+    _add_bench(sub)
     args = parser.parse_args(argv)
     if args.command in ("generate", "relabel", "ztest", "polylabel", "movelabel"):
         _reject_unported(parser, args)

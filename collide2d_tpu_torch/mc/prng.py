@@ -166,10 +166,16 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
-    """`jax.random.uniform` in float32."""
+    """`jax.random.uniform` in float32; ``minval`` and ``maxval`` are
+    numbers or arrays that broadcast against ``shape``."""
     lo = np.float32(minval)
     span = np.float32(maxval) - lo
     floats = _bits_to_unit_float(random_bits(key, shape, device))
+    if np.ndim(lo) or np.ndim(span):
+        lo_t = torch.as_tensor(np.array(np.broadcast_to(lo, np.shape(span))),
+                               device=floats.device)
+        span_t = torch.as_tensor(span, device=floats.device)
+        return torch.maximum(fma(floats, span_t, lo_t), lo_t)
     return torch.clamp(fma(floats, span, lo), min=float(lo))
 
 

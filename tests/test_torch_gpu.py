@@ -13,6 +13,9 @@ only a sample within an ulp of touching: the counts may differ by at most
 1e-5 of all samples. The SAT kernels (rectangles, boxes and k-gons) round
 every operation as their plain versions do: labels bitwise, counts exact.
 The bars of the geometry-query kernels stand above their tests below.
+Kernel 16 (the streaming-bandwidth probe) adds in another order than its
+plain version: within 1e-5 x (sum|r1| * s + sum|r2|), and bitwise equal
+to itself from launch to launch.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ from collide2d_tpu_torch.ops import (
     mc_polygon_cuda,
     polygon_cuda,
     sat_cuda,
+    stream_cuda,
     toi_cuda,
 )
 from collide2d_tpu_torch.utils import cuda_build
@@ -797,3 +801,54 @@ def test_scene_functions_on_cuda_match_cpu(cuda):
     assert float((normal - want[5][:c]).abs().max()) <= 2e-5
     with pytest.raises(ValueError, match="CPU"):
         scene.scene_collision_matrix(torch.zeros((4, 17, 2), device=cuda))
+
+
+def _stream_tolerance(a: torch.Tensor, b: torch.Tensor, s: float) -> float:
+    return 1e-5 * float(a.double().abs().sum() * s + b.double().abs().sum())
+
+
+# M = 1 (a single float4 a thread for 16 threads), M = 4,097 (tiles of the
+# plain version off the kernel's float4 grid), 2^20 (the bench's 2^23 pairs)
+@pytest.mark.parametrize("m", [1, 4097, 1 << 20])
+def test_stream_kernel_matches_plain(cuda, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    r1 = torch.rand((8, 8, m), generator=g, device=cuda) * 24.0 - 12.0
+    r2 = torch.rand((8, 8, m), generator=g, device=cuda) * 24.0 - 12.0
+    s = 1.0 + 37e-9
+    before = stream_cuda.LAUNCHES
+    got = stream_cuda.stream_sum(r1, r2, s)
+    again = stream_cuda.stream_sum(r1, r2, s)
+    want = stream_cuda.stream_sum_plain(r1, r2, s)
+    torch.cuda.synchronize()
+    assert stream_cuda.LAUNCHES == before + 2
+    assert torch.equal(got, again)  # no float atomics: the same value
+    assert abs(float(got) - float(want)) <= _stream_tolerance(r1, r2, s)
+
+
+# flat counts off the float4 width: the kernel's scalar tail
+@pytest.mark.parametrize("n", [1, 3, 4 * 9999 + 1, 4 * 9999 + 3])
+def test_stream_kernel_tail(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.rand((n,), generator=g, device=cuda) - 0.25
+    b = torch.rand((n,), generator=g, device=cuda) - 0.75
+    got = stream_cuda._launch(a, b, 0.5)
+    want = a.double().sum() * 0.5 + b.double().sum()
+    assert abs(float(got) - float(want)) <= _stream_tolerance(a, b, 0.5)
+    assert torch.equal(got, stream_cuda._launch(a, b, 0.5))
+
+
+def test_stream_kernel_rejects_misaligned_inputs(cuda):
+    x = torch.zeros((8, 8, 5), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        stream_cuda._launch(x.reshape(-1)[1:], x.reshape(-1)[1:], 1.0)
+
+
+def test_bench_entry_points_on_cuda(cuda):
+    from collide2d_tpu_torch import bench
+    from collide2d_tpu_torch.utils import benchmarks as bm
+
+    head = bench.headline(log=lambda obj: None)
+    assert head["bandwidth_check"] == "ok"
+    assert 0 < head["effective_gbps"] <= 1.15 * head["hbm_read_gbps"]
+    out = bm.bench_scene_raycast_cuda(rays=1 << 16, iters=2)
+    assert out["metric"] == "scene_rays_per_sec_cuda" and out["value"] > 0

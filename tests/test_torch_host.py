@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's numpy-only host modules, pinned
 to the originals: the same inputs must give identical outputs (exact)."""
 
+import time
 from dataclasses import astuple
 
 import numpy as np
@@ -57,16 +58,32 @@ def test_compare_labels():
     assert str(tvalidate.compare_labels(a, b)) == str(jvalidate.compare_labels(a, b))
 
 
+def _jax_native_loaded(tries: int = 5) -> bool:
+    """Whether the JAX package's native library loads. Its g++ build
+    writes the library in place, so a test worker that loads it while
+    another worker is still writing it caches a failed load; clear that
+    and load afresh a few times before calling the library missing."""
+    for attempt in range(tries):
+        if jnative.available():
+            return True
+        jnative._lib.cache_clear()
+        time.sleep(0.5 * (attempt + 1))
+    return jnative.available()
+
+
 def test_native_runtime_matches():
-    assert tnative.available() == jnative.available()
+    # the port's own build: std::shuffle(10 rows, engine(0)) as libstdc++
+    # gives it (the list of tests/test_native.py)
+    assert tnative.available()
+    assert tnative.std_shuffle_perm(10, 0).tolist() == [2, 7, 1, 6, 8, 0, 4, 9, 5, 3]
+    assert tnative._LIB != jnative._LIB  # separate build outputs
+    assert _jax_native_loaded()
     np.testing.assert_array_equal(tnative.std_shuffle_perm(1000, 0),
                                   jnative.std_shuffle_perm(1000, 0))
-    if tnative.available():
-        lo, hi = [0.0, 1.0, -2.0], [1.0, 3.0, 2.0]
-        np.testing.assert_array_equal(
-            tnative.RefEngine(None).uniform_table(500, lo, hi),
-            jnative.RefEngine(None).uniform_table(500, lo, hi))
-    assert tnative._LIB != jnative._LIB  # separate build outputs
+    lo, hi = [0.0, 1.0, -2.0], [1.0, 3.0, 2.0]
+    np.testing.assert_array_equal(
+        tnative.RefEngine(None).uniform_table(500, lo, hi),
+        jnative.RefEngine(None).uniform_table(500, lo, hi))
 
 
 def test_async_writer_output_identical(tmp_path):

@@ -24,13 +24,13 @@ import collide2d_tpu.cli as jcli
 from collide2d_tpu.mc import estimator as jest
 from collide2d_tpu.mc import schedule_sim as jsim
 from collide2d_tpu.ops.broad_phase import possible_collision_mask as jmask
-from collide2d_tpu.utils import native
 from collide2d_tpu.utils.benchmarks import _sparse_scene_configs
 from collide2d_tpu_torch import cli as tcli
 from collide2d_tpu_torch.mc import schedule_sim as tsim
 from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
 from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, configs_from_numpy
 from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+from collide2d_tpu_torch.utils import native
 
 # The suite runs one xdist worker per core: one torch thread each keeps
 # the workers from oversubscribing the host.
@@ -115,7 +115,9 @@ def test_relabel_numbering_shuffle_and_kernel_path(dataset, tmp_path):
         rows = np.load(out / f"{2 + i}.npy")
         assert rows.shape == (128, 5) and np.isfinite(rows).all()
         assert (rows[:, 2] >= 0).all() and (rows[:, 2] <= 1).all()
-        # shuffled with the reference's seed-0 engine
+        # shuffled with the reference's seed-0 engine: the port's own
+        # libstdc++ build (without it the permutation would be numpy's)
+        assert native.available()
         perm = native.std_shuffle_perm(128, 0)
         np.testing.assert_array_equal(rows[:, [0, 1, 3, 4]],
                                       np.load(inp / f"{i}.npy")[perm])
