@@ -16,9 +16,10 @@ raises, and the script then exits non-zero without printing a result):
    library per shape: k = 8 and the gate's k = 6, 4-gon robot, 2 kept
    axes), the query kernels (csrc/distance_kernel.cu, csrc/manifold_kernel.cu,
    csrc/toi_kernel.cu), the trajectory kernels (csrc/mc_toi_kernel.cu,
-   csrc/mc_moving_polygon_kernel.cu at k = 8, csrc/screen_kernel.cu), the
-   scene raycast kernel (csrc/raycast_kernel.cu) and the streaming-bandwidth
-   probe (csrc/stream_kernel.cu);
+   csrc/mc_moving_polygon_kernel.cu at k = 8, csrc/screen_kernel.cu at 8
+   segments), the scene raycast kernel (csrc/raycast_kernel.cu at 8 faces a
+   shape, and its build that counts the faces it evaluates) and the
+   streaming-bandwidth probe (csrc/stream_kernel.cu);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -145,20 +146,27 @@ raises, and the script then exits non-zero without printing a result):
    (utils/benchmarks.py:646-677; the threefry cascade, cap 4,000): finite
    cp in [0, 1], configs/s;
 18. kernel 15 (stage A of the rotating cascade) against its plain version
-   at the JAX bench's step, 8,192 rotating rows x 512 lanes: flags differ
-   on at most 1e-5 of lanes, t0 equal where they agree; kernel ms, plain
-   ms, lanes/s; then one threefry step of the cascade at that shape, whole
-   (kernel 15 or the torch screen) and its draws alone (host clock).
+   at the JAX bench's step, 8,192 rotating rows x 512 lanes
+   (`screen_inputs`): flags differ on at most 1e-5 of lanes, t0 equal
+   where they agree (bitwise expected); kernel ms, plain ms, lanes/s, the
+   bound and the issue floor (`screen_issue_floor`), and the outputs'
+   fingerprint (`output_fingerprint`) and whether it is the parent
+   design's (`PARENT_FINGERPRINTS`); then one threefry step of the cascade
+   at that shape, whole (kernel 15 or the torch screen) and its draws
+   alone (host clock).
 19. kernel 11 (scene raycast): ``scene_raycast(impl='auto')`` on the JAX
    bench's scene (utils/benchmarks.py:1963-1976: 2^22 rays, origins
    U(-50, 50)^2, directions standard normal, 64 regular 8-gons in a 40-side
    box) and on a single ray launches it; then the kernel against its plain
-   version at t_max inf and 4, on 4,096 shapes (past one shared-memory
-   tile) x 2^16 rays with the default tile and a 61-shape tile (equal), and
-   on 1,000 masked mixed-k shapes: t, index or normal differ on at most
-   1e-5 of the rays (bitwise expected); kernel ms, plain ms, rays/s, the
-   bound, the kernel's share of it, and the bound with the division at its
-   SASS count and by the Pallas estimate;
+   version (`raycast_inputs`) at t_max inf and 4, on 4,096 shapes (past
+   one shared-memory tile) x 2^16 rays with the default tile and a
+   61-shape tile (equal), and on 1,000 masked mixed-k shapes: t, index or
+   normal differ on at most 1e-5 of the rays (bitwise expected), with each
+   case's fingerprint and whether it is the parent design's; kernel ms,
+   plain ms, rays/s, the bound, the kernel's share of it, the bound by the
+   Pallas estimate, the (ray, face) pairs the kernel evaluates (its
+   counting build) and its issue floor (`raycast_issue_floor`) at every
+   face and at those;
 20. the dense scene queries at `bench_scene`'s shape (N = 2,048 8-gons in a
    40-side box, row tile 64): kernel-6 and kernel-10 launches > 0; the
    matrix equals `ops.sat.sat_polygons` on the same card tensors bit for
@@ -190,21 +198,25 @@ counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
 integer Philox rounds are not counted, so the Monte Carlo bounds are
 floors; the query kernels, kernel 11 among them (`raycast_ops`, 32 bytes
 a ray), count an IEEE ``sqrtf`` or division as one operation and leave
-out ``sincosf``; phase 19 also prints kernel 11's bound with its division
-at the 7 instructions of its SASS fast path; kernel 12's and 13's work
-depends on the data, so their bounds count the distance evaluations this
-run's lanes take; kernel 15's is the larger of 28 bytes a lane and its
-counted operations). The fused Monte Carlo kernels 1, 7, 13 and 14 also
-carry ``issue_floor_ms``: the fewest SASS instructions one iteration of
-their sample loop can issue (`_shortest_iteration` on ``cuobjdump -sass``
-of the built library; kernel 13's window loop), over the samples an
-iteration evaluates, times the samples, over 132 SMs x 128 lanes x the SM
-clock's maximum (nvidia-smi). ``bound_ms`` keeps its convention,
-comparable across kernels; it leaves out the stream's integer and library
-work, and kernels 7, 13 and 14 must not contract a multiply and an add, so
-they cannot come near it, while the issue floor counts what the card must
-issue. No single PyTorch call computes any of these functions but kernel
-16's (a sum of each stream), so ``library_ms`` is null for the others.
+out ``sincosf``; kernel 12's and 13's work depends on the data, so their
+bounds count the distance evaluations this run's lanes take; kernel 15's
+is the larger of 28 bytes a lane and its counted operations; kernel 11's
+counts every face, whatever its early exit skips, so the row stays
+comparable across versions). The fused Monte Carlo kernels 1, 7, 13 and
+14 and kernels 15 and 11 also carry ``issue_floor_ms``: the fewest SASS
+instructions the card must issue for the work (`_shortest_iteration` on
+``cuobjdump -sass`` of the built library, every forward branch either
+way): one iteration of the sample loop over the samples it evaluates,
+times the samples (1, 7, 13, 14; kernel 13's window loop); one lane's
+body over the lanes a thread takes, times the lanes (15); one iteration
+of the shape loop over the rays a thread takes, times rays x shapes (11);
+over 132 SMs x 128 lanes x the SM clock's maximum (nvidia-smi).
+``bound_ms`` keeps its convention, comparable across kernels; it leaves
+out the stream's integer and library work, and kernels 7, 11, 13, 14 and
+15 must not contract a multiply and an add, so they cannot come near it,
+while the issue floor counts what the card must issue. No single PyTorch
+call computes any of these functions but kernel 16's (a sum of each
+stream), so ``library_ms`` is null for the others.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -315,19 +327,25 @@ def _events_ms(fn, reps: int) -> float:
 
 def phase_build():
     from collide2d_tpu_torch.ops.mc_polygon_cuda import shape_defines
+    from collide2d_tpu_torch.ops.raycast_cuda import raycast_defines
+    from collide2d_tpu_torch.ops.screen_cuda import screen_defines
     from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
     # kernels 7 and 14 build once per shape: phases 10, 11 and 17 launch
     # them at k = 8 against the 4-gon robot's 2 kept axes, phase 10's
-    # agreement gate kernel 7 at k = 6
+    # agreement gate kernel 7 at k = 6; kernel 15 once per segment count (the
+    # cascade's 8), kernel 11 once per face count (8: every scene here has
+    # k <= 8; also the build that counts its work, phase 19)
     jobs = [(name, ()) for name in (
         "mc_kernel", "sat_kernel", "polygon_kernel", "distance_kernel",
-        "manifold_kernel", "toi_kernel", "mc_toi_kernel", "screen_kernel",
-        "raycast_kernel", "stream_kernel")] + [
+        "manifold_kernel", "toi_kernel", "mc_toi_kernel", "stream_kernel")] + [
         ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2)),
         ("mc_polygon_kernel", shape_defines(6, 4, 2)),
-        ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2))]
+        ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2)),
+        ("screen_kernel", screen_defines(8)),
+        ("raycast_kernel", raycast_defines(RAY_K)),
+        ("raycast_kernel", raycast_defines(RAY_K, count_faces=True))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
     for job in jobs:
@@ -1943,17 +1961,51 @@ def phase_mc_moving_polygon(work: Path) -> dict:
     return result
 
 
+# The outputs' fingerprints (`output_fingerprint`) of the parent design of
+# kernels 15 and 11 (one lane and one ray a thread, the segment and face
+# counts at run time) on phases 18's and 19's inputs, as
+# collide2d_tpu_torch/utils/screen_raycast_ab.py read them on an NVIDIA H100
+# 80GB HBM3: a phase prints whether its rows still give them.
+PARENT_FINGERPRINTS = {
+    "screen": [[10487352, 52243561836], [3292475531722752, -2095983300125392896]],
+    "bench": [[7934448592301371, 2642182077419583801], [28560672, 142395503675],
+              [-355336895403970, -1781786261551589747]],
+    "bench_tmax4": [[8722553871540300, 6572558719870126062], [6033627, 30030823062],
+                    [-4074380463265, -18921781910312878]],
+    "tiled_4096": [[75482540400096, 362644631784681500], [119206822, 572141867485],
+                   [-1785034964261, -10319684041998149]],
+    "mixed_k_mask": [[112542160542211, 539860471064536403], [10367747, 49638750314],
+                     [-7435365211565, -37114815545445991]],
+}
+PARENT_FINGERPRINTS["tiled_4096_tile61"] = PARENT_FINGERPRINTS["tiled_4096"]
+
+
+def screen_inputs():
+    """Phase 18's inputs on the card, at the JAX bench's step: draws z
+    (8,192, 512, 5) and the rotating rows' params (8,192, 16)."""
+    from collide2d_tpu_torch.ops import screen_cuda
+
+    params = screen_cuda.pack_screen_params(_moving_rects(ROT_ROWS, rotating=True),
+                                            ROBOT_WH)
+    z = torch.randn((ROT_ROWS, SCREEN_LANES, 5),
+                    generator=torch.Generator(device="cuda").manual_seed(18), device="cuda")
+    return z, params
+
+
+def _json(x) -> str:
+    return json.dumps(x, separators=(",", ":"))
+
+
 def phase_screen() -> dict:
     """Phase 18: kernel 15 against its plain version at the JAX bench's
     step (8,192 rotating rows x 512 lanes); returns its entry of the kernels
     line."""
     from collide2d_tpu_torch.ops import screen_cuda
+    from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    c, s = ROT_ROWS, SCREEN_LANES
-    params = screen_cuda.pack_screen_params(_moving_rects(c, rotating=True), ROBOT_WH)
-    z = torch.randn((c, s, 5), generator=torch.Generator(device="cuda").manual_seed(18),
-                    device="cuda")
+    z, params = screen_inputs()
+    c, s = z.shape[0], z.shape[1]
     flags, t0 = screen_cuda.rotating_screen(z, params)
     want_f, want_t = screen_cuda.rotating_screen_plain(z, params)
     torch.cuda.synchronize()
@@ -1967,6 +2019,9 @@ def phase_screen() -> dict:
                             lambda: screen_cuda.rotating_screen_plain(z, params))
     ops = c * s * (SCREEN_LANE_OPS + TOI_WINDOW_OPS + 8 * SCREEN_SEG_OPS)
     bound, bound_by = _bound_ms(28 * c * s, ops)
+    floor = screen_issue_floor(
+        cuda_build.build("screen_kernel", screen_cuda.screen_defines(8)), c * s, 8)
+    fingerprint = output_fingerprint(flags, t0)
     shares = {f"share_bit{b}": f"{float(((want_f >> b) & 1).float().mean()):.4f}"
               for b in range(3)}
     ambiguous = ((want_f & 1) != 0) & ((want_f & 2) == 0)
@@ -1974,8 +2029,13 @@ def phase_screen() -> dict:
           bitwise_equal=bool(torch.equal(flags, want_f) and torch.equal(t0, want_t)),
           ambiguous_share=f"{float(ambiguous.float().mean()):.4f}", **shares,
           kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
-          bound_by=bound_by, kernel_lanes_per_s=f"{c * s / ms * 1e3:.4e}",
-          kernel_gb_per_s=f"{28 * c * s / (ms * 1e-3) / 1e9:.1f}")
+          bound_by=bound_by, issue_floor_ms=f"{floor['issue_floor_ms']:.4f}",
+          sass_per_lane=f"{floor['sass_per_lane']:.1f}",
+          share_of_issue_floor=f"{floor['issue_floor_ms'] / ms:.3f}",
+          kernel_lanes_per_s=f"{c * s / ms * 1e3:.4e}",
+          kernel_gb_per_s=f"{28 * c * s / (ms * 1e-3) / 1e9:.1f}",
+          fingerprint=_json(fingerprint),
+          parent_rows_equal=fingerprint == PARENT_FINGERPRINTS["screen"])
     # one threefry step of the rotating cascade, whole and in parts
     from collide2d_tpu_torch.mc import moving, prng
 
@@ -1996,21 +2056,20 @@ def phase_screen() -> dict:
           step_samples_per_s=f"{c * s / step_ms['cuda'] * 1e3:.4e}")
     flag_err = int((flags - want_f).abs().max())
     return dict(max_abs_err=float(max(flag_err, t0_err)), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by)
+                bound_ms=bound, bound_by=bound_by, issue_floor_ms=floor["issue_floor_ms"])
 
 
 RAYS, RAY_SHAPES, RAY_K = 1 << 22, 64, 8
-# FP32 operations written in csrc/raycast_kernel.cu. A (ray, face): no and
-# nd 6, num 1, the divisor's test and select 2, the division 1, the parallel
+# FP32 operations kernel 11's plain version writes. A (ray, face): no and nd
+# 6, num 1, the divisor's test and select 2, the division 1, the parallel
 # test 2, lo and hi 6, the entry's test and 3 selects 4, the exit's min 1.
 # A (ray, shape): the hit's 4 tests, the inside test, max and select 2, the
 # argmin's test and 5 updates. `bound_ms` counts the IEEE division as one
-# operation, as the other query kernels count theirs; the secondary
-# `bound_ms_div_sass` counts it at the RAYCAST_DIV_SASS instructions of its
-# fast path in the SASS (MUFU.RCP, FCHK and the FFMA refinement,
-# `cuobjdump -sass` of the built library). A ray moves 32 bytes: origin and
-# direction in (16), t, index and normal out (16).
-RAYCAST_FACE_OPS, RAYCAST_SHAPE_OPS, RAYCAST_DIV_SASS = 23, 13, 7
+# operation, as the other query kernels count theirs; beside it stands the
+# kernel's issue floor (`raycast_issue_floor`), which counts the SASS a
+# (ray, shape) issues, the division's fast path among it. A ray moves 32
+# bytes: origin and direction in (16), t, index and normal out (16).
+RAYCAST_FACE_OPS, RAYCAST_SHAPE_OPS = 23, 13
 RAYCAST_RAY_BYTES = 32
 RAYCAST_PALLAS_FACE_OPS = 16  # the Pallas cost estimate (raycast_pallas.py:138)
 SCENE_N, SCENE_CAPACITY = 2048, 16_384
@@ -2020,8 +2079,8 @@ TIE_OTHER_FACES_MIN, TIE_OTHER_FACES_SHARE = 3, 0.05
 SWEPT_N, SWEPT_WINDOW = 32_768, 128
 
 
-def raycast_ops(rays: int, shapes: int, kp: int, div_ops: int = 1) -> int:
-    return rays * shapes * (kp * (RAYCAST_FACE_OPS - 1 + div_ops) + RAYCAST_SHAPE_OPS)
+def raycast_ops(rays: int, shapes: int, kp: int) -> int:
+    return rays * shapes * (kp * RAYCAST_FACE_OPS + RAYCAST_SHAPE_OPS)
 
 
 def _ray_agreement(got, want):
@@ -2036,19 +2095,49 @@ def _ray_agreement(got, want):
     return int(differ.sum()), err
 
 
+def raycast_inputs():
+    """Phase 19's inputs on the card: the JAX bench's scene
+    (utils/benchmarks.py:1963-1976: 2^22 rays, origins U(-50, 50)^2,
+    directions standard normal, 64 regular 8-gons in a 40-side box) as
+    (origin, direction, polys), and the kernel's cases as (name, table,
+    origin, direction, t_max, tile_shapes): the scene at t_max inf and 4,
+    4,096 shapes past one shared-memory tile x 2^16 rays with the default
+    tile and a 61-shape tile, and 1,000 masked mixed-k shapes."""
+    from collide2d_tpu_torch.ops import raycast_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    polys = _bench_polygons(g, RAY_SHAPES, RAY_K, area_side=40.0)
+    origin = torch.rand((RAYS, 2), generator=g, device=dev) * 100.0 - 50.0
+    direction = torch.randn((RAYS, 2), generator=g, device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(20)
+    big = _bench_polygons(g2, 4096, RAY_K, area_side=320.0)
+    mixed = _bench_polygons(g2, 1000, RAY_K, area_side=40.0)
+    mask = torch.arange(RAY_K, device=dev)[None] < torch.randint(
+        3, RAY_K + 1, (1000, 1), generator=g2, device=dev)
+    mixed = torch.where(mask[..., None], mixed, 1e3)  # garbage padding, masked out
+    r16 = 1 << 16
+    o16 = torch.rand((r16, 2), generator=g2, device=dev) * 340.0 - 10.0
+    d16 = torch.randn((r16, 2), generator=g2, device=dev)
+    bench = raycast_cuda.pack_scene_tables(polys)
+    tiled = raycast_cuda.pack_scene_tables(big)
+    cases = (("bench", bench, origin, direction, math.inf, 0),
+             ("bench_tmax4", bench, origin, direction, 4.0, 0),
+             ("tiled_4096", tiled, o16, d16, math.inf, 0),
+             ("tiled_4096_tile61", tiled, o16, d16, math.inf, 61),
+             ("mixed_k_mask", raycast_cuda.pack_scene_tables(mixed, mask), origin[:r16],
+              direction[:r16], math.inf, 0))
+    return (origin, direction, polys), cases
+
+
 def phase_raycast() -> dict:
     """Phase 19: kernel 11 on `scene_raycast(impl='auto')` and against its
     plain version; returns its entry of the kernels line."""
     from collide2d_tpu_torch.ops import raycast, raycast_cuda
+    from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(19)
-    # the JAX bench (utils/benchmarks.py:1963-1976): 64 regular 8-gons in a
-    # 40-side box, origins U(-50, 50)^2, directions standard normal
-    polys = _bench_polygons(g, RAY_SHAPES, RAY_K, area_side=40.0)
-    origin = torch.rand((RAYS, 2), generator=g, device=dev) * 100.0 - 50.0
-    direction = torch.randn((RAYS, 2), generator=g, device=dev)
+    (origin, direction, polys), cases = raycast_inputs()
     raycast_cuda.reset_launches()
     main_out = raycast.scene_raycast(origin, direction, polys)
     one = raycast.scene_raycast(origin[7], direction[7], polys)
@@ -2064,26 +2153,9 @@ def phase_raycast() -> dict:
     del main_out
 
     result = {"launches": launches, "max_abs_err": 0.0}
-    g2 = torch.Generator(device=dev).manual_seed(20)
-    big = _bench_polygons(g2, 4096, RAY_K, area_side=320.0)
-    mixed = _bench_polygons(g2, 1000, RAY_K, area_side=40.0)
-    mask = torch.arange(RAY_K, device=dev)[None] < torch.randint(
-        3, RAY_K + 1, (1000, 1), generator=g2, device=dev)
-    mixed = torch.where(mask[..., None], mixed, 1e3)  # garbage padding, masked out
-    r16 = 1 << 16
-    o16 = torch.rand((r16, 2), generator=g2, device=dev) * 340.0 - 10.0
-    d16 = torch.randn((r16, 2), generator=g2, device=dev)
-    # (case, table, origin, direction, t_max, tile_shapes)
-    cases = (("bench", raycast_cuda.pack_scene_tables(polys), origin, direction, math.inf, 0),
-             ("bench_tmax4", None, origin, direction, 4.0, 0),
-             ("tiled_4096", raycast_cuda.pack_scene_tables(big), o16, d16, math.inf, 0),
-             ("tiled_4096_tile61", None, o16, d16, math.inf, 61),
-             ("mixed_k_mask", raycast_cuda.pack_scene_tables(mixed, mask), origin[:r16],
-              direction[:r16], math.inf, 0))
-    table, first_tile = None, None
-    for tag, tab, o, d, t_max, tile in cases:
+    first_tile = None
+    for tag, table, o, d, t_max, tile in cases:
         t = time.monotonic()
-        table = table if tab is None else tab
         got = raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max, tile_shapes=tile)
         want = raycast_cuda.scene_raycast_plain(o, d, table, t_max=t_max)
         torch.cuda.synchronize()
@@ -2097,10 +2169,13 @@ def phase_raycast() -> dict:
         if tag == "tiled_4096_tile61" and not all(map(torch.equal, got, first_tile)):
             raise RuntimeError("kernel 11 depends on its shared-memory tile size")
         result["max_abs_err"] = max(result["max_abs_err"], err)
+        fingerprint = output_fingerprint(*got)
         fields = dict(case=tag, rays=r, shapes=table.shape[0], faces=table.shape[1],
                       t_max=t_max, rays_differ=differ, max_abs_diff=f"{err:.3e}",
                       bitwise_equal=all(map(torch.equal, got, want)),
-                      hit_share=f"{float(torch.isfinite(want[0]).float().mean()):.4f}")
+                      hit_share=f"{float(torch.isfinite(want[0]).float().mean()):.4f}",
+                      fingerprint=_json(fingerprint),
+                      parent_rows_equal=fingerprint == PARENT_FINGERPRINTS[tag])
         if tag in ("bench", "tiled_4096"):
             ms, plain_ms = _compare(
                 lambda: raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max),
@@ -2108,17 +2183,28 @@ def phase_raycast() -> dict:
             shapes, kp = table.shape[0], table.shape[1]
             nbytes = RAYCAST_RAY_BYTES * r
             bound, bound_by = _bound_ms(nbytes, raycast_ops(r, shapes, kp))
-            div_sass = _bound_ms(nbytes, raycast_ops(r, shapes, kp, RAYCAST_DIV_SASS))[0]
             pallas = _bound_ms(nbytes, RAYCAST_PALLAS_FACE_OPS * r * shapes * kp)[0]
+            counted, faces = raycast_cuda.scene_raycast_faces(o, d, table, t_max=t_max)
+            if not all(map(torch.equal, counted, got)):
+                raise RuntimeError(f"kernel 11's counting build differs ({tag})")
+            floor = raycast_issue_floor(
+                cuda_build.build("raycast_kernel", raycast_cuda.raycast_defines(kp)),
+                r, shapes, kp, faces)
             fields.update(
                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
                 bound_by=bound_by, share_of_bound=f"{bound / ms:.3f}",
-                bound_ms_div_sass=f"{div_sass:.4f}",
+                issue_floor_ms=f"{floor['issue_floor_ms']:.4f}",
+                issue_floor_ms_at_faces_evaluated=(
+                    f"{floor['issue_floor_ms_at_faces_evaluated']:.4f}"),
+                share_of_issue_floor=f"{floor['issue_floor_ms'] / ms:.3f}",
+                sass_per_ray_face=f"{floor['sass_per_ray_face']:.2f}",
+                faces_evaluated_share=f"{faces / (r * shapes * kp):.4f}",
                 bound_ms_pallas_estimate=f"{pallas:.4f}",
                 kernel_rays_per_s=f"{r / ms * 1e3:.4e}",
                 plain_rays_per_s=f"{r / plain_ms * 1e3:.4e}")
             if tag == "bench":
-                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                              issue_floor_ms=floor["issue_floor_ms"])
         _line("19 scene_raycast kernel", time.monotonic() - t, **fields)
         del got, want
     return result
@@ -2395,20 +2481,23 @@ def _fingerprint(counts: torch.Tensor) -> tuple[int, int]:
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def _shortest_iteration(ins: list, start: int, end: int) -> tuple[int, int]:
-    """(instructions, LDS) on the shortest path through one iteration of the
-    loop whose body is [start, end] (``end``: its backward branch): every
-    conditional forward branch may go either way, nested loops run no
-    second time, calls cost their one instruction. The fewest instructions a
-    warp can issue for one iteration."""
+def _shortest_iteration(ins: list, start: int, end: int, also: tuple = ()) -> tuple:
+    """(instructions, LDS, then the instructions of each opcode prefix in
+    ``also``) on the shortest path through one iteration of the loop whose
+    body is [start, end] (``end``: its backward branch), or from ``start`` to
+    the instruction at ``end``: every conditional forward branch may go
+    either way, nested loops run no second time, calls cost their one
+    instruction. The fewest instructions a warp can issue for one
+    iteration."""
     body = [x for x in ins if start <= x[0] <= end]
     addrs = [x[0] for x in body]
     best = [None] * len(body)
-    best[0] = (0, 0)
+    best[0] = (0,) * (2 + len(also))
     for i, (addr, pred, op, args) in enumerate(body):
         if best[i] is None:
             continue
-        here = (best[i][0] + 1, best[i][1] + op.startswith("LDS"))
+        here = (best[i][0] + 1, best[i][1] + op.startswith("LDS"),
+                *(n + op.startswith(prefix) for n, prefix in zip(best[i][2:], also)))
         if addr == end:
             return here
         succ = []
@@ -2428,13 +2517,10 @@ def _shortest_iteration(ins: list, start: int, end: int) -> tuple[int, int]:
     raise RuntimeError("no path through the loop")
 
 
-def sass_loops(lib: Path, kernel: str) -> dict:
+def _sass_function(lib: Path, kernel: str) -> list:
     """The SASS of the kernel whose mangled name holds ``kernel`` in the
-    library (``cuobjdump -sass``): its instruction and ``LDS`` counts; for
-    each backward branch (a loop), the instructions, ``LDS`` and ``CALL`` in
-    its body, innermost first; and the shortest path through one iteration
-    of the largest loop (`_shortest_iteration`). ``NOP`` padding is not
-    counted."""
+    library (``cuobjdump -sass``) as (address, predicate, opcode, operands)
+    tuples, ``NOP`` padding left out."""
     from collide2d_tpu_torch.utils import cuda_build
 
     tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
@@ -2442,26 +2528,40 @@ def sass_loops(lib: Path, kernel: str) -> dict:
                           text=True, check=True, timeout=300).stdout
     body = next(part for part in text.split("Function : ")[1:]
                 if kernel in part.split("\n", 1)[0])
-    ins = [(int(a, 16), pred.strip(), op, args)
-           for a, pred, op, args in _SASS_LINE.findall(body) if op != "NOP"]
+    return [(int(a, 16), pred.strip(), op, args)
+            for a, pred, op, args in _SASS_LINE.findall(body) if op != "NOP"]
 
-    def count(lo, hi):
-        ops = [op for a, _, op, _ in ins if lo <= a <= hi]
-        return dict(instructions=len(ops), lds=sum(op.startswith("LDS") for op in ops),
-                    calls=sum(op.startswith("CALL") for op in ops))
 
-    loops = []  # a loop closes with a predicated backward branch; an
-    # unpredicated one returns from out-of-line code (a divergent vote)
+def _count(ins: list, lo: int, hi: int) -> dict:
+    ops = [op for a, _, op, _ in ins if lo <= a <= hi]
+    return dict(instructions=len(ops), lds=sum(op.startswith("LDS") for op in ops),
+                calls=sum(op.startswith("CALL") for op in ops))
+
+
+def _loops(ins: list) -> list:
+    """Each loop (a predicated backward branch; an unpredicated one returns
+    from out-of-line code, a divergent vote) with its body's instructions,
+    ``LDS`` and ``CALL``, innermost first."""
+    loops = []
     for a, pred, op, args in ins:
         target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" and pred else None
         if target and int(target.group(1), 16) < a:
-            loops.append(dict(start=int(target.group(1), 16), end=a,
-                              **count(int(target.group(1), 16), a)))
+            start = int(target.group(1), 16)
+            loops.append(dict(start=start, end=a, **_count(ins, start, a)))
     loops.sort(key=lambda x: x["instructions"])
+    return loops
+
+
+def sass_loops(lib: Path, kernel: str) -> dict:
+    """The SASS of the kernel whose mangled name holds ``kernel`` in the
+    library: its instruction and ``LDS`` counts; each loop (`_loops`); and
+    the shortest path through one iteration of the largest loop
+    (`_shortest_iteration`)."""
+    ins = _sass_function(lib, kernel)
+    loops = _loops(ins)
     main = loops[-1]
-    return dict(text=body, loops=loops,
-                shortest=_shortest_iteration(ins, main["start"], main["end"]),
-                **count(0, 1 << 62))
+    return dict(loops=loops, shortest=_shortest_iteration(ins, main["start"], main["end"]),
+                **_count(ins, 0, 1 << 62))
 
 
 def _sm_clock_hz() -> tuple[float, float]:
@@ -2494,6 +2594,102 @@ def issue_floor(name: str, defines, kernel: str, batch_fn: str, samples: int) ->
                 static_sass_per_sample=sass["loops"][-1]["instructions"] / batch,
                 issue_floor_ms=per_sample * samples / (132 * 128 * top) * 1e3,
                 sm_clock_mhz=now / 1e6, sm_clock_max_mhz=top / 1e6)
+
+
+def _issue_ms(instructions: float) -> tuple[float, float, float]:
+    """(ms to issue ``instructions`` lane instructions on 132 SMs x 128 lanes
+    at the SM clock's maximum, the clock now, its maximum), clocks in MHz."""
+    now, top = _sm_clock_hz()
+    return instructions / (132 * 128 * top) * 1e3, now / 1e6, top / 1e6
+
+
+def screen_issue_floor(lib: Path, lanes: int, n_seg: int) -> dict:
+    """Kernel 15's issue floor for ``lanes`` lanes at ``n_seg`` segments:
+    the shortest SASS path through the lane part of the kernel (after its
+    one barrier, to its last ``EXIT``; every forward branch may go either
+    way, so ``sincosf``'s Payne-Hanek path and the IEEE division's slow path
+    count nothing), over the lanes a thread takes. A library whose segment
+    loop did not unroll (one lane a thread, the segment count at run time)
+    takes its largest loop there ``n_seg`` times."""
+    import ctypes
+
+    handle = ctypes.CDLL(str(lib))
+    per_thread = (handle.rotating_screen_thread_lanes()
+                  if hasattr(handle, "rotating_screen_thread_lanes") else 1)
+    ins = _sass_function(lib, "rotating_screen_kernel")
+    start = max(a for a, _, op, _ in ins if op.startswith("BAR"))
+    start = next(a for a, _, _, _ in ins if a > start)
+    end = max(a for a, _, op, _ in ins if op.startswith("EXIT"))
+    if hasattr(handle, "rotating_screen_segments"):  # the segment loop unrolled
+        path = _shortest_iteration(ins, start, end)
+    else:  # the segment loop at run time: a segment an I2F (i -> float)
+        seg = [x for x in _loops(ins) if start <= x["start"] and x["end"] <= end][-1]
+        after = next(a for a, _, _, _ in ins if a > seg["end"])
+        pre = _shortest_iteration(ins, start, seg["start"])
+        body = _shortest_iteration(ins, seg["start"], seg["end"], also=("I2F",))
+        post = _shortest_iteration(ins, after, end)
+        per_seg = [x / max(body[2], 1) for x in body[:2]]
+        path = [pre[i] - (1, 0)[i] + n_seg * per_seg[i] + post[i] for i in range(2)]
+    per_lane = path[0] / per_thread
+    ms, now, top = _issue_ms(per_lane * lanes)
+    return dict(sass_per_lane=per_lane, lds_per_lane=path[1] / per_thread,
+                lanes_per_thread=per_thread, issue_floor_ms=ms, sm_clock_mhz=now,
+                sm_clock_max_mhz=top)
+
+
+def raycast_issue_floor(lib: Path, rays: int, shapes: int, kp: int,
+                        faces_evaluated: int | None = None) -> dict:
+    """Kernel 11's issue floor for ``rays`` rays x ``shapes`` shapes of ``kp``
+    faces: the shortest SASS path through one iteration of the shape loop
+    (the largest loop with an IEEE division's ``MUFU.RCP`` and no barrier;
+    a face loop inside it runs until the path holds a division for each
+    face and ray) of the instantiation without the early exit, over the
+    rays a thread takes, times rays x shapes: every face evaluated. With
+    ``faces_evaluated``
+    (the (ray, face) pairs a run with the exit evaluated) also that floor
+    scaled to them."""
+    import ctypes
+
+    handle = ctypes.CDLL(str(lib))
+    per_thread = 1
+    name = "scene_raycast_kernel"
+    if hasattr(handle, "scene_raycast_thread_rays"):  # <check, rays a thread>
+        handle.scene_raycast_thread_rays.argtypes = [ctypes.c_longlong]
+        per_thread = handle.scene_raycast_thread_rays(rays)
+        name = f"scene_raycast_kernelILi0ELi{per_thread}EE"
+    ins = _sass_function(lib, name)
+
+    def has(loop, prefix):
+        return any(op.startswith(prefix) for a, _, op, _ in ins
+                   if loop["start"] <= a <= loop["end"])
+
+    div_loops = [x for x in _loops(ins) if has(x, "MUFU.RCP") and not has(x, "BAR")]
+    shape = div_loops[-1]
+    inner = [x for x in div_loops[:-1]
+             if shape["start"] <= x["start"] and x["end"] <= shape["end"]]
+    # every face of the shape for each of the thread's rays: one MUFU.RCP
+    # each; a face loop inside runs as often as the divisions left need
+    path = list(_shortest_iteration(ins, shape["start"], shape["end"], also=("MUFU.RCP",)))
+    if inner and path[2] < kp * per_thread:
+        body = _shortest_iteration(ins, inner[-1]["start"], inner[-1]["end"],
+                                   also=("MUFU.RCP",))
+        extra = (kp * per_thread - path[2]) / body[2]
+        path = [path[i] + extra * body[i] for i in range(2)]
+    per_pair = path[0] / per_thread
+    ms, now, top = _issue_ms(per_pair * rays * shapes)
+    out = dict(sass_per_ray_shape=per_pair, sass_per_ray_face=per_pair / kp,
+               lds_per_ray_shape=path[1] / per_thread, rays_per_thread=per_thread,
+               issue_floor_ms=ms, sm_clock_mhz=now, sm_clock_max_mhz=top)
+    if faces_evaluated is not None:
+        out["issue_floor_ms_at_faces_evaluated"] = ms * faces_evaluated / (rays * shapes * kp)
+    return out
+
+
+def output_fingerprint(*outputs: torch.Tensor) -> list:
+    """`_fingerprint` of each output's 32-bit words, flattened: equal
+    fingerprints on the same inputs say the outputs' bits held."""
+    return [list(_fingerprint(x.contiguous().view(torch.int32).reshape(-1)))
+            for x in outputs]
 
 
 def main() -> int:

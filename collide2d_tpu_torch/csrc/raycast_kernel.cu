@@ -9,68 +9,130 @@
 // all-zero faces, which never clip and never enter. Per (ray, face):
 // no = nx*ox + ny*oy, nd = nx*dx + ny*dy, num = off - no, ratio = num / (nd
 // == 0 ? 1 : nd); a parallel face with num < 0 empties the window; the
-// entry is a max updated on STRICT > (the first face wins and carries its
+// entry is a max updated on STRICT > (the first face wins and gives the
 // normal), the exit a min. Per shape, a hit is entry <= exit, entry <=
 // t_max, exit >= 0 and any face; t = max(entry, 0) on a hit, +inf
 // otherwise; the normal is zero on a miss and on an inside start. Over the
 // shapes, the first-index argmin of t: ties and all-miss rays take the
 // smallest index (a miss of everything gives index 0 and a zero normal).
+// The per-shape arithmetic is csrc/raycast_shape.cuh.
 //
 // What bounds it on this card. A ray reads 16 bytes (origin, direction)
 // and writes 16 (t 4, index 4, normal 8): 0.040 ms for 2^22 rays at 3.35
-// TB/s. Every (ray, face) costs 23 FP32 operations written here (the
-// division counted as one; its IEEE fast path is 7 instructions) and every
-// (ray, shape) 13 more: at N = 64, k = 8 that is 12,608 a ray, ~0.79 ms
-// for 2^22 rays at 67 TFLOP/s, so operations bound it (chip_smoke.py::
-// raycast_ops). The design keeps everything but the rays on chip:
-// one thread a ray, the face table staged in shared memory in tiles of
-// whole shapes, every thread reading the same face at the same time (a
-// broadcast: no bank conflicts, one 16-byte load a face), and (best t,
-// index, normal) carried in registers across shapes and tiles under the
-// same strict < rule, so the result does not depend on the tile size. A
-// scene larger than one tile (48 KB, 3,072 faces) walks its tiles in order.
+// TB/s. Every (ray, face) costs 23 FP32 operations as the plain version
+// writes them (the division counted as one) and every (ray, shape) 13 more:
+// at N = 64, k = 8 that is 12,608 a ray, ~0.79 ms for 2^22 rays at 67
+// TFLOP/s. No product may be contracted into an FMA and the IEEE division's
+// fast path is 7 instructions, so what the card must issue a (ray, face)
+// bounds it (chip_smoke.py reads the SASS for the issue floor).
+//
+// Design, to issue fewer instructions a (ray, face):
+// - one library per face count (-DRAYCAST_KP = 4, 8, 16; 0 builds the
+//   generic form for any multiple of 4, unrolled by 4): a shape's faces
+//   unroll fully and the table offsets are constants;
+// - two rays a thread (ray and ray + 128 in a block of 128 threads), so one
+//   broadcast 16-byte shared-memory load of a face serves both and their
+//   two division chains overlap; a launch of too few rays to fill the card
+//   that way takes one ray a thread (a template argument);
+// - the window carries the entering face's index, not its normal; the
+//   winner's normal is read back from the table once a ray, at the end;
+// - the parallel-face case folds into the exit's min (raycast_shape.cuh);
+// - an exact warp-uniform exit from a shape once every ray of the warp is
+//   settled (raycast_shape.cuh), voted on after every CHECK faces (a
+//   template argument; 2 by default, 0 for none).
+// The face table is staged in shared memory in tiles of whole shapes
+// (48 KB, 3,072 faces), every thread reading the same face at the same time
+// (a broadcast), and (best t, index, face) is carried in registers across
+// shapes and tiles under the same strict < rule, so the result does not
+// depend on the tile size. A scene larger than one tile walks its tiles in
+// order.
 //
 // Rounding. Products and sums are __fmul_rn / __fadd_rn / __fsub_rn in the
 // torch order and the division is IEEE (__fdiv_rn), so the kernel is
 // bitwise its plain version (ops/raycast_cuda.py::scene_raycast_plain).
 //
+// With -DRAYCAST_COUNT_FACES=1 the library also counts the (ray, face)
+// pairs it evaluates (scene_raycast_faces); the default build does not.
+//
 // The wrapper allocates the outputs; the kernel allocates nothing and does
 // not synchronise.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <limits.h>
 #include <math.h>
 
-#include "fp32_rn.cuh"
+#include "raycast_shape.cuh"
+
+#ifndef RAYCAST_KP
+#define RAYCAST_KP 0
+#endif
+#ifndef RAYCAST_COUNT_FACES
+#define RAYCAST_COUNT_FACES 0
+#endif
 
 namespace {
 
-using collide2d::dot2;
+using namespace collide2d::raycast;
 
-constexpr int kThreads = 256;
+constexpr int kKP = RAYCAST_KP;
+static_assert(kKP >= 0 && kKP % 4 == 0, "RAYCAST_KP must be 0 or a multiple of 4");
+constexpr int kThreads = 128;
+// Rays a thread: two from this many rays on, else one, so that a launch of
+// few rays still has blocks enough for every SM (2^16 rays over 4,096
+// shapes: 2.36 ms against 3.22 with two a thread on an NVIDIA H100 80GB
+// HBM3, utils/screen_raycast_ab.py in turns). Four rays a thread ran
+// slower than two (PERF.md section 6).
+constexpr long long kTwoRaysFrom = 1 << 18;
 constexpr int kMaxTileFaces = 3072;  // 48 KB of float4 faces
+// The exit check the plain C entry point takes (faces between votes; 0:
+// none): at 2^22 rays x 64 8-gons a vote after every second face ran 1.86-
+// 1.87 ms, every face 2.02-2.04, every fourth 2.12 and none 2.11-2.12 (an
+// NVIDIA H100 80GB HBM3, utils/screen_raycast_ab.py).
+constexpr int kDefaultCheck = 2;
 
+#if RAYCAST_COUNT_FACES
+__device__ unsigned long long g_faces = 0;
+#endif
+
+template <int CHECK, int RAYS>
 __global__ void __launch_bounds__(kThreads)
     scene_raycast_kernel(const float2* __restrict__ origin,
                          const float2* __restrict__ direction,
                          const float4* __restrict__ table,
                          float* __restrict__ out_t, int* __restrict__ out_idx,
                          float2* __restrict__ out_n, long long r, int n_shapes,
-                         int kp, float t_max, int tile_shapes) {
+                         int kp_arg, float t_max, int tile_shapes) {
   extern __shared__ float4 tab[];
-  const long long ray = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool live = ray < r;
-  float ox = 0.0f, oy = 0.0f, dx = 0.0f, dy = 0.0f;
-  if (live) {
-    const float2 o = origin[ray];
-    const float2 d = direction[ray];
-    ox = o.x;
-    oy = o.y;
-    dx = d.x;
-    dy = d.y;
+  const int kp = kKP > 0 ? kKP : kp_arg;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * (kThreads * RAYS) + threadIdx.x;
+  const float tcap = t_max >= 0.0f ? t_max : INFINITY;
+  Ray ray[RAYS];
+  bool live[RAYS];
+  float best_t[RAYS], lim[RAYS];
+  int best_i[RAYS], best_f[RAYS];
+#pragma unroll
+  for (int l = 0; l < RAYS; ++l) {
+    const long long i = first + l * kThreads;
+    live[l] = i < r;
+    float2 o = make_float2(0.0f, 0.0f), d = make_float2(0.0f, 0.0f);
+    if (live[l]) {
+      o = origin[i];
+      d = direction[i];
+    }
+    ray[l] = Ray{o.x, o.y, d.x, d.y};
+    best_t[l] = INFINITY;
+    best_i[l] = 0;
+    best_f[l] = -1;
+    lim[l] = live[l] ? fminf(FLT_MAX, tcap) : -INFINITY;
   }
-  float best_t = INFINITY, best_nx = 0.0f, best_ny = 0.0f;
-  int best_i = 0;
+#if RAYCAST_COUNT_FACES
+  unsigned long long faces_done = 0;
+  int live_rays = 0;
+#pragma unroll
+  for (int l = 0; l < RAYS; ++l) live_rays += static_cast<int>(live[l]);
+#endif
   for (int s0 = 0; s0 < n_shapes; s0 += tile_shapes) {
     const int ns = min(tile_shapes, n_shapes - s0);
     const int nf = ns * kp;
@@ -81,73 +143,135 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     for (int s = 0; s < ns; ++s) {
       const float4* faces = tab + s * kp;
-      float entry = -INFINITY, exit_ = INFINITY, bnx = 0.0f, bny = 0.0f;
-      for (int j = 0; j < kp; j += 4) {
+      Window w[RAYS];
+      const int done = shape_windows<kKP, RAYS, CHECK>(faces, kp, ray, lim, w);
+#if RAYCAST_COUNT_FACES
+      faces_done += static_cast<unsigned long long>(done) * live_rays;
+#endif
+      if (CHECK > 0 && done < kp) continue;  // every ray of the warp settled
+      const bool any_face = faces[0].w > 0.0f;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float4 f = faces[j + u];
-          const float no = dot2(f.x, ox, f.y, oy);
-          const float nd = dot2(f.x, dx, f.y, dy);
-          const float num = __fsub_rn(f.z, no);  // constraint: t * nd <= num
-          const float ratio = __fdiv_rn(num, nd == 0.0f ? 1.0f : nd);
-          const bool pm = nd == 0.0f && num < 0.0f;  // parallel, outside
-          const float lo = nd < 0.0f ? ratio : (pm ? INFINITY : -INFINITY);
-          const float hi = nd > 0.0f ? ratio : (pm ? -INFINITY : INFINITY);
-          if (lo > entry) {  // strict: the first max wins
-            entry = lo;
-            bnx = f.x;
-            bny = f.y;
-          }
-          exit_ = fminf(exit_, hi);
+      for (int l = 0; l < RAYS; ++l) {
+        if (take_shape(w[l], any_face, t_max, s0 + s, best_t[l], best_i[l],
+                       best_f[l]) &&
+            CHECK > 0) {
+          lim[l] = settle_limit(best_t[l], tcap);
         }
-      }
-      const bool hit = entry <= exit_ && entry <= t_max && exit_ >= 0.0f &&
-                       faces[0].w > 0.0f;
-      const bool inside = hit && entry < 0.0f;
-      const float t = hit ? fmaxf(entry, 0.0f) : INFINITY;
-      if (t < best_t) {  // strict: the first shape at the minimum wins
-        const bool keep_n = hit && !inside;
-        best_t = t;
-        best_i = s0 + s;
-        best_nx = keep_n ? bnx : 0.0f;
-        best_ny = keep_n ? bny : 0.0f;
       }
     }
   }
-  if (live) {
-    out_t[ray] = best_t;
-    out_idx[ray] = best_i;
-    out_n[ray] = make_float2(best_nx, best_ny);
+#if RAYCAST_COUNT_FACES
+  atomicAdd(&g_faces, faces_done);
+#endif
+#pragma unroll
+  for (int l = 0; l < RAYS; ++l) {
+    if (!live[l]) continue;
+    const long long i = first + l * kThreads;
+    float2 n = make_float2(0.0f, 0.0f);
+    if (best_f[l] >= 0) {
+      const float4 f = table[static_cast<long long>(best_i[l]) * kp + best_f[l]];
+      n = make_float2(f.x, f.y);
+    }
+    out_t[i] = best_t[l];
+    out_idx[i] = best_i[l];
+    out_n[i] = n;
   }
+}
+
+int rays_per_thread(long long r) { return r >= kTwoRaysFrom ? 2 : 1; }
+
+template <int RAYS>
+int launch_rays(int check, const float* origin, const float* direction,
+                const float* table, float* out_t, int* out_idx, float* out_n,
+                long long r, int n_shapes, int kp, float t_max, int tile,
+                cudaStream_t st) {
+  const long long blocks = (r + kThreads * RAYS - 1) / (kThreads * RAYS);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(tile) * kp * sizeof(float4);
+  const auto o = reinterpret_cast<const float2*>(origin);
+  const auto d = reinterpret_cast<const float2*>(direction);
+  const auto tb = reinterpret_cast<const float4*>(table);
+  const auto n = reinterpret_cast<float2*>(out_n);
+  const unsigned g = static_cast<unsigned>(blocks);
+  switch (check) {
+    case 0:
+      scene_raycast_kernel<0, RAYS><<<g, kThreads, smem, st>>>(
+          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
+      break;
+    case 1:
+      scene_raycast_kernel<1, RAYS><<<g, kThreads, smem, st>>>(
+          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
+      break;
+    case 2:
+      scene_raycast_kernel<2, RAYS><<<g, kThreads, smem, st>>>(
+          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
+      break;
+    case 4:
+      scene_raycast_kernel<4, RAYS><<<g, kThreads, smem, st>>>(
+          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(int check, const float* origin, const float* direction,
+           const float* table, float* out_t, int* out_idx, float* out_n,
+           long long r, int n_shapes, int kp, float t_max, int tile_shapes,
+           void* stream) {
+  if (r <= 0) return static_cast<int>(cudaSuccess);
+  if (n_shapes <= 0 || kp <= 0 || kp % 4 != 0 || kp > kMaxTileFaces ||
+      (kKP > 0 && kp != kKP)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int tile = kMaxTileFaces / kp;
+  if (tile_shapes > 0 && tile_shapes < tile) tile = tile_shapes;
+  if (tile > n_shapes) tile = n_shapes;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return rays_per_thread(r) == 2
+             ? launch_rays<2>(check, origin, direction, table, out_t, out_idx, out_n,
+                              r, n_shapes, kp, t_max, tile, st)
+             : launch_rays<1>(check, origin, direction, table, out_t, out_idx, out_n,
+                              r, n_shapes, kp, t_max, tile, st);
 }
 
 }  // namespace
 
+// The rays a thread takes in a launch of r rays.
+extern "C" int scene_raycast_thread_rays(long long r) { return rays_per_thread(r); }
+
 // Plain C entry point (bound with ctypes). `origin`, `direction`: (r, 2)
-// float32; `table`: (n_shapes, kp, 4) float32, kp a multiple of 4 and at
-// most 3,072; outputs t (r,), idx (r,) int32, normal (r, 2). `tile_shapes`
-// caps the shapes staged at once (<= 0: as many as 48 KB hold). Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() after the
-// launch (0 = ok).
+// float32; `table`: (n_shapes, kp, 4) float32, kp a multiple of 4, at most
+// 3,072, and the library's own where it was built for one; outputs t (r,),
+// idx (r,) int32, normal (r, 2). `tile_shapes` caps the shapes staged at
+// once (<= 0: as many as 48 KB hold). Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int scene_raycast_launch(const float* origin, const float* direction,
                                     const float* table, float* out_t, int* out_idx,
                                     float* out_n, long long r, int n_shapes, int kp,
                                     float t_max, int tile_shapes, void* stream) {
-  if (r <= 0) return static_cast<int>(cudaSuccess);
-  if (n_shapes <= 0 || kp <= 0 || kp % 4 != 0 || kp > kMaxTileFaces) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long blocks = (r + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  int tile = kMaxTileFaces / kp;
-  if (tile_shapes > 0 && tile_shapes < tile) tile = tile_shapes;
-  if (tile > n_shapes) tile = n_shapes;
-  const size_t smem = static_cast<size_t>(tile) * kp * sizeof(float4);
-  scene_raycast_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(origin),
-      reinterpret_cast<const float2*>(direction),
-      reinterpret_cast<const float4*>(table), out_t, out_idx,
-      reinterpret_cast<float2*>(out_n), r, n_shapes, kp, t_max, tile);
-  return static_cast<int>(cudaGetLastError());
+  return launch(kDefaultCheck, origin, direction, table, out_t, out_idx, out_n, r,
+                n_shapes, kp, t_max, tile_shapes, stream);
 }
+
+// The same with the exit check chosen: a vote after every `check` faces
+// (1, 2 or 4; with a generic library every 4), or none (0).
+extern "C" int scene_raycast_launch_check(int check, const float* origin,
+                                          const float* direction, const float* table,
+                                          float* out_t, int* out_idx, float* out_n,
+                                          long long r, int n_shapes, int kp,
+                                          float t_max, int tile_shapes, void* stream) {
+  return launch(check, origin, direction, table, out_t, out_idx, out_n, r, n_shapes,
+                kp, t_max, tile_shapes, stream);
+}
+
+#if RAYCAST_COUNT_FACES
+// The (ray, face) pairs evaluated since the last call (synchronises).
+extern "C" int scene_raycast_faces(unsigned long long* out) {
+  const unsigned long long zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_faces, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_faces, &zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif

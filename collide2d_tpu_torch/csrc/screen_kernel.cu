@@ -20,19 +20,26 @@
 //
 // and writes flags (bit 0 maybe, bit 1 certified hit or t = 0 overlap,
 // bit 2 window verdict) and the warm start t0 = clip(first maybe segment's
-// start, else 2, 0, 2).
+// start, else 2, 0, 2). The lane's arithmetic is csrc/screen_lane.cuh.
 //
-// Design. A block takes 256 lanes of ONE configuration (grid (C, ceil(S /
-// 256))). Everything that depends only on the configuration, the cos/sin of
-// its n_seg midpoint angles, of its start angle, the chord bound delta and
-// the inflated and eroded robot extents, is computed once per block into
-// shared memory; the per-lane transcendentals are then only the sincosf of
-// the angle draw. Loads: 5 floats a lane from a (C, S, 5) row, so a warp
-// reads 640 contiguous bytes; stores: 8 bytes a lane, coalesced.
+// What bounds it on this card: 20 bytes in and 8 out a lane against ~1,070
+// FP32 operations at 8 segments, each its own instruction (no contraction),
+// so the instructions a lane issues bound it (chip_smoke.py counts them and
+// reads the SASS for the issue floor).
 //
-// What bounds it on this card: 20 bytes in and 8 out a lane against ~40
-// operations for the obstacle, t = 0 test and window and ~90 a segment, so
-// at 8 segments operations bound it (chip_smoke.py counts them).
+// Design. The segment count is a compile-time constant (-DSCREEN_NSEG, one
+// library per count, 8 by default): the segment loop unrolls and the bounds
+// a, b, tm are immediates. A block takes the 512 lanes of one configuration
+// (grid (C, ceil(S / 512))), two lanes a thread (s and s + 256, so a warp's
+// loads stay contiguous), and every value that does not depend on the lane
+// is computed once a block into shared memory, spread over three warps:
+// warp 0 the segments (cos/sin of the midpoint angle, the rotating axes'
+// speeds and their products with a, b and tm), one thread of warp 1 the
+// start angle's cos/sin and the window's two robot-axis speeds (their IEEE
+// divisions), one thread of warp 2 delta and the inflated and eroded
+// extents, one of warp 3 the row's scalars. A lane then does only what
+// depends on its draws, and reads each segment's shared values once for
+// both of its thread's lanes. The launch bound holds four blocks an SM.
 //
 // Rounding. Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn in
 // the torch expression's order, divisions IEEE, cos/sin through sincosf and
@@ -45,169 +52,107 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "obb_distance.cuh"
+#include "screen_lane.cuh"
+
+#ifndef SCREEN_NSEG
+#define SCREEN_NSEG 8
+#endif
 
 namespace {
 
-using collide2d::dot2;
-using collide2d::radius;
+using namespace collide2d::screen;
 
+constexpr int kNSeg = SCREEN_NSEG;
+static_assert(kNSeg >= 1 && kNSeg <= kMaxSeg, "SCREEN_NSEG must be in [1, 32]");
 constexpr int kThreads = 256;
-constexpr int kMaxSeg = 32;
+constexpr int kLanes = 2;  // lanes a thread
+constexpr int kBlockLanes = kThreads * kLanes;
+// Blocks an SM must hold: caps a thread at 64 registers, no spill. On an
+// NVIDIA H100 80GB HBM3 at 8,192 x 512 lanes (utils/screen_raycast_ab.py,
+// in turns) this ran 0.131-0.134 ms, against 0.136-0.138 at 3 blocks (80
+// registers), 0.244-0.246 at 1 (179) and 0.140 with one lane a thread.
+constexpr int kMinBlocks = 4;
 
-// Per-configuration values, computed once per block.
-struct ConfigScalars {
-  float sd[5];
-  float wh_x, wh_y, px, py, vx, vy;
-  float c1, s1, hx1, hy1;
-  float ex_in, ey_in, ex_er, ey_er;
-  float cm[kMaxSeg], sm[kMaxSeg];
-};
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     rotating_screen_kernel(const float* __restrict__ z,
                            const float* __restrict__ params,
                            int32_t* __restrict__ flags,
-                           float* __restrict__ t0_out, int num_lanes,
-                           int n_seg, float inv_n, float half_inv_n, float tol,
+                           float* __restrict__ t0_out, int num_lanes, float tol,
                            float pi_f) {
-  __shared__ ConfigScalars q;
+  __shared__ ScreenConfig q_sh;
+  __shared__ ScreenSegment seg_sh[kNSeg];
   const int c = blockIdx.x;
   const float* p = params + static_cast<long long>(c) * 16;
-  const float th0 = __ldg(p + 11);
-  const float w = __ldg(p + 12);
-  if (threadIdx.x < n_seg) {
-    // thm = th0 + (i + 0.5) * (w * (1 / n_seg))
-    const float ii = static_cast<float>(threadIdx.x);
-    const float thm = __fadd_rn(th0, __fmul_rn(__fadd_rn(ii, 0.5f),
-                                               __fmul_rn(w, inv_n)));
+  const int tid = threadIdx.x;
+  if (tid < kNSeg) {
     float sm, cm;
-    sincosf(thm, &sm, &cm);
-    q.cm[threadIdx.x] = cm;
-    q.sm[threadIdx.x] = sm;
-  }
-  if (threadIdx.x == kThreads - 1) {
-    for (int i = 0; i < 5; ++i) q.sd[i] = __ldg(p + i);
-    q.wh_x = __ldg(p + 5);
-    q.wh_y = __ldg(p + 6);
-    q.px = __ldg(p + 7);
-    q.py = __ldg(p + 8);
-    q.vx = __ldg(p + 9);
-    q.vy = __ldg(p + 10);
-    const float hx1 = __ldg(p + 13);
-    const float hy1 = __ldg(p + 14);
-    const float r_rob = __ldg(p + 15);
-    q.hx1 = hx1;
-    q.hy1 = hy1;
-    sincosf(th0, &q.s1, &q.c1);
-    // delta = 2 r sin(min(|w| (0.5 / n_seg), pi) * 0.5)
-    const float delta = __fmul_rn(
-        __fmul_rn(2.0f, r_rob),
-        sinf(__fmul_rn(fminf(__fmul_rn(fabsf(w), half_inv_n), pi_f), 0.5f)));
-    const float d_in = __fadd_rn(delta, tol);
-    const float hmin = fminf(hx1, hy1);
-    const float qh = __fmul_rn(hmin, 0.7071067f);  // inscribed-square half
-    const bool valid_er = delta < hmin;
-    q.ex_er = valid_er ? __fsub_rn(hx1, delta) : qh;
-    q.ey_er = valid_er ? __fsub_rn(hy1, delta) : qh;
-    q.ex_in = __fadd_rn(hx1, d_in);
-    q.ey_in = __fadd_rn(hy1, d_in);
+    sincosf(segment_angle<kNSeg>(p, tid), &sm, &cm);
+    seg_sh[tid] = screen_segment<kNSeg>(p, cm, sm, tid);
+  } else if (tid == 32) {
+    float s1, c1;
+    sincosf(p[11], &s1, &c1);
+    set_rotation(q_sh, p, c1, s1);
+  } else if (tid == 64) {
+    set_radii(q_sh, p, sinf(delta_angle<kNSeg>(p, pi_f)), tol);
+  } else if (tid == 96) {
+    set_row_scalars(q_sh, p);
   }
   __syncthreads();
 
-  const int s = blockIdx.y * kThreads + threadIdx.x;
-  if (s >= num_lanes) return;
-  const long long lane = static_cast<long long>(c) * num_lanes + s;
-  const float* zl = z + lane * 5;
-  const float ox = __fmul_rn(__ldg(zl + 0), q.sd[0]);
-  const float oy = __fmul_rn(__ldg(zl + 1), q.sd[1]);
-  const float d2 = __fmul_rn(__ldg(zl + 2), q.sd[2]);
-  float s2, c2;
-  sincosf(d2, &s2, &c2);
-  const float hx2 =
-      __fmul_rn(fabsf(__fadd_rn(q.wh_x, __fmul_rn(__ldg(zl + 3), q.sd[3]))), 0.5f);
-  const float hy2 =
-      __fmul_rn(fabsf(__fadd_rn(q.wh_y, __fmul_rn(__ldg(zl + 4), q.sd[4]))), 0.5f);
-  const float c1 = q.c1, s1 = q.s1, hx1 = q.hx1, hy1 = q.hy1;
-
-  // the exact t = 0 SAT test
-  const float cd0 = fabsf(dot2(c1, c2, s1, s2));
-  const float sd0 = fabsf(__fsub_rn(__fmul_rn(s1, c2), __fmul_rn(c1, s2)));
-  const float dx = __fsub_rn(ox, q.px);
-  const float dy = __fsub_rn(oy, q.py);
-  const bool hit_at_0 =
-      fabsf(dot2(dx, c1, dy, s1)) <= radius(hx1, hx2, cd0, hy2, sd0) &&
-      fabsf(dot2(-dx, s1, dy, c1)) <= radius(hy1, hx2, sd0, hy2, cd0) &&
-      fabsf(dot2(dx, c2, dy, s2)) <= radius(hx2, hx1, cd0, hy1, sd0) &&
-      fabsf(dot2(-dx, s2, dy, c2)) <= radius(hy2, hx1, sd0, hy1, cd0);
-
-  // the exact translation window (the obstacle moves by -v t)
-  const float vrx = -q.vx, vry = -q.vy;
-  float entry, exit;
-  collide2d::obb_translation_window(dx, dy, c1, s1, hx1, hy1, c2, s2, hx2, hy2,
-                                    vrx, vry, entry, exit);
-  const bool hit_exact = entry <= exit && entry <= 1.0f && exit >= 0.0f;
-
-  // the paired segment screen; axes 3 and 4 (the obstacle's) do not rotate
-  const float p3 = dot2(dx, c2, dy, s2);
-  const float v3 = dot2(vrx, c2, vry, s2);
-  const float p4 = dot2(-dx, s2, dy, c2);
-  const float v4 = dot2(-vrx, s2, vry, c2);
-  bool maybe = false, hit_cert = false;
-  float t_first = INFINITY;
-  for (int i = 0; i < n_seg; ++i) {
-    const float a = __fmul_rn(static_cast<float>(i), inv_n);
-    const float b = __fadd_rn(a, inv_n);
-    const float tm = __fadd_rn(a, half_inv_n);
-    const float cm = q.cm[i], sm = q.sm[i];
-    const float cd = fabsf(dot2(cm, c2, sm, s2));
-    const float sd = fabsf(__fsub_rn(__fmul_rn(sm, c2), __fmul_rn(cm, s2)));
-    const float p0[4] = {dot2(dx, cm, dy, sm), dot2(-dx, sm, dy, cm), p3, p4};
-    const float sv[4] = {dot2(vrx, cm, vry, sm), dot2(-vrx, sm, vry, cm), v3, v4};
-    const float r_sh[4] = {dot2(hx2, cd, hy2, sd), dot2(hx2, sd, hy2, cd), hx2, hy2};
-    const float r_in[4] = {q.ex_in, q.ey_in, dot2(q.ex_in, cd, q.ey_in, sd),
-                           dot2(q.ex_in, sd, q.ey_in, cd)};
-    const float r_er[4] = {q.ex_er, q.ey_er, dot2(q.ex_er, cd, q.ey_er, sd),
-                           dot2(q.ex_er, sd, q.ey_er, cd)};
-    bool seg_maybe = true, seg_hit = true;
+  const ScreenConfig q = q_sh;
+  const int s0 = blockIdx.y * kBlockLanes + tid;
+  if (s0 >= num_lanes) return;
+  const long long base = static_cast<long long>(c) * num_lanes;
+  float zl[kLanes][5], c2[kLanes], s2[kLanes];
+  bool live[kLanes];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float pa = __fadd_rn(p0[k], __fmul_rn(a, sv[k]));
-      const float pb = __fadd_rn(p0[k], __fmul_rn(b, sv[k]));
-      const float mn =
-          __fmul_rn(pa, pb) <= 0.0f ? 0.0f : fminf(fabsf(pa), fabsf(pb));
-      seg_maybe = seg_maybe && mn <= __fadd_rn(r_sh[k], r_in[k]);
-      seg_hit = seg_hit &&
-                fabsf(__fadd_rn(p0[k], __fmul_rn(tm, sv[k]))) <=
-                    __fadd_rn(r_sh[k], r_er[k]);
-    }
-    maybe = maybe || seg_maybe;
-    hit_cert = hit_cert || seg_hit;
-    if (seg_maybe) t_first = fminf(t_first, a);
+  for (int l = 0; l < kLanes; ++l) {
+    const int s = s0 + l * kThreads;
+    live[l] = s < num_lanes;
+    const float* zp = z + (base + (live[l] ? s : s0)) * 5;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) zl[l][k] = __ldg(zp + k);
+    sincosf(lane_angle(q, zl[l][2]), &s2[l], &c2[l]);
   }
-  flags[lane] = (maybe ? 1 : 0) | ((hit_cert || hit_at_0) ? 2 : 0) |
-                (hit_exact ? 4 : 0);
-  const float t0 = isfinite(t_first) ? t_first : 2.0f;
-  t0_out[lane] = fminf(fmaxf(t0, 0.0f), 2.0f);
+  int f[kLanes];
+  float t0[kLanes];
+  screen_lanes<kNSeg, kLanes>(q, seg_sh, zl, c2, s2, f, t0);
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    if (live[l]) {
+      const long long lane = base + s0 + l * kThreads;
+      flags[lane] = f[l];
+      t0_out[lane] = t0[l];
+    }
+  }
 }
 
 }  // namespace
 
+// The segment count this library was built for, and the lanes a thread takes.
+extern "C" int rotating_screen_segments() { return kNSeg; }
+extern "C" int rotating_screen_thread_lanes() { return kLanes; }
+
 // Plain C entry point (bound with ctypes). z (C, S, 5), params (C, 16),
-// flags and t0 (C, S). Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() after the launch (0 = ok).
+// flags and t0 (C, S). n_seg must be the library's (rotating_screen_segments)
+// and inv_n, half_inv_n f32(1 / n_seg), f32(0.5 / n_seg). Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launch (0 = ok).
 extern "C" int rotating_screen_launch(const float* z, const float* params,
                                       int32_t* flags, float* t0,
                                       int num_configs, int num_lanes,
                                       int n_seg, float inv_n, float half_inv_n,
                                       float tol, float pi_f, void* stream) {
   if (num_configs <= 0 || num_lanes <= 0) return static_cast<int>(cudaSuccess);
-  if (n_seg < 1 || n_seg > kMaxSeg) return static_cast<int>(cudaErrorInvalidValue);
-  const long long chunks = (num_lanes + kThreads - 1) / kThreads;
+  if (n_seg != kNSeg || inv_n != Bounds<kNSeg>::inv_n ||
+      half_inv_n != Bounds<kNSeg>::half_inv_n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long chunks = (num_lanes + kBlockLanes - 1) / kBlockLanes;
   if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(num_configs),
                   static_cast<unsigned>(chunks));
   rotating_screen_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      z, params, flags, t0, num_lanes, n_seg, inv_n, half_inv_n, tol, pi_f);
+      z, params, flags, t0, num_lanes, tol, pi_f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,10 @@ t0 (C, S).
 `rotating_screen_plain` is the port's own stage-A composition in torch
 operations on the same z (the function `mc.moving.counts_chunk_moving`
 runs with ``screen_impl='torch'``). `rotating_screen` routes on the device:
-a CUDA tensor launches ``csrc/screen_kernel.cu`` (built at first use) and
-counts the launch in ``LAUNCHES``; a failed build or launch raises; a CPU
-tensor runs the plain version.
+a CUDA tensor launches ``csrc/screen_kernel.cu`` (built at first use, one
+library per segment count: `screen_defines`) and counts the launch in
+``LAUNCHES``; a failed build or launch raises; a CPU tensor runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -113,14 +114,24 @@ def _check(z: torch.Tensor, params: torch.Tensor, n_seg: int) -> None:
         raise ValueError(f"n_seg must be in [1, {MAX_SEG}], got {n_seg}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
+def screen_defines(n_seg: int) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines of kernel 15's library for ``n_seg`` segments (its
+    segment loop unrolls)."""
+    return (("SCREEN_NSEG", int(n_seg)),)
 
-    lib = cuda_build.load(_KERNEL)
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``rotating_screen_launch``'s C signature on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rotating_screen_launch.restype = ctypes.c_int
     lib.rotating_screen_launch.argtypes = [p, p, p, p, i, i, i, f, f, f, f, p]
     return lib
+
+
+def _kernel_lib(n_seg: int) -> ctypes.CDLL:
+    from collide2d_tpu_torch.utils import cuda_build
+
+    return bind(cuda_build.load(_KERNEL, screen_defines(n_seg)))
 
 
 def rotating_screen(z: torch.Tensor, params: torch.Tensor, *, n_seg: int = 8,
@@ -141,7 +152,7 @@ def rotating_screen(z: torch.Tensor, params: torch.Tensor, *, n_seg: int = 8,
     if c == 0 or s == 0:
         return flags, t0
     f32 = prng._f32
-    lib = _kernel_lib()
+    lib = _kernel_lib(int(n_seg))
     err = lib.rotating_screen_launch(
         z.data_ptr(), params.data_ptr(), flags.data_ptr(), t0.data_ptr(), c, s,
         int(n_seg), f32(1.0 / n_seg), f32(0.5 / n_seg), f32(tol),

@@ -18,6 +18,8 @@ plain version: within 1e-5 x (sum|r1| * s + sum|r2|), and bitwise equal
 to itself from launch to launch.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -664,11 +666,44 @@ def test_screen_kernel_matches_plain(cuda):
     want_f, want_t = screen_cuda.rotating_screen_plain(z, params)
     torch.cuda.synchronize()
     assert screen_cuda.LAUNCHES == before + 1
-    agree = flags == want_f
-    assert int((~agree).sum()) <= 1e-5 * c * s
-    assert torch.equal(t0[agree], want_t[agree])
+    assert torch.equal(flags, want_f) and torch.equal(t0, want_t)
     for bit in (1, 2, 4):
         assert 0 < int(((want_f & bit) != 0).sum()) < c * s
+
+
+# Kernel 15 builds one library per segment count (the segment loop
+# unrolled) and takes two lanes a thread, 512 a block: counts 1, 7, 8 and
+# 32, and lane counts off a block's, each bitwise its plain version.
+@pytest.mark.parametrize("n_seg,s", [(1, 511), (7, 513), (8, 511), (8, 513), (32, 511),
+                                     (32, 513)])
+def test_screen_kernel_instantiations_match_plain(cuda, n_seg, s):
+    from collide2d_tpu_torch.ops import screen_cuda
+
+    c = 512
+    configs = _moving_rects(cuda, c, 40 + n_seg, rotating_share=0.8)
+    z = torch.randn((c, s, 5), generator=torch.Generator(device=cuda).manual_seed(s),
+                    device=cuda)
+    params = screen_cuda.pack_screen_params(configs, ROBOT)
+    flags, t0 = screen_cuda.rotating_screen(z, params, n_seg=n_seg)
+    want_f, want_t = screen_cuda.rotating_screen_plain(z, params, n_seg=n_seg)
+    assert torch.equal(flags, want_f) and torch.equal(t0, want_t)
+    assert 0 < int((want_f & 1).sum()) < c * s
+
+
+def test_screen_library_refuses_another_segment_count(cuda):
+    from collide2d_tpu_torch.ops import screen_cuda
+
+    lib = screen_cuda._kernel_lib(8)
+    assert lib.rotating_screen_segments() == 8
+    z = torch.zeros((2, 4, 5), device=cuda)
+    params = torch.zeros((2, 16), device=cuda)
+    f = torch.empty((2, 4), dtype=torch.int32, device=cuda)
+    t0 = torch.empty((2, 4), device=cuda)
+    f32 = ctypes.c_float
+    err = lib.rotating_screen_launch(z.data_ptr(), params.data_ptr(), f.data_ptr(),
+                                     t0.data_ptr(), 2, 4, 7, f32(1 / 7), f32(0.5 / 7),
+                                     f32(1e-4), f32(np.pi), 0)
+    assert err != 0
 
 
 def test_movelabel_on_cuda_launches_the_trajectory_kernels(cuda, tmp_path):
@@ -698,9 +733,8 @@ def test_movelabel_on_cuda_launches_the_trajectory_kernels(cuda, tmp_path):
             assert np.isfinite(d["cp"]).all() and 0 < d["cp"].mean() < 1
 
 
-# Kernel 11 (scene raycast): bitwise its plain version is expected (the same
-# separately rounded products and sums, IEEE division); the bar is t, index
-# or normal differing on at most 1e-5 of the rays.
+# Kernel 11 (scene raycast): bitwise its plain version (the same separately
+# rounded products and sums, IEEE division).
 @pytest.mark.parametrize("n_shapes,k,tile,t_max", [
     (64, 8, 0, float("inf")), (64, 8, 0, 4.0),
     (600, 8, 0, float("inf")),  # 4,800 faces: past one 3,072-face tile
@@ -721,10 +755,69 @@ def test_raycast_kernel_matches_plain(cuda, n_shapes, k, tile, t_max):
     want = raycast_cuda.scene_raycast_plain(o, d, table, t_max=t_max)
     torch.cuda.synchronize()
     assert raycast_cuda.LAUNCHES == before + 1
-    differ = (got[0] != want[0]) | (got[1] != want[1]) | (got[2] != want[2]).any(-1)
-    assert int(differ.sum()) <= 1e-5 * r
+    assert all(map(torch.equal, got, want))
     assert got[1].dtype == torch.int32 and got[2].shape == (r, 2)
     assert 0 < int(torch.isfinite(want[0]).sum()) < r
+
+
+# Kernel 11's libraries: its own per face count (4, 8, 16), the generic one
+# (12, 20), both tile sizes, and each early-exit check. The rays of one warp
+# leave a shape at different faces (origins spread over the scene, some
+# inside a shape, t_max cutting some short), and the exit must not change a
+# bit.
+@pytest.mark.parametrize("k,kp", [(4, 4), (7, 8), (8, 8), (11, 12), (16, 16), (19, 20)])
+@pytest.mark.parametrize("tile", [0, 13])
+def test_raycast_kernel_builds_and_exits_match_plain(cuda, k, kp, tile):
+    from collide2d_tpu_torch.ops import raycast_cuda
+
+    rng = np.random.default_rng(100 * k + tile)
+    n_shapes = 300
+    polys = _polygons(rng, n_shapes, k, cuda, spread=20.0)
+    mask = torch.from_numpy(np.arange(k)[None] < rng.integers(3, k + 1, (n_shapes, 1))).to(cuda)
+    table = raycast_cuda.pack_scene_tables(polys, mask)
+    assert table.shape[1] == kp
+    r = 3 * 1000 + 7  # a ragged last block
+    g = torch.Generator(device=cuda).manual_seed(k)
+    o = torch.rand((r, 2), generator=g, device=cuda) * 50.0 - 25.0
+    o[::9] = polys[torch.arange(0, r, 9, device=cuda) % n_shapes].mean(1)  # inside starts
+    d = torch.randn((r, 2), generator=g, device=cuda)
+    for t_max in (float("inf"), 3.0):
+        want = raycast_cuda.scene_raycast_plain(o, d, table, t_max=t_max)
+        every = r * n_shapes * kp
+        for check in raycast_cuda.CHECKS:
+            got = raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max,
+                                                    tile_shapes=tile, check=check)
+            assert all(map(torch.equal, got, want)), (t_max, check)
+            counted, faces = raycast_cuda.scene_raycast_faces(
+                o, d, table, t_max=t_max, tile_shapes=tile, check=check)
+            assert all(map(torch.equal, counted, want)), (t_max, check)
+            assert faces == every if check == 0 else 0 < faces <= every
+            if check == 1 and kp > 4:
+                assert faces < every
+        assert int((want[0] == 0).sum()) > 0 and bool(torch.isfinite(want[0]).any())
+
+
+# From 2^18 rays on, kernel 11 takes two rays a thread: that instantiation,
+# each exit check, bitwise its plain version.
+@pytest.mark.parametrize("k", [8, 12])
+def test_raycast_kernel_two_rays_a_thread_match_plain(cuda, k):
+    from collide2d_tpu_torch.ops import raycast_cuda
+
+    rng = np.random.default_rng(200 + k)
+    polys = _polygons(rng, 48, k, cuda, spread=20.0)
+    table = raycast_cuda.pack_scene_tables(polys)
+    r = (1 << 18) + 129  # a ragged last block
+    g = torch.Generator(device=cuda).manual_seed(k)
+    o = torch.rand((r, 2), generator=g, device=cuda) * 50.0 - 25.0
+    d = torch.randn((r, 2), generator=g, device=cuda)
+    lib = raycast_cuda._kernel_lib(table.shape[1])
+    lib.scene_raycast_thread_rays.argtypes = [ctypes.c_longlong]
+    assert lib.scene_raycast_thread_rays(r) == 2
+    want = raycast_cuda.scene_raycast_plain(o, d, table, t_max=6.0)
+    for check in raycast_cuda.CHECKS:
+        got = raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=6.0, check=check)
+        assert all(map(torch.equal, got, want)), check
+    assert bool(torch.isfinite(want[0]).any()) and not bool(torch.isfinite(want[0]).all())
 
 
 def test_scene_raycast_auto_launches_kernel_11(cuda):
