@@ -209,8 +209,9 @@ instructions the card must issue for the work (`_shortest_iteration` on
 way): one iteration of the sample loop over the samples it evaluates,
 times the samples (1, 7, 13, 14; kernel 13's window loop); one lane's
 body over the lanes a thread takes, times the lanes (15); one iteration
-of the shape loop over the rays a thread takes, times rays x shapes (11);
-over 132 SMs x 128 lanes x the SM clock's maximum (nvidia-smi).
+of the shape loop through every face (its exit's votes issued, not
+taken) over the (ray, face) pairs it covers, times rays x shapes x faces
+(11); over 132 SMs x 128 lanes x the SM clock's maximum (nvidia-smi).
 ``bound_ms`` keeps its convention, comparable across kernels; it leaves
 out the stream's integer and library work, and kernels 7, 11, 13, 14 and
 15 must not contract a multiply and an add, so they cannot come near it,
@@ -2020,7 +2021,7 @@ def phase_screen() -> dict:
     ops = c * s * (SCREEN_LANE_OPS + TOI_WINDOW_OPS + 8 * SCREEN_SEG_OPS)
     bound, bound_by = _bound_ms(28 * c * s, ops)
     floor = screen_issue_floor(
-        cuda_build.build("screen_kernel", screen_cuda.screen_defines(8)), c * s, 8)
+        cuda_build.build("screen_kernel", screen_cuda.screen_defines(8)), c * s)
     fingerprint = output_fingerprint(flags, t0)
     shares = {f"share_bit{b}": f"{float(((want_f >> b) & 1).float().mean()):.4f}"
               for b in range(3)}
@@ -2481,25 +2482,24 @@ def _fingerprint(counts: torch.Tensor) -> tuple[int, int]:
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def _shortest_iteration(ins: list, start: int, end: int, also: tuple = ()) -> tuple:
+def _shortest_iteration(ins: list, start: int, end: int, also: tuple = (),
+                        most: bool = False) -> tuple:
     """(instructions, LDS, then the instructions of each opcode prefix in
     ``also``) on the shortest path through one iteration of the loop whose
     body is [start, end] (``end``: its backward branch), or from ``start`` to
     the instruction at ``end``: every conditional forward branch may go
     either way, nested loops run no second time, calls cost their one
-    instruction. The fewest instructions a warp can issue for one
+    instruction. With ``most``, the shortest of the paths that hold the
+    most instructions of the first prefix in ``also`` (a path that leaves
+    early holds fewer). The fewest instructions a warp can issue for one
     iteration."""
     body = [x for x in ins if start <= x[0] <= end]
     addrs = [x[0] for x in body]
-    best = [None] * len(body)
-    best[0] = (0,) * (2 + len(also))
+    # per instruction: the shortest path to it for each count it holds of
+    # also[0] (with ``most``; else one count)
+    best = [{} for _ in body]
+    best[0][0] = (0,) * (2 + len(also))
     for i, (addr, pred, op, args) in enumerate(body):
-        if best[i] is None:
-            continue
-        here = (best[i][0] + 1, best[i][1] + op.startswith("LDS"),
-                *(n + op.startswith(prefix) for n, prefix in zip(best[i][2:], also)))
-        if addr == end:
-            return here
         succ = []
         if op.startswith("BRA"):
             target = re.search(r"0x([0-9a-f]+)", args)
@@ -2511,9 +2511,23 @@ def _shortest_iteration(ins: list, start: int, end: int, also: tuple = ()) -> tu
                 succ.append(i + 1)
         elif not op.startswith(("EXIT", "RET")) or pred:
             succ.append(i + 1)
-        for j in succ:
-            if best[j] is None or here < best[j]:
-                best[j] = here
+        done = []
+        for held, path in best[i].items():
+            here = (path[0] + 1, path[1] + op.startswith("LDS"),
+                    *(n + op.startswith(prefix) for n, prefix in zip(path[2:], also)))
+            if most:
+                held += op.startswith(also[0])
+            if addr == end:
+                done.append((held, here))
+                continue
+            for j in succ:
+                if best[j].get(held) is None or here < best[j][held]:
+                    best[j][held] = here
+        if addr == end:
+            if not done:
+                break
+            top = max(held for held, _ in done)
+            return min(here for held, here in done if held == top)
     raise RuntimeError("no path through the loop")
 
 
@@ -2603,33 +2617,21 @@ def _issue_ms(instructions: float) -> tuple[float, float, float]:
     return instructions / (132 * 128 * top) * 1e3, now / 1e6, top / 1e6
 
 
-def screen_issue_floor(lib: Path, lanes: int, n_seg: int) -> dict:
-    """Kernel 15's issue floor for ``lanes`` lanes at ``n_seg`` segments:
-    the shortest SASS path through the lane part of the kernel (after its
-    one barrier, to its last ``EXIT``; every forward branch may go either
-    way, so ``sincosf``'s Payne-Hanek path and the IEEE division's slow path
-    count nothing), over the lanes a thread takes. A library whose segment
-    loop did not unroll (one lane a thread, the segment count at run time)
-    takes its largest loop there ``n_seg`` times."""
+def screen_issue_floor(lib: Path, lanes: int) -> dict:
+    """Kernel 15's issue floor for ``lanes`` lanes: the shortest SASS path
+    through the lane part of the kernel (after its one barrier, to its last
+    ``EXIT``; the library's segment count is built in and its loop unrolled;
+    every forward branch may go either way, so ``sincosf``'s Payne-Hanek
+    path and the IEEE division's slow path count nothing), over the lanes a
+    thread takes."""
     import ctypes
 
-    handle = ctypes.CDLL(str(lib))
-    per_thread = (handle.rotating_screen_thread_lanes()
-                  if hasattr(handle, "rotating_screen_thread_lanes") else 1)
+    per_thread = ctypes.CDLL(str(lib)).rotating_screen_thread_lanes()
     ins = _sass_function(lib, "rotating_screen_kernel")
     start = max(a for a, _, op, _ in ins if op.startswith("BAR"))
     start = next(a for a, _, _, _ in ins if a > start)
     end = max(a for a, _, op, _ in ins if op.startswith("EXIT"))
-    if hasattr(handle, "rotating_screen_segments"):  # the segment loop unrolled
-        path = _shortest_iteration(ins, start, end)
-    else:  # the segment loop at run time: a segment an I2F (i -> float)
-        seg = [x for x in _loops(ins) if start <= x["start"] and x["end"] <= end][-1]
-        after = next(a for a, _, _, _ in ins if a > seg["end"])
-        pre = _shortest_iteration(ins, start, seg["start"])
-        body = _shortest_iteration(ins, seg["start"], seg["end"], also=("I2F",))
-        post = _shortest_iteration(ins, after, end)
-        per_seg = [x / max(body[2], 1) for x in body[:2]]
-        path = [pre[i] - (1, 0)[i] + n_seg * per_seg[i] + post[i] for i in range(2)]
+    path = _shortest_iteration(ins, start, end)
     per_lane = path[0] / per_thread
     ms, now, top = _issue_ms(per_lane * lanes)
     return dict(sass_per_lane=per_lane, lds_per_lane=path[1] / per_thread,
@@ -2637,49 +2639,45 @@ def screen_issue_floor(lib: Path, lanes: int, n_seg: int) -> dict:
                 sm_clock_max_mhz=top)
 
 
-def raycast_issue_floor(lib: Path, rays: int, shapes: int, kp: int,
-                        faces_evaluated: int | None = None) -> dict:
-    """Kernel 11's issue floor for ``rays`` rays x ``shapes`` shapes of ``kp``
-    faces: the shortest SASS path through one iteration of the shape loop
-    (the largest loop with an IEEE division's ``MUFU.RCP`` and no barrier;
-    a face loop inside it runs until the path holds a division for each
-    face and ray) of the instantiation without the early exit, over the
-    rays a thread takes, times rays x shapes: every face evaluated. With
-    ``faces_evaluated``
-    (the (ray, face) pairs a run with the exit evaluated) also that floor
-    scaled to them."""
-    import ctypes
-
-    handle = ctypes.CDLL(str(lib))
-    per_thread = 1
-    name = "scene_raycast_kernel"
-    if hasattr(handle, "scene_raycast_thread_rays"):  # <check, rays a thread>
-        handle.scene_raycast_thread_rays.argtypes = [ctypes.c_longlong]
-        per_thread = handle.scene_raycast_thread_rays(rays)
-        name = f"scene_raycast_kernelILi0ELi{per_thread}EE"
-    ins = _sass_function(lib, name)
-
+def raycast_shape_loop(ins: list) -> dict:
+    """Kernel 11's shape loop in its SASS: the largest loop that holds an
+    IEEE division's ``MUFU.RCP`` and no barrier."""
     def has(loop, prefix):
         return any(op.startswith(prefix) for a, _, op, _ in ins
                    if loop["start"] <= a <= loop["end"])
 
-    div_loops = [x for x in _loops(ins) if has(x, "MUFU.RCP") and not has(x, "BAR")]
-    shape = div_loops[-1]
-    inner = [x for x in div_loops[:-1]
-             if shape["start"] <= x["start"] and x["end"] <= shape["end"]]
-    # every face of the shape for each of the thread's rays: one MUFU.RCP
-    # each; a face loop inside runs as often as the divisions left need
-    path = list(_shortest_iteration(ins, shape["start"], shape["end"], also=("MUFU.RCP",)))
-    if inner and path[2] < kp * per_thread:
-        body = _shortest_iteration(ins, inner[-1]["start"], inner[-1]["end"],
-                                   also=("MUFU.RCP",))
-        extra = (kp * per_thread - path[2]) / body[2]
-        path = [path[i] + extra * body[i] for i in range(2)]
-    per_pair = path[0] / per_thread
-    ms, now, top = _issue_ms(per_pair * rays * shapes)
-    out = dict(sass_per_ray_shape=per_pair, sass_per_ray_face=per_pair / kp,
-               lds_per_ray_shape=path[1] / per_thread, rays_per_thread=per_thread,
-               issue_floor_ms=ms, sm_clock_mhz=now, sm_clock_max_mhz=top)
+    return [x for x in _loops(ins) if has(x, "MUFU.RCP") and not has(x, "BAR")][-1]
+
+
+def raycast_issue_floor(lib: Path, rays: int, shapes: int, kp: int,
+                        faces_evaluated: int | None = None) -> dict:
+    """Kernel 11's issue floor for ``rays`` rays x ``shapes`` shapes of ``kp``
+    faces, from a library built for ``kp`` (its faces unrolled): the
+    shortest SASS path through one iteration of the shape loop
+    (`raycast_shape_loop`) among those that divide most often, once for
+    each face of each shape the iteration covers and each ray of the thread
+    (the early exit's votes issue, their exits are not taken), a (ray,
+    face), times rays x shapes x kp: every face evaluated. With
+    ``faces_evaluated`` (the (ray, face) pairs a run evaluated) also that
+    floor scaled to them."""
+    import ctypes
+
+    handle = ctypes.CDLL(str(lib))
+    handle.scene_raycast_thread_rays.argtypes = [ctypes.c_longlong]
+    per_thread = handle.scene_raycast_thread_rays(rays)
+    ins = _sass_function(lib, f"scene_raycast_kernelILi{per_thread}EE")
+    shape = raycast_shape_loop(ins)
+    path = _shortest_iteration(ins, shape["start"], shape["end"], also=("MUFU.RCP",),
+                               most=True)
+    if path[2] == 0 or path[2] % (kp * per_thread):
+        raise RuntimeError(f"kernel 11's shape loop divides {path[2]} times, not a "
+                           f"multiple of {kp} faces x {per_thread} rays")
+    per_face = path[0] / path[2]
+    ms, now, top = _issue_ms(per_face * rays * shapes * kp)
+    out = dict(sass_per_ray_shape=per_face * kp, sass_per_ray_face=per_face,
+               lds_per_ray_shape=path[1] * kp / path[2], rays_per_thread=per_thread,
+               shapes_per_iteration=path[2] // (kp * per_thread), issue_floor_ms=ms,
+               sm_clock_mhz=now, sm_clock_max_mhz=top)
     if faces_evaluated is not None:
         out["issue_floor_ms_at_faces_evaluated"] = ms * faces_evaluated / (rays * shapes * kp)
     return out

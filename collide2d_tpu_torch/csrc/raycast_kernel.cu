@@ -30,16 +30,15 @@
 // - one library per face count (-DRAYCAST_KP = 4, 8, 16; 0 builds the
 //   generic form for any multiple of 4, unrolled by 4): a shape's faces
 //   unroll fully and the table offsets are constants;
-// - two rays a thread (ray and ray + 128 in a block of 128 threads), so one
-//   broadcast 16-byte shared-memory load of a face serves both and their
-//   two division chains overlap; a launch of too few rays to fill the card
-//   that way takes one ray a thread (a template argument);
+// - two rays a thread (ray and ray + 128 in a block of 128 threads) from
+//   2^22 rays on, so one broadcast 16-byte shared-memory load of a face
+//   serves both and their two division chains overlap; a smaller launch
+//   takes one ray a thread, which ran faster there (a template argument);
 // - the window carries the entering face's index, not its normal; the
 //   winner's normal is read back from the table once a ray, at the end;
 // - the parallel-face case folds into the exit's min (raycast_shape.cuh);
 // - an exact warp-uniform exit from a shape once every ray of the warp is
-//   settled (raycast_shape.cuh), voted on after every CHECK faces (a
-//   template argument; 2 by default, 0 for none).
+//   settled (raycast_shape.cuh), voted on after every kCheck faces.
 // The face table is staged in shared memory in tiles of whole shapes
 // (48 KB, 3,072 faces), every thread reading the same face at the same time
 // (a broadcast), and (best t, index, face) is carried in registers across
@@ -78,24 +77,26 @@ using namespace collide2d::raycast;
 constexpr int kKP = RAYCAST_KP;
 static_assert(kKP >= 0 && kKP % 4 == 0, "RAYCAST_KP must be 0 or a multiple of 4");
 constexpr int kThreads = 128;
-// Rays a thread: two from this many rays on, else one, so that a launch of
-// few rays still has blocks enough for every SM (2^16 rays over 4,096
-// shapes: 2.36 ms against 3.22 with two a thread on an NVIDIA H100 80GB
-// HBM3, utils/screen_raycast_ab.py in turns). Four rays a thread ran
-// slower than two (PERF.md section 6).
-constexpr long long kTwoRaysFrom = 1 << 18;
+// Rays a thread: two from this many rays on, else one. On the bench's
+// scene (64 8-gons) one ray a thread ran 0.138-0.139 ms at 2^18 rays
+// against 0.148-0.152 for two, 0.485 at 2^20 against 0.492-0.497, and
+// 1.869-1.883 at 2^22 against 1.860-1.867; at 2^16 rays over 4,096 shapes
+// 2.36 against 3.22 (an NVIDIA H100 80GB HBM3, utils/screen_raycast_ab.py
+// in turns). Four rays a thread ran slower than two (PERF.md section 6).
+constexpr long long kTwoRaysFrom = 1 << 22;
 constexpr int kMaxTileFaces = 3072;  // 48 KB of float4 faces
-// The exit check the plain C entry point takes (faces between votes; 0:
-// none): at 2^22 rays x 64 8-gons a vote after every second face ran 1.86-
-// 1.87 ms, every face 2.02-2.04, every fourth 2.12 and none 2.11-2.12 (an
-// NVIDIA H100 80GB HBM3, utils/screen_raycast_ab.py).
-constexpr int kDefaultCheck = 2;
+// Faces between the exit's votes (0: no exit): at 2^22 rays x 64 8-gons a
+// vote after every second face ran 1.86-1.87 ms, every face 2.02-2.04,
+// every fourth 2.12 and none 2.11-2.12 (an NVIDIA H100 80GB HBM3,
+// utils/screen_raycast_ab.py against a copy of this file with kCheck
+// edited). A library without a face count of its own votes after every 4.
+constexpr int kCheck = 2;
 
 #if RAYCAST_COUNT_FACES
 __device__ unsigned long long g_faces = 0;
 #endif
 
-template <int CHECK, int RAYS>
+template <int RAYS>
 __global__ void __launch_bounds__(kThreads)
     scene_raycast_kernel(const float2* __restrict__ origin,
                          const float2* __restrict__ direction,
@@ -144,17 +145,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int s = 0; s < ns; ++s) {
       const float4* faces = tab + s * kp;
       Window w[RAYS];
-      const int done = shape_windows<kKP, RAYS, CHECK>(faces, kp, ray, lim, w);
+      const int done = shape_windows<kKP, RAYS, kCheck>(faces, kp, ray, lim, w);
 #if RAYCAST_COUNT_FACES
       faces_done += static_cast<unsigned long long>(done) * live_rays;
 #endif
-      if (CHECK > 0 && done < kp) continue;  // every ray of the warp settled
+      if (kCheck > 0 && done < kp) continue;  // every ray of the warp settled
       const bool any_face = faces[0].w > 0.0f;
 #pragma unroll
       for (int l = 0; l < RAYS; ++l) {
         if (take_shape(w[l], any_face, t_max, s0 + s, best_t[l], best_i[l],
                        best_f[l]) &&
-            CHECK > 0) {
+            kCheck > 0) {
           lim[l] = settle_limit(best_t[l], tcap);
         }
       }
@@ -181,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
 int rays_per_thread(long long r) { return r >= kTwoRaysFrom ? 2 : 1; }
 
 template <int RAYS>
-int launch_rays(int check, const float* origin, const float* direction,
+int launch_rays(const float* origin, const float* direction,
                 const float* table, float* out_t, int* out_idx, float* out_n,
                 long long r, int n_shapes, int kp, float t_max, int tile,
                 cudaStream_t st) {
@@ -192,48 +193,9 @@ int launch_rays(int check, const float* origin, const float* direction,
   const auto d = reinterpret_cast<const float2*>(direction);
   const auto tb = reinterpret_cast<const float4*>(table);
   const auto n = reinterpret_cast<float2*>(out_n);
-  const unsigned g = static_cast<unsigned>(blocks);
-  switch (check) {
-    case 0:
-      scene_raycast_kernel<0, RAYS><<<g, kThreads, smem, st>>>(
-          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
-      break;
-    case 1:
-      scene_raycast_kernel<1, RAYS><<<g, kThreads, smem, st>>>(
-          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
-      break;
-    case 2:
-      scene_raycast_kernel<2, RAYS><<<g, kThreads, smem, st>>>(
-          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
-      break;
-    case 4:
-      scene_raycast_kernel<4, RAYS><<<g, kThreads, smem, st>>>(
-          o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  scene_raycast_kernel<RAYS><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      o, d, tb, out_t, out_idx, n, r, n_shapes, kp, t_max, tile);
   return static_cast<int>(cudaGetLastError());
-}
-
-int launch(int check, const float* origin, const float* direction,
-           const float* table, float* out_t, int* out_idx, float* out_n,
-           long long r, int n_shapes, int kp, float t_max, int tile_shapes,
-           void* stream) {
-  if (r <= 0) return static_cast<int>(cudaSuccess);
-  if (n_shapes <= 0 || kp <= 0 || kp % 4 != 0 || kp > kMaxTileFaces ||
-      (kKP > 0 && kp != kKP)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int tile = kMaxTileFaces / kp;
-  if (tile_shapes > 0 && tile_shapes < tile) tile = tile_shapes;
-  if (tile > n_shapes) tile = n_shapes;
-  const auto st = static_cast<cudaStream_t>(stream);
-  return rays_per_thread(r) == 2
-             ? launch_rays<2>(check, origin, direction, table, out_t, out_idx, out_n,
-                              r, n_shapes, kp, t_max, tile, st)
-             : launch_rays<1>(check, origin, direction, table, out_t, out_idx, out_n,
-                              r, n_shapes, kp, t_max, tile, st);
 }
 
 }  // namespace
@@ -251,19 +213,20 @@ extern "C" int scene_raycast_launch(const float* origin, const float* direction,
                                     const float* table, float* out_t, int* out_idx,
                                     float* out_n, long long r, int n_shapes, int kp,
                                     float t_max, int tile_shapes, void* stream) {
-  return launch(kDefaultCheck, origin, direction, table, out_t, out_idx, out_n, r,
-                n_shapes, kp, t_max, tile_shapes, stream);
-}
-
-// The same with the exit check chosen: a vote after every `check` faces
-// (1, 2 or 4; with a generic library every 4), or none (0).
-extern "C" int scene_raycast_launch_check(int check, const float* origin,
-                                          const float* direction, const float* table,
-                                          float* out_t, int* out_idx, float* out_n,
-                                          long long r, int n_shapes, int kp,
-                                          float t_max, int tile_shapes, void* stream) {
-  return launch(check, origin, direction, table, out_t, out_idx, out_n, r, n_shapes,
-                kp, t_max, tile_shapes, stream);
+  if (r <= 0) return static_cast<int>(cudaSuccess);
+  if (n_shapes <= 0 || kp <= 0 || kp % 4 != 0 || kp > kMaxTileFaces ||
+      (kKP > 0 && kp != kKP)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int tile = kMaxTileFaces / kp;
+  if (tile_shapes > 0 && tile_shapes < tile) tile = tile_shapes;
+  if (tile > n_shapes) tile = n_shapes;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return rays_per_thread(r) == 2
+             ? launch_rays<2>(origin, direction, table, out_t, out_idx, out_n, r,
+                              n_shapes, kp, t_max, tile, st)
+             : launch_rays<1>(origin, direction, table, out_t, out_idx, out_n, r,
+                              n_shapes, kp, t_max, tile, st);
 }
 
 #if RAYCAST_COUNT_FACES

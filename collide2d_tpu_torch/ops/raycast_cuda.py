@@ -43,7 +43,6 @@ FACE_ALIGN = 4  # the table pads each shape's faces to a multiple of this
 MAX_FACES = 3072  # faces of one shape the kernel's 48 KB tile holds
 MAX_ELEMS = 1 << 22  # the plain version's largest (rays, shapes) block
 SPECIALISED_KP = (4, 8, 16)  # face counts with a library of their own
-CHECKS = (0, 1, 2, 4)  # the kernel's early-exit votes: after every n faces, 0 none
 # Launches of the CUDA kernel in this process (never the plain version).
 LAUNCHES = 0
 
@@ -167,13 +166,10 @@ def raycast_defines(kp: int, count_faces: bool = False) -> tuple[tuple[str, int]
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launch functions' C signatures on a loaded library (the
-    exit-check and counting ones where it has them)."""
+    counting one where it has it)."""
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.scene_raycast_launch.restype = ctypes.c_int
     lib.scene_raycast_launch.argtypes = [p, p, p, p, p, p, ll, i, i, f, i, p]
-    if hasattr(lib, "scene_raycast_launch_check"):
-        lib.scene_raycast_launch_check.restype = ctypes.c_int
-        lib.scene_raycast_launch_check.argtypes = [i, p, p, p, p, p, p, ll, i, i, f, i, p]
     if hasattr(lib, "scene_raycast_faces"):
         lib.scene_raycast_faces.restype = ctypes.c_int
         lib.scene_raycast_faces.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
@@ -188,30 +184,28 @@ def _kernel_lib(kp: int, count_faces: bool = False) -> ctypes.CDLL:
 
 def scene_raycast_cuda_t(origin: torch.Tensor, direction: torch.Tensor,
                          table: torch.Tensor, *, t_max: float = _INF,
-                         tile_shapes: int = 0, check: int | None = None):
+                         tile_shapes: int = 0):
     """(R, 2) float32 rays against a (N, KP, 4) `pack_scene_tables` table ->
     ``(t (R,), index (R,) int32, normal (R, 2))``. ``tile_shapes`` caps the
     shapes a block stages in shared memory at once (0: as many as 48 KB
-    hold); ``check`` picks the kernel's exact early exit (a warp vote after
-    every 1, 2 or 4 faces, 0 none; None: the library's default). The result
-    depends on neither."""
-    return _cuda_or_plain(origin, direction, table, t_max, tile_shapes, check, None)
+    hold); the result does not depend on it."""
+    return _cuda_or_plain(origin, direction, table, t_max, tile_shapes, None)
 
 
 def scene_raycast_faces(origin: torch.Tensor, direction: torch.Tensor,
                         table: torch.Tensor, *, t_max: float = _INF,
-                        tile_shapes: int = 0, check: int | None = None):
+                        tile_shapes: int = 0):
     """`scene_raycast_cuda_t` on the card through the library that counts
     its work: ``(result, (ray, face) pairs the kernel evaluated)``. It
     synchronises the card to read the count."""
     if origin.device.type != "cuda":
         raise ValueError(f"counts the kernel's work on a card, got {origin.device}")
     faces = ctypes.c_ulonglong(0)
-    out = _cuda_or_plain(origin, direction, table, t_max, tile_shapes, check, faces)
+    out = _cuda_or_plain(origin, direction, table, t_max, tile_shapes, faces)
     return out, int(faces.value)
 
 
-def _cuda_or_plain(origin, direction, table, t_max, tile_shapes, check, faces):
+def _cuda_or_plain(origin, direction, table, t_max, tile_shapes, faces):
     global LAUNCHES
     _check(origin, direction, table)
     if origin.device.type == "cpu":
@@ -221,8 +215,6 @@ def _cuda_or_plain(origin, direction, table, t_max, tile_shapes, check, faces):
                          f"got {table.shape[1]}; use impl='torch'")
     if origin.data_ptr() % 8 or direction.data_ptr() % 8 or table.data_ptr() % 16:
         raise ValueError("rays must be 8-byte and the table 16-byte aligned")
-    if check is not None and check not in CHECKS:
-        raise ValueError(f"check must be one of {CHECKS}, got {check}")
     r = origin.shape[0]
     dev = origin.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -233,11 +225,10 @@ def _cuda_or_plain(origin, direction, table, t_max, tile_shapes, check, faces):
     kp = int(table.shape[1])
     lib = _kernel_lib(kp, faces is not None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (origin.data_ptr(), direction.data_ptr(), table.data_ptr(), t.data_ptr(),
-            idx.data_ptr(), normal.data_ptr(), r, int(table.shape[0]), kp,
-            float(t_max), int(tile_shapes), stream)
-    err = (lib.scene_raycast_launch(*args) if check is None
-           else lib.scene_raycast_launch_check(int(check), *args))
+    err = lib.scene_raycast_launch(origin.data_ptr(), direction.data_ptr(), table.data_ptr(),
+                                   t.data_ptr(), idx.data_ptr(), normal.data_ptr(), r,
+                                   int(table.shape[0]), kp, float(t_max), int(tile_shapes),
+                                   stream)
     if err != 0:
         raise RuntimeError(f"scene_raycast_launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -15,23 +15,22 @@ defines for 8 segments and 8 faces a shape (a version that does not read
 them ignores them). ``--kernels`` keeps one of the two (default both). A
 variant sweep is the same run against a copy of this checkout's csrc with
 one constant edited (kernel 15's ``kMinBlocks`` or ``kLanes``, kernel 11's
-``kTwoRaysFrom`` or ``kThreads``). It prints (and with ``--out`` writes to
+``kTwoRaysFrom``, ``kThreads`` or ``kCheck``, the faces between the early
+exit's votes). It prints (and with ``--out`` writes to
 ``DIR/screen_raycast_ab.json``):
 
 - ptxas registers and spill bytes of each version's kernels, and each
-  version's issue floor (`chip_smoke.screen_issue_floor`,
-  `chip_smoke.raycast_issue_floor`: SASS a lane, a (ray, shape));
+  version's issue floor (`issue_floor`: SASS a lane, a (ray, shape));
 - for each case, ms by CUDA events (20 launches after a warm-up) in turns
   (other, this, this, other), whether every output is ``torch.equal`` row by
   row across the turns, and the outputs' fingerprint
   (`chip_smoke.output_fingerprint`): kernel 15 on phase 18's inputs (8,192
   rotating rows x 512 lanes) and on 4,096 x 513 of them; kernel 11 on each
-  of phase 19's cases (`chip_smoke.raycast_inputs`), timed on the bench's
-  scene and the 4,096-shape one;
-- kernel 11's early exit: this version's kernel with a vote after every 1,
-  2 and 4 faces and without one (``check`` 0), in turns on the bench's
-  scene, each with its outputs equal to the other version's and the share
-  of (ray, face) pairs it evaluates (the build that counts them);
+  of phase 19's cases (`chip_smoke.raycast_inputs`) and on the bench's
+  scene at its first 2^18 and 2^20 rays, timed on the bench's scene at
+  each ray count and on the 4,096-shape one, with the share of (ray, face)
+  pairs this version evaluates on the bench's scene (the build that counts
+  them);
 - end to end, in turns with the other version's library swapped into the
   wrapper: phase 18's threefry cascade step (``counts_chunk_moving`` with
   ``screen_impl='cuda'``, host clock, 3 calls after a warm-up) and one
@@ -113,10 +112,13 @@ def _screen_cases(cs, other: ctypes.CDLL) -> list:
     return rows
 
 
+_RAYCAST_TIMED = ("bench", "bench_2^18", "bench_2^20", "tiled_4096")
+
+
 def _raycast_cases(cs, other: ctypes.CDLL, cases) -> list:
     rows = []
     for tag, table, o, d, t_max, tile in cases:
-        timed = tag in ("bench", "tiled_4096")
+        timed = tag in _RAYCAST_TIMED
 
         def fn(table=table, o=o, d=d, t_max=t_max, tile=tile):
             return raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max,
@@ -125,31 +127,58 @@ def _raycast_cases(cs, other: ctypes.CDLL, cases) -> list:
         row = dict(kernel="11", case=tag, rays=o.shape[0], shapes=table.shape[0],
                    faces=table.shape[1], **_in_turns(cs, "11", other, fn,
                                                      20 if timed else None))
+        if tag == "bench":
+            faces = raycast_cuda.scene_raycast_faces(o, d, table, t_max=t_max)[1]
+            row["faces_evaluated_share"] = faces / (o.shape[0] * table.shape[0] * table.shape[1])
         rows.append(row)
         print("[ab case] " + " ".join(f"{a}={b}" for a, b in row.items()), flush=True)
     return rows
 
 
-def _exit_variants(cs, other: ctypes.CDLL, case) -> list:
-    """This version's kernel 11 at each exit check on one case, in turns
-    (checks in order, then reversed), against the other version's
-    outputs."""
-    _, table, o, d, t_max, tile = case
-    with _swapped("11", other):
-        want = raycast_cuda.scene_raycast_cuda_t(o, d, table, t_max=t_max, tile_shapes=tile)
-    every = o.shape[0] * table.shape[0] * table.shape[1]
-    rows = {c: dict(check=c, ms=[]) for c in raycast_cuda.CHECKS}
-    for order in (raycast_cuda.CHECKS, tuple(reversed(raycast_cuda.CHECKS))):
-        for c in order:
-            rows[c]["ms"].append(cs._events_ms(lambda: raycast_cuda.scene_raycast_cuda_t(
-                o, d, table, t_max=t_max, tile_shapes=tile, check=c), 20))
-    for c, row in rows.items():
-        got, faces = raycast_cuda.scene_raycast_faces(o, d, table, t_max=t_max,
-                                                      tile_shapes=tile, check=c)
-        row.update(outputs_equal=all(map(torch.equal, got, want)),
-                   faces_evaluated_share=faces / every)
-        print("[ab exit] " + " ".join(f"{a}={b}" for a, b in row.items()), flush=True)
-    return list(rows.values())
+def issue_floor(cs, kernel: str, lib: Path, rays: int, shapes: int) -> dict:
+    """A version's issue floor at the cases' shapes: this design's
+    (`chip_smoke.screen_issue_floor`, `chip_smoke.raycast_issue_floor`), or
+    the earlier one's, whose loops ran at run time. Kernel 15 then took one
+    lane a thread and its segment loop ``_N_SEG`` times (a segment holds one
+    ``I2F``, the segment index as a float); kernel 11 one ray a thread, its
+    face loop run until the path divides for every face."""
+    handle = ctypes.CDLL(str(lib))
+    if kernel == "15":
+        lanes = cs.ROT_ROWS * cs.SCREEN_LANES
+        if hasattr(handle, "rotating_screen_segments"):
+            return cs.screen_issue_floor(lib, lanes)
+        ins = cs._sass_function(lib, "rotating_screen_kernel")
+        start = max(a for a, _, op, _ in ins if op.startswith("BAR"))
+        start = next(a for a, _, _, _ in ins if a > start)
+        end = max(a for a, _, op, _ in ins if op.startswith("EXIT"))
+        seg = [x for x in cs._loops(ins) if start <= x["start"] and x["end"] <= end][-1]
+        after = next(a for a, _, _, _ in ins if a > seg["end"])
+        pre = cs._shortest_iteration(ins, start, seg["start"])
+        body = cs._shortest_iteration(ins, seg["start"], seg["end"], also=("I2F",))
+        post = cs._shortest_iteration(ins, after, end)
+        per_seg = [x / max(body[2], 1) for x in body[:2]]
+        # pre ends on the loop's first instruction, which body counts again
+        path = [pre[i] - (1, 0)[i] + _N_SEG * per_seg[i] + post[i] for i in range(2)]
+        ms, now, top = cs._issue_ms(path[0] * lanes)
+        return dict(sass_per_lane=path[0], lds_per_lane=path[1], lanes_per_thread=1,
+                    issue_floor_ms=ms, sm_clock_mhz=now, sm_clock_max_mhz=top)
+    if hasattr(handle, "scene_raycast_thread_rays"):
+        return cs.raycast_issue_floor(lib, rays, shapes, _KP)
+    ins = cs._sass_function(lib, "scene_raycast_kernel")
+    shape = cs.raycast_shape_loop(ins)
+    inner = [x for x in cs._loops(ins) if x != shape and shape["start"] <= x["start"]
+             and x["end"] <= shape["end"] and any(op.startswith("MUFU.RCP") for a, _, op, _
+                                                  in ins if x["start"] <= a <= x["end"])]
+    path = list(cs._shortest_iteration(ins, shape["start"], shape["end"], also=("MUFU.RCP",)))
+    if inner and path[2] < _KP:
+        body = cs._shortest_iteration(ins, inner[-1]["start"], inner[-1]["end"],
+                                      also=("MUFU.RCP",))
+        extra = (_KP - path[2]) / body[2]
+        path = [path[i] + extra * body[i] for i in range(2)]
+    ms, now, top = cs._issue_ms(path[0] * rays * shapes)
+    return dict(sass_per_ray_shape=path[0], sass_per_ray_face=path[0] / _KP,
+                lds_per_ray_shape=path[1], rays_per_thread=1, issue_floor_ms=ms,
+                sm_clock_mhz=now, sm_clock_max_mhz=top)
 
 
 def _host_in_turns(cs, kernel: str, other: ctypes.CDLL, fn, reps: int) -> dict:
@@ -204,13 +233,15 @@ def main(argv: list[str] | None = None) -> int:
     import chip_smoke as cs
 
     report = dict(card=cs._card(), sm_clock_mhz=[f / 1e6 for f in cs._sm_clock_hz()],
-                  builds={}, cases=[], exit_variants=[], end_to_end=[])
+                  builds={}, cases=[], end_to_end=[])
     print(f"[card] {report['card']}", flush=True)
     jobs = [(tag, k, csrc / f"{_LIBS[k][0]}.cu")
             for k in kernels
             for tag, csrc in (("other", args.other_csrc), ("this", cuda_build.CSRC_DIR))]
     polys_rays, cases = cs.raycast_inputs()
     bench = cases[0]
+    cases = cases[:1] + tuple((f"bench_2^{n}", bench[1], bench[2][:1 << n], bench[3][:1 << n],
+                               *bench[4:]) for n in (18, 20)) + cases[1:]
     with tempfile.TemporaryDirectory(prefix="screen_raycast_ab_") as tmp:
         libs = [Path(tmp) / f"{tag}_{k}.so" for tag, k, _ in jobs]
         with ThreadPoolExecutor(len(jobs)) as pool:
@@ -218,9 +249,7 @@ def main(argv: list[str] | None = None) -> int:
                                   jobs, libs))
         built = {(tag, k): lib for (tag, k, _), lib in zip(jobs, libs)}
         for (tag, k, _), lib, rep in zip(jobs, libs, ptxas):
-            floor = (cs.screen_issue_floor(lib, cs.ROT_ROWS * cs.SCREEN_LANES, _N_SEG)
-                     if k == "15" else
-                     cs.raycast_issue_floor(lib, bench[2].shape[0], bench[1].shape[0], _KP))
+            floor = issue_floor(cs, k, lib, bench[2].shape[0], bench[1].shape[0])
             report["builds"][f"{k}_{tag}"] = dict(ptxas=rep, issue_floor=floor)
             print(f"[ab build] kernel={k} version={tag} ptxas={rep} floor={floor}", flush=True)
         others = {k: _LIBS[k][1].bind(ctypes.CDLL(str(built["other", k]))) for k in kernels}
@@ -228,14 +257,12 @@ def main(argv: list[str] | None = None) -> int:
             report["cases"] += _screen_cases(cs, others["15"])
         if "11" in others:
             report["cases"] += _raycast_cases(cs, others["11"], cases)
-            report["exit_variants"] = _exit_variants(cs, others["11"], cases[0])
         report["end_to_end"] = _end_to_end(cs, others, polys_rays)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "screen_raycast_ab.json").write_text(json.dumps(report, indent=1))
     ok = (all(r["outputs_equal"] for r in report["cases"])
           and all(r.get("plain_equal", True) for r in report["cases"])
-          and all(r["outputs_equal"] for r in report["exit_variants"])
           and all(r["results_equal"] for r in report["end_to_end"]))
     print(f"[ab] ok={ok}", flush=True)
     return 0 if ok else 1
