@@ -19,7 +19,8 @@ raises, and the script then exits non-zero without printing a result):
    csrc/mc_moving_polygon_kernel.cu at k = 8, csrc/screen_kernel.cu at 8
    segments), the scene raycast kernel (csrc/raycast_kernel.cu at 8 faces a
    shape, and its build that counts the faces it evaluates) and the
-   streaming-bandwidth probe (csrc/stream_kernel.cu);
+   streaming-bandwidth probe (csrc/stream_kernel.cu); the query kernels'
+   library also in its build that counts kernel 9's passes;
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -90,9 +91,14 @@ raises, and the script then exits non-zero without printing a result):
    kernel 9; ``distance <= 0`` differs from kernel 4's / kernel 6's labels
    on 0 rows, values within 2e-5 of ``impl='torch'`` on 2^16 rows; then
    kernel 8 at 2^23 box pairs and kernel 9 at 2^22 pairs of the JAX bench's
-   k-gons (k = 8, and the model's 4 against 8) against their plain
-   versions: max abs diff <= 2e-5, 0 signs differ; kernel ms (CUDA events,
-   20 launches after a warm-up), plain ms, pairs/s and GB/s;
+   k-gons (k = 8, and the model's 4 against 8; `polygon_distance_inputs`)
+   against their plain versions: max abs diff <= 2e-5, 0 signs differ
+   (bitwise expected); kernel ms (CUDA events, 20 launches after a
+   warm-up), plain ms, pairs/s and GB/s; kernel 9's pairs through each of
+   its passes (its counting build), the operations it evaluates beside
+   the full work's, its issue floor at both (`polygon_distance_issue_
+   floor`), and its output's fingerprint and whether it is the parent
+   design's (`PARENT_FINGERPRINTS`);
 13. contact manifold: both models' ``contact_manifold`` on 2^20 polylabel
    and 2^20 rectangle rows launch kernel 10; against ``impl='torch'`` on
    2^16 rows and the kernel against its plain version at 2^22 pairs (k = 8,
@@ -106,10 +112,13 @@ raises, and the script then exits non-zero without printing a result):
    rows: hits differ on at most 1e-3, |dt| <= 1e-3, as the polygon-distance
    loop may stop a step of ~tol/bound apart); then the kernel against its
    plain version at the JAX bench's 2^21 pairs (t_max 8, 64 iterations,
-   tol 1e-4): hits differ on at most 1e-4 of pairs, t within 1e-5 where
-   both hit; the rotating share, mean, maximum and warp-maximum
-   advancement steps (the plain version counts them), kernel ms, plain ms,
-   queries/s;
+   tol 1e-4; `toi_inputs`): hits differ on at most 1e-4 of pairs, t within
+   1e-5 where both hit (bitwise expected); the rotating share, mean,
+   maximum and warp-maximum advancement steps (the plain version counts
+   them), kernel ms, plain ms, queries/s, the issue floor at the
+   evaluations the pairs take and at their groups of 32 run to the slowest
+   (`toi_issue_floor`), and the output's fingerprint and whether it is the
+   parent design's;
 15. kernel 13 (fused trajectory Monte Carlo, rectangles) against its plain
    version on the same Philox stream: 100,000 translation-only rows of the
    JAX bench's trajectory workload (utils/benchmarks.py:527-540, seed 5,
@@ -202,19 +211,24 @@ out ``sincosf``; kernel 12's and 13's work depends on the data, so their
 bounds count the distance evaluations this run's lanes take; kernel 15's
 is the larger of 28 bytes a lane and its counted operations; kernel 11's
 counts every face, whatever its early exit skips, so the row stays
-comparable across versions). The fused Monte Carlo kernels 1, 7, 13 and
-14 and kernels 15 and 11 also carry ``issue_floor_ms``: the fewest SASS
-instructions the card must issue for the work (`_shortest_iteration` on
-``cuobjdump -sass`` of the built library, every forward branch either
-way): one iteration of the sample loop over the samples it evaluates,
+comparable across versions; kernel 9's counts every axis and test of
+every pair, whatever its split skips). The fused Monte Carlo kernels 1,
+7, 13 and 14 and kernels 15, 11, 12 and 9 also carry ``issue_floor_ms``:
+the fewest SASS instructions the card must issue for the work
+(`_shortest_iteration` on ``cuobjdump -sass`` of the built library, every
+forward branch either way): one iteration of the sample loop over the samples it evaluates,
 times the samples (1, 7, 13, 14; kernel 13's window loop); one lane's
 body over the lanes a thread takes, times the lanes (15); one iteration
 of the shape loop through every face (its exit's votes issued, not
 taken) over the (ray, face) pairs it covers, times rays x shapes x faces
-(11); over 132 SMs x 128 lanes x the SM clock's maximum (nvidia-smi).
+(11); one iteration of the stepping loop times the distance evaluations,
+and each pair's set-up or window once (12); each pair through every axis
+and every test (9; beside it the floor at the work its passes evaluate);
+over 132 SMs x 128 lanes x the SM clock's maximum (nvidia-smi).
 ``bound_ms`` keeps its convention, comparable across kernels; it leaves
-out the stream's integer and library work, and kernels 7, 11, 13, 14 and
-15 must not contract a multiply and an add, so they cannot come near it,
+out the stream's integer and library work, and kernels 7, 9, 11, 12, 13,
+14 and 15 must not contract a multiply and an add, so they cannot come
+near it,
 while the issue floor counts what the card must issue. No single PyTorch
 call computes any of these functions but kernel 16's (a sum of each
 stream), so ``library_ms`` is null for the others.
@@ -327,6 +341,7 @@ def _events_ms(fn, reps: int) -> float:
 
 
 def phase_build():
+    from collide2d_tpu_torch.ops.distance_cuda import distance_defines
     from collide2d_tpu_torch.ops.mc_polygon_cuda import shape_defines
     from collide2d_tpu_torch.ops.raycast_cuda import raycast_defines
     from collide2d_tpu_torch.ops.screen_cuda import screen_defines
@@ -337,7 +352,8 @@ def phase_build():
     # them at k = 8 against the 4-gon robot's 2 kept axes, phase 10's
     # agreement gate kernel 7 at k = 6; kernel 15 once per segment count (the
     # cascade's 8), kernel 11 once per face count (8: every scene here has
-    # k <= 8; also the build that counts its work, phase 19)
+    # k <= 8; also the build that counts its work, phase 19); kernel 9's
+    # build that counts the pairs of its passes (phase 12)
     jobs = [(name, ()) for name in (
         "mc_kernel", "sat_kernel", "polygon_kernel", "distance_kernel",
         "manifold_kernel", "toi_kernel", "mc_toi_kernel", "stream_kernel")] + [
@@ -346,7 +362,8 @@ def phase_build():
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2)),
         ("screen_kernel", screen_defines(8)),
         ("raycast_kernel", raycast_defines(RAY_K)),
-        ("raycast_kernel", raycast_defines(RAY_K, count_faces=True))]
+        ("raycast_kernel", raycast_defines(RAY_K, count_faces=True)),
+        ("distance_kernel", distance_defines(count=True))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
     for job in jobs:
@@ -1122,6 +1139,23 @@ def polygon_distance_ops(k1: int, k2: int) -> int:
     return a * (5 * a + 9) + 7 * a + 34 * k1 * k2 + 2
 
 
+def polygon_distance_ops_evaluated(k1: int, k2: int, pairs: int, undecided: int,
+                                   separated: int) -> int:
+    """The FP32 operations csrc/distance_kernel.cu evaluates at the K
+    buckets when its passes take ``pairs``, ``undecided`` and ``separated``
+    pairs (polygon_distance.cuh): A = K1 + K2; every pair polygon 1's 4
+    first axes unscaled, each 5A + 6 (the axis 2, |n|^2 3, A projections of
+    3, 2 (A - 2) min/max, the gap 3, the two tests 2); an undecided pair
+    every axis, A (5A + 9), and its select 1; a separated pair the A
+    segments, 8 each (edge 2, |e|^2 3, test, reciprocal, select), and the
+    2 K1 K2 point-segment tests, 14 each (the clamp one saturating
+    multiply), and its sqrt 1."""
+    k1, k2 = _bucket(k1), _bucket(k2)
+    a = k1 + k2
+    return (pairs * 4 * (5 * a + 6) + undecided * (a * (5 * a + 9) + 1)
+            + separated * (8 * a + 28 * k1 * k2 + 1))
+
+
 def manifold_ops(k1: int, k2: int) -> int:
     """csrc/manifold_kernel.cu at the K buckets: each face of one body
     against the other's KO vertices 15 + 4 KO (normal, 1/|n|, offset, KO
@@ -1138,6 +1172,24 @@ def _compare(fn, plain, reps: int = 20):
     return _events_ms(fn, reps=reps), _events_ms(plain, reps=1)
 
 
+def polygon_distance_inputs(g=None) -> list:
+    """Phase 12's kernel-9 cases on the card, drawn as the phase draws them
+    (``g``: the generator after its rectangle rows; None draws those
+    first): (tag, k1, k2, packed polygons 1, packed polygons 2) at 2^22
+    pairs of the JAX bench's k-gons, k = 8 and 4 against 8."""
+    from collide2d_tpu_torch.ops import polygon_cuda
+
+    if g is None:
+        g = _rect_rows(SAT_PAIRS, seed=12)[3]
+    n = 1 << 22
+    cases = []
+    for tag, k1, k2 in (("k8", 8, 8), ("k4_k8", 4, 8)):
+        a = polygon_cuda.pack_polygons(_bench_polygons(g, n, k1))
+        b = polygon_cuda.pack_polygons(_bench_polygons(g, n, k2))
+        cases.append((tag, k1, k2, a, b))
+    return cases
+
+
 def phase_distance() -> dict:
     """Phase 12: kernels 8 and 9 on the models' `distance` and against their
     plain versions; returns each kernel's entry of the kernels line."""
@@ -1146,6 +1198,7 @@ def phase_distance() -> dict:
         PolygonCollisionProbabilityModel,
     )
     from collide2d_tpu_torch.ops import distance_cuda, polygon_cuda, sat_cuda
+    from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
     pos, theta, wh, g = _rect_rows(SAT_PAIRS, seed=12)
@@ -1209,11 +1262,10 @@ def phase_distance() -> dict:
           kernel_gb_per_s=f"{52 * n / (ms * 1e-3) / 1e9:.1f}")
     del a, b, got, want, pos, theta, wh, pos2, theta2, wh2
 
-    n = 1 << 22
-    for tag, k1, k2 in (("k8", 8, 8), ("k4_k8", 4, 8)):
+    lib = cuda_build.build("distance_kernel")
+    for tag, k1, k2, a, b in polygon_distance_inputs(g):
         t = time.monotonic()
-        a = polygon_cuda.pack_polygons(_bench_polygons(g, n, k1))
-        b = polygon_cuda.pack_polygons(_bench_polygons(g, n, k2))
+        n = a.shape[1] * a.shape[2]
         got = distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2)
         want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
         label = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
@@ -1228,10 +1280,18 @@ def phase_distance() -> dict:
             lambda: distance_cuda.polygon_distance_plain(a, b, k1, k2))
         nbytes = (2 * k1 + 2 * k2) * 4 + 4
         bound, bound_by = _bound_ms(nbytes * n, polygon_distance_ops(k1, k2) * n)
+        counted, undecided, separated = distance_cuda.polygon_distance_passes(a, b, k1=k1,
+                                                                              k2=k2)
+        if not torch.equal(counted, got):
+            raise RuntimeError(f"kernel 9's counting build differs ({tag})")
+        evaluated = polygon_distance_ops_evaluated(k1, k2, n, undecided, separated)
+        floor = polygon_distance_issue_floor(lib, k1, k2, n, undecided, separated)
+        fingerprint = output_fingerprint(got)
         if tag == "k8":
             result["polygon_distance"] = dict(
                 launches=launches["polygon_distance"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                issue_floor_ms=floor["issue_floor_ms"])
         else:
             result["polygon_distance"]["max_abs_err"] = max(
                 result["polygon_distance"]["max_abs_err"], err)
@@ -1240,10 +1300,20 @@ def phase_distance() -> dict:
               sign_mismatch=differ, sign_mismatch_vs_kernel6=vs_label,
               overlap_share=f"{float((want < 0).float().mean()):.4f}",
               kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
-              bound_by=bound_by, ops_per_pair=polygon_distance_ops(k1, k2),
+              bound_by=bound_by, issue_floor_ms=f"{floor['issue_floor_ms']:.4f}",
+              issue_floor_ms_at_work_evaluated=(
+                  f"{floor['issue_floor_ms_at_work_evaluated']:.4f}"),
+              share_of_issue_floor=f"{floor['issue_floor_ms_at_work_evaluated'] / ms:.3f}",
+              sass_per_pair=f"{floor['sass_per_pair']:.1f}",
+              sass_per_pair_evaluated=f"{floor['sass_per_pair_evaluated']:.1f}",
+              ops_per_pair=polygon_distance_ops(k1, k2),
+              ops_per_pair_evaluated=f"{evaluated / n:.1f}",
+              undecided_share=f"{undecided / n:.4f}", separated_share=f"{separated / n:.4f}",
               kernel_pairs_per_s=f"{n / ms * 1e3:.4e}",
-              kernel_gb_per_s=f"{nbytes * n / (ms * 1e-3) / 1e9:.1f}")
-        del a, b, got, want, label
+              kernel_gb_per_s=f"{nbytes * n / (ms * 1e-3) / 1e9:.1f}",
+              fingerprint=_json(fingerprint),
+              parent_rows_equal=fingerprint == PARENT_FINGERPRINTS[f"polygon_distance_{tag}"])
+        del a, b, got, want, label, counted
     return result
 
 
@@ -1345,20 +1415,56 @@ def _toi_agreement(got, want):
     return int((hit_g != hit_w).sum()), dt
 
 
+def toi_inputs():
+    """Phase 14's inputs on the card: the model call's arguments (2^21
+    rows drawn as in phase 6, unit speed toward the obstacle, omega U(-1,
+    1), every 4th 0) and the kernel's pairs (b1, b2) at the JAX bench's
+    2^21 (utils/benchmarks.py:474-498: box 1 at the origin, box 2 at U(3,
+    6)^2 heading for it at unit speed, extents U(0.5, 3)^2, angles U(0, 7),
+    rates U(-1, 1))."""
+    from collide2d_tpu_torch.ops import toi_cuda
+
+    rows = 1 << 21
+    pos, theta, wh, g = _rect_rows(rows, seed=15)
+    vel = -pos / pos.norm(dim=-1, keepdim=True)  # unit speed toward the obstacle
+    omega = torch.rand((rows,), generator=g, device="cuda") * 2.0 - 1.0
+    omega[::4] = 0.0  # translation only: the exact window
+    n = 1 << 21
+    unif = lambda lo, hi, *s: torch.rand(s, generator=g, device="cuda") * (hi - lo) + lo  # noqa: E731
+    c2 = unif(3.0, 6.0, n, 2)
+    zeros = torch.zeros_like(c2)
+    b1 = toi_cuda.pack_moving_obbs(zeros, unif(0.5, 3.0, n, 2), unif(0.0, 7.0, n), zeros,
+                                   unif(-1.0, 1.0, n))
+    b2 = toi_cuda.pack_moving_obbs(c2, unif(0.5, 3.0, n, 2), unif(0.0, 7.0, n),
+                                   -c2 / c2.norm(dim=-1, keepdim=True), unif(-1.0, 1.0, n))
+    return (pos, theta, wh, vel, omega), (b1, b2)
+
+
+def toi_work(steps: torch.Tensor, rotating: torch.Tensor) -> dict:
+    """Kernel 12's work on a batch from the plain version's steps (pair
+    order): its pairs, rotating and translating pairs, distance evaluations
+    (steps + 1 a rotating pair), and the evaluations when each group of 32
+    pairs runs to its slowest (32 x its most)."""
+    evals = torch.where(rotating, steps + 1, 0).to(torch.float64)
+    pad = -evals.numel() % 32
+    warp = torch.cat([evals, evals.new_zeros(pad)]).reshape(-1, 32).amax(dim=1)
+    return dict(pairs=evals.numel(), rotating=int(rotating.sum()),
+                translating=int((~rotating).sum()), evals=float(evals.sum()),
+                warp_max_evals=32 * float(warp.sum()))
+
+
 def phase_toi() -> dict:
     """Phase 14: kernel 12 on `CollisionProbabilityModel.time_of_impact` and
     against its plain version at the JAX bench's shape; returns its entry of
     the kernels line."""
     from collide2d_tpu_torch.models.collision_model import CollisionProbabilityModel
     from collide2d_tpu_torch.ops import toi_cuda
+    from collide2d_tpu_torch.utils import cuda_build
 
     t = time.monotonic()
-    rows = 1 << 21
     kw = dict(t_max=8.0, iters=64, tol=1e-4)
-    pos, theta, wh, g = _rect_rows(rows, seed=15)
-    vel = -pos / pos.norm(dim=-1, keepdim=True)  # unit speed toward the obstacle
-    omega = torch.rand((rows,), generator=g, device="cuda") * 2.0 - 1.0
-    omega[::4] = 0.0  # translation only: the exact window
+    (pos, theta, wh, vel, omega), (b1, b2) = toi_inputs()
+    rows = pos.shape[0]
     model = CollisionProbabilityModel()
     toi_cuda.reset_launches()
     t_auto = model.time_of_impact(pos, theta, wh, vel, omega, impl="auto", **kw)
@@ -1385,14 +1491,7 @@ def phase_toi() -> dict:
     del t_auto, t_torch
 
     t = time.monotonic()
-    n = 1 << 21  # the JAX bench (utils/benchmarks.py:474-498)
-    unif = lambda lo, hi, *s: torch.rand(s, generator=g, device="cuda") * (hi - lo) + lo  # noqa: E731
-    c2 = unif(3.0, 6.0, n, 2)
-    zeros = torch.zeros_like(c2)
-    b1 = toi_cuda.pack_moving_obbs(zeros, unif(0.5, 3.0, n, 2), unif(0.0, 7.0, n), zeros,
-                                   unif(-1.0, 1.0, n))
-    b2 = toi_cuda.pack_moving_obbs(c2, unif(0.5, 3.0, n, 2), unif(0.0, 7.0, n),
-                                   -c2 / c2.norm(dim=-1, keepdim=True), unif(-1.0, 1.0, n))
+    n = b1.shape[1] * b1.shape[2]
     got = toi_cuda.moving_obb_toi_cuda_t(b1, b2, **kw)
     want, steps = toi_cuda.moving_obb_toi_plain(b1, b2, return_steps=True, **kw)
     want, steps = want.reshape(-1), steps.reshape(-1)
@@ -1403,22 +1502,29 @@ def phase_toi() -> dict:
     ms, plain_ms = _compare(lambda: toi_cuda.moving_obb_toi_cuda_t(b1, b2, **kw),
                             lambda: toi_cuda.moving_obb_toi_plain(b1, b2, **kw))
     rotating = (b1[7] != 0).reshape(-1) | (b2[7] != 0).reshape(-1)
-    evals = torch.where(rotating, steps + 1, 0).to(torch.float64)
-    ops = (float(evals.sum()) * TOI_EVAL_OPS + int(rotating.sum()) * TOI_SETUP_OPS
-           + int((~rotating).sum()) * TOI_WINDOW_OPS)
+    work = toi_work(steps, rotating)
+    ops = (work["evals"] * TOI_EVAL_OPS + work["rotating"] * TOI_SETUP_OPS
+           + work["translating"] * TOI_WINDOW_OPS)
     bound, bound_by = _bound_ms(68 * n, ops)
-    warp_steps = steps.reshape(-1, 32).amax(dim=1).to(torch.float64)
+    floor = toi_issue_floor(cuda_build.build("toi_kernel"), work)
+    fingerprint = output_fingerprint(got)
     _line("14 moving_obb_toi", time.monotonic() - t, pairs=n, t_max=8.0, iters=64,
           tol=1e-4, hits_differ=differ, max_abs_dt=f"{dt:.3e}",
           bitwise_equal=bool(torch.equal(got, want)),
           hit_share=f"{float(torch.isfinite(want).float().mean()):.4f}",
           rotating_share=f"{float(rotating.float().mean()):.4f}",
           mean_steps=f"{float(steps.double().mean()):.2f}", max_steps=int(steps.max()),
-          mean_warp_max_steps=f"{float(warp_steps.mean()):.2f}",
+          mean_warp_max_steps=f"{work['warp_max_evals'] / n - 1:.2f}",
           kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
-          bound_by=bound_by, kernel_queries_per_s=f"{n / ms * 1e3:.4e}")
+          bound_by=bound_by, issue_floor_ms=f"{floor['issue_floor_ms']:.4f}",
+          issue_floor_ms_at_warp_max=f"{floor['issue_floor_ms_at_warp_max']:.4f}",
+          share_of_issue_floor=f"{floor['issue_floor_ms'] / ms:.3f}",
+          sass_per_evaluation=floor["sass_per_evaluation"],
+          sass_setup=floor["sass_setup"], sass_window=floor["sass_window"],
+          kernel_queries_per_s=f"{n / ms * 1e3:.4e}", fingerprint=_json(fingerprint),
+          parent_rows_equal=fingerprint == PARENT_FINGERPRINTS["moving_obb_toi"])
     return dict(launches=launches, max_abs_err=dt, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by)
+                bound_ms=bound, bound_by=bound_by, issue_floor_ms=floor["issue_floor_ms"])
 
 
 # ---- the trajectory slice (kernels 13, 14, 15) ---------------------------
@@ -1979,6 +2085,15 @@ PARENT_FINGERPRINTS = {
                      [-7435365211565, -37114815545445991]],
 }
 PARENT_FINGERPRINTS["tiled_4096_tile61"] = PARENT_FINGERPRINTS["tiled_4096"]
+# Kernels 12 and 9 of the parent design (one pair a thread, run to its own
+# convergence or straight through every axis and test) on phases 14's and
+# 12's inputs, as collide2d_tpu_torch/utils/query_ab.py read them on an
+# NVIDIA H100 80GB HBM3.
+PARENT_FINGERPRINTS.update({
+    "moving_obb_toi": [[2295888978931727, -7010529741765896440]],
+    "polygon_distance_k8": [[3991350494082069, 1442949483532275846]],
+    "polygon_distance_k4_k8": [[4048248728329246, 1723718990348694370]],
+})
 
 
 def screen_inputs():
@@ -2483,7 +2598,7 @@ _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-
 
 
 def _shortest_iteration(ins: list, start: int, end: int, also: tuple = (),
-                        most: bool = False) -> tuple:
+                        most: bool = False, count: int | None = None) -> tuple:
     """(instructions, LDS, then the instructions of each opcode prefix in
     ``also``) on the shortest path through one iteration of the loop whose
     body is [start, end] (``end``: its backward branch), or from ``start`` to
@@ -2491,8 +2606,9 @@ def _shortest_iteration(ins: list, start: int, end: int, also: tuple = (),
     either way, nested loops run no second time, calls cost their one
     instruction. With ``most``, the shortest of the paths that hold the
     most instructions of the first prefix in ``also`` (a path that leaves
-    early holds fewer). The fewest instructions a warp can issue for one
-    iteration."""
+    early holds fewer); with ``count``, of those that hold exactly that
+    many. The fewest instructions a warp can issue for one iteration."""
+    most = most or count is not None
     body = [x for x in ins if start <= x[0] <= end]
     addrs = [x[0] for x in body]
     # per instruction: the shortest path to it for each count it holds of
@@ -2524,9 +2640,9 @@ def _shortest_iteration(ins: list, start: int, end: int, also: tuple = (),
                 if best[j].get(held) is None or here < best[j][held]:
                     best[j][held] = here
         if addr == end:
-            if not done:
+            top = max((held for held, _ in done), default=None) if count is None else count
+            if not any(held == top for held, _ in done):
                 break
-            top = max(held for held, _ in done)
             return min(here for held, here in done if held == top)
     raise RuntimeError("no path through the loop")
 
@@ -2681,6 +2797,103 @@ def raycast_issue_floor(lib: Path, rays: int, shapes: int, kp: int,
     if faces_evaluated is not None:
         out["issue_floor_ms_at_faces_evaluated"] = ms * faces_evaluated / (rays * shapes * kp)
     return out
+
+
+def _holds(ins: list, loop: dict, prefix: str) -> int:
+    """The instructions of the loop's body whose opcode starts with
+    ``prefix``."""
+    return sum(op.startswith(prefix) for a, _, op, _ in ins
+               if loop["start"] <= a <= loop["end"])
+
+
+def _path(ins: list, start: int, end: int, prefix: str, want: int) -> tuple:
+    """`_shortest_iteration` among the paths with the most ``prefix``
+    instructions, which must be ``want``."""
+    path = _shortest_iteration(ins, start, end, also=(prefix,), most=True)
+    if path[2] != want:
+        raise RuntimeError(f"the path over [{start:#x}, {end:#x}] holds {path[2]} "
+                           f"{prefix}, not {want}")
+    return path
+
+
+def _largest(loops: list, keep, what: str) -> dict:
+    """The largest of ``loops`` that ``keep`` holds, or an error naming
+    ``what``."""
+    kept = [x for x in loops if keep(x)]
+    if not kept:
+        raise RuntimeError(f"no loop in the SASS holds {what}")
+    return kept[-1]
+
+
+def toi_issue_floor(lib: Path, work: dict) -> dict:
+    """Kernel 12's issue floor for `toi_work`'s ``work``: the shortest SASS
+    path through one iteration of its stepping loop (the loop holding the
+    distance's one ``MUFU.RSQ`` and no refill), the evaluation taken, a
+    distance evaluation; through the refill loop (the one that loads the
+    pairs), less its shortest iteration, once a pair: the path with the
+    bound's three ``MUFU.RSQ`` a rotating pair's set-up, the one with the
+    window's four ``MUFU.RCP`` a translating pair's window. Every forward
+    branch may go either way, so ``sincosf``'s Payne-Hanek path and the
+    IEEE division's and square root's slow paths count nothing. At the
+    evaluations this run's pairs take, and at the evaluations of their
+    groups of 32 run to the slowest (one pair a thread)."""
+    ins = _sass_function(lib, "moving_obb_toi_kernel")
+    loops = _loops(ins)
+    refill = max(loops, key=lambda x: (_holds(ins, x, "LDG"), x["instructions"]))
+    step = _largest(loops, lambda x: _holds(ins, x, "MUFU.RSQ") and _holds(ins, x, "STG")
+                    and (x["end"] < refill["start"] or x["start"] > refill["end"]),
+                    "an evaluation outside the refill")
+    per_eval = _path(ins, step["start"], step["end"], "MUFU.RSQ", 1)[0]
+    base = _shortest_iteration(ins, refill["start"], refill["end"])[0]
+    setup = _path(ins, refill["start"], refill["end"], "MUFU.RSQ", 3)[0] - base
+    window = _path(ins, refill["start"], refill["end"], "MUFU.RCP", 4)[0] - base
+    pairs = work["rotating"] * setup + work["translating"] * window
+    ms, now, top = _issue_ms(work["evals"] * per_eval + pairs)
+    return dict(sass_per_evaluation=per_eval, sass_setup=setup, sass_window=window,
+                issue_floor_ms=ms,
+                issue_floor_ms_at_warp_max=_issue_ms(work["warp_max_evals"] * per_eval
+                                                     + pairs)[0],
+                sm_clock_mhz=now, sm_clock_max_mhz=top)
+
+
+def polygon_distance_issue_floor(lib: Path, k1: int, k2: int, pairs: int,
+                                 undecided: int, separated: int) -> dict:
+    """Kernel 9's issue floor for ``pairs`` pairs at (k1, k2), from the
+    instantiation of their K buckets: the shortest SASS path between the
+    block's first two barriers with every load (the first pass: a pair's
+    loads and polygon 1's first normals), a pair; through one iteration of
+    the loop over the listed pairs (the one holding every axis's
+    ``MUFU.RSQ`` and every point-segment test's ``FMUL.SAT``), the path
+    holding every test and one ``MUFU.RSQ`` (the final sqrt) a pair the
+    first pass separated, the one holding K1 + K2 ``MUFU.RSQ`` and no sqrt
+    an overlapping pair, the one holding K1 + K2 + 1 a pair that takes
+    every axis and every test. Every forward branch may go either way (the
+    division's and square root's slow paths count nothing). The full work,
+    every pair through every axis and every test, and the work evaluated,
+    as the library's counting build counts it: ``undecided`` pairs through
+    every axis, ``separated`` through the tests."""
+    kb1, kb2 = _bucket(k1), _bucket(k2)
+    ins = _sass_function(lib, f"polygon_distance_kernelILi{kb1}ELi{kb2}E")
+    bars = [a for a, _, op, _ in ins if op.startswith("BAR")]
+    tests = 2 * kb1 * kb2
+    first = _path(ins, bars[0], bars[1], "LDG", 2 * (kb1 + kb2))[0]
+    body = _largest(_loops(ins), lambda x: _holds(ins, x, "MUFU.RSQ") > kb1 + kb2
+                    and _holds(ins, x, "FMUL.SAT") >= tests,
+                    "every axis's MUFU.RSQ and every test's FMUL.SAT")
+    lo, hi = body["start"], body["end"]
+    early = _shortest_iteration(ins, lo, hi, also=("FMUL.SAT", "MUFU.RSQ"), count=tests)
+    if early[3] != 1:
+        raise RuntimeError(f"kernel 9's separated path holds {early[3]} MUFU.RSQ")
+    overlap = _shortest_iteration(ins, lo, hi, also=("MUFU.RSQ",), count=kb1 + kb2)[0]
+    both = _shortest_iteration(ins, lo, hi, also=("MUFU.RSQ",), count=kb1 + kb2 + 1)[0]
+    late = separated - (pairs - undecided)  # undecided pairs that do not overlap
+    evaluated = (pairs * first + (pairs - undecided) * early[0]
+                 + (undecided - late) * overlap + late * both)
+    ms, now, top = _issue_ms(pairs * both)
+    return dict(sass_per_pair=both, sass_first_pass=first, sass_separated_early=early[0],
+                sass_overlapping=overlap, sass_per_pair_evaluated=evaluated / pairs,
+                issue_floor_ms=ms, issue_floor_ms_at_work_evaluated=_issue_ms(evaluated)[0],
+                sm_clock_mhz=now, sm_clock_max_mhz=top)
 
 
 def output_fingerprint(*outputs: torch.Tensor) -> list:

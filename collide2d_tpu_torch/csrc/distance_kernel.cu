@@ -6,8 +6,9 @@
 //   polygon_distance  <- _make_polygon_distance_kernel (:229; body :164)
 // Positive = separation distance, negative = -(penetration depth).
 //
-// Layout. One thread takes one pair and reads plane[c][p] of n = 8M
-// contiguous values per plane, so each load is coalesced without repacking:
+// Layout. A thread takes a pair and reads plane[c][p] of n = 8M contiguous
+// values per plane, so neighbouring pairs' loads are coalesced without
+// repacking:
 // boxes are the (6, 8, M) SoA of `sat_cuda.pack_obbs` (cx, cy, cos, sin,
 // |w|/2, |h|/2), k-gons the (2K, 8, M) SoA of `polygon_cuda.pack_polygons`
 // (polygon_soa.cuh). Distances are written as float32 (n,).
@@ -19,19 +20,47 @@
 // Its gap expressions are kernel 4's, so `distance <= 0` is bitwise the
 // obb_label kernel's label.
 //
-// Kernel 9: for each of the K1 + K2 true edge normals the two projection
-// intervals (2 (K1 + K2) projections of 3 operations, their min/max) and
-// the gap scaled by 1 / |normal|; then every (vertex, edge segment) pair of
-// both bodies (2 K1 K2 point-segment tests of ~17 operations). At K = 8
-// that is ~3,600 FP32 operations against 132 bytes a pair: bound by
-// operations (0.22 ms for 2^22 pairs at 67 TFLOP/s), which the design
-// meets with everything in registers and no shared memory. K is a run-time
-// value: the build carries buckets 4, 8 and 16 for each polygon and pads
-// in registers (polygon_soa.cuh). The padding is exact for the sign: a
-// zero edge is masked to -inf in the gap max and a duplicate vertex adds no
-// projection; it can move the separation distance by rounding (a
-// zero-length segment's point distance against the closing edge's clamped
-// one), so the plain version pads to the same bucket. K above 16 is refused.
+// Kernel 9 (polygon_distance.cuh) writes `gap < 0 ? gap : sqrt(d2)`:
+// `gap` the largest support gap over the K1 + K2 true edge normals (2 (K1 +
+// K2) projections of 3 operations and their min/max an axis, scaled by
+// 1 / |normal|), `d2` the smallest of the 2 K1 K2 point-segment tests. All
+// of it is 3,714 FP32 operations a pair at K = 8 against 132 bytes: bound
+// by operations (0.233 ms for 2^22 pairs at 67 TFLOP/s). The output reads
+// `gap` only on overlapping pairs and `d2` only on separated ones, and a
+// per-lane or warp-vote exit cannot keep that saving (at 5.8% overlap 85%
+// of warps hold an overlapping lane), so a block splits its 256 pairs
+// exactly, with lists of them in shared memory:
+//   1. a pair a thread: polygon 1's edge normals every K1 / 4-th edge,
+//      unscaled (`edge_separates`, exact in float); a pair one of them
+//      separates joins the `separated` list, the others `undecided`;
+//   2. after the block's barrier, both lists packed onto the block's
+//      lanes, the undecided pairs first: every axis (`support_gap`), an
+//      overlapping pair writing its gap, the others going on to
+//   3. every vertex against every segment (`separation_d2`) and sqrt,
+//      which a separated pair starts with.
+// Pass 2 reloads a pair's vertices (L1 or L2: the tile was just read). So
+// a separated pair pays 4 axes and the tests, an overlapping one 4 + K1 +
+// K2 axes, one that only every axis shows separated both, and a warp
+// idles only where the lists meet. On the bench's 8-gons (5.8% overlap,
+// 98.65% of the separated pairs settled in pass 1) that is ~2,250 of the
+// 3,714 operations a pair. At 2^22 k = 8 pairs on an NVIDIA H100 80GB
+// HBM3 this ran 0.532-0.535 ms (one pair a thread before: 0.689-0.693);
+// in the same turns against the same parent, a barrier between the two
+// lists 0.553-0.562, the separated pairs' tests in place in pass 1 (the
+// listed lanes idle, no reload) 0.646-0.689, and this design at 3 blocks
+// an SM (80 registers) 0.593-0.594: occupancy moves the time more than
+// the instructions do (utils/query_ab.py; PERF.md section 6). A
+// point-segment test clamps its parameter with one saturating multiply
+// (14 operations, was 17). K is a run-time value: the build carries
+// buckets 4, 8 and 16 for each polygon and pads in registers
+// (polygon_soa.cuh). The padding is exact for the sign: a zero edge is
+// masked to -inf in the gap max and a duplicate vertex adds no projection;
+// it can move the separation distance by rounding (a zero-length
+// segment's point distance against the closing edge's clamped one), so the
+// plain version pads to the same bucket. K above 16 is refused. With
+// -DPOLYDIST_COUNT=1 the library also counts the pairs through every axis
+// and through the segment tests (polygon_distance_counts); the default
+// build does not.
 //
 // Rounding. Every product, sum and difference is __fmul_rn / __fadd_rn /
 // __fsub_rn in the JAX order (no FMA contraction), so `distance <= 0` of
@@ -49,14 +78,24 @@
 #include <math.h>
 
 #include "obb_distance.cuh"
+#include "polygon_distance.cuh"
 #include "polygon_soa.cuh"
+
+#ifndef POLYDIST_COUNT
+#define POLYDIST_COUNT 0
+#endif
 
 namespace {
 
-using collide2d::dot2;
-using collide2d::inv_norm;
+namespace polydist = collide2d::polydist;
 
 constexpr int kThreads = 256;
+// Blocks of kernel 9 an SM, by the pair's vertex slots: 4 (at most 64
+// registers a thread) up to K1 + K2 = 16, where 3 ran 11% slower at
+// k = 8 and 9% at 4 against 8; the larger shapes keep the registers that
+// one pair a thread took before (128 at 16 + 8, 188 at 16 + 16).
+template <int K1, int K2>
+constexpr int kMinBlocks = K1 + K2 <= 16 ? 4 : K1 + K2 <= 24 ? 2 : 1;
 
 __global__ void __launch_bounds__(kThreads)
     obb_distance_kernel(const float* __restrict__ b1,
@@ -71,95 +110,104 @@ __global__ void __launch_bounds__(kThreads)
       b2[2 * n + p], b2[3 * n + p], b2[4 * n + p], b2[5 * n + p]);
 }
 
-// [min, max] of the projections of a K-gon onto (ax, ay).
+#if POLYDIST_COUNT
+// Pairs through the full axes and through the segment tests, since the
+// last read (polygon_distance_counts).
+__device__ unsigned long long g_counts[2] = {0, 0};
+#endif
+
+// Appends `item` to `list` where `take` holds, warp by warp (one shared
+// atomicAdd a warp); lanes of a warp that reach it together.
+__device__ __forceinline__ void append(bool take, int item, int* list,
+                                       int* count) {
+  const unsigned active = __activemask();
+  const unsigned mask = __ballot_sync(active, take);
+  const int leader = __ffs(active) - 1;
+  int base = 0;
+  if ((threadIdx.x & 31) == leader && mask != 0u) base = atomicAdd(count, __popc(mask));
+  base = __shfl_sync(active, base, leader);
+  if (take) list[base + __popc(mask & ((1u << (threadIdx.x & 31)) - 1u))] = item;
+}
+
+// Vertices of pair p (polygon_soa.cuh::load_polygon): a polygon that fills
+// its bucket (k == K, warp-uniform) loads every plane straight, without the
+// padding's per-slot tests.
 template <int K>
-__device__ __forceinline__ void interval(float ax, float ay,
-                                         const float (&x)[K],
-                                         const float (&y)[K], float& mn,
-                                         float& mx) {
-  mn = dot2(ax, x[0], ay, y[0]);
-  mx = mn;
+__device__ __forceinline__ void load_vertices(const float* __restrict__ src,
+                                              long long n, long long p, int k,
+                                              float (&x)[K], float (&y)[K]) {
+  if (k == K) {
+    const float* __restrict__ q = src + p;
 #pragma unroll
-  for (int i = 1; i < K; ++i) {
-    const float q = dot2(ax, x[i], ay, y[i]);
-    mn = fminf(mn, q);
-    mx = fmaxf(mx, q);
-  }
-}
-
-// gap = max(gap, the scaled support gaps over the edge normals of (xs, ys)).
-template <int KA, int K1, int K2>
-__device__ __forceinline__ void gaps_over_normals(
-    const float (&xs)[KA], const float (&ys)[KA], const float (&x1)[K1],
-    const float (&y1)[K1], const float (&x2)[K2], const float (&y2)[K2],
-    float& gap) {
-#pragma unroll
-  for (int i = 0; i < KA; ++i) {
-    const int j = (i + 1) % KA;
-    const float ax = __fsub_rn(ys[j], ys[i]);  // true normal of edge i -> j
-    const float ay = __fsub_rn(xs[i], xs[j]);
-    const float nn = dot2(ax, ax, ay, ay);
-    float mn1, mx1, mn2, mx2;
-    interval<K1>(ax, ay, x1, y1, mn1, mx1);
-    interval<K2>(ax, ay, x2, y2, mn2, mx2);
-    const float g = __fmul_rn(fmaxf(__fsub_rn(mn2, mx1), __fsub_rn(mn1, mx2)),
-                              inv_norm(nn > 0.0f ? nn : 1.0f));
-    gap = fmaxf(gap, nn > 0.0f ? g : -INFINITY);
-  }
-}
-
-// d2 = min(d2, squared distances of every vertex of p to every closed edge
-// segment of q); a zero-length segment gives the point distance.
-template <int KP, int KQ>
-__device__ __forceinline__ void vertex_segment_min(const float (&px)[KP],
-                                                   const float (&py)[KP],
-                                                   const float (&qx)[KQ],
-                                                   const float (&qy)[KQ],
-                                                   float& d2) {
-#pragma unroll
-  for (int j = 0; j < KQ; ++j) {
-    const int j2 = (j + 1) % KQ;
-    const float ex = __fsub_rn(qx[j2], qx[j]);
-    const float ey = __fsub_rn(qy[j2], qy[j]);
-    const float ee = dot2(ex, ex, ey, ey);
-    const bool live = ee > 0.0f;
-    const float inv = __fdiv_rn(1.0f, live ? ee : 1.0f);
-#pragma unroll
-    for (int i = 0; i < KP; ++i) {
-      const float dx = __fsub_rn(px[i], qx[j]);
-      const float dy = __fsub_rn(py[i], qy[j]);
-      const float tc = fminf(fmaxf(__fmul_rn(dot2(dx, ex, dy, ey), inv), 0.0f), 1.0f);
-      const float t = live ? tc : 0.0f;
-      const float cx = __fsub_rn(dx, __fmul_rn(t, ex));
-      const float cy = __fsub_rn(dy, __fmul_rn(t, ey));
-      d2 = fminf(d2, dot2(cx, cx, cy, cy));
+    for (int i = 0; i < K; ++i) {
+      x[i] = q[i * n];
+      y[i] = q[(K + i) * n];
     }
+  } else {
+    collide2d::load_polygon<K>(src, n, p, k, x, y);
   }
 }
 
 template <int K1, int K2>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K1, K2>)
     polygon_distance_kernel(const float* __restrict__ p1,
                             const float* __restrict__ p2,
                             float* __restrict__ out, long long n, int k1,
                             int k2) {
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n) return;
-  float x1[K1], y1[K1], x2[K2], y2[K2];
-  collide2d::load_polygon<K1>(p1, n, p, k1, x1, y1);
-  collide2d::load_polygon<K2>(p2, n, p, k2, x2, y2);
-  float gap = -INFINITY;
-  gaps_over_normals<K1>(x1, y1, x1, y1, x2, y2, gap);
-  gaps_over_normals<K2>(x2, y2, x1, y1, x2, y2, gap);
-  float d2 = INFINITY;
-  vertex_segment_min<K1, K2>(x1, y1, x2, y2, d2);
-  vertex_segment_min<K2, K1>(x2, y2, x1, y1, d2);
-  out[p] = gap < 0.0f ? gap : sqrtf(d2);
+  __shared__ int separated[kThreads];  // the tile's pairs that need d2 alone
+  __shared__ int undecided[kThreads];  // and those that need every axis
+  __shared__ int counts[2];
+  const long long base = static_cast<long long>(blockIdx.x) * kThreads;
+  if (threadIdx.x < 2) counts[threadIdx.x] = 0;
+  __syncthreads();
+  // Pass 1, a pair a thread: polygon 1's first edge normals.
+  {
+    const long long p = base + threadIdx.x;
+    if (p < n) {
+      float x1[K1], y1[K1], x2[K2], y2[K2];
+      load_vertices<K1>(p1, n, p, k1, x1, y1);
+      load_vertices<K2>(p2, n, p, k2, x2, y2);
+      const bool sep = polydist::edge_separates<K1, K2>(x1, y1, x2, y2);
+      append(sep, threadIdx.x, separated, &counts[0]);
+      append(!sep, threadIdx.x, undecided, &counts[1]);
+    }
+  }
+  __syncthreads();
+  // Passes 2 and 3 over both lists, packed onto the block's lanes, the
+  // undecided pairs first: every axis, then (an overlapping pair writes its
+  // gap) every segment test, which a separated pair starts with.
+  const int n_undecided = counts[1];
+  const int n_listed = n_undecided + counts[0];
+  for (int i = threadIdx.x; i < n_listed; i += kThreads) {
+    const bool decided = i >= n_undecided;
+    const long long p = base + (decided ? separated[i - n_undecided] : undecided[i]);
+    float x1[K1], y1[K1], x2[K2], y2[K2];
+    load_vertices<K1>(p1, n, p, k1, x1, y1);
+    load_vertices<K2>(p2, n, p, k2, x2, y2);
+    if (!decided) {
+      const float gap = polydist::support_gap<K1, K2>(x1, y1, x2, y2);
+      if (gap < 0.0f) {
+        out[p] = gap;
+        continue;
+      }
+#if POLYDIST_COUNT
+      atomicAdd(&g_counts[1], 1ull);
+#endif
+    }
+    out[p] = sqrtf(polydist::separation_d2<K1, K2>(x1, y1, x2, y2));
+  }
+#if POLYDIST_COUNT
+  if (threadIdx.x == 0) {
+    atomicAdd(&g_counts[0], static_cast<unsigned long long>(n_undecided));
+    atomicAdd(&g_counts[1], static_cast<unsigned long long>(n_listed - n_undecided));
+  }
+#endif
 }
 
-// Blocks for n pairs, or 0 when n does not fit one grid dimension.
-unsigned grid_for(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
+// Blocks of `per_block` pairs for n pairs, or 0 when n does not fit one
+// grid dimension.
+unsigned grid_for(long long n, long long per_block) {
+  const long long blocks = (n + per_block - 1) / per_block;
   return blocks > INT_MAX ? 0u : static_cast<unsigned>(blocks);
 }
 
@@ -184,7 +232,7 @@ extern "C" int obb_distance_launch(const float* b1, const float* b2,
                                    float* out, long long n, float shift,
                                    void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  const unsigned grid = grid_for(n);
+  const unsigned grid = grid_for(n, kThreads);
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   obb_distance_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       b1, b2, out, n, shift);
@@ -196,7 +244,7 @@ extern "C" int polygon_distance_launch(const float* p1, const float* p2,
                                        float* out, long long n, int k1, int k2,
                                        void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  const unsigned grid = grid_for(n);
+  const unsigned grid = grid_for(n, kThreads);
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
@@ -209,3 +257,14 @@ extern "C" int polygon_distance_launch(const float* p1, const float* p2,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
+
+#if POLYDIST_COUNT
+// The pairs kernel 9 took through every axis (out[0]) and through the
+// segment tests (out[1]) since the last call (synchronises).
+extern "C" int polygon_distance_counts(unsigned long long* out) {
+  const unsigned long long zero[2] = {0, 0};
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_counts, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif

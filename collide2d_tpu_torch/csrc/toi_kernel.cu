@@ -13,21 +13,38 @@
 //
 // Layout: the (8, 8, M) SoA of `toi_cuda.pack_moving_obbs`, planes cx, cy,
 // theta, |w|/2, |h|/2, vx, vy, omega of n = 8M values, pair p at
-// plane[c][p]; one thread a pair, coalesced loads, one float32 written.
+// plane[c][p]; one float32 written a pair.
 //
-// Early exit. The TPU stops a whole tile once all its lanes have converged
-// (a while loop on "any lane live"). Here each thread leaves its own loop
-// when its pair converges: a converged lane never changes again in the
-// fixed-trip loop (d(t) and t are frozen), so each result equals the
-// fixed-trip loop's. A warp still runs until its slowest lane, so the cost
-// is the warps' maximum steps, not the mean (chip_smoke.py reports both).
+// Lanes refilled as they converge. A pair's sequence of t depends on its
+// own 16 floats alone, so the pair a lane holds can change at any step
+// without changing any result. Each warp walks its own contiguous range of
+// kPairsPerLane x 32 pairs. A lane holds one rotating pair and evaluates
+// its distance once an iteration; the evaluation that stops the pair
+// (d <= tol, t > t_max, or its `iters` steps taken: the same formula then
+// reads the final t) writes the result and frees the lane. When at least
+// kRefillAt lanes are free (any, near the range's end), the free lanes take
+// the range's next pairs in order (a ballot and a popc prefix): a
+// translating pair is settled there through its exact window and never
+// occupies a stepping lane; a rotating one loads its 64 bytes (scattered
+// within the range: the first fill is coalesced) and its bound. So a warp
+// iterates about (the evaluations of its pairs) / 32 times plus the end of
+// its range, where the earlier design (one pair a thread, run to its own
+// convergence) ran 32 x its slowest lane's evaluations: at the bench shape
+// 52.7 evaluations a warp-slot against 19.8 a pair (chip_smoke.py phase
+// 14), and 0.937-0.940 ms against this design's 0.546-0.547.
 //
-// What bounds it on this card. A pair reads 64 bytes and writes 4; a step
-// evaluates the distance (~170 FP32 operations, kernel 8's) plus the
-// advanced angles and centres and two sincosf, ~200 operations, so at the
-// bench shape (2^21 pairs, 64 iterations) the work depends on the steps
-// the lanes take: operations bound it (0.52 ms if every lane took 64
-// steps), and the bound is taken at the steps this run's data needs.
+// A pair takes steps + 1 evaluations whatever the lane: the `iters`
+// budget counts its own steps (`e`), and a pair that exhausts it is
+// evaluated once more at its last t, as the fixed-trip loop checks it.
+//
+// What bounds it on this card. A pair reads 64 bytes and writes 4; an
+// evaluation is ~209 FP32 operations (kernel 8's distance, the advanced
+// angles and centres, the stop tests and the step) and two sincosf, so
+// operations bound it at the evaluations this run's data needs; beside the
+// bound, chip_smoke.py reads the kernel's issue floor from its SASS
+// (`toi_issue_floor`). ptxas: 56 registers, no spill, a 32-byte stack
+// frame that sincosf's Payne-Hanek reduction keeps (a path the bench's
+// angles never take; the earlier design had the same frame).
 //
 // Rounding. Products and sums are __fmul_rn / __fadd_rn / __fsub_rn in
 // the JAX order, divisions and sqrtf IEEE, and the evolved angles go
@@ -49,13 +66,27 @@ namespace {
 using collide2d::dot2;
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+// Pairs a warp walks, per lane. At the bench shape (2^21 rotating pairs,
+// an NVIDIA H100 80GB HBM3, utils/query_ab.py in turns against a csrc copy
+// with one constant edited) 16 ran 0.571-0.572 ms, 8 0.600-0.605 and 32
+// 0.609-0.611: a shorter range pays its tail more often, a longer one
+// leaves the card fewer warps.
+constexpr int kPairsPerLane = 16;
+constexpr int kWarpPairs = 32 * kPairsPerLane;
+// Free lanes that start a refill (near the range's end, any): each refill
+// round issues the loads and set-up once for the whole warp, while free
+// lanes idle until it. Against 8 (0.566-0.577 ms), 1 ran 0.660-0.663, 4
+// 0.583-0.584, 6 0.572-0.573, 12 0.586-0.589 and 16 0.617.
+constexpr int kRefillAt = 8;
 
 struct Box {
   float cx, cy, th, hx, hy, vx, vy, w;
 };
 
 __device__ __forceinline__ Box load_box(const float* __restrict__ b,
-                                        long long n, long long p) {
+                                        long long n, int p) {
   return Box{b[p],         b[n + p],     b[2 * n + p], b[3 * n + p],
              b[4 * n + p], b[5 * n + p], b[6 * n + p], b[7 * n + p]};
 }
@@ -74,56 +105,100 @@ __device__ __forceinline__ float distance_at(const Box& a, const Box& b,
                                         b.hx, b.hy);
 }
 
+// The first impact time of a translating pair: its exact window.
+__device__ __forceinline__ float window_toi(const Box& a, const Box& b,
+                                            float t_max) {
+  float s1, c1, s2, c2, entry, exit;
+  sincosf(a.th, &s1, &c1);
+  sincosf(b.th, &s2, &c2);
+  collide2d::obb_translation_window(
+      __fsub_rn(b.cx, a.cx), __fsub_rn(b.cy, a.cy), c1, s1, a.hx, a.hy, c2, s2,
+      b.hx, b.hy, __fsub_rn(b.vx, a.vx), __fsub_rn(b.vy, a.vy), entry, exit);
+  const bool hit = entry <= exit && entry <= t_max && exit >= 0.0f;
+  return hit ? fmaxf(entry, 0.0f) : INFINITY;
+}
+
+// The advancement's divisor of a rotating pair.
+__device__ __forceinline__ float motion_bound(const Box& a, const Box& b) {
+  const float rvx = __fsub_rn(b.vx, a.vx);
+  const float rvy = __fsub_rn(b.vy, a.vy);
+  const float r1 = sqrtf(dot2(a.hx, a.hx, a.hy, a.hy));  // circumradius
+  const float r2 = sqrtf(dot2(b.hx, b.hx, b.hy, b.hy));
+  return fmaxf(__fadd_rn(__fadd_rn(sqrtf(dot2(rvx, rvx, rvy, rvy)),
+                                   __fmul_rn(fabsf(a.w), r1)),
+                         __fmul_rn(fabsf(b.w), r2)),
+               1e-30f);
+}
+
 __global__ void __launch_bounds__(kThreads)
     moving_obb_toi_kernel(const float* __restrict__ b1,
                           const float* __restrict__ b2,
                           float* __restrict__ out, long long n, float t_max,
                           int iters, float tol) {
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n) return;
-  const Box a = load_box(b1, n, p);
-  const Box b = load_box(b2, n, p);
-  const float rvx = __fsub_rn(b.vx, a.vx);
-  const float rvy = __fsub_rn(b.vy, a.vy);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kWarpPairs;
+  if (first >= n) return;  // warp-uniform
+  // The warp's range and the pairs' offsets in it.
+  const int count = static_cast<int>(min(n - first, static_cast<long long>(kWarpPairs)));
+  const float* __restrict__ r1 = b1 + first;
+  const float* __restrict__ r2 = b2 + first;
+  float* __restrict__ r_out = out + first;
 
-  if (a.w == 0.0f && b.w == 0.0f) {
-    // Translation only: the exact window, no iteration.
-    float s1, c1, s2, c2, entry, exit;
-    sincosf(a.th, &s1, &c1);
-    sincosf(b.th, &s2, &c2);
-    collide2d::obb_translation_window(__fsub_rn(b.cx, a.cx),
-                                      __fsub_rn(b.cy, a.cy), c1, s1, a.hx,
-                                      a.hy, c2, s2, b.hx, b.hy, rvx, rvy,
-                                      entry, exit);
-    const bool hit = entry <= exit && entry <= t_max && exit >= 0.0f;
-    out[p] = hit ? fmaxf(entry, 0.0f) : INFINITY;
-    return;
-  }
-
-  const float r1 = sqrtf(dot2(a.hx, a.hx, a.hy, a.hy));  // circumradius
-  const float r2 = sqrtf(dot2(b.hx, b.hx, b.hy, b.hy));
-  const float bound = fmaxf(
-      __fadd_rn(__fadd_rn(sqrtf(dot2(rvx, rvx, rvy, rvy)),
-                          __fmul_rn(fabsf(a.w), r1)),
-                __fmul_rn(fabsf(b.w), r2)),
-      1e-30f);
-  float t = 0.0f;
-  float d = 0.0f;
-  bool stopped = false;
-  for (int i = 0; i < iters; ++i) {
-    d = distance_at(a, b, t);
-    if (d <= tol || t > t_max) {
-      stopped = true;  // converged or past the horizon: t is final
-      break;
+  Box a, b;
+  float bound = 1.0f, t = 0.0f;
+  float* dst = r_out;  // the held pair's result
+  int e = 0;           // the held pair's steps
+  int held = -1;       // the held pair, -1 for none
+  int next = 0;        // the range's next pair
+  for (;;) {
+    // Free lanes take the range's next pairs; translating ones settle here.
+    unsigned idle = __ballot_sync(kAll, held < 0);
+    while (idle != 0u && next < count) {
+      const int q = next + __popc(idle & below);
+      next += __popc(idle);
+      if (held < 0 && q < count) {
+        a = load_box(r1, n, q);
+        b = load_box(r2, n, q);
+        if (a.w == 0.0f && b.w == 0.0f) {
+          r_out[q] = window_toi(a, b, t_max);
+        } else {
+          bound = motion_bound(a, b);
+          t = 0.0f;
+          e = 0;
+          held = q;
+          dst = r_out + q;
+        }
+      }
+      idle = __ballot_sync(kAll, held < 0);
     }
-    t = __fadd_rn(t, __fdiv_rn(fmaxf(d, 0.0f), bound));
+    if (idle == kAll) break;  // the range is drained and every pair settled
+    // Step the held pairs until enough lanes are free for a refill (any
+    // lane near the range's end; all of them once it is drained). The
+    // shuffle keeps nvcc from recomputing the warp-uniform threshold from
+    // the range's bounds at every step.
+    const int refill_at = __shfl_sync(
+        kAll, next >= count ? 33 : count - next < 32 ? 1 : kRefillAt, 0);
+    do {
+      if (held >= 0) {
+        const float d = distance_at(a, b, t);
+        if (d <= tol || t > t_max || e == iters) {
+          *dst = (d <= tol && t <= t_max) ? t : INFINITY;
+          held = -1;
+        } else {
+          t = __fadd_rn(t, __fdiv_rn(fmaxf(d, 0.0f), bound));
+          ++e;
+        }
+      }
+      idle = __ballot_sync(kAll, held < 0);
+    } while (idle != kAll && __popc(idle) < refill_at);
   }
-  if (!stopped) d = distance_at(a, b, t);  // the budget ran out: check t
-  out[p] = (d <= tol && t <= t_max) ? t : INFINITY;
 }
 
 unsigned grid_for(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long per_block = static_cast<long long>(kWarpPairs) * kWarps;
+  const long long blocks = (n + per_block - 1) / per_block;
   return blocks > INT_MAX ? 0u : static_cast<unsigned>(blocks);
 }
 

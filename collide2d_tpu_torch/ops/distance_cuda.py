@@ -21,6 +21,8 @@ a CUDA tensor launches ``csrc/distance_kernel.cu`` (built at first use by
 build or launch raises; a CPU tensor runs the plain version. The kernels
 have no backward: inputs that require grad raise (the differentiable path
 is `ops.distance`, ``impl='torch'`` on the models).
+`polygon_distance_passes` runs kernel 9 through the library's build that
+counts the pairs its passes take (every axis; the segment tests).
 
 `rect_distance_cuda` and `polygon_distance_cuda` are the drop-ins for
 `ops.distance.rect_signed_distance` / `polygon_signed_distance`: they pad N,
@@ -111,16 +113,30 @@ def obb_distance_plain(b1t: torch.Tensor, b2t: torch.Tensor,
                                     b2t[2], b2t[3], b2t[4], b2t[5])
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
+def distance_defines(count: bool = False) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines of the library: ``count`` builds the variant that
+    counts kernel 9's pairs through each pass (`polygon_distance_passes`)."""
+    return (("POLYDIST_COUNT", 1),) if count else ()
 
-    lib = cuda_build.load(_KERNEL)
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launch functions' C signatures on a loaded library (the
+    counting one where it has it)."""
     p, ll, f, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
     lib.obb_distance_launch.restype = ctypes.c_int
     lib.obb_distance_launch.argtypes = [p, p, p, ll, f, p]
     lib.polygon_distance_launch.restype = ctypes.c_int
     lib.polygon_distance_launch.argtypes = [p, p, p, ll, i, i, p]
+    if hasattr(lib, "polygon_distance_counts"):
+        lib.polygon_distance_counts.restype = ctypes.c_int
+        lib.polygon_distance_counts.argtypes = [p]
     return lib
+
+
+def _kernel_lib(count: bool = False) -> ctypes.CDLL:
+    from collide2d_tpu_torch.utils import cuda_build
+
+    return bind(cuda_build.load(_KERNEL, distance_defines(count)))
 
 
 def _launched(name: str, err: int) -> None:
@@ -250,16 +266,36 @@ def polygon_distance_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
                             k2: int, block: int = POLY_LANE_BLOCK) -> torch.Tensor:
     """Signed distance over SoA k-gon pairs: (2K1, 8, M) x (2K2, 8, M)
     float32 -> float32 (8M,). M must be a multiple of ``block``."""
+    return _polygon_distance(p1t, p2t, k1, k2, block, None)
+
+
+def polygon_distance_passes(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
+                            k2: int, block: int = POLY_LANE_BLOCK):
+    """`polygon_distance_cuda_t` on the card through the library that counts
+    its work: ``(result, pairs through every axis, pairs through the
+    segment tests)``. It synchronises the card to read the counts."""
+    if p1t.device.type != "cuda":
+        raise ValueError(f"counts the kernel's work on a card, got {p1t.device}")
+    counts = (ctypes.c_ulonglong * 2)()
+    out = _polygon_distance(p1t, p2t, k1, k2, block, counts)
+    return out, int(counts[0]), int(counts[1])
+
+
+def _polygon_distance(p1t, p2t, k1, k2, block, counts):
     check_polygons(p1t, p2t, k1, k2, block)
     if p1t.device.type == "cpu":
         return polygon_distance_plain(p1t, p2t, k1, k2).reshape(-1)
     n = p1t.shape[1] * p1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib(counts is not None)
     stream = torch.cuda.current_stream(p1t.device).cuda_stream
     _launched("polygon_distance", lib.polygon_distance_launch(
         p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
         stream))
+    if counts is not None:
+        err = lib.polygon_distance_counts(counts)
+        if err != 0:
+            raise RuntimeError(f"polygon_distance_counts failed: CUDA error {err}")
     return out
 
 

@@ -100,15 +100,19 @@ def moving_obb_toi_plain(b1t: torch.Tensor, b2t: torch.Tensor, *, t_max: float,
     return (out, steps) if return_steps else out
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load(_KERNEL)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``moving_obb_toi_launch``'s C signature on a loaded library."""
     p, f = ctypes.c_void_p, ctypes.c_float
     lib.moving_obb_toi_launch.restype = ctypes.c_int
     lib.moving_obb_toi_launch.argtypes = [p, p, p, ctypes.c_longlong, f,
                                           ctypes.c_int, f, p]
     return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from collide2d_tpu_torch.utils import cuda_build
+
+    return bind(cuda_build.load(_KERNEL))
 
 
 def moving_obb_toi_cuda_t(b1t: torch.Tensor, b2t: torch.Tensor, *,

@@ -85,19 +85,21 @@ def _defines(kernel: str):
 
 def _nvcc_report(src: Path, defines, out: Path) -> dict:
     """Build ``src`` with the wrappers' flags and ``defines`` into ``out``;
-    ptxas's registers and spill bytes of each kernel, by mangled name."""
+    ptxas's registers, stack frame and spill bytes of each kernel, by
+    mangled name."""
     cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
            *cuda_build.define_flags(defines), "-Xptxas", "-v", "-o", str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    props = dict(re.findall(r"Function properties for (\S+)\s+\d+ bytes stack frame, "
-                            r"(\d+ bytes spill stores, \d+) bytes spill loads", proc.stderr))
+    props = dict(re.findall(r"Function properties for (\S+)\s+(\d+ bytes stack frame, "
+                            r"\d+ bytes spill stores, \d+) bytes spill loads", proc.stderr))
     report = {}
     for name, regs in re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) "
                                  r"registers", proc.stderr, re.S):
-        stores, loads = (int(x) for x in re.findall(r"\d+", props[name]))
-        report[name] = dict(registers=int(regs), spill_stores=stores, spill_loads=loads)
+        stack, stores, loads = (int(x) for x in re.findall(r"\d+", props[name]))
+        report[name] = dict(registers=int(regs), stack_frame=stack, spill_stores=stores,
+                            spill_loads=loads)
     return report
 
 

@@ -498,6 +498,114 @@ def test_moving_obb_toi_kernel_matches_plain(cuda):
     assert 0 < int(hit_w.sum()) < n
 
 
+def _toi_batch(cuda, m, seed, *, translating=0.25, spread=(3.0, 6.0)):
+    """8m moving box pairs as phase 14 draws them: box 1 at the origin, box
+    2 at U(spread)^2 in a random quadrant heading for it at unit speed,
+    angular rates U(-1, 1), the first `translating` share of the pairs with
+    both rates 0."""
+    rng = np.random.default_rng(seed)
+    n = 8 * m
+    f = lambda lo, hi, *s: torch.from_numpy(  # noqa: E731
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    c2 = f(*spread, n, 2) * torch.where(f(0, 1, n, 2) < 0.5, -1.0, 1.0)
+    w1, w2 = f(-1, 1, n), f(-1, 1, n)
+    still = int(translating * n)
+    w1[:still] = 0.0
+    w2[:still] = 0.0
+    b1 = toi_cuda.pack_moving_obbs(torch.zeros_like(c2), f(0.5, 3, n, 2), f(0, 7, n),
+                                   torch.zeros_like(c2), w1)
+    b2 = toi_cuda.pack_moving_obbs(c2, f(0.5, 3, n, 2), f(0, 7, n),
+                                   -c2 / c2.norm(dim=-1, keepdim=True), w2)
+    return b1, b2
+
+
+# Kernel 12 refills a lane as its pair converges (a warp walks a range of
+# pairs): each case below is bitwise its plain version, whose torch cos/sin
+# on the card round as the kernel's sincosf. m = 1001 gives 8,008 pairs, a
+# multiple neither of 32 nor of a warp's range or a block's.
+@pytest.mark.parametrize("case,m,translating,kw", [
+    ("odd_n", 1001, 0.25, dict(t_max=8.0, iters=64, tol=1e-4)),
+    ("all_translating", 1024, 1.0, dict(t_max=8.0, iters=64, tol=1e-4)),
+    ("iters_0", 1001, 0.25, dict(t_max=8.0, iters=0, tol=1e-4)),
+    ("iters_1", 1001, 0.25, dict(t_max=8.0, iters=1, tol=1e-4)),
+    ("iters_exhausted", 1024, 0.0, dict(t_max=8.0, iters=5, tol=1e-6)),
+    ("t_max_below_every_hit", 1001, 0.25, dict(t_max=0.25, iters=64, tol=1e-4)),
+])
+def test_moving_obb_toi_kernel_edge_cases_bitwise(cuda, case, m, translating, kw):
+    b1, b2 = _toi_batch(cuda, m, seed=len(case), translating=translating)
+    before = toi_cuda.LAUNCHES
+    got = toi_cuda.moving_obb_toi_cuda_t(b1, b2, block=1, **kw)
+    want, steps = toi_cuda.moving_obb_toi_plain(b1, b2, return_steps=True, **kw)
+    want, steps = want.reshape(-1), steps.reshape(-1)
+    torch.cuda.synchronize()
+    assert toi_cuda.LAUNCHES == before + 1
+    assert got.shape == (8 * m,)
+    assert torch.equal(got, want), case
+    hits = int(torch.isfinite(want).sum())
+    if case == "t_max_below_every_hit":
+        assert hits == 0
+    elif case == "iters_exhausted":
+        assert int((steps == kw["iters"]).sum()) > 0
+    elif case != "iters_0":
+        assert 0 < hits
+    if case == "all_translating":
+        assert int(steps.sum()) == 0
+
+
+def _polygon_pairs(cuda, n, k1, k2, layout):
+    """n pairs of regular k-gons of radius U(0.5, 1) at random rotations:
+    'mixed' centres both U(0, 10)^2 (the JAX bench's), 'overlapping' one
+    centre a pair, 'separated' polygon 2 five units right of polygon 1."""
+    rng = np.random.default_rng(100 * k1 + k2 + len(layout))
+
+    def ring(c, k):
+        r = rng.uniform(0.5, 1.0, (n, 1, 1))
+        ang = rng.uniform(0, 2 * np.pi, (n, 1)) + 2 * np.pi * np.arange(k) / k
+        p = c + r * np.stack([np.cos(ang), np.sin(ang)], -1)
+        return polygon_cuda.pack_polygons(torch.from_numpy(p.astype(np.float32)).to(cuda))
+
+    c1 = rng.uniform(0, 10, (n, 1, 2))
+    c2 = {"mixed": rng.uniform(0, 10, (n, 1, 2)), "overlapping": c1,
+          "separated": c1 + [5.0, 0.0]}[layout]
+    return ring(c1, k1), ring(c2, k2)
+
+
+# Kernel 9 splits a tile's pairs into those one of polygon 1's first edge
+# normals separates, those that need every axis, and those that then need
+# the segment tests: each case is bitwise its plain version and its sign
+# kernel 6's plain label, at both ends of the split (all overlapping, all
+# separated), on every (K1, K2) bucket pair, with zero-length edges from
+# padding (k = 3, 5, 13) and n not a multiple of a tile.
+@pytest.mark.parametrize("k1,k2", [(4, 4), (4, 8), (4, 16), (8, 4), (8, 8), (8, 16),
+                                   (16, 4), (16, 8), (16, 16), (3, 5), (5, 13)])
+@pytest.mark.parametrize("layout", ["overlapping", "mixed", "separated"])
+def test_polygon_distance_kernel_split_bitwise(cuda, k1, k2, layout):
+    n = 8 * 3001
+    a, b = _polygon_pairs(cuda, n, k1, k2, layout)
+    before = distance_cuda.LAUNCHES["polygon_distance"]
+    got = distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2, block=1)
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    label = polygon_cuda.sat_polygons_plain(a, b, k1, k2).reshape(-1)
+    torch.cuda.synchronize()
+    assert distance_cuda.LAUNCHES["polygon_distance"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got <= 0, label > 0)
+    overlap = int((want < 0).sum())
+    assert overlap == {"overlapping": n, "separated": 0}.get(layout, overlap)
+    assert layout != "mixed" or 0 < overlap < n
+
+
+def test_polygon_distance_counting_build_counts_the_split(cuda):
+    n = 1 << 18
+    a, b = _polygon_pairs(cuda, n, 8, 8, "mixed")
+    got, undecided, separated = distance_cuda.polygon_distance_passes(a, b, k1=8, k2=8)
+    want = distance_cuda.polygon_distance_plain(a, b, 8, 8).reshape(-1)
+    assert torch.equal(got, want)
+    overlap = int((want < 0).sum())
+    assert separated == n - overlap
+    assert overlap <= undecided < overlap + 0.05 * n
+
+
 def test_query_models_launch_the_kernels(cuda):
     n = 5000  # padded to the alignment and sliced back
     pos, wh, th = _boxes(cuda, n, 23)

@@ -6,7 +6,11 @@ fewest instructions a warp can issue for it. Kernel 11's floor asks for the
 shortest path among those that divide most often (``most``): its early
 exit's vote branches past the shape's later faces, and the floor is the
 path through every face with the votes issued and not taken. Here both
-searches run on a hand-written loop of that form.
+searches run on a hand-written loop of that form. Kernel 12's floor
+(`toi_issue_floor`) and kernel 9's (`polygon_distance_issue_floor`) are
+held to the counts of hand-written SASS of their kernels' forms: kernel
+12's refill loop and stepping loop, kernel 9's first pass and its loop
+over the pairs it lists.
 """
 
 import pytest
@@ -61,3 +65,138 @@ def test_shortest_iteration_without_a_path_raises():
     ins = _ins(_SHAPE_LOOP)
     with pytest.raises(RuntimeError, match="no path"):
         cs._shortest_iteration(ins, 0xd0, 0xe0)
+
+
+def _assemble(lines: list) -> list:
+    """(label or None, predicate, opcode, operands) lines at 0x10 apart ->
+    `_sass_function`'s tuples; an operand ``@name`` is the address of the
+    line labelled ``name``."""
+    where = {label: 16 * i for i, (label, *_rest) in enumerate(lines) if label}
+    out = []
+    for i, (_, pred, op, args) in enumerate(lines):
+        args = " ".join(f"{where[a[1:]]:#x}" if a.startswith("@") else a for a in args.split())
+        out.append((16 * i, pred, op, args))
+    return out
+
+
+# Kernel 12's form: the refill loop (the pairs' loads; a rotating pair's
+# bound, three MUFU.RSQ; a translating pair's window, four MUFU.RCP and its
+# store), then the stepping loop (the held pair's evaluation, one MUFU.RSQ,
+# with a nested slow-path loop that also loads; the settle store or the
+# step's division), the drained warp's exit and the back edge.
+_TOI = _assemble([
+    (None, "", "S2R", "R0, SR_TID.X"),
+    ("top", "", "VOTE.ANY", "R1, PT, P0"),
+    (None, "@P1", "BRA", "@step"),
+    ("refill", "", "POPC", "R2, R1"),
+    (None, "@P2", "BRA", "@ballot"),
+    (None, "", "LDG.E.CONSTANT", "R3, desc[UR4][R4.64]"),
+    (None, "", "LDG.E.CONSTANT", "R5, desc[UR4][R6.64]"),
+    (None, "@P3", "BRA", "@window"),
+    (None, "", "MUFU.RSQ", "R7, R8"),
+    (None, "", "MUFU.RSQ", "R9, R10"),
+    (None, "", "MUFU.RSQ", "R11, R12"),
+    (None, "", "BRA", "@ballot"),
+    ("window", "", "MUFU.RCP", "R13, R14"),
+    (None, "", "MUFU.RCP", "R15, R16"),
+    (None, "", "MUFU.RCP", "R17, R18"),
+    (None, "", "MUFU.RCP", "R19, R20"),
+    (None, "", "STG.E", "desc[UR4][R22.64], R21"),
+    ("ballot", "", "VOTE.ANY", "R1, PT, P0"),
+    (None, "@P4", "BRA", "@refill"),
+    ("step", "@!P5", "BRA", "@vote"),
+    (None, "", "FADD", "R23, R24, R25"),
+    (None, "@!P7", "BRA", "@fast"),
+    ("slow", "", "LDG.E.CONSTANT", "R26, desc[UR4][R27.64]"),
+    (None, "@P7", "BRA", "@slow"),
+    ("fast", "", "MUFU.RSQ", "R28, R29"),
+    (None, "@P6", "BRA", "@advance"),
+    (None, "", "STG.E", "desc[UR4][R30.64], R31"),
+    (None, "", "BRA", "@vote"),
+    ("advance", "", "MUFU.RCP", "R32, R33"),
+    ("vote", "", "VOTE.ANY", "R1, PT, P0"),
+    (None, "@P0", "BRA", "@step"),
+    (None, "@!P0", "EXIT", ""),
+    (None, "", "BRA", "@top"),
+])
+
+
+def _patched(monkeypatch, ins):
+    monkeypatch.setattr(cs, "_sass_function", lambda lib, kernel: ins)
+    monkeypatch.setattr(cs, "_sm_clock_hz", lambda: (1.98e9, 1.98e9))
+
+
+def test_toi_issue_floor_on_the_refill_and_stepping_loops(monkeypatch):
+    _patched(monkeypatch, _TOI)
+    work = dict(pairs=3, rotating=2, translating=1, evals=10.0, warp_max_evals=64.0)
+    floor = cs.toi_issue_floor(None, work)
+    # an evaluation: the test, FADD, the slow path skipped, MUFU.RSQ, the
+    # step's branch, its MUFU.RCP, the vote and the back edge
+    assert floor["sass_per_evaluation"] == 8
+    # the refill loop's shortest iteration is POPC, BRA, VOTE, BRA (4): a
+    # set-up adds the loads, the window test, the three RSQ and a BRA (7),
+    # a window the loads, the test, four RCP and the store (8)
+    assert (floor["sass_setup"], floor["sass_window"]) == (7, 8)
+    assert floor["issue_floor_ms"] == pytest.approx(cs._issue_ms(10 * 8 + 2 * 7 + 8)[0])
+    assert floor["issue_floor_ms_at_warp_max"] == pytest.approx(
+        cs._issue_ms(64 * 8 + 2 * 7 + 8)[0])
+
+
+def _distance_sass(kb: int) -> list:
+    """Kernel 9's form at K1 = K2 = kb: the first pass between the first two
+    barriers (the pair's loads, its first normals, the appends), then the
+    loop over the listed pairs (their loads; an undecided pair's every
+    axis, a MUFU.RSQ each, and the overlap's store; every test's FMUL.SAT,
+    the sqrt and the store)."""
+    planes = [(None, "", "LDG.E.CONSTANT", f"R{i}, desc[UR4][R2.64]") for i in range(4 * kb)]
+    return _assemble([
+        (None, "", "S2R", "R0, SR_TID.X"),
+        (None, "", "BAR.SYNC.DEFER_BLOCKING", "0x0"),
+        (None, "@P0", "BRA", "@first_done"),
+        *planes,
+        (None, "", "FMNMX", "R1, R2, R3, !PT"),
+        (None, "", "VOTE.ANY", "R1, PT, P1"),
+        (None, "@!P1", "ATOMS.ADD", "R1, [UR4], R2"),
+        ("first_done", "", "BAR.SYNC.DEFER_BLOCKING", "0x0"),
+        (None, "@P1", "BRA", "@done"),
+        ("listed", "", "IADD3", "R1, R1, 0x100, RZ"),
+        *planes,
+        (None, "@P2", "BRA", "@tests"),
+        *[(None, "", "MUFU.RSQ", f"R{i}, R{i}") for i in range(2 * kb)],
+        (None, "@P3", "BRA", "@tests"),
+        (None, "", "STG.E", "desc[UR4][R2.64], R3"),
+        (None, "", "BRA", "@next"),
+        ("tests", "", "FMUL.SAT", "R0, R0, R0"),
+        *[(None, "", "FMUL.SAT", f"R{i}, R{i}, R1") for i in range(1, 2 * kb * kb)],
+        (None, "", "MUFU.RSQ", "R5, R6"),
+        (None, "", "STG.E", "desc[UR4][R2.64], R5"),
+        ("next", "@P4", "BRA", "@listed"),
+        ("done", "", "EXIT", ""),
+    ])
+
+
+def test_polygon_distance_issue_floor_on_the_passes(monkeypatch):
+    _patched(monkeypatch, _distance_sass(4))
+    monkeypatch.setattr(cs, "_bucket", lambda k: 4)
+    floor = cs.polygon_distance_issue_floor(None, 4, 4, 100, 10, 95)
+    # first pass: BAR, BRA, 16 loads, FMNMX, VOTE, ATOMS, BAR
+    assert floor["sass_first_pass"] == 22
+    # separated in the first pass: IADD3, 16 loads, BRA, 32 FMUL.SAT, the
+    # sqrt, STG, the back edge; overlapping: IADD3, 16 loads, BRA, 8 RSQ,
+    # BRA, STG, BRA, the back edge; through both: the axes, then the tests
+    assert (floor["sass_separated_early"], floor["sass_overlapping"]) == (53, 30)
+    assert floor["sass_per_pair"] == 62
+    # 10 undecided, 5 of them separated: 90 separated in the first pass, 5
+    # overlapping, 5 through both
+    evaluated = 100 * 22 + 90 * 53 + 5 * 30 + 5 * 62
+    assert floor["sass_per_pair_evaluated"] == pytest.approx(evaluated / 100)
+    assert floor["issue_floor_ms"] == pytest.approx(cs._issue_ms(100 * 62)[0])
+    assert floor["issue_floor_ms_at_work_evaluated"] == pytest.approx(cs._issue_ms(evaluated)[0])
+
+
+def test_polygon_distance_issue_floor_refuses_a_pass_it_cannot_read(monkeypatch):
+    ins = [x for x in _distance_sass(4) if x[2] != "FMUL.SAT" or x[3] != "R0, R0, R0"]
+    _patched(monkeypatch, ins)
+    monkeypatch.setattr(cs, "_bucket", lambda k: 4)
+    with pytest.raises(RuntimeError, match="FMUL.SAT"):
+        cs.polygon_distance_issue_floor(None, 4, 4, 100, 10, 95)
