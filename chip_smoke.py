@@ -57,6 +57,24 @@ raises, and the script then exits non-zero without printing a result):
    the same call without it: rows `possible_collision_mask` keeps are
    bitwise equal, pruned rows have cp = 0; then ``--schedule opt``: files
    as in phase 3; checkpoints, mean samples per configuration, configs/s;
+8b. mid-run resume on the card: on each fused Monte Carlo kernel's main
+   path, at its size (kernel 1: batch 0 of phase 3's ``generate``, 100,000
+   rows, reference defaults; kernel 7: phase 11's 100,000 k = 8 rows;
+   kernels 13 and 14: phases 16 and 17's 100,000 translation-only
+   rectangles and k = 8 rows), an uninterrupted run, the same run with a
+   checkpoint every round interrupted from its progress hook once round 3
+   is reported, and its resume (`_resume_case`): the resume's first
+   progress report lies past the checkpointed samples, the kernel runs in
+   it, every output is bitwise the uninterrupted run's (kernel 1's also
+   phase 3's batch 0, byte for byte) and the file is gone; the rounds
+   before the interrupt, the checkpoint's bytes, the median and largest
+   write ms (readback and write) and the label seconds of the three runs;
+   then ``generate -n 2 -b 100000 --overlap_batches 2 --checkpoint_every 8
+   --resume`` on phase 3's tables: its batches are phase 3's byte for
+   byte, no checkpoint is left, and with batch 1 deleted a rerun rewrites
+   it byte for byte and leaves batch 0 untouched (beside it the label
+   seconds of the same call without checkpoints); and `data.balance` over
+   phase 3's batches (no plot);
 9. the k-gon SAT kernel: `PolygonCollisionProbabilityModel.collide` and
    `CollisionProbabilityModel.collide_polygons` on 2^20 configurations of
    the polylabel workload (plain, bf16, ``broad_phase=True`` and
@@ -143,6 +161,9 @@ raises, and the script then exits non-zero without printing a result):
    through the API with ``screen_impl='torch'`` (counts within 1e-5 of the
    samples), and ``--impl cuda`` (kernel 13's advancement loop), each at a
    10,000-sample cap (the cascade is host-bound); configs/s of each;
+16b. the mid-run resume of the rotating cascade (stage A on kernel 15)
+   at phase 16's 8,192 rows and 10,000 cap, as phase 8b's cases, against
+   phase 16's ``movelabel`` run as the uninterrupted one;
 17. kernel 14 (translation-only k-gon trajectories) against its plain
    version on 100,000 `example_polygon_configs` k = 8 rows with velocity
    U(-2, 2)^2 and t_max U(0.5, 3) x 4,096 samples (2 kept robot axes):
@@ -750,6 +771,200 @@ def phase_prune_opt(work: Path) -> None:
           configs_per_s=f"{stats.rows / stats.label_seconds:.1f}",
           mean_samples_per_config=f"{stats.samples_used / stats.rows:.1f}",
           zero_share=f"{zero_share:.4f}")
+
+
+RESUME_AFTER_ROUND = 3
+
+
+class _Interrupt(Exception):
+    """Raised from a run's progress hook to stop it mid-run."""
+
+
+def _resume_case(name: str, key, configs, robot, cfg, ckpt: Path, launches, card: str,
+                 base=None, base_s=None) -> dict:
+    """One mid-run resume on the card through `AdaptiveRun` (the driver
+    under `adaptive_collision_probabilities` and the pipeline): an
+    uninterrupted run (or the one a caller already made: ``base``,
+    ``base_s``), the same run with a checkpoint every round interrupted
+    from its progress hook once round `RESUME_AFTER_ROUND` is reported, and
+    its resume. Fails unless the checkpoint existed, the resume's first
+    progress report lies past its samples, the kernel ran in the resume
+    (``launches``: (reset, read)), every output equals the uninterrupted
+    run's bit for bit and the file is gone. Returns the labels and the
+    line's numbers."""
+    from collide2d_tpu_torch.mc.driver import AdaptiveRun
+
+    def label(progress=None, **kw):
+        t = time.monotonic()
+        run = AdaptiveRun(key, configs, robot, cfg, progress=progress, **kw)
+        run.scheduler.run()
+        out = run.materialize()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t, run
+
+    t = time.monotonic()
+    if base is None:
+        base, base_s, _ = label()
+
+    def interrupt(*, round, **kw):
+        if round >= RESUME_AFTER_ROUND:
+            raise _Interrupt(round)
+
+    t_cut = time.monotonic()
+    run = AdaptiveRun(key, configs, robot, cfg, progress=interrupt,
+                      checkpoint_path=str(ckpt), checkpoint_every=1)
+    try:
+        run.scheduler.run()
+    except _Interrupt as stop:
+        torch.cuda.synchronize()
+        interrupted_at = stop.args[0]
+    else:
+        raise RuntimeError(f"resume {name}: the run ended before round {RESUME_AFTER_ROUND}")
+    cut_s = time.monotonic() - t_cut
+    if not ckpt.is_file():
+        raise RuntimeError(f"resume {name}: no checkpoint after the interrupt")
+    with np.load(ckpt) as z:
+        n_saved, round_saved = int(z["n_samples"]), int(z["round"])
+    nbytes = ckpt.stat().st_size
+    write_ms = list(run.ops.checkpoint_ms)
+    seen = []
+    launches[0]()
+    out, resume_s, resumed = label(progress=lambda **kw: seen.append(kw["n_samples"]),
+                                   checkpoint_path=str(ckpt), checkpoint_every=1)
+    n_launches = launches[1]()
+    write_ms += resumed.ops.checkpoint_ms
+    if not (seen and min(seen) > n_saved):
+        raise RuntimeError(f"resume {name}: restarted (first report at "
+                           f"{seen[:1]} samples, checkpoint at {n_saved})")
+    if n_launches <= 0:
+        raise RuntimeError(f"resume {name}: the kernel never launched in the resume")
+    if not all(np.array_equal(a, b) for a, b in zip(out, base)):
+        rows = int((out[0] != base[0]).sum())
+        raise RuntimeError(f"resume {name}: {rows} labels differ from the "
+                           "uninterrupted run")
+    if ckpt.exists():
+        raise RuntimeError(f"resume {name}: the checkpoint outlived a clean finish")
+    line = dict(
+        kernel=name, rows=configs.num, interrupted_at_round=interrupted_at,
+        checkpoint_round=round_saved, checkpoint_samples=n_saved,
+        checkpoint_bytes=nbytes, writes=len(write_ms),
+        median_write_ms=f"{float(np.median(write_ms)):.3f}",
+        max_write_ms=f"{max(write_ms):.3f}", uninterrupted_label_s=f"{base_s:.3f}",
+        interrupted_label_s=f"{cut_s:.3f}", resumed_label_s=f"{resume_s:.3f}",
+        resume_first_report_samples=min(seen), resume_launches=n_launches,
+        labels_bitwise_equal=True, checkpoint_removed=True)
+    _line("8b resume" if name != "15" else "16b resume", time.monotonic() - t,
+          **line, card=json.dumps(card))
+    return dict(labels=out, **line)
+
+
+def _launch_counter(mod):
+    return mod.reset_launches, lambda: mod.LAUNCHES
+
+
+def phase_resume(work: Path, card: str) -> None:
+    """Phase 8b: mid-run resumes on kernels 1, 7, 13 and 14 at the main
+    paths' sizes, then the overlapped ``generate --resume`` and balancing
+    of phase 3's batches (`_resume_case`; the rotating cascade is phase
+    16b)."""
+    from collide2d_tpu_torch.data import balance, schemas
+    from collide2d_tpu_torch.data.pipeline import GenerateConfig
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, Configs
+    from collide2d_tpu_torch.mc.noise import sample_configuration_batch
+    from collide2d_tpu_torch.ops import mc_cuda, mc_moving_polygon_cuda, mc_polygon_cuda, mc_toi_cuda
+    from collide2d_tpu_torch.utils import native
+
+    main = work / "main"
+    cfg = AdaptiveConfig()  # the reference bins and cap: generate's defaults
+    # kernel 1: batch 0 of phase 3's generate (its tables, seed 7)
+    gen = GenerateConfig()
+    poses_t = torch.as_tensor(np.load(main / "poses.npy"), device="cuda")
+    sd_t = torch.as_tensor(np.sqrt(np.load(main / "variances.npy")), device="cuda")
+    k_init, k_mc = prng.split(prng.fold_in(prng.PRNGKey(7), 0))
+    positions, pose_idx, var_idx, pose_cols, sd_rows = sample_configuration_batch(
+        k_init, poses_t, sd_t, num_configs=100_000, r_offset=gen.r_offset,
+        spread=gen.spread)
+    rects = Configs(positions, pose_cols[:, 2], pose_cols[:, 0:2], sd_rows)
+    res = _resume_case("1", k_mc, rects, gen.robot_wh, cfg, work / "resume_1.npz",
+                       _launch_counter(mc_cuda), card)
+    rows = schemas.pack_dataset_rows(positions.cpu().numpy(), res["labels"][0],
+                                     var_idx.cpu().numpy(), pose_idx.cpu().numpy())
+    rows = rows[native.std_shuffle_perm(len(rows), 0)]
+    if rows.tobytes() != np.load(main / "0.npy").tobytes():
+        raise RuntimeError("resume 1: the resumed labels are not phase 3's batch 0")
+
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    _resume_case("7", prng.PRNGKey(11), _polygon_workload(POLY_ROWS, seed=0), robot,
+                 cfg, work / "resume_7.npz", _launch_counter(mc_polygon_cuda), card)
+    _resume_case("13", prng.PRNGKey(7), _moving_rects(TRAJ_ROWS, rotating=False),
+                 ROBOT_WH, cfg, work / "resume_13.npz", _launch_counter(mc_toi_cuda),
+                 card)
+    _resume_case("14", prng.PRNGKey(7), _moving_kgons(TRAJ_ROWS), robot, cfg,
+                 work / "resume_14.npz", _launch_counter(mc_moving_polygon_cuda), card)
+
+    # the pipeline: overlapped generate with per-batch checkpoints and
+    # --resume; a deleted batch is rewritten bitwise, the other skipped
+    t = time.monotonic()
+    d = work / "resume_pipeline"
+    base = ["--device", "cuda", "-n", "2", "-b", "100000", "--seed", "7",
+            "--overlap_batches", "2", "--pose_dir", str(main / "poses.npy"),
+            "--variance_dir", str(main / "variances.npy")]
+    argv = [*base, "--checkpoint_every", "8", "--resume", "--data_dir", str(d)]
+    first, _ = _quiet(_generate, argv)
+    batches = [(d / f"{i}.npy").read_bytes() for i in range(2)]
+    if batches != [(main / f"{i}.npy").read_bytes() for i in range(2)]:
+        raise RuntimeError("resume pipeline: the checkpointed batches are not phase 3's")
+    if list(d.glob("checkpoint_*")):
+        raise RuntimeError("resume pipeline: checkpoints outlived a clean finish")
+    mtime0 = (d / "0.npy").stat().st_mtime_ns
+    (d / "1.npy").unlink()
+    second, _ = _quiet(_generate, argv)
+    if (d / "1.npy").read_bytes() != batches[1]:
+        raise RuntimeError("resume pipeline: the rewritten 1.npy differs")
+    if (d / "0.npy").stat().st_mtime_ns != mtime0 or (d / "0.npy").read_bytes() != batches[0]:
+        raise RuntimeError("resume pipeline: 0.npy was rewritten")
+    if list(d.glob("checkpoint_*")):
+        raise RuntimeError("resume pipeline: checkpoints outlived a clean finish")
+    # the same generate without checkpoints: what the cadence costs
+    control, _ = _quiet(_generate, [*base, "--data_dir", str(work / "resume_control")])
+    _line("8b resume pipeline", time.monotonic() - t, batches=2, batch_size=100_000,
+          overlap_batches=2, checkpoint_every=8,
+          first_label_s=f"{first.label_seconds:.3f}",
+          no_checkpoint_label_s=f"{control.label_seconds:.3f}",
+          rerun_label_s=f"{second.label_seconds:.3f}", rerun_rows=second.rows,
+          batch1_bitwise_equal=True, batch0_untouched=True, equal_to_phase3=True,
+          card=json.dumps(card))
+
+    # balance (host numpy, no plot) over phase 3's batches
+    t = time.monotonic()
+    data = balance.load_data(main)
+    bins = balance.compute_bin_idx(data[:, 2], balance.DEFAULT_BALANCE_BINS)
+    single = balance.balance_single(data, bins)
+    b0, b1 = (np.load(main / f"{i}.npy") for i in range(2))
+    pair = balance.balance(b0, b1, balance.compute_bin_idx(b0[:, 2], balance.DEFAULT_BALANCE_BINS),
+                           balance.compute_bin_idx(b1[:, 2], balance.DEFAULT_BALANCE_BINS))
+    per_bin = [int(m.sum()) for m in bins]
+    if data.shape != (200_000, 5) or len(single) != min(per_bin) * len(bins):
+        raise RuntimeError(f"balance: {data.shape} rows, {len(single)} balanced")
+    _line("8b balance", time.monotonic() - t, rows=len(data),
+          rows_per_bin=json.dumps(per_bin), balanced_rows=len(single),
+          balanced_pair=json.dumps([len(pair[0]), len(pair[1])]))
+
+
+def phase_resume_rotating(work: Path, card: str, base_s: float) -> None:
+    """Phase 16b: the mid-run resume of the rotating cascade (stage A on
+    kernel 15) at phase 16's 8,192 rows and cap; its uninterrupted run is
+    phase 16's ``movelabel`` (the same rows, seed and configuration), whose
+    labels and seconds it reuses."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+    from collide2d_tpu_torch.ops import screen_cuda
+
+    _resume_case("15", prng.PRNGKey(7), _moving_rects(ROT_ROWS, rotating=True), ROBOT_WH,
+                 AdaptiveConfig(max_samples=ROT_CAP), work / "resume_15.npz",
+                 _launch_counter(screen_cuda), card,
+                 base=_labels(work / "movelabels_rot.npz"), base_s=base_s)
 
 
 def _polygon_workload(n: int, seed: int = 0):
@@ -1907,6 +2122,7 @@ def phase_movelabel_rects(work: Path) -> dict:
     if counts["15"] <= 0 or counts["13"] != 0:
         raise RuntimeError(f"rotating movelabel (auto) launched {counts}")
     launches["15"] = counts["15"]
+    launches["rotating_call_s"] = rot_s
     labels = _labels(rot_out)
     _check_labels("rotating movelabel", labels, ROT_ROWS, ROT_CAP)
     t_api = time.monotonic()
@@ -2926,6 +3142,7 @@ def main() -> int:
         sat = phase_sat()
         phase_relabel(work)
         phase_prune_opt(work)
+        phase_resume(work, card)
         poly_sat = phase_polygon_sat()
         poly_mc = phase_mc_polygon()
         poly_mc["launches"] = phase_polylabel(work)
@@ -2939,6 +3156,7 @@ def main() -> int:
           rotating_kernel_ms=f"{rotating['ms']:.4f}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         traj_launches = phase_movelabel_rects(Path(tmp))
+        phase_resume_rotating(Path(tmp), card, traj_launches["rotating_call_s"])
         moving_poly = phase_mc_moving_polygon(Path(tmp))
     screen = phase_screen()
     raycast = phase_raycast()

@@ -7,14 +7,18 @@
     collide2d-torch polylabel ...  # adaptive labels of convex k-gon configurations
     collide2d-torch movelabel ...  # adaptive labels of trajectories (moving robots)
     collide2d-torch bench     ...  # throughput benchmarks (utils/benchmarks.py)
+    collide2d-torch balance   ...  # balance datasets across cp bins (balance_datasets.py)
+    collide2d-torch show      ...  # contour plot of one (var, pose) slice (show_data.ipynb)
 
 Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
 after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
 plus ``--device`` (default ``cuda``). ``--impl`` takes ``auto`` (= the
 fused kernel, ``cuda``), ``cuda`` or ``threefry`` (the per-draw reference
-path). Flags of features this port does not have yet are still parsed,
-so that using one fails with an error that names it instead of being
-silently ignored.
+path). Flags of features this port does not have yet (``--data_parallel``,
+``--sample_parallel``, ``--trace_dir``) are still parsed, so that using
+one fails with an error that names it instead of being silently ignored.
+A negative ``--checkpoint_every`` is an error (the JAX package reads it
+as "every group").
 """
 
 from __future__ import annotations
@@ -44,7 +48,14 @@ def _bool_flag(value: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {value!r}")
 
 
-def _add_common(p: argparse.ArgumentParser) -> None:
+def _checkpoint_every(value: str) -> int:
+    n = int(value)
+    if n < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {n}")
+    return n
+
+
+def _add_common(p: argparse.ArgumentParser, checkpoint_help: str) -> None:
     """Flags shared by generate, relabel and ztest, ported or rejected."""
     p.add_argument("--schedule", default="reference",
                    choices=["reference", "tuned", "opt"],
@@ -66,9 +77,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=["auto", "cuda", "threefry"], help=_IMPL_HELP)
     p.add_argument("--device", default="cuda",
                    help="torch device the tables and labeling run on")
-    p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="mid-run checkpoints; not ported yet: only 0 is "
-                        "accepted")
+    p.add_argument("--checkpoint_every", type=_checkpoint_every, default=0,
+                   help=checkpoint_help)
     p.add_argument("--trace_dir", default="",
                    help="profiler trace capture; not ported yet")
     p.add_argument("--verbose", type=_bool_flag, default=True,
@@ -78,16 +88,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def _reject_unported(parser: argparse.ArgumentParser,
                      args: argparse.Namespace) -> None:
     """Fail loudly on every flag whose feature the port lacks."""
-    if args.checkpoint_every != 0:
-        parser.error("--checkpoint_every other than 0 is not supported by "
-                     "collide2d-torch yet")
     if getattr(args, "trace_dir", ""):
         parser.error("--trace_dir is not supported by collide2d-torch yet")
-    for flag in ("resume", "data_parallel"):
-        if getattr(args, flag, False):
-            parser.error(f"--{flag} is not supported by collide2d-torch yet")
+    if getattr(args, "data_parallel", False):
+        parser.error("--data_parallel is not supported by collide2d-torch yet")
     if getattr(args, "sample_parallel", 0):
         parser.error("--sample_parallel is not supported by collide2d-torch yet")
+
+
+_BATCH_CHECKPOINT_HELP = "rounds between mid-batch checkpoints (0 = off)"
 
 
 def _schedule_arg(args: argparse.Namespace):
@@ -137,14 +146,16 @@ def _add_generate(sub) -> None:
                    help="bit-identical libstdc++ pose/variance table sampling")
     p.add_argument("--no_shuffle", action="store_true")
     p.add_argument("--resume", action="store_true",
-                   help="resume from checkpoints; not ported yet")
+                   help="skip existing batch files and resume mid-batch from "
+                        "data_dir/checkpoint_{batch}.npz (one per in-flight "
+                        "pipelined batch; requires a fixed --seed)")
     p.add_argument("--data_parallel", action="store_true",
                    help="multi-device runs; not ported yet")
     p.add_argument("--overlap_batches", type=int, default=d.overlap_batches,
                    help="cross-batch pipelining depth: batch i+1's rounds "
                         "interleave with batch i's convergence tail; "
                         "outputs are bitwise-identical across all depths")
-    _add_common(p)
+    _add_common(p, _BATCH_CHECKPOINT_HELP)
     p.set_defaults(func=_run_generate)
 
 
@@ -174,6 +185,8 @@ def generate_config(args: argparse.Namespace) -> GenerateConfig:
         refcompat_tables=args.refcompat_tables,
         shuffle=not args.no_shuffle,
         overlap_batches=args.overlap_batches,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
         schedule=_schedule_arg(args),
         prune_sigma=args.prune_sigma,
         verbose=args.verbose,
@@ -207,11 +220,15 @@ def _add_relabel(sub) -> None:
     p.add_argument("--sample_parallel", type=int, default=0,
                    help="multi-device sample sharding; not ported yet")
     p.add_argument("--resume", action="store_true",
-                   help="resume from checkpoints; not ported yet")
+                   help="skip already-written output batches and resume "
+                        "mid-batch from per-batch checkpoint files "
+                        "(requires a fixed --seed; the first run's "
+                        "output-numbering window is pinned so a rerun "
+                        "never appends a second copy)")
     p.add_argument("--overlap_batches", type=int, default=d.overlap_batches,
                    help="cross-batch pipelining depth (see generate "
                         "--overlap_batches); outputs do not depend on it")
-    _add_common(p)
+    _add_common(p, _BATCH_CHECKPOINT_HELP)
     p.set_defaults(func=_run_relabel)
 
 
@@ -231,6 +248,8 @@ def relabel_config(args: argparse.Namespace) -> RelabelConfig:
         prune_sigma=args.prune_sigma,
         ladder=args.ladder,
         overlap_batches=args.overlap_batches,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
         device=args.device,
     )
 
@@ -261,7 +280,9 @@ def _add_ztest(sub) -> None:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--sample_parallel", type=int, default=0,
                    help="multi-device sample sharding; not ported yet")
-    _add_common(p)
+    _add_common(p, "rounds between mid-run checkpoints to "
+                   "data_dir/ztest_checkpoint.npz (0 = off; a rerun with the "
+                   "same --seed auto-resumes from it)")
     p.set_defaults(func=_run_ztest)
 
 
@@ -283,6 +304,7 @@ def _run_ztest(args: argparse.Namespace) -> int:
         schedule=_schedule_arg(args),
         prune_sigma=args.prune_sigma,
         ladder=args.ladder,
+        checkpoint_every=args.checkpoint_every,
         device=args.device,
     ))
     return 0
@@ -346,9 +368,10 @@ def _add_label_flags(p: argparse.ArgumentParser, impl_help: str = _IMPL_HELP) ->
                    help="multi-device runs; not ported yet")
     p.add_argument("--sample_parallel", type=int, default=0,
                    help="multi-device sample sharding; not ported yet")
-    p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="mid-run checkpoints; not ported yet: only 0 is "
-                        "accepted")
+    p.add_argument("--checkpoint_every", type=_checkpoint_every, default=0,
+                   help="rounds between mid-run checkpoints to "
+                        "<data_out>.checkpoint.npz (0 = off; a rerun with "
+                        "the same --seed auto-resumes from it)")
     p.add_argument("--verbose", type=_bool_flag, default=False)
 
 
@@ -380,7 +403,10 @@ def _label(name: str, args: argparse.Namespace, configs, robot, **cfg_extra):
             print(f"[{name}] round {round}: left={num_left} "
                   f"n_samples={n_samples}", flush=True)
     cp, n_used, done = adaptive_collision_probabilities(
-        prng.PRNGKey(seed), configs, robot, cfg, progress=progress)
+        prng.PRNGKey(seed), configs, robot, cfg, progress=progress,
+        checkpoint_path=(args.data_out + ".checkpoint.npz"
+                         if args.checkpoint_every else None),
+        checkpoint_every=args.checkpoint_every)
     np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
     return done
 
@@ -513,6 +539,69 @@ def _run_bench(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_balance(sub) -> None:
+    p = sub.add_parser("balance", help="balance datasets across cp bins / plot histogram")
+    p.add_argument("data_dirs", nargs="+", help="one or two dataset directories")
+    p.add_argument("--bins", type=float, nargs="+",
+                   default=[0.0, 0.001, 0.01, 0.1, 1.0])
+    p.add_argument("--out", default=None, help="save balanced dataset(s) to .npy")
+    p.add_argument("--hist", default="hist.svg", help="histogram output path")
+    p.set_defaults(func=_run_balance)
+
+
+def _run_balance(args: argparse.Namespace) -> int:
+    import numpy as np
+
+    from collide2d_tpu_torch.data import balance as bal
+
+    datasets = [bal.load_data(d) for d in args.data_dirs]
+    bal.plot_histogram(datasets[0], np.asarray(args.bins), args.hist)
+    print(f"histogram -> {args.hist}")
+    if len(datasets) == 2:
+        bins0 = bal.compute_bin_idx(datasets[0][:, 2], args.bins)
+        bins1 = bal.compute_bin_idx(datasets[1][:, 2], args.bins)
+        b0, b1 = bal.balance(datasets[0], datasets[1], bins0, bins1)
+        print(f"balanced sizes: {b0.shape} {b1.shape}")
+        if args.out:
+            np.save(args.out + "_0.npy", b0)
+            np.save(args.out + "_1.npy", b1)
+            print(f"saved {args.out}_0.npy {args.out}_1.npy")
+    elif args.out:
+        bins0 = bal.compute_bin_idx(datasets[0][:, 2], args.bins)
+        np.save(args.out, bal.balance_single(datasets[0], bins0))
+        print(f"saved {args.out}")
+    return 0
+
+
+def _add_show(sub) -> None:
+    p = sub.add_parser("show", help="contour-plot cp(x,y) for one (var,pose) slice")
+    p.add_argument("data_file", help="a labeled batch .npy file")
+    p.add_argument("--var_idx", type=float, default=0)
+    p.add_argument("--pose_idx", type=float, default=0)
+    p.add_argument("--out", default="contour.png")
+    p.set_defaults(func=_run_show)
+
+
+def _run_show(args: argparse.Namespace) -> int:
+    import numpy as np
+
+    from collide2d_tpu_torch.data import visualize as viz
+
+    data = np.load(args.data_file)
+    x, y, z = viz.get_data_for_specific_var_and_pos(data, args.var_idx, args.pose_idx)
+    if len(z) < 4:
+        print(
+            f"only {len(z)} rows for (var_idx={args.var_idx}, "
+            f"pose_idx={args.pose_idx}); need >= 4 for interpolation. "
+            "Generate with small --num_poses/--num_variances to densify slices.",
+            file=sys.stderr,
+        )
+        return 1
+    viz.plot_contour(x, y, z, args.out)
+    print(f"contour -> {args.out}")
+    return 0
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse a command line; flags of unported features exit with an
     error that names them."""
@@ -520,7 +609,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         prog="collide2d-torch",
         description="2D convex collision engine on PyTorch/CUDA "
                     "(dataset generation / relabeling / validation / "
-                    "k-gon and trajectory labeling / benchmarks)",
+                    "k-gon and trajectory labeling / benchmarks / "
+                    "balancing and plots)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
@@ -530,6 +620,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     _add_polylabel(sub)
     _add_movelabel(sub)
     _add_bench(sub)
+    _add_balance(sub)
+    _add_show(sub)
     args = parser.parse_args(argv)
     if args.command in ("generate", "relabel", "ztest", "polylabel", "movelabel"):
         _reject_unported(parser, args)

@@ -10,6 +10,9 @@ Counterpart of ``collide2d_tpu/data/pipeline.py``:
 collision probabilities once and places the convergence checkpoints by
 `mc.schedule_sim.optimize_checkpoints`; ``prune_sigma > 0`` labels rows
 that cannot touch cp = 0 without sampling. Neither is in the reference.
+``checkpoint_every`` writes each batch's loop state every that many
+rounds (``checkpoint_{batch}.npz``; ztest: ``ztest_checkpoint.npz``), and
+``resume`` skips written batches and resumes mid-batch from those files.
 
 Tables (``poses.npy``, ``variances.npy``, ``meta/``) and batch files keep
 the JAX package's byte layout, so either package reads the other's
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
 import time
 from dataclasses import dataclass
@@ -93,6 +97,11 @@ class GenerateConfig:
     # Cross-batch pipelining depth: up to this many batches labeled in
     # flight; outputs do not depend on it.
     overlap_batches: int = 3
+    checkpoint_every: int = 0  # rounds between mid-batch checkpoints (0 = off)
+    # Skip batches whose files exist and resume mid-batch from
+    # checkpoint_{abs_batch}.npz, one per in-flight batch (needs a fixed
+    # seed, so the keys reproduce).
+    resume: bool = False
     device: str = "cuda"
 
     @property
@@ -124,6 +133,12 @@ class RelabelConfig:
     prune_sigma: float = 0.0
     ladder: str = "eighth"
     overlap_batches: int = 3  # as GenerateConfig.overlap_batches
+    checkpoint_every: int = 0  # rounds between mid-batch checkpoints (0 = off)
+    # Skip output batches already written and resume mid-batch from
+    # checkpoint_{abs_batch}.npz (needs a fixed seed); the first run's
+    # output numbering is pinned by a .relabel_start marker, so a rerun
+    # continues the same window instead of appending again.
+    resume: bool = False
     device: str = "cuda"
 
     @property
@@ -152,6 +167,9 @@ class ZTestConfig:
     schedule: object = None  # None = fixed n_batch | "tuned" | tuple
     prune_sigma: float = 0.0
     ladder: str = "eighth"
+    # Mid-run checkpoints every N rounds to data_dir/ztest_checkpoint.npz;
+    # a rerun with the same seed resumes from it.
+    checkpoint_every: int = 0
     device: str = "cuda"
 
     @property
@@ -273,7 +291,8 @@ def _opt_schedule(cfg, key, probe: Configs, accuracy_bins,
 
 
 def _label_batch(key, positions, pose_idx, var_idx, poses, std_devs, robot_wh,
-                 adaptive: AdaptiveConfig, device, progress=None) -> np.ndarray:
+                 adaptive: AdaptiveConfig, device, progress=None,
+                 checkpoint_path=None, checkpoint_every: int = 0) -> np.ndarray:
     """Label one batch (ztest's core): host gather of the table rows, one
     adaptive run on ``device``, rows back in INPUT order."""
     pose_idx = np.asarray(pose_idx, np.int64)
@@ -293,6 +312,7 @@ def _label_batch(key, positions, pose_idx, var_idx, poses, std_devs, robot_wh,
     )
     cp, _, _ = adaptive_collision_probabilities(
         key, configs, robot_wh, adaptive, progress=progress,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
     )
     return schemas.pack_dataset_rows(positions, cp, var_idx, pose_idx)
 
@@ -303,6 +323,25 @@ def _shuffle_rows(rows: np.ndarray, enabled: bool) -> np.ndarray:
     if not enabled:
         return rows
     return rows[native.std_shuffle_perm(len(rows), 0)]
+
+
+def _pending_batches(cfg, num_batches: int, target_of) -> list[int]:
+    """Batch indices still to label (``resume`` skips existing outputs)."""
+    pending = []
+    for batch_index in range(num_batches):
+        target = target_of(batch_index)
+        if cfg.resume and target.exists():
+            _log(cfg, f"resume: skipping existing {target.name}")
+            continue
+        pending.append(batch_index)
+    return pending
+
+
+def _checkpoint_path(cfg, directory: Path, abs_index: int):
+    """One checkpoint file per in-flight batch, named by its absolute
+    index (batch counts read numeric names only, and balance skips
+    checkpoint*), or None when checkpoints are off."""
+    return directory / f"checkpoint_{abs_index}.npz" if cfg.checkpoint_every else None
 
 
 class GenerateStats(NamedTuple):
@@ -412,7 +451,11 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
     _log(cfg, "Begin computation...")
     begin = time.monotonic()
     overlap = max(1, int(cfg.overlap_batches or 1))
-    progress_state = {"done": 0, "samples_used": 0, "slots": 0, "rows": 0}
+    pending = _pending_batches(
+        cfg, cfg.num_batches,
+        lambda i: batch_path(data_dir, cfg.start_batch_count + i))
+    progress_state = {"done": cfg.num_batches - len(pending), "samples_used": 0,
+                      "slots": 0, "rows": 0}
 
     def _start(batch_index: int):
         abs_index = cfg.start_batch_count + batch_index
@@ -432,6 +475,8 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
         run = AdaptiveRun(
             k_mc, configs, cfg.robot_wh, adaptive,
             progress=_progress_logger(cfg, cfg.batch_size),
+            checkpoint_path=_checkpoint_path(cfg, data_dir, abs_index),
+            checkpoint_every=cfg.checkpoint_every,
         )
         # The host needs positions/indices only at pack time: start the
         # copies now, off the critical path.
@@ -445,7 +490,7 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
 
     with native.AsyncNpyWriter() as writer:
         run_interleaved(
-            [functools.partial(_start, i) for i in range(cfg.num_batches)],
+            [functools.partial(_start, i) for i in pending],
             overlap,
             _interleaved_finish(cfg, writer, progress_state,
                                 cfg.num_batches, begin),
@@ -468,6 +513,31 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
 # ---------------------------------------------------------------------------
 
 
+def _pinned_start(cfg: RelabelConfig, marker: Path, start_batch_count: int,
+                  num_batches: int) -> int:
+    """The output numbering of a ``resume`` run: the window that the
+    ``.relabel_start`` marker pins when it carries this run's identity
+    (input directory, seed, batch count); otherwise a new marker pins
+    ``start_batch_count``. A marker left by another run, or an unreadable
+    one, is overwritten: pinning its window would skip this run's batches
+    as already written."""
+    if cfg.seed is None:
+        raise ValueError("relabel resume needs a fixed seed (the batch keys "
+                         "must reproduce)")
+    identity = {"data_in": str(Path(cfg.data_in).resolve()),
+                "seed": int(cfg.seed), "num_batches": int(num_batches)}
+    if marker.exists():
+        try:
+            saved = json.loads(marker.read_text())
+            if (isinstance(saved, dict)
+                    and {k: saved.get(k) for k in identity} == identity):
+                return int(saved["start"])
+        except (ValueError, KeyError, OSError):
+            pass
+    marker.write_text(json.dumps({"start": start_batch_count, **identity}))
+    return start_batch_count
+
+
 def relabel_dataset(cfg: RelabelConfig) -> GenerateStats:
     """Relabel every (N, 4) batch of ``data_in`` into ``data_out``: rows
     keep their input order (before the optional shuffle), batch ``i``
@@ -480,6 +550,10 @@ def relabel_dataset(cfg: RelabelConfig) -> GenerateStats:
     data_out = mkdirs(cfg.data_out)
     start_batch_count = get_num_batches_in_dir(data_out)
     num_batches = get_num_batches_in_dir(data_in)
+    marker = data_out / ".relabel_start"
+    if cfg.resume:
+        start_batch_count = _pinned_start(cfg, marker, start_batch_count,
+                                          num_batches)
 
     _log(cfg, "Reading data...")
     poses = schemas.validate_poses(load_npy(data_out / "poses.npy"))
@@ -524,26 +598,33 @@ def relabel_dataset(cfg: RelabelConfig) -> GenerateStats:
         positions, var_idx, pose_idx = read_batch(batch_index)
         configs = _batch_configs(positions, pose_idx, var_idx, poses_t,
                                  std_devs_t)
+        abs_index = start_batch_count + batch_index
         run = AdaptiveRun(
             prng.fold_in(key, batch_index), configs, cfg.robot_wh, adaptive,
             progress=_progress_logger(cfg, len(positions)),
+            checkpoint_path=_checkpoint_path(cfg, data_out, abs_index),
+            checkpoint_every=cfg.checkpoint_every,
         )
-        tag = dict(target=batch_path(data_out, start_batch_count + batch_index),
+        tag = dict(target=batch_path(data_out, abs_index),
                    positions=positions, pose_idx=pose_idx, var_idx=var_idx)
         return tag, run
 
+    pending = _pending_batches(
+        cfg, num_batches, lambda i: batch_path(data_out, start_batch_count + i))
     _log(cfg, "Begin computation...")
     begin = time.monotonic()
-    state = {"done": 0, "samples_used": 0, "slots": 0, "rows": 0}
+    state = {"done": num_batches - len(pending), "samples_used": 0, "slots": 0,
+             "rows": 0}
     with native.AsyncNpyWriter() as writer:
         run_interleaved(
-            [functools.partial(_start, i) for i in range(num_batches)],
+            [functools.partial(_start, i) for i in pending],
             max(1, int(cfg.overlap_batches or 1)),
             _interleaved_finish(cfg, writer, state, num_batches, begin),
         )
         errors = writer.flush()
         if errors:
             raise IOError(f"{errors} batch file(s) failed to write")
+    marker.unlink(missing_ok=True)  # a clean finish: the next relabel appends
     _log(cfg, "Finished computation")
     return GenerateStats(
         setup_seconds=begin - t_setup,
@@ -619,6 +700,9 @@ def ztest(cfg: ZTestConfig) -> np.ndarray:
         _master_key(cfg.seed), positions, pose_idx, var_idx, poses, std_devs,
         cfg.robot_wh, adaptive, torch.device(cfg.device),
         progress=_progress_logger(cfg, len(positions)),
+        checkpoint_path=(data_dir / "ztest_checkpoint.npz"
+                         if cfg.checkpoint_every else None),
+        checkpoint_every=cfg.checkpoint_every,
     )
     out = rows[:, 2].copy() if cfg.cps_only else rows  # ztest.cu:391-396
     if cfg.shuffle:

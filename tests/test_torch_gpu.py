@@ -841,6 +841,64 @@ def test_movelabel_on_cuda_launches_the_trajectory_kernels(cuda, tmp_path):
             assert np.isfinite(d["cp"]).all() and 0 < d["cp"].mean() < 1
 
 
+# Checkpoint / resume on the fused Monte Carlo kernels: a run interrupted
+# from its progress hook and resumed from its checkpoint writes labels
+# bitwise equal to an uninterrupted run (the Philox streams are keyed by
+# seed, uid and sample index), and the resume starts past the checkpoint.
+class _Stop(Exception):
+    pass
+
+
+def _resume_case(cuda, kernel):
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda, mc_toi_cuda
+
+    c = 4096
+    if kernel == "1":
+        rng = np.random.default_rng(41)
+        sd = rng.uniform(0, 0.3, (c, 5)).astype(np.float32)
+        sd[:, 3:] = 0.0
+        cfg = (rng.uniform(-6, 6, (c, 2)), rng.uniform(0, 2 * np.pi, c),
+               rng.uniform(0.5, 5, (c, 2)), sd)
+        return configs_from_numpy(cfg, cuda), ROBOT, mc_cuda
+    if kernel == "7":
+        return example_polygon_configs(c, k=8, seed=42, device=cuda), ROBOT_4GON, \
+            mc_polygon_cuda
+    if kernel == "13":
+        return _moving_rects(cuda, c, 43, rotating_share=0.0), ROBOT, mc_toi_cuda
+    return _moving_polygons(cuda, c, 44, k=8)[1], ROBOT_4GON, mc_moving_polygon_cuda
+
+
+@pytest.mark.parametrize("kernel", ["1", "7", "13", "14"])
+def test_resume_is_bitwise_on_the_fused_kernels(cuda, tmp_path, kernel):
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities as acp
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+
+    configs, robot, mod = _resume_case(cuda, kernel)
+    cfg, key = AdaptiveConfig(max_samples=200_000), prng.PRNGKey(9)
+    base = acp(key, configs, robot, cfg)
+    ckpt = tmp_path / "ckpt.npz"
+
+    def bomb(*, round, **kw):
+        if round >= 3:
+            raise _Stop
+
+    with pytest.raises(_Stop):
+        acp(key, configs, robot, cfg, progress=bomb, checkpoint_path=str(ckpt),
+            checkpoint_every=1)
+    with np.load(ckpt) as z:
+        n_saved = int(z["n_samples"])
+    mod.reset_launches()
+    seen = []
+    out = acp(key, configs, robot, cfg, checkpoint_path=str(ckpt), checkpoint_every=1,
+              progress=lambda **kw: seen.append(kw["n_samples"]))
+    assert mod.LAUNCHES > 0
+    assert n_saved > 0 and min(seen) > n_saved
+    for got, want in zip(out, base):
+        np.testing.assert_array_equal(got, want)
+    assert 0 < base[0].mean() < 1 and not ckpt.exists()
+
+
 # Kernel 11 (scene raycast): bitwise its plain version (the same separately
 # rounded products and sums, IEEE division).
 @pytest.mark.parametrize("n_shapes,k,tile,t_max", [

@@ -243,7 +243,6 @@ def test_polygon_model_trajectory_entry_points_match_jax():
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--checkpoint_every", "2"], "--checkpoint_every"),
     (["--data_parallel"], "--data_parallel"),
     (["--sample_parallel", "2"], "--sample_parallel"),
     (["--schedule", "opt"], "--schedule"),

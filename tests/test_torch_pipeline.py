@@ -141,15 +141,15 @@ def test_ztest_and_compare_end_to_end(port_default, tmp_path, capsys):
 
 def test_import_leaves_jax_out():
     code = ("import sys, collide2d_tpu_torch, collide2d_tpu_torch.cli, "
-            "collide2d_tpu_torch.ops.mc_cuda, collide2d_tpu_torch.data.pipeline; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "collide2d_tpu_torch.ops.mc_cuda, collide2d_tpu_torch.data.pipeline, "
+            "collide2d_tpu_torch.data.balance, collide2d_tpu_torch.data.visualize; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'collide2d_tpu' not in sys.modules, 'collide2d_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 @pytest.mark.parametrize("flags,name", [
     (["--data_parallel"], "--data_parallel"),
-    (["--checkpoint_every", "4"], "--checkpoint_every"),
-    (["--resume"], "--resume"),
     (["--trace_dir", "t"], "--trace_dir"),
 ])
 def test_unported_generate_flags_fail_loudly(tmp_path, capsys, flags, name):

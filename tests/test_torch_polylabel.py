@@ -170,7 +170,6 @@ def test_from_padded_matches_jax_and_validates():
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--checkpoint_every", "2"], "--checkpoint_every"),
     (["--checkpoint_every", "-1"], "--checkpoint_every"),
     (["--data_parallel"], "--data_parallel"),
     (["--sample_parallel", "2"], "--sample_parallel"),

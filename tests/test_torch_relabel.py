@@ -281,8 +281,6 @@ def test_ztest_rejects_opt_schedule(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--resume"], "--resume"),
-    (["--checkpoint_every", "4"], "--checkpoint_every"),
     (["--trace_dir", "t"], "--trace_dir"),
     (["--data_parallel"], "--data_parallel"),
     (["--sample_parallel", "2"], "--sample_parallel"),
