@@ -75,6 +75,27 @@ raises, and the script then exits non-zero without printing a result):
    it byte for byte and leaves batch 0 untouched (beside it the label
    seconds of the same call without checkpoints); and `data.balance` over
    phase 3's batches (no plot);
+8c. the learned model on phase 3's 2 x 100,000 rows (nothing generated
+   anew): `models.learned.load_training_data` on the card launches kernel
+   8 (the signed-distance feature); ``collide2d-torch train --device
+   cuda`` at `TrainConfig`'s full width (hidden 256 x 3, batch 8,192,
+   bfloat16, 10 epochs) with each epoch's loss, seconds and rows/s; the
+   last epoch's loss below 0.8 x the first's, the validation MAE below 0.7
+   x the constant-mean predictor's (the JAX test's bar), beside the
+   validation BCE and the per-bin MAE; the saved model's cps on the card
+   equal the trained one's bit for bit; ``collide2d-torch predict`` on
+   batch 1 and `compare_labels` against its Monte Carlo labels (mean |d|,
+   share within +-0.01, ``compare``'s exit code printed, not gated);
+   `cp_from_configs` at 2^20 configurations of phase 3's tables
+   (configs/s); kernel 8's launches on that path > 0. Then featurize's ms
+   (host clock, synchronised), kernel 8's ms at its 204,800 padded pairs
+   beside its bound, the card's features against their plain versions
+   (columns 0-10 and the distance on the card's tensors bit for bit;
+   against the CPU's, the distance within 1 ulp and the margin bitwise
+   where the distance is, else within 2 ulp), and a full-width epoch
+   with the tensor-core product against the float32 product of bfloat16
+   operands, and `cp_from_configs` at 2^20 under each (CUDA events, in
+   turns a, b, b, a);
 9. the k-gon SAT kernel: `PolygonCollisionProbabilityModel.collide` and
    `CollisionProbabilityModel.collide_polygons` on 2^20 configurations of
    the polylabel workload (plain, bf16, ``broad_phase=True`` and
@@ -213,8 +234,8 @@ raises, and the script then exits non-zero without printing a result):
    ``python -m collide2d_tpu_torch.bench`` (kernel 16, the
    streaming-bandwidth probe, and torch's reduction, then kernel 3 at 2^23
    pairs x 100 calls: ``bandwidth_check`` ok), then every leg of
-   ``run_all(device="cuda")`` (``collide2d-torch bench``): finite positive
-   values, the swept query's certificate false; kernels 1, 3, 6, 7, 10, 11
+   ``run_all(device="cuda")`` (``collide2d-torch bench``; the learned
+   model's training leg among them): finite positive values, the swept query's certificate false; kernels 1, 3, 6, 7, 10, 11
    and 16 launched. Then kernel 16 against its plain version on the
    probe's 2^23 pairs: within 1e-5 x (sum|r1| * s + sum|r2|), and two
    launches bitwise equal; kernel ms, plain ms and the library call's ms
@@ -950,6 +971,202 @@ def phase_resume(work: Path, card: str) -> None:
     _line("8b balance", time.monotonic() - t, rows=len(data),
           rows_per_bin=json.dumps(per_bin), balanced_rows=len(single),
           balanced_pair=json.dumps([len(pair[0]), len(pair[1])]))
+
+
+LEARNED_CONFIGS = 1 << 20  # cp_from_configs' timing batch
+
+
+def _learned_feature_check(learned, distance_cuda, positions, var_idx, pose_idx,
+                           poses, std, got: np.ndarray) -> dict:
+    """The card's features against their plain versions on the same rows:
+    columns 0-10 and the plain distance on the card's own tensors bit for
+    bit; against the CPU's plain version the distance within 1 ulp (torch's
+    CPU sqrt misrounds a fraction of a percent of inputs) and the margin
+    bitwise wherever the distance is, else within 2 ulp."""
+    cpu = learned.featurize(positions, var_idx, pose_idx, poses, std, device="cpu")
+    t = torch.from_numpy(got).to("cuda")
+    x = t[:, 0]
+    rw, rh = (float(np.float32(v * 0.5)) for v in learned.ROBOT_WH)
+    plain = distance_cuda.obb_signed_distance_tile(
+        0.0 - x, 0.0 - t[:, 1], t[:, 4], t[:, 5], torch.full_like(x, rw),
+        torch.full_like(x, rh), torch.ones_like(x), torch.zeros_like(x),
+        t[:, 2].abs() * 0.5, t[:, 3].abs() * 0.5)
+    ulps = np.abs(got[:, 11:].view(np.int32).astype(np.int64)
+                  - cpu[:, 11:].view(np.int32).astype(np.int64))
+    check = {"table_cols_equal": bool(np.array_equal(got[:, :11], cpu[:, :11])),
+             "distance_differ_card_plain": int((plain != t[:, 11]).sum()),
+             "distance_max_ulp_vs_cpu": int(ulps[:, 0].max()),
+             "margin_max_ulp_vs_cpu": int(ulps[:, 1].max()),
+             "margin_differ_where_distance_equal": int((ulps[ulps[:, 0] == 0, 1] > 0).sum()),
+             "rows_differ_cpu": int((ulps > 0).any(axis=1).sum())}
+    if (not check["table_cols_equal"] or check["distance_differ_card_plain"]
+            or check["distance_max_ulp_vs_cpu"] > 1 or check["margin_max_ulp_vs_cpu"] > 2
+            or check["margin_differ_where_distance_equal"]):
+        raise RuntimeError(f"learned features: the card's differ from the plain version: {check}")
+    return check
+
+
+def phase_learned(work: Path, card: str) -> int:
+    """Phase 8c: the learned model on phase 3's two batches; returns kernel
+    8's launches on its main path (featurize, train, predict,
+    cp_from_configs)."""
+    from collide2d_tpu_torch import cli
+    from collide2d_tpu_torch.data import balance, schemas
+    from collide2d_tpu_torch.data.validate import compare_labels
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import Configs
+    from collide2d_tpu_torch.models import learned
+    from collide2d_tpu_torch.ops import distance_cuda
+
+    main = work / "main"
+    t0 = t = time.monotonic()
+    distance_cuda.reset_launches()
+    feats, labels = learned.load_training_data(main, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t
+    load_launches = distance_cuda.LAUNCHES["obb_distance"]
+    if load_launches <= 0:
+        raise RuntimeError("load_training_data never launched kernel 8")
+
+    # train at TrainConfig's full width through the CLI, each epoch timed
+    # (the wrapper's sync stands where train_model syncs anyway)
+    epochs, results = [], []
+    run_epoch, save_model = learned.run_epoch, learned.save_model
+
+    def timed_epoch(*args, **kwargs):
+        t0 = time.monotonic()
+        loss = run_epoch(*args, **kwargs)
+        torch.cuda.synchronize()
+        epochs.append((time.monotonic() - t0, float(loss)))
+        return loss
+
+    def kept_save(path, result, cfg):
+        results.append((result, cfg))
+        return save_model(path, result, cfg)
+
+    # torch.optim's first AdamW imports torch._dynamo: once a process
+    t = time.monotonic()
+    learned.adamw(learned.MLP((1,), device="cuda"), 1e-3, 1e-4)
+    adamw_first_s = time.monotonic() - t
+    model_path = work / "learned_model.npz"
+    learned.run_epoch, learned.save_model = timed_epoch, kept_save
+    try:
+        t = time.monotonic()
+        _, train_out = _quiet(cli.main, ["train", "--data_dir", str(main), "--out",
+                                         str(model_path), "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t
+    finally:
+        learned.run_epoch, learned.save_model = run_epoch, save_model
+    (result, cfg), = results
+    steps = (len(labels) - int(len(labels) * cfg.val_fraction)) // cfg.batch_size
+    for i, (sec, loss) in enumerate(epochs):
+        _line("8c learned epoch", sec, epoch=i + 1, loss=f"{loss:.6f}",
+              rows_per_s=f"{steps * cfg.batch_size / sec:.1f}")
+    history = [loss for _, loss in epochs]
+    if history != result.history or not history[-1] < 0.8 * history[0]:
+        raise RuntimeError(f"learned: the loss did not fall below 0.8 x the first "
+                           f"epoch's: {history}")
+    mean_mae = float(np.mean(np.abs(labels - labels.mean())))
+    if not result.val_mae < 0.7 * mean_mae:
+        raise RuntimeError(f"learned: validation MAE {result.val_mae} not below 0.7 x "
+                           f"the constant-mean predictor's {mean_mae}")
+
+    # save / load on the card: identical cps
+    direct = learned.LearnedCollisionModel(result.params, result.norm_mean,
+                                           result.norm_std, cfg.compute_dtype, device="cuda")
+    loaded = learned.LearnedCollisionModel.load(model_path, device="cuda")
+    head = feats[:65_536]
+    if not torch.equal(direct.cp_from_features(head), loaded.cp_from_features(head)):
+        raise RuntimeError("learned: the saved model's cps differ from the trained one's")
+
+    # predict batch 1 through the CLI; compare with its Monte Carlo labels
+    t = time.monotonic()
+    pred = work / "learned_cps.npy"
+    _quiet(cli.main, ["predict", "--model", str(model_path), "--data_in",
+                      str(main / "1.npy"), "--data_dir", str(main), "--out", str(pred),
+                      "--device", "cuda"])
+    predict_s = time.monotonic() - t
+    cps, rows1 = np.load(pred), np.load(main / "1.npy")
+    if cps.shape != (len(rows1),) or not (np.isfinite(cps).all() and (cps >= 0).all()
+                                          and (cps <= 1).all()):
+        raise RuntimeError(f"learned predict: cps {cps.shape} not finite in [0, 1]")
+    report = compare_labels(rows1, cps, tolerance=0.01)
+    compare_rc = _quiet(cli.main, ["compare", str(main / "1.npy"), str(pred),
+                                   "--tolerance", "0.01"])[0]
+
+    # cp_from_configs at 2^20 configurations of phase 3's tables
+    poses = np.load(main / "poses.npy")
+    std = np.sqrt(np.load(main / "variances.npy")).astype(np.float32)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    pi = torch.randint(0, len(poses), (LEARNED_CONFIGS,), device="cuda", generator=g)
+    vi = torch.randint(0, len(std), (LEARNED_CONFIGS,), device="cuda", generator=g)
+    poses_t, std_t = torch.as_tensor(poses, device="cuda"), torch.as_tensor(std, device="cuda")
+    configs = Configs(torch.rand(LEARNED_CONFIGS, 2, device="cuda", generator=g) * 16 - 8,
+                      poses_t[pi, 2], poses_t[pi, 0:2], std_t[vi])
+    surrogate = loaded.cp_from_configs(configs)
+    torch.cuda.synchronize()
+    launches = distance_cuda.LAUNCHES["obb_distance"]
+    if not (surrogate.shape == (LEARNED_CONFIGS,) and bool(torch.isfinite(surrogate).all())):
+        raise RuntimeError("learned cp_from_configs: not finite")
+
+    # featurize alone, and kernel 8 at its shape, beside the check
+    data = balance.load_data(main)
+    positions, _, var_idx, pose_idx = schemas.unpack_dataset_rows(data)
+    poses_f, std_f = learned._load_tables(main)
+    args = (positions, var_idx, pose_idx, poses_f, std_f)
+    featurize_ms = _host_ms(lambda: learned.featurize(*args, device="cuda"), reps=5)
+    check = _learned_feature_check(learned, distance_cuda, *args,
+                                   learned.featurize(*args, device="cuda"))
+    n = len(data)
+    padded = -(-n // learned._PAIR_ALIGN) * learned._PAIR_ALIGN
+    boxes = torch.zeros((6, 8, padded // 8), device="cuda")
+    boxes[2] = 1.0
+    k8_ms = _events_ms(lambda: distance_cuda.obb_distance_cuda_t(boxes, boxes), reps=20)
+    bound, bound_by = _bound_ms(52 * padded, OBB_DISTANCE_OPS * padded)
+
+    # the low-precision product: tensor cores (a) against the float32
+    # product of bfloat16 operands (b), a full-width epoch each, in turns
+    x = torch.from_numpy((feats - result.norm_mean) / result.norm_std).to("cuda")
+    y = torch.from_numpy(labels).to("cuda")
+    model = learned.params_from_jax(result.params, device="cuda")
+    opt = learned.adamw(model, cfg.learning_rate, cfg.weight_decay)
+    # and cp_from_configs at 2^20 configurations under each
+    routes = {"a": learned._mm_tensor_cores, "b": learned._mm_exact_f32}
+    route_ms = {"a": [], "b": []}
+    configs_ms = {"a": [], "b": []}
+    try:
+        for name in ("a", "b", "b", "a"):
+            learned._LOW_PRECISION_MM["cuda"] = routes[name]
+            route_ms[name].append(_events_ms(lambda: learned.run_epoch(
+                model, opt, prng.PRNGKey(5), x, y, torch.bfloat16,
+                cfg.batch_size, steps), reps=3))
+            configs_ms[name].append(_events_ms(lambda: loaded.cp_from_configs(configs),
+                                               reps=5))
+    finally:
+        learned._LOW_PRECISION_MM["cuda"] = routes["a"]
+
+    per_bin = ",".join(f"{v:.5f}" for v in result.val_mae_per_bin)
+    _line("8c learned", time.monotonic() - t0, rows=n, features=feats.shape[1],
+          load_training_data_s=f"{load_s:.3f}", featurize_ms=f"{featurize_ms:.3f}",
+          kernel8_ms=f"{k8_ms:.4f}", kernel8_bound_ms=f"{bound:.4f}",
+          kernel8_bound_by=bound_by, **check, hidden="256,256,256",
+          batch=cfg.batch_size, epochs=len(epochs), steps_per_epoch=steps,
+          adamw_first_s=f"{adamw_first_s:.3f}", train_s=f"{train_s:.3f}",
+          epoch_s_total=f"{sum(s for s, _ in epochs):.3f}",
+          val_bce=f"{result.val_bce:.6f}", val_mae=f"{result.val_mae:.6f}",
+          mean_predictor_mae=f"{mean_mae:.6f}", val_mae_per_bin=per_bin,
+          save_load_bitwise=True, predict_s=f"{predict_s:.3f}",
+          predict_mean_abs_diff=f"{report.mean_abs_diff:.6f}",
+          predict_within_0_01=f"{report.frac_within_tolerance:.4f}",
+          compare_rc=compare_rc,
+          cp_from_configs_ms=",".join(f"{v:.3f}" for v in configs_ms["a"]),
+          cp_from_configs_per_s=f"{LEARNED_CONFIGS / (np.mean(configs_ms['a']) * 1e-3):.1f}",
+          cp_from_configs_ms_exact_f32=",".join(f"{v:.3f}" for v in configs_ms["b"]),
+          epoch_ms_tensor_cores=",".join(f"{v:.3f}" for v in route_ms["a"]),
+          epoch_ms_exact_f32=",".join(f"{v:.3f}" for v in route_ms["b"]),
+          kernel8_launches=launches, card=json.dumps(card))
+    return launches
 
 
 def phase_resume_rotating(work: Path, card: str, base_s: float) -> None:
@@ -2757,8 +2974,6 @@ def phase_bench() -> dict:
     counts = _bench_counts()
     for leg in legs:
         print("[22 run_all] " + json.dumps(leg), flush=True)
-        if leg["metric"] == "learned_train":
-            continue
         if not 0 < leg["value"] < math.inf:
             raise RuntimeError(f"run_all leg {leg['metric']}: value {leg['value']}")
     swept = next(leg for leg in legs if leg["metric"] == "scene_swept_pairs_per_sec_effective")
@@ -3143,10 +3358,16 @@ def main() -> int:
         phase_relabel(work)
         phase_prune_opt(work)
         phase_resume(work, card)
+        learned_launches = phase_learned(work, card)
         poly_sat = phase_polygon_sat()
         poly_mc = phase_mc_polygon()
         poly_mc["launches"] = phase_polylabel(work)
     queries = phase_distance()
+    # kernel 8 runs on two paths: the geometry queries (phase 12) and the
+    # learned model's features (phase 8c), each counted from 0
+    k8 = queries["obb_distance"]
+    k8["launches_by_path"] = {"distance": k8["launches"], "learned": learned_launches}
+    k8["launches"] += learned_launches
     queries["polygon_manifold"] = phase_manifold()
     queries["moving_obb_toi"] = phase_toi()
     mc_toi = phase_mc_toi()

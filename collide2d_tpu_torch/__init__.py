@@ -17,8 +17,11 @@ and the scene queries (`scene_raycast` on ``csrc/raycast_kernel.cu``; the
 N-body collision matrix, pair lists and contact manifolds on the k-gon SAT
 and manifold kernels), `convex_hull`,
 `CollisionProbabilityModel`, `PolygonCollisionProbabilityModel`, the
+learned surrogate (`featurize`, `TrainConfig`, `train_model`,
+`LearnedCollisionModel`; its signed-distance feature on kernel 8), the
 ``generate`` / ``relabel`` / ``ztest`` / ``compare`` / ``polylabel`` /
-``movelabel`` / ``bench`` commands (``collide2d-torch``) and the bench
+``movelabel`` / ``bench`` / ``balance`` / ``show`` / ``train`` /
+``predict`` commands (``collide2d-torch``) and the bench
 headline (``python -m collide2d_tpu_torch.bench``, with the
 streaming-bandwidth probe ``csrc/stream_kernel.cu``).
 
@@ -55,6 +58,12 @@ from collide2d_tpu_torch.models.collision_model import (
     PolygonCollisionProbabilityModel,
     example_configs,
     example_polygon_configs,
+)
+from collide2d_tpu_torch.models.learned import (
+    LearnedCollisionModel,
+    TrainConfig,
+    featurize,
+    train_model,
 )
 from collide2d_tpu_torch.ops.broad_phase import (
     aabb_overlap,
@@ -108,10 +117,12 @@ __all__ = [
     "AdaptiveConfig",
     "CollisionProbabilityModel",
     "Configs",
+    "LearnedCollisionModel",
     "MovingConfigs",
     "MovingPolygonConfigs",
     "PolygonCollisionProbabilityModel",
     "PolygonConfigs",
+    "TrainConfig",
     "aabb_overlap",
     "adaptive_collision_probabilities",
     "calc_slack",
@@ -124,6 +135,7 @@ __all__ = [
     "convex_hull",
     "example_configs",
     "example_polygon_configs",
+    "featurize",
     "get_bin",
     "mc_round",
     "min_convergence_points",
@@ -158,6 +170,7 @@ __all__ = [
     "scene_raycast",
     "simulate_convergence",
     "simulate_schedule",
+    "train_model",
     "trajectory_collision_probability",
     "transform_vertices",
 ]

@@ -9,6 +9,8 @@
     collide2d-torch bench     ...  # throughput benchmarks (utils/benchmarks.py)
     collide2d-torch balance   ...  # balance datasets across cp bins (balance_datasets.py)
     collide2d-torch show      ...  # contour plot of one (var, pose) slice (show_data.ipynb)
+    collide2d-torch train     ...  # fit the learned collision model on a generated dataset
+    collide2d-torch predict   ...  # its cps for one batch file (ztest --cps_only schema)
 
 Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
 after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
@@ -602,6 +604,121 @@ def _run_show(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_train(sub) -> None:
+    p = sub.add_parser(
+        "train",
+        help="fit the learned collision-probability MLP on a generated "
+             "dataset (the dataset's stated downstream purpose, "
+             "generate_dataset.cu:30-36; the reference stops at the data)",
+    )
+    p.add_argument("--data_dir", default="./data/",
+                   help="dataset directory (batch files + poses/variances)")
+    p.add_argument("--out", default="model.npz", help="model artifact path")
+    p.add_argument("--hidden", type=int, nargs="+", default=[256, 256, 256])
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch_size", type=int, default=8192)
+    p.add_argument("--learning_rate", type=float, default=3e-4)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--val_fraction", type=float, default=0.05)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute_dtype", choices=["bfloat16", "float32"],
+                   default="bfloat16",
+                   help="product input dtype (outputs and sums are always "
+                        "f32); bfloat16 runs on the card's tensor cores")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="multi-device runs; not ported yet")
+    p.add_argument("--accuracy_bins", type=float, nargs="+",
+                   default=[0.0, 0.01, 0.1, 1.0],
+                   help="bins for the per-bin validation MAE report")
+    p.add_argument("--balance_bins", type=float, nargs="+", default=None,
+                   help="cp bin edges: balance the training rows across "
+                        "these bins first (data/balance truncation — the "
+                        "reference's balance_datasets.py step), countering "
+                        "the annulus sampler's ~61%% zero-cp mass")
+    p.add_argument("--robot_width", type=float, default=4.07,
+                   help="robot used for the physics feature columns "
+                        "(signed distance at the mean pose) — must match "
+                        "the robot the dataset was labeled with")
+    p.add_argument("--robot_height", type=float, default=1.74)
+    p.add_argument("--device", default="cuda",
+                   help="torch device the features and the training run on")
+    p.add_argument("--verbose", type=_bool_flag, default=True)
+    p.set_defaults(func=_run_train)
+
+
+def _run_train(args: argparse.Namespace) -> int:
+    from collide2d_tpu_torch.models.learned import (
+        TrainConfig,
+        load_training_data,
+        save_model,
+        train_model,
+    )
+
+    robot_wh = (args.robot_width, args.robot_height)
+    features, labels = load_training_data(
+        args.data_dir, balance_bins=args.balance_bins, robot_wh=robot_wh,
+        device=args.device)
+    balanced = " (balanced)" if args.balance_bins else ""
+    print(f"training on {features.shape[0]} rows from {args.data_dir}"
+          f"{balanced}")
+    cfg = TrainConfig(
+        hidden=tuple(args.hidden),
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay,
+        val_fraction=args.val_fraction,
+        seed=args.seed,
+        compute_dtype=args.compute_dtype,
+        verbose=args.verbose,
+    )
+    result = train_model(features, labels, cfg,
+                         accuracy_bins=tuple(args.accuracy_bins),
+                         robot_wh=robot_wh, device=args.device)
+    save_model(args.out, result, cfg)
+    bins = ", ".join(
+        f"[{lo:g},{hi:g}): {mae:.4f}"
+        for (lo, hi), mae in zip(
+            zip(args.accuracy_bins[:-1], args.accuracy_bins[1:]),
+            result.val_mae_per_bin,
+        )
+    )
+    print(f"val bce {result.val_bce:.5f}  val mae {result.val_mae:.4f}")
+    if bins:
+        print(f"val mae per cp bin: {bins}")
+    print(f"model -> {args.out}")
+    return 0
+
+
+def _add_predict(sub) -> None:
+    p = sub.add_parser(
+        "predict",
+        help="predict cps for one batch file with a trained model; output "
+             "is the bare cps vector (ztest --cps_only schema), directly "
+             "comparable to MC labels via `collide2d-torch compare`",
+    )
+    p.add_argument("--model", required=True, help="model artifact (.npz)")
+    p.add_argument("--data_in", required=True,
+                   help=".npy batch: (N,5) dataset rows or (N,4) relabel "
+                        "rows")
+    p.add_argument("--data_dir", default="./data/",
+                   help="directory holding poses.npy / variances.npy")
+    p.add_argument("--out", default="predicted_cps.npy")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the features and the model run on")
+    p.set_defaults(func=_run_predict)
+
+
+def _run_predict(args: argparse.Namespace) -> int:
+    from collide2d_tpu_torch.models.learned import predict_file
+    from collide2d_tpu_torch.utils.io_npy import save_npy
+
+    cps = predict_file(args.model, args.data_in, args.data_dir, device=args.device)
+    save_npy(args.out, cps)
+    print(f"predicted {cps.shape[0]} cps -> {args.out}")
+    return 0
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse a command line; flags of unported features exit with an
     error that names them."""
@@ -610,7 +727,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         description="2D convex collision engine on PyTorch/CUDA "
                     "(dataset generation / relabeling / validation / "
                     "k-gon and trajectory labeling / benchmarks / "
-                    "balancing and plots)",
+                    "balancing and plots / the learned model)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
@@ -622,8 +739,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     _add_bench(sub)
     _add_balance(sub)
     _add_show(sub)
+    _add_train(sub)
+    _add_predict(sub)
     args = parser.parse_args(argv)
-    if args.command in ("generate", "relabel", "ztest", "polylabel", "movelabel"):
+    if args.command in ("generate", "relabel", "ztest", "polylabel", "movelabel",
+                        "train"):
         _reject_unported(parser, args)
     return args
 

@@ -17,7 +17,9 @@ and `bench_scene`, `bench_scene_swept` (kernel 6 on the card, through
 `ops.scene`) and `bench_e2e` (kernel 1, through the adaptive driver) run
 kernels on their way. `bench_sat`, `bench_manifold`, `bench_scene_raycast`,
 `bench_mc` and `bench_reduce_bandwidth` are the plain torch paths, as the
-JAX legs of the same names are its jnp/XLA paths.
+JAX legs of the same names are its jnp/XLA paths. `bench_learned_train`
+trains the learned model (`models.learned`), its products on the card's
+tensor cores.
 
 Timing: one untimed call (it builds the kernels at first use), then
 ``iters`` calls, each with an iteration-dependent input as in the JAX
@@ -586,11 +588,49 @@ def bench_e2e(configs: int = 65536, seed: int = 0, batches: int = 6, overlap: in
     }
 
 
-LEARNED_SKIP = {
-    "metric": "learned_train",
-    "skipped": "bench_learned_train is not ported to collide2d_tpu_torch yet",
-    "hint": "the learned model is queue 1 item 3 of ROADMAP.md",
-}
+def bench_learned_train(rows: int = 1 << 21, batch: int = 8192, hidden=(256, 256, 256),
+                        epochs: int = 4, device="cuda") -> dict:
+    """Learned-model training throughput (`models.learned`): whole epochs
+    of shuffled minibatches (bf16 products with float32 outputs, AdamW
+    with optax's defaults as JAX's ``optax.adamw(3e-4)``) on ``rows``
+    standard-normal feature rows and uniform labels. One untimed epoch,
+    then ``epochs`` epochs (`_seconds_per_iter`). Reports
+    ``model_tflops`` at the 3x-forward train-FLOP convention."""
+    from collide2d_tpu_torch.models import learned
+
+    dev = _device(device)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(
+        rng.standard_normal((rows, learned.NUM_FEATURES)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.uniform(size=rows).astype(np.float32)).to(dev)
+    steps = rows // batch
+    model = learned.init_params(prng.PRNGKey(0), tuple(hidden), dev)
+    opt = learned.adamw(model, 3e-4, weight_decay=1e-4)
+    losses = []
+
+    def epoch(i: int) -> None:
+        losses.append(learned.run_epoch(model, opt, prng.fold_in(prng.PRNGKey(1), i),
+                                        x, y, torch.bfloat16, batch, steps))
+
+    dt = _seconds_per_iter(epoch, epochs, dev)
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise RuntimeError(f"bench_learned_train: non-finite epoch loss {losses}")
+    rows_per_epoch = steps * batch
+    rate = rows_per_epoch / dt
+    sizes = [learned.NUM_FEATURES, *hidden, 1]
+    macs_per_row = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    return {
+        "metric": "learned_train_rows_per_sec",
+        "value": rate,
+        "unit": "rows/s",
+        "vs_baseline": rate,  # no reference number exists (model not built)
+        "seconds_per_epoch": dt,
+        "rows_per_epoch": rows_per_epoch,
+        "batch": batch,
+        "hidden": list(hidden),
+        "model_tflops": rate * macs_per_row * 2 * 3 / 1e12,
+        "device": _device_name(dev),
+    }
 
 
 def legs(pairs: int = 1 << 22, iters: int = 20, device="cuda"):
@@ -625,11 +665,11 @@ def legs(pairs: int = 1 << 22, iters: int = 20, device="cuda"):
     # the adaptive driver draws ~2e5 samples a configuration at reference
     # bins: a CPU host labels a small batch
     leg(bench_e2e, configs=65536 if card else 256)
+    leg(bench_learned_train, rows=1 << 21 if card else 1 << 15,
+        batch=8192 if card else 1024, epochs=4 if card else 2)
     return out
 
 
 def run_all(pairs: int = 1 << 22, iters: int = 20, device="cuda") -> list[str]:
-    """Every leg's JSON line, then the learned model's skip line."""
-    out = [json.dumps(fn()) for _, fn in legs(pairs, iters, device)]
-    out.append(json.dumps(LEARNED_SKIP))
-    return out
+    """Every leg's JSON line."""
+    return [json.dumps(fn()) for _, fn in legs(pairs, iters, device)]

@@ -14,7 +14,8 @@
     pairs (exact);
 (d) `run_all(device="cpu")` runs the legs the JAX bench runs on a CPU host,
     at its CPU sizes, under its metric names (``_pallas`` -> ``_cuda``),
-    with its fields, and ends with the learned model's skip line;
+    with its fields, and ends with the learned model's training leg
+    (`bench_learned_train`, measured: 2^15 rows, batch 1,024, 2 epochs);
     ``collide2d-torch bench --device cpu`` prints only JSON lines;
 (e) the headline builder of ``python -m collide2d_tpu_torch.bench`` marks
     ``bandwidth_check`` FAILED above 1.15 x the larger probe and ok below;
@@ -172,6 +173,8 @@ CPU_LEGS = {
         "steady_state_configs_per_sec", "converged_frac",
         "mean_samples_per_config", "mean_cp", "dispatched_slots_per_sec",
         "slot_efficiency"},
+    "learned_train_rows_per_sec": {
+        "seconds_per_epoch", "rows_per_epoch", "batch", "hidden", "model_tflops"},
 }
 COMMON_FIELDS = {"metric", "value", "unit", "vs_baseline", "device"}
 # The JAX bench's CPU sizes (run_all): manifold pairs, scene N, swept N,
@@ -179,7 +182,9 @@ COMMON_FIELDS = {"metric", "value", "unit", "vs_baseline", "device"}
 CPU_SIZES = {"manifold_pairs_per_sec": {"pairs": 1 << 14},
              "scene_pairs_per_sec": {"n_shapes": 256},
              "scene_swept_pairs_per_sec_effective": {"n_shapes": 256, "window": 64},
-             "scene_rays_per_sec": {"rays": 1 << 12, "n_shapes": 16}}
+             "scene_rays_per_sec": {"rays": 1 << 12, "n_shapes": 16},
+             "learned_train_rows_per_sec": {"rows_per_epoch": 1 << 15, "batch": 1024,
+                                            "hidden": [256, 256, 256]}}
 
 
 @pytest.fixture
@@ -201,9 +206,8 @@ def stubbed_slow_legs(monkeypatch):
 
 def test_run_all_on_cpu_emits_the_jax_cpu_legs(stubbed_slow_legs):
     out = [json.loads(s) for s in tbm.run_all(pairs=1024, iters=1, device="cpu")]
-    assert [o["metric"] for o in out] == [*CPU_LEGS, "learned_train"]
-    assert out[-1] == tbm.LEARNED_SKIP and "skipped" in out[-1]
-    for o in out[:-1]:
+    assert [o["metric"] for o in out] == list(CPU_LEGS)
+    for o in out:
         if o.get("stub"):
             continue
         assert set(o) == COMMON_FIELDS | CPU_LEGS[o["metric"]], o["metric"]
@@ -228,8 +232,8 @@ def test_kernel_legs_are_the_jax_pallas_legs():
 def test_cli_bench_on_cpu_prints_json_lines(stubbed_slow_legs, capsys):
     assert tcli.main(["bench", "--device", "cpu", "--pairs", "512", "--iters", "1"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(CPU_LEGS) + 1
-    assert [json.loads(line)["metric"] for line in lines] == [*CPU_LEGS, "learned_train"]
+    assert len(lines) == len(CPU_LEGS)
+    assert [json.loads(line)["metric"] for line in lines] == list(CPU_LEGS)
 
 
 def test_bench_e2e_fields_at_a_small_cap(monkeypatch):
@@ -240,6 +244,21 @@ def test_bench_e2e_fields_at_a_small_cap(monkeypatch):
     assert out["configs"] == 192 and out["batches"] == 3 and out["overlap"] == 3
     assert 0.0 <= out["mean_cp"] <= 1.0 and 0.0 < out["slot_efficiency"] <= 1.0
     assert 1000 <= out["mean_samples_per_config"] <= 4096
+
+
+def test_bench_learned_train_fields_are_the_jax_legs():
+    """The learned leg at a toy size: JAX's fields plus ``device``, the
+    same rows an epoch, and a finite positive rate on both."""
+    kw = dict(rows=2048, batch=256, hidden=(16,), epochs=1)
+    want = jbm.bench_learned_train(**kw)
+    got = tbm.bench_learned_train(**kw, device="cpu")
+    assert set(got) == set(want) | {"device"}
+    assert got["metric"] == want["metric"] == "learned_train_rows_per_sec"
+    for field in ("rows_per_epoch", "batch", "hidden", "unit"):
+        assert got[field] == want[field], field
+    assert 0 < got["value"] < float("inf") and got["device"] == "cpu"
+    assert got["model_tflops"] == pytest.approx(
+        got["value"] * (13 * 16 + 16) * 6 / 1e12, rel=1e-12)
 
 
 def _patch_headline(monkeypatch, stream_gbps, reduce_gbps, sat_gbps):
@@ -273,7 +292,8 @@ def test_bench_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tbench.main() != 0
     assert capsys.readouterr().out == ""  # no headline
-    for leg in (tbm.bench_sat, tbm.bench_stream_bandwidth_cuda, tbm.bench_e2e):
+    for leg in (tbm.bench_sat, tbm.bench_stream_bandwidth_cuda, tbm.bench_e2e,
+                tbm.bench_learned_train):
         with pytest.raises(RuntimeError, match="CUDA"):
             leg(device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1107,3 +1107,103 @@ def test_bench_entry_points_on_cuda(cuda):
     assert 0 < head["effective_gbps"] <= 1.15 * head["hbm_read_gbps"]
     out = bm.bench_scene_raycast_cuda(rays=1 << 16, iters=2)
     assert out["metric"] == "scene_rays_per_sec_cuda" and out["value"] > 0
+
+
+# ---- the learned model: featurize through kernel 8, training on the card ----
+# Bars: the card's distance is its plain version's bit for bit on the
+# card's tensors (kernel 8 rounds as the plain version does there);
+# against the CPU's plain version the distance may differ by 1 ulp
+# (torch's CPU sqrt misrounds a fraction of a percent of inputs) and the
+# margin is bitwise wherever the distance is, else within 2 ulp. A card-saved bfloat16
+# model predicts on the CPU within 2e-3 (the card's products run on the
+# tensor cores, the CPU's in float32).
+
+
+def _learned_tables(n=4096, seed=0):
+    rng = np.random.default_rng(seed)
+    positions = rng.uniform(-6, 6, size=(n, 2)).astype(np.float32)
+    positions[:16] = 0.0
+    poses = rng.uniform(0.5, 4.0, size=(8, 3)).astype(np.float32)
+    poses[0, :2] = (-2.5, 1.5)
+    std = np.sqrt(rng.uniform(0.0, 0.09, size=(4, 5))).astype(np.float32)
+    return (positions, rng.integers(0, 4, size=n), rng.integers(0, 8, size=n),
+            poses, std)
+
+
+def _learned_toy(n=2048, seed=0, device="cpu"):
+    from collide2d_tpu_torch.models import learned
+
+    positions, var_idx, pose_idx, poses, std = _learned_tables(n, seed)
+    feats = learned.featurize(positions, var_idx, pose_idx, poses, std, device=device)
+    gap = np.linalg.norm(positions, axis=1) - 0.5 * (poses[pose_idx, 0] + poses[pose_idx, 1])
+    return feats, (1.0 / (1.0 + np.exp(3.0 * gap))).astype(np.float32)
+
+
+def test_featurize_on_cuda_launches_kernel_8_and_equals_plain(cuda):
+    from collide2d_tpu_torch.models import learned
+
+    args = _learned_tables()
+    distance_cuda.reset_launches()
+    got = learned.featurize(*args, device=cuda)
+    assert distance_cuda.LAUNCHES["obb_distance"] == 1
+    cpu = learned.featurize(*args, device="cpu")
+    np.testing.assert_array_equal(got[:, :11], cpu[:, :11])
+    ulps = np.abs(got[:, 11:].view(np.int32).astype(np.int64)
+                  - cpu[:, 11:].view(np.int32).astype(np.int64))
+    assert ulps[:, 0].max() <= 1 and ulps[:, 1].max() <= 2
+    assert ulps[ulps[:, 0] == 0, 1].max(initial=0) == 0
+    # the plain version on the card's tensors: the same bits
+    t = torch.from_numpy(got).to(cuda)
+    rw, rh = (float(np.float32(v * 0.5)) for v in learned.ROBOT_WH)
+    x = t[:, 0]
+    plain = distance_cuda.obb_signed_distance_tile(
+        0.0 - x, 0.0 - t[:, 1], t[:, 4], t[:, 5], torch.full_like(x, rw),
+        torch.full_like(x, rh), torch.ones_like(x), torch.zeros_like(x),
+        t[:, 2].abs() * 0.5, t[:, 3].abs() * 0.5)
+    assert torch.equal(plain, t[:, 11])
+
+
+def test_tensor_core_product_matches_the_float32_one(cuda):
+    from collide2d_tpu_torch.models import learned
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(8192, 256, device=cuda, generator=g).to(torch.bfloat16).requires_grad_()
+    b = torch.randn(256, 256, device=cuda, generator=g).to(torch.bfloat16).requires_grad_()
+    out = learned._mm_tensor_cores(a, b)
+    want = learned._mm_exact_f32(a, b)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    up = torch.randn_like(out)
+    ga, gb = torch.autograd.grad((out * up).sum(), (a, b))
+    wa, wb = torch.autograd.grad((want * up).sum(), (a, b))
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    # the card's backward rounds the output gradient to bfloat16 first
+    torch.testing.assert_close(ga.float(), wa.float(), rtol=2e-2, atol=0.5)
+    torch.testing.assert_close(gb.float(), wb.float(), rtol=2e-2, atol=5.0)
+
+
+def test_training_learns_on_cuda(cuda):
+    from collide2d_tpu_torch.models import learned
+
+    feats, labels = _learned_toy(device=cuda)
+    cfg = learned.TrainConfig(hidden=(64, 64), epochs=30, batch_size=256,
+                              learning_rate=3e-3, val_fraction=0.125, seed=0)
+    res = learned.train_model(feats, labels, cfg, device=cuda)
+    assert res.history[-1] < 0.8 * res.history[0]
+    assert res.val_mae < 0.7 * float(np.mean(np.abs(labels - labels.mean())))
+
+
+def test_cuda_saved_model_predicts_the_same_on_the_cpu(cuda, tmp_path):
+    from collide2d_tpu_torch.models import learned
+
+    feats, labels = _learned_toy(n=1024, seed=3, device=cuda)
+    cfg = learned.TrainConfig(hidden=(64, 64), epochs=3, batch_size=128, seed=1)
+    res = learned.train_model(feats, labels, cfg, device=cuda)
+    path = tmp_path / "model.npz"
+    learned.save_model(path, res, cfg)
+    on_card = learned.LearnedCollisionModel.load(path, device=cuda)
+    again = learned.LearnedCollisionModel.load(path, device=cuda)
+    a = on_card.cp_from_features(feats).cpu().numpy()
+    np.testing.assert_array_equal(a, again.cp_from_features(feats).cpu().numpy())
+    b = learned.LearnedCollisionModel.load(path, device="cpu").cp_from_features(feats).numpy()
+    np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)

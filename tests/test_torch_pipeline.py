@@ -142,8 +142,10 @@ def test_ztest_and_compare_end_to_end(port_default, tmp_path, capsys):
 def test_import_leaves_jax_out():
     code = ("import sys, collide2d_tpu_torch, collide2d_tpu_torch.cli, "
             "collide2d_tpu_torch.ops.mc_cuda, collide2d_tpu_torch.data.pipeline, "
-            "collide2d_tpu_torch.data.balance, collide2d_tpu_torch.data.visualize; "
+            "collide2d_tpu_torch.data.balance, collide2d_tpu_torch.data.visualize, "
+            "collide2d_tpu_torch.models.learned; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'optax' not in sys.modules, 'optax imported'; "
             "assert 'collide2d_tpu' not in sys.modules, 'collide2d_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
