@@ -20,13 +20,18 @@ raises, and the script then exits non-zero without printing a result):
    segments), the scene raycast kernel (csrc/raycast_kernel.cu at 8 faces a
    shape, and its build that counts the faces it evaluates) and the
    streaming-bandwidth probe (csrc/stream_kernel.cu); the query kernels'
-   library also in its build that counts kernel 9's passes;
+   library also in its build that counts kernel 9's passes; the Box-Muller
+   builds (-DMC_BOX_MULLER=1) of kernels 1, 7 (k = 8 and 6) and 14 (k = 8),
+   and kernel 14 at the bench's k = 6 (phase 17 and the bench);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
    sum |dcount| <= 1e-5 * C * n; samples/s of both, timed with CUDA
    events after a warm-up; the counts' fingerprint (as in phase 10) and
-   the kernel's issue floor (below) beside its bound;
+   the kernel's issue floor (below) beside its bound; then on each case the
+   kernel's Box-Muller build (`_box_muller_vs_plain`) against its plain
+   version at the same bar, its ms beside the erf_inv build's, its bound
+   and its counts' fingerprint;
 3. the main path: ``collide2d-torch generate --device cuda -n 2
    -b 100000 --seed 7`` at the default 64^4-row tables, 4e6 cap and
    reference bins, in process; two (100000, 5) float32 files with finite
@@ -111,10 +116,12 @@ raises, and the script then exits non-zero without printing a result):
    tail's 256 rows x 100,000: sum |dcount| <= 1e-5 * C * n; samples/s of
    both; the counts' fingerprint (their sum and the sum of counts[c] *
    (c % 9973): equal fingerprints say the bits held across versions) and
-   the kernel's issue floor (below); then the agreement gate against the
-   threefry path on the card
-   (4,096 `example_polygon_configs` rows at k = 6, 65,536 samples each):
-   max z < 6 and a share with z > 3 of at most 3 x 0.27%;
+   the kernel's issue floor (below); the Box-Muller build on both cases as
+   in phase 2; then the agreement gate against the threefry path on the
+   card (4,096 `example_polygon_configs` rows at k = 6, 65,536 samples
+   each; `_z_gate`: max z < 6 and a share with z > 3 of at most 3 x 0.27%),
+   and the Box-Muller build's round (`mc_round_polygons_cuda`) against the
+   same threefry counts;
 11. ``polylabel --device cuda`` on the 100,000-row k = 8 workload (an .npz
    written as polylabel reads it): finite cp in [0, 1], samples within the
    cap, kernel launches > 0; configs/s, mean samples per configuration,
@@ -190,7 +197,12 @@ raises, and the script then exits non-zero without printing a result):
    U(-2, 2)^2 and t_max U(0.5, 3) x 4,096 samples (2 kept robot axes):
    sum |dcount| <= 1e-5 of the samples; the fingerprint and issue floor
    as in phase 10; at zero velocity its counts equal kernel 7's bit for
-   bit; the agreement gate as in phase 15;
+   bit; the Box-Muller build as in phase 2; then the k = 6 instance that
+   the bench's legs launch, on the fused leg's 4,096 rows
+   (`_bench_moving_polygon_configs`) x 4,096 samples, against its plain
+   version at the same bar, its ms beside the k = 8 instance's; the
+   agreement gate as in phase 15, and the Box-Muller build's round
+   against the same threefry counts;
    `PolygonCollisionProbabilityModel.label` and ``movelabel`` on the
    100,000 rows (kernel-14 launches > 0, the same labels, the checks of
    phase 16); ``movelabel`` on 4,096 rotating k = 6 rows of the JAX bench
@@ -239,10 +251,20 @@ raises, and the script then exits non-zero without printing a result):
    and 16 launched. Then kernel 16 against its plain version on the
    probe's 2^23 pairs: within 1e-5 x (sum|r1| * s + sum|r2|), and two
    launches bitwise equal; kernel ms, plain ms and the library call's ms
-   (``r1.sum() * s + r2.sum()``), GB/s and the share of 3.35 TB/s.
+   (``r1.sum() * s + r2.sum()``), GB/s and the share of 3.35 TB/s. Then
+   the full bench, ``python -m collide2d_tpu_torch.bench`` in a process of
+   its own (`phase_full_bench`, every leg of the root bench.py at its
+   sizes): exit code 0 with no leg failed, the last line the headline with
+   ``bandwidth_check`` ok, the line before it the digest (<= 1,750
+   characters, n >= 25), both within the last 2,000 characters of its
+   output, the three agreement legs ok, every kernel it runs launched
+   (kernel 1's Box-Muller build among them, its A/B leg); each leg's line,
+   the digest and the bench's wall seconds.
 
 The second-to-last lines are the card (name, power limit) and one JSON
-object describing each kernel of the path, with ``bound_ms``: the larger
+object describing each kernel of the path (the Box-Muller builds of
+kernels 1, 7 and 14 as entries of their own: launches in the full bench,
+and in phases 10's and 17's Box-Muller rounds), with ``bound_ms``: the larger
 of the bytes the function must move over 3.35 TB/s and the FP32
 operations its source writes for these inputs over 67 TFLOP/s (an FMA
 counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
@@ -315,6 +337,18 @@ PEAK_FP32_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, FMA = 2
 # 2^-22 - 1 (3), erf_inv's x * -x, w < 5, w - 2.5 or sqrt(w) - 3, 8 Horner
 # steps and p * x (20), * sqrt(2) (1).
 NORMAL_OPS = 24
+# FP32 operations of one Box-Muller pair (csrc/mc_stream.cuh::
+# box_muller_pair): (b + 1) * 2^-24 twice (4), -2 * log u1 (1), 2 pi u2 (1),
+# r cos a and r sin a (2); logf, sqrtf and sincosf are not counted.
+BOX_MULLER_PAIR_OPS = 8
+
+
+def normals_ops(n: int, normal_method: str = "erfinv") -> int:
+    """FP32 operations of a sample's ``n`` normals: erf_inv, or
+    ceil(n / 2) Box-Muller pairs."""
+    if normal_method == "erfinv":
+        return n * NORMAL_OPS
+    return -(-n // 2) * BOX_MULLER_PAIR_OPS
 POLY_K, POLY_ROBOT = 8, ((-2.035, -0.87), (2.035, -0.87), (2.035, 0.87),
                          (-2.035, 0.87))
 POLY_ROWS = 100_000
@@ -329,17 +363,19 @@ def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mc_ops_per_sample(shape_noise: bool) -> int:
+def mc_ops_per_sample(shape_noise: bool, normal_method: str = "erfinv") -> int:
     """csrc/mc_kernel.cu: 3 (5) normals, the box test's 38 operations (dx,
     dy, delta, the offset, u, v, four tests), 4 more for noisy extents."""
-    return (5 if shape_noise else 3) * NORMAL_OPS + 38 + (4 if shape_noise else 0)
+    return (normals_ops(5 if shape_noise else 3, normal_method) + 38
+            + (4 if shape_noise else 0))
 
 
-def mc_poly_ops_per_sample(k: int, k2: int, k2a: int) -> int:
+def mc_poly_ops_per_sample(k: int, k2: int, k2a: int,
+                           normal_method: str = "erfinv") -> int:
     """csrc/mc_polygon_kernel.cu: 3 normals, dx/dy/dtheta and (u1, u2) (9),
     each kept robot axis 5K + 5 (translation 3, K blends of 3, min/max,
     2 adds, 2 compares), each obstacle normal 5 K2 + 5."""
-    return 3 * NORMAL_OPS + 9 + k2a * (5 * k + 5) + k * (5 * k2 + 5)
+    return normals_ops(3, normal_method) + 9 + k2a * (5 * k + 5) + k * (5 * k2 + 5)
 
 
 def sat_poly_ops_per_pair(k1: int, k2: int) -> int:
@@ -384,6 +420,7 @@ def _events_ms(fn, reps: int) -> float:
 
 def phase_build():
     from collide2d_tpu_torch.ops.distance_cuda import distance_defines
+    from collide2d_tpu_torch.ops.mc_cuda import normal_defines
     from collide2d_tpu_torch.ops.mc_polygon_cuda import shape_defines
     from collide2d_tpu_torch.ops.raycast_cuda import raycast_defines
     from collide2d_tpu_torch.ops.screen_cuda import screen_defines
@@ -395,7 +432,11 @@ def phase_build():
     # agreement gate kernel 7 at k = 6; kernel 15 once per segment count (the
     # cascade's 8), kernel 11 once per face count (8: every scene here has
     # k <= 8; also the build that counts its work, phase 19); kernel 9's
-    # build that counts the pairs of its passes (phase 12)
+    # build that counts the pairs of its passes (phase 12); the Box-Muller
+    # builds of kernels 1, 7 and 14 (phases 2, 10 and 17, and the bench's
+    # A/B leg), and the shapes phase 22's bench launches besides (kernel 14
+    # at the JAX bench's k = 6, phase 17 checks it)
+    bm = normal_defines("box_muller")
     jobs = [(name, ()) for name in (
         "mc_kernel", "sat_kernel", "polygon_kernel", "distance_kernel",
         "manifold_kernel", "toi_kernel", "mc_toi_kernel", "stream_kernel")] + [
@@ -405,7 +446,12 @@ def phase_build():
         ("screen_kernel", screen_defines(8)),
         ("raycast_kernel", raycast_defines(RAY_K)),
         ("raycast_kernel", raycast_defines(RAY_K, count_faces=True)),
-        ("distance_kernel", distance_defines(count=True))]
+        ("distance_kernel", distance_defines(count=True)),
+        ("mc_kernel", bm),
+        ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
+        ("mc_polygon_kernel", shape_defines(6, 4, 2) + bm),
+        ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
+        ("mc_moving_polygon_kernel", shape_defines(6, 4, 2))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
     for job in jobs:
@@ -496,7 +542,49 @@ def phase_kernel_vs_plain() -> dict:
               **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
               kernel_samples_per_s=f"{c * n / kernel_ms * 1e3:.4e}",
               plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
+        result[key]["box_muller"] = _box_muller_vs_plain(
+            "2 kernel-vs-plain box_muller", key, c, n, kernel_ms,
+            lambda **kw: mc_cuda.mc_counts(params, uids, seed, n,
+                                           shape_noise=shape_noise, **kw),
+            lambda **kw: mc_cuda.mc_counts_plain(params, uids, seed, n,
+                                                 shape_noise=shape_noise,
+                                                 max_elems=1 << 24, **kw),
+            c * 72, c * n * mc_ops_per_sample(shape_noise, "box_muller"))
+        del params, uids
     return result
+
+
+def _box_muller_vs_plain(phase: str, case: str, c: int, n: int, erfinv_ms: float,
+                         kernel, plain, nbytes: float, ops: float) -> dict:
+    """The Box-Muller build of a fused Monte Carlo kernel (1, 7 or 14) on a
+    phase's inputs: ``kernel(normal_method=...)`` against ``plain(...)``,
+    sum |dcount| <= 1e-5 of the samples; its ms beside the erf_inv build's
+    (``erfinv_ms``, measured on the same inputs just before); its bound at
+    ``ops`` (`normals_ops` counts the pairs)."""
+    t = time.monotonic()
+    got = kernel(normal_method="box_muller")
+    want = plain(normal_method="box_muller")
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    total = int(diff.sum())
+    if total > MISMATCH_BOUND * c * n:
+        raise RuntimeError(f"{phase}: the Box-Muller build disagrees with its plain "
+                           f"version: sum|dcount|={total} > {MISMATCH_BOUND} * C * n "
+                           f"({case})")
+    if not 0 < int(got.sum()) < c * n:
+        raise RuntimeError(f"{phase}: degenerate Box-Muller counts ({case})")
+    ms = _events_ms(lambda: kernel(normal_method="box_muller"), reps=20)
+    plain_ms = _events_ms(lambda: plain(normal_method="box_muller"), reps=1)
+    bound, bound_by = _bound_ms(nbytes, ops)
+    counts_sum, counts_fp = _fingerprint(got)
+    _line(phase, time.monotonic() - t, case=case, C=c, n=n, sum_abs_dcount=total,
+          rows_differ=int((diff > 0).sum()), counts_sum=counts_sum,
+          counts_fingerprint=counts_fp, kernel_ms=f"{ms:.4f}",
+          erfinv_kernel_ms=f"{erfinv_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+          bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}")
+    return dict(max_abs_err=int(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by)
 
 
 def _generate(argv):
@@ -1356,9 +1444,25 @@ def phase_mc_polygon() -> dict:
               **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
               kernel_samples_per_s=f"{c * n / kernel_ms * 1e3:.4e}",
               plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
+        bm = _box_muller_vs_plain(
+            "10 k-gon mc box_muller", key, c, n, kernel_ms,
+            lambda **kw: mc_polygon_cuda.mc_poly_counts(params, uids, seed, n, **dims,
+                                                        **kw),
+            lambda **kw: mc_polygon_cuda.mc_poly_counts_plain(
+                params, uids, seed, n, max_elems=1 << 22, **dims, **kw),
+            c * (params.shape[1] * 4 + 8),
+            c * n * mc_poly_ops_per_sample(**dims, normal_method="box_muller"))
+        if key == "workload":
+            result["box_muller"] = bm
+        else:
+            result["box_muller"]["max_abs_err"] = max(result["box_muller"]["max_abs_err"],
+                                                      bm["max_abs_err"])
 
     # The agreement gate of the JAX package's `bench_agreement_polygons`
-    # (utils/benchmarks.py:1334-1405): the kernel against the threefry path.
+    # (utils/benchmarks.py:1334-1405): the kernel against the threefry path,
+    # then the Box-Muller build against the same threefry counts (its round
+    # entry point, `mc_round_polygons_cuda`; its launches there are its
+    # entry of the kernels line).
     t = time.monotonic()
     c, n = 4096, 1 << 16
     configs = example_polygon_configs(c, k=6, seed=7, device=dev)
@@ -1368,19 +1472,35 @@ def phase_mc_polygon() -> dict:
         counts = mc_round(prng.PRNGKey(8), uids, configs, robot, 0, n_batch=n,
                           impl=impl)
         cp[impl] = counts.cpu().numpy().astype(np.float64) / n
-    diff = np.abs(cp["cuda"] - cp["threefry"])
-    pooled = (cp["cuda"] + cp["threefry"]) / 2.0
-    var = pooled * (1.0 - pooled) * (2.0 / n)
-    z = np.where(var > 0, diff / np.sqrt(np.maximum(var, 1e-300)), 0.0)
-    frac3, max_z = float((z > 3.0).mean()), float(z.max())
-    if not (max_z < 6.0 and frac3 <= 3 * 0.0027):
-        raise RuntimeError(f"k-gon agreement gate failed: max z {max_z:.2f}, "
-                           f"share z > 3 {frac3:.4f}")
-    _line("10 k-gon agreement", time.monotonic() - t, configs=c, n_samples=n,
-          max_z=f"{max_z:.3f}", frac_z_gt3=f"{frac3:.5f}",
-          mean_abs_diff=f"{diff.mean():.3e}",
-          frac_within_005=f"{(diff <= 0.005).mean():.4f}")
+    _z_gate("10 k-gon agreement", "mc_poly_counts", cp["cuda"], cp["threefry"], n, t)
+    t = time.monotonic()
+    mc_polygon_cuda.reset_launches()
+    counts = mc_polygon_cuda.mc_round_polygons_cuda(
+        prng.PRNGKey(8), uids, configs, robot, 0, n_batch=n, normal_method="box_muller")
+    result["box_muller"]["launches"] = mc_polygon_cuda.BOX_MULLER_LAUNCHES
+    _z_gate("10 k-gon agreement box_muller", "mc_poly_counts box_muller",
+            counts.cpu().numpy().astype(np.float64) / n, cp["threefry"], n, t,
+            launches=result["box_muller"]["launches"])
     return result
+
+
+def _z_gate(phase: str, name: str, cp_kernel, cp_threefry, n: int, t: float,
+            **fields) -> dict:
+    """The JAX bench's agreement gate (`utils.benchmarks.agreement_stats`:
+    max z < 6 and a share with z > 3 of at most 3 x 0.27%) of a kernel's
+    cps against the threefry path's; raises when it fails."""
+    from collide2d_tpu_torch.utils.benchmarks import agreement_stats
+
+    gate = agreement_stats(cp_kernel, cp_threefry, n)
+    if not gate["ok"]:
+        raise RuntimeError(f"{name} agreement gate failed: max z {gate['value']:.2f}, "
+                           f"share z > 3 {gate['frac_z_gt3']:.4f}")
+    _line(phase, time.monotonic() - t, kernel=name, configs=len(cp_kernel), n_samples=n,
+          max_z=f"{gate['value']:.3f}", frac_z_gt3=f"{gate['frac_z_gt3']:.5f}",
+          mean_abs_diff=f"{gate['mean_abs_diff']:.3e}",
+          frac_within_005=f"{gate['frac_within_005']:.4f}",
+          mean_cp=f"{float(np.mean(cp_threefry)):.4f}", **fields)
+    return gate
 
 
 def _polylabel(argv) -> float:
@@ -1988,13 +2108,15 @@ def mc_toi_kernel_instance(shape_noise: bool, ca_iters: int) -> str:
     return f"mc_toi_counts_kernelILb{int(shape_noise)}ELb{int(ca_iters > 0)}ELb0E"
 
 
-def mc_moving_poly_ops_per_sample(k: int, k2: int, k2a: int) -> int:
+def mc_moving_poly_ops_per_sample(k: int, k2: int, k2a: int,
+                                  normal_method: str = "erfinv") -> int:
     """csrc/mc_moving_polygon_kernel.cu: kernel 7's normals, offsets and
     (u1, u2) (3 normals + 9), the relative velocity in the obstacle frame
     (6), each kept robot axis 5K + 13 (translation 3, K blends of 3,
     min/max, 2 adds, the speed 3, the window 8 with its division), each
     obstacle normal 5 K2 + 13, the hit test 3."""
-    return 3 * NORMAL_OPS + 9 + 6 + k2a * (5 * k + 13) + k * (5 * k2 + 13) + 3
+    return (normals_ops(3, normal_method) + 9 + 6 + k2a * (5 * k + 13)
+            + k * (5 * k2 + 13) + 3)
 
 
 def _moving_rects(n: int, rotating: bool, seed: int = 5):
@@ -2115,18 +2237,8 @@ def _agreement_gate(name: str, configs, robot, phase: str) -> dict:
         counts = mc_round(prng.PRNGKey(8), uids, configs, robot, 0, n_batch=n,
                           impl=impl, ca_iters=0)
         cp[impl] = counts.cpu().numpy().astype(np.float64) / n
-    diff = np.abs(cp["cuda"] - cp["threefry"])
-    pooled = (cp["cuda"] + cp["threefry"]) / 2.0
-    var = pooled * (1.0 - pooled) * (2.0 / n)
-    z = np.where(var > 0, diff / np.sqrt(np.maximum(var, 1e-300)), 0.0)
-    frac3, max_z = float((z > 3.0).mean()), float(z.max())
-    if not (max_z < 6.0 and frac3 <= 3 * 0.0027):
-        raise RuntimeError(f"{name} agreement gate failed: max z {max_z:.2f}, "
-                           f"share z > 3 {frac3:.4f}")
-    _line(phase, time.monotonic() - t, kernel=name, configs=c, n_samples=n,
-          max_z=f"{max_z:.3f}", frac_z_gt3=f"{frac3:.5f}",
-          mean_abs_diff=f"{diff.mean():.3e}", mean_cp=f"{cp['threefry'].mean():.4f}")
-    return dict(max_z=max_z, frac3=frac3)
+    gate = _z_gate(phase, name, cp["cuda"], cp["threefry"], n, t)
+    return dict(max_z=gate["value"], frac3=gate["frac_z_gt3"], cp_threefry=cp["threefry"])
 
 
 def phase_mc_toi() -> dict:
@@ -2381,6 +2493,52 @@ def phase_movelabel_rects(work: Path) -> dict:
     return launches
 
 
+def _moving_poly_k6(k8_ms: float) -> dict:
+    """Kernel 14's k = 6 instance, the one the bench's legs launch
+    (`bench_mc_moving_polygons_cuda`, the moving agreement leg), on the
+    fused leg's rows against its plain version: sum |dcount| <= 1e-5 of the
+    samples; its ms beside the k = 8 instance's (``k8_ms``)."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.ops import mc_cuda, mc_moving_polygon_cuda as mmp
+    from collide2d_tpu_torch.ops import mc_polygon_cuda
+    from collide2d_tpu_torch.utils.benchmarks import _bench_moving_polygon_configs
+
+    t = time.monotonic()
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    a_keep = mc_polygon_cuda.dedup_robot_axes(robot)
+    dims = dict(k=6, k2=len(robot), k2a=len(a_keep))
+    c, n = 4096, N_CHECK
+    params = mmp.pack_moving_polygon_mc_params(
+        _bench_moving_polygon_configs(c, 6, None, device="cuda"), robot, a_keep)
+    uids = torch.arange(c, dtype=torch.int32, device="cuda")
+    seed = mc_cuda.round_seed(prng.PRNGKey(12), 3)
+    got = mmp.mc_moving_poly_counts(params, uids, seed, n, **dims)
+    want = mmp.mc_moving_poly_counts_plain(params, uids, seed, n, max_elems=1 << 22, **dims)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    total = int(diff.sum())
+    if total > MISMATCH_BOUND * c * n:
+        raise RuntimeError(f"kernel 14 at k = 6 disagrees with its plain version: "
+                           f"sum|dcount|={total}")
+    if not 0 < int(got.sum()) < c * n:
+        raise RuntimeError("degenerate kernel-14 counts at k = 6")
+    ms = _events_ms(lambda: mmp.mc_moving_poly_counts(params, uids, seed, n, **dims), 20)
+    plain_ms = _events_ms(lambda: mmp.mc_moving_poly_counts_plain(
+        params, uids, seed, n, max_elems=1 << 22, **dims), 1)
+    bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
+                                c * n * mc_moving_poly_ops_per_sample(**dims))
+    counts_sum, counts_fp = _fingerprint(got)
+    _line("17 mc_moving_poly k6", time.monotonic() - t, C=c, n=n, k=6,
+          table_rows=params.shape[1], sum_abs_dcount=total,
+          rows_differ=int((diff > 0).sum()), hit_share=f"{float(want.sum()) / (c * n):.4f}",
+          counts_sum=counts_sum, counts_fingerprint=counts_fp, kernel_ms=f"{ms:.4f}",
+          k8_kernel_ms=f"{k8_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+          bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}")
+    return dict(max_abs_err=int(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by)
+
+
 def phase_mc_moving_polygon(work: Path) -> dict:
     """Phase 17: kernel 14 against its plain version and kernel 7, its
     agreement gate, and the k-gon trajectory paths; returns its entry of the
@@ -2438,8 +2596,31 @@ def phase_mc_moving_polygon(work: Path) -> dict:
           **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in floor.items()},
           kernel_samples_per_s=f"{c * n / ms * 1e3:.4e}",
           plain_samples_per_s=f"{c * n / plain_ms * 1e3:.4e}")
-    del params, got, want, k14, k7, still
-    _agreement_gate("mc_moving_poly", _moving_kgons(4096, seed=8), robot, "17 agreement")
+    del got, want, k14, k7, still
+    result["at_k6"] = _moving_poly_k6(ms)
+    result["max_abs_err"] = max(result["max_abs_err"], result["at_k6"]["max_abs_err"])
+    result["box_muller"] = _box_muller_vs_plain(
+        "17 mc_moving_poly box_muller", "workload", c, n, ms,
+        lambda **kw: mmp.mc_moving_poly_counts(params, uids, seed, n, **dims, **kw),
+        lambda **kw: mmp.mc_moving_poly_counts_plain(params, uids, seed, n,
+                                                     max_elems=1 << 22, **dims, **kw),
+        c * (params.shape[1] * 4 + 8),
+        c * n * mc_moving_poly_ops_per_sample(**dims, normal_method="box_muller"))
+    del params
+    gate_cfgs = _moving_kgons(4096, seed=8)
+    gate = _agreement_gate("mc_moving_poly", gate_cfgs, robot, "17 agreement")
+    # the Box-Muller build against the same threefry counts, through its round
+    # entry point; its launches there are its entry of the kernels line
+    t = time.monotonic()
+    mmp.reset_launches()
+    n_gate = 1 << 16
+    counts = mmp.mc_round_moving_polygons_cuda(
+        prng.PRNGKey(8), torch.arange(gate_cfgs.num, dtype=torch.int32, device="cuda"),
+        gate_cfgs, robot, 0, n_batch=n_gate, normal_method="box_muller")
+    result["box_muller"]["launches"] = mmp.BOX_MULLER_LAUNCHES
+    _z_gate("17 agreement box_muller", "mc_moving_poly box_muller",
+            counts.cpu().numpy().astype(np.float64) / n_gate, gate["cp_threefry"],
+            n_gate, t, launches=mmp.BOX_MULLER_LAUNCHES)
 
     # the model and the CLI on the 100,000 rows
     t = time.monotonic()
@@ -2928,27 +3109,8 @@ def phase_scene_swept() -> None:
 STREAM_PAIRS = 1 << 23
 
 
-def _bench_counts() -> dict:
-    """Launches of the kernels the bench legs run (kernel number: count)."""
-    from collide2d_tpu_torch.ops import (manifold_cuda, mc_cuda, mc_polygon_cuda,
-                                         polygon_cuda, raycast_cuda, sat_cuda,
-                                         stream_cuda)
-
-    torch.cuda.synchronize()
-    return {"1": mc_cuda.LAUNCHES, "3": sat_cuda.LAUNCHES["sat_count"],
-            "6": polygon_cuda.LAUNCHES, "7": mc_polygon_cuda.LAUNCHES,
-            "10": manifold_cuda.LAUNCHES, "11": raycast_cuda.LAUNCHES,
-            "16": stream_cuda.LAUNCHES}
-
-
-def _reset_bench_counts() -> None:
-    from collide2d_tpu_torch.ops import (manifold_cuda, mc_cuda, mc_polygon_cuda,
-                                         polygon_cuda, raycast_cuda, sat_cuda,
-                                         stream_cuda)
-
-    for mod in (manifold_cuda, mc_cuda, mc_polygon_cuda, polygon_cuda,
-                raycast_cuda, sat_cuda, stream_cuda):
-        mod.reset_launches()
+# Kernels that `run_all`'s legs launch (`bench.launch_counts`' numbers).
+RUN_ALL_KERNELS = ("1", "3", "6", "7", "10", "11", "16")
 
 
 def phase_bench() -> dict:
@@ -2961,7 +3123,7 @@ def phase_bench() -> dict:
 
     t = time.monotonic()
     probes = []
-    _reset_bench_counts()
+    bench.reset_launch_counts()
     head = bench.headline(log=probes.append)
     for probe in probes:
         _line("22 bench probe", time.monotonic() - t, **{
@@ -2971,7 +3133,7 @@ def phase_bench() -> dict:
         raise RuntimeError(f"bench headline: {head}")
     t = time.monotonic()
     legs = [json.loads(line) for line in bm.run_all(device="cuda")]
-    counts = _bench_counts()
+    counts = {k: v for k, v in bench.launch_counts().items() if k in RUN_ALL_KERNELS}
     for leg in legs:
         print("[22 run_all] " + json.dumps(leg), flush=True)
         if not 0 < leg["value"] < math.inf:
@@ -3012,6 +3174,79 @@ def phase_bench() -> dict:
           library_gb_per_s=f"{(nbytes - 4) / (library_ms * 1e-3) / 1e9:.1f}")
     return {"launches": counts["16"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+
+# Kernels the full bench launches (every leg of the root bench.py): all but
+# the label kernels 2 and 4 and the Box-Muller builds of 7 and 14, which no
+# leg of it runs.
+FULL_BENCH_KERNELS = ("1", "1bm", "3", "5", "6", "7", "8", "9", "10", "11", "12", "13",
+                      "14", "15", "16")
+AGREEMENT_METRICS = ("cuda_vs_jnp_agreement", "polygon_agreement",
+                     "moving_polygon_agreement")
+TAIL_CHARS = 2000  # a harness that keeps the output's last 2,000 characters
+LAUNCH_RECORD = "# launches "  # the bench's stderr line of launches and failed legs
+
+
+def phase_full_bench() -> dict:
+    """Phase 22, the full bench: ``python -m collide2d_tpu_torch.bench`` in a
+    process of its own (its output and errors in one stream, as a harness
+    that captures both reads them): exit code 0 and no leg failed; the last
+    line the headline with ``bandwidth_check`` ok, the line before it the
+    digest (at most `DIGEST_BUDGET` characters, n >= 25), both inside the
+    last 2,000 characters; every agreement leg ``ok``; every kernel of
+    `FULL_BENCH_KERNELS` launched. Returns the kernels' launches in the run
+    and its wall seconds."""
+    from collide2d_tpu_torch import bench
+
+    torch.cuda.empty_cache()  # the bench's process takes the card's memory
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "collide2d_tpu_torch.bench"], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=900)
+    wall = time.monotonic() - t
+    out = proc.stdout
+    for line in out.splitlines():
+        if line.startswith("# {"):
+            print("[22 bench leg] " + line[2:], flush=True)
+    lines = out.rstrip("\n").splitlines()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the bench exited {proc.returncode}:\n{out[-4000:]}")
+    records = [json.loads(line[len(LAUNCH_RECORD):]) for line in lines
+               if line.startswith(LAUNCH_RECORD)]
+    if len(records) != 1:
+        raise RuntimeError(f"the bench printed {len(records)} launch records")
+    record = records[0]
+    if record["failed"]:
+        raise RuntimeError(f"bench legs failed: {record['failed']}")
+    head, digest = json.loads(lines[-1]), json.loads(lines[-2])
+    if head.get("metric") != "sat_rect_pairs_per_sec" or head.get("bandwidth_check") != "ok":
+        raise RuntimeError(f"the bench's last line is not an ok headline: {lines[-1]}")
+    if digest.get("metric") != "digest" or digest["n"] < 25 or len(
+            lines[-2]) > bench.DIGEST_BUDGET:
+        raise RuntimeError(f"the bench's digest: {len(lines[-2])} characters, "
+                           f"n={digest.get('n')}")
+    tail = out[-TAIL_CHARS:]
+    if lines[-1] not in tail or lines[-2] not in tail:
+        raise RuntimeError("the digest and the headline are not both in the last "
+                           f"{TAIL_CHARS} characters")
+    results = [json.loads(line[2:]) for line in lines if line.startswith("# {")]
+    agreement = {r["metric"]: r for r in results if r.get("metric") in AGREEMENT_METRICS}
+    if set(agreement) != set(AGREEMENT_METRICS) or not all(
+            r["ok"] for r in agreement.values()):
+        raise RuntimeError(f"agreement legs: {agreement}")
+    launches = record["launches"]
+    missing = [k for k in FULL_BENCH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"the full bench never launched kernels {missing}: {launches}")
+    _line("22 full bench", wall, exit_code=proc.returncode, legs=len(results),
+          digest_chars=len(lines[-2]), digest_n=digest["n"],
+          tail_chars=len(lines[-1]) + len(lines[-2]) + 2,
+          agreement=",".join(f"{k}:{r['value']:.3f}:{r['ok']}" for k, r in
+                             agreement.items()),
+          launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+          wall_seconds=f"{wall:.1f}")
+    print("[22 full bench digest] " + lines[-2], flush=True)
+    return {"launches": launches, "seconds": wall}
 
 
 # ---- kernels 1, 7, 13 and 14: the counts' fingerprint and the issue floor ----
@@ -3384,9 +3619,14 @@ def main() -> int:
     phase_scene_dense()
     phase_scene_swept()
     stream = phase_bench()
+    full_bench = phase_full_bench()
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
     default = check["default"]
+    bm1 = dict(default["box_muller"], launches=full_bench["launches"]["1bm"],
+               max_abs_err=max(check[k]["box_muller"]["max_abs_err"] for k in check))
+    poly_mc_bm = poly_mc.pop("box_muller")
+    moving_poly_bm = moving_poly.pop("box_muller")
     kernels = {"kernels": [{
         "name": "mc_counts",
         "route": "cuda",
@@ -3401,6 +3641,19 @@ def main() -> int:
         "issue_floor_ms": default["issue_floor_ms"],
         "library_ms": None,
     }] + [{
+        # the Box-Muller builds (-DMC_BOX_MULLER=1) of kernels 1, 7 and 14:
+        # the TPU kernels' normal_method="box_muller"
+        "name": f"{name}_box_muller",
+        "route": "cuda",
+        "source": f"collide2d_tpu_torch/csrc/{source}",
+        "replaces": f"collide2d_tpu/ops/{replaces}",
+        **entry,
+        "library_ms": None,
+    } for name, source, replaces, entry in (
+        ("mc_counts", "mc_kernel.cu", "mc_pallas.py:207", bm1),
+        ("mc_poly_counts", "mc_polygon_kernel.cu", "mc_polygon_pallas.py:254", poly_mc_bm),
+        ("mc_moving_poly_counts", "mc_moving_polygon_kernel.cu",
+         "mc_moving_polygon_pallas.py:182", moving_poly_bm))] + [{
         "name": name,
         "route": "cuda",
         "source": "collide2d_tpu_torch/csrc/sat_kernel.cu",

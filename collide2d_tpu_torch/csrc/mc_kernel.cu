@@ -6,7 +6,10 @@
 // with shape noise (+ dw, dh) from the shared stream (csrc/mc_stream.cuh:
 // words dx, dy, dtheta, dw of draw block 0, dh of block 1), then the
 // relative-angle 4-axis oriented-box test of `_obb_separated`
-// (mc_pallas.py:159-204).
+// (mc_pallas.py:159-204). A build with -DMC_BOX_MULLER=1 draws the normals
+// as Box-Muller pairs instead (the TPU kernel's normal_method="box_muller";
+// mc_stream.cuh::box_muller_pair: words 0-3 of block 0, with shape noise
+// also words 0-1 of block 1); without the define the kernel is unchanged.
 //
 // What bounds it on this card: instruction issue, not memory. A round reads
 // 64 bytes of parameters per configuration and writes 4, while every sample
@@ -62,6 +65,13 @@ constexpr long long kSamplesPerBlock =
 // 6.97 against 6.70.
 constexpr int S = 4;
 static_assert(kSamplesPerThread % S == 0, "S must divide 16");
+// The normals: erf_inv, or Box-Muller pairs in a build with -DMC_BOX_MULLER=1
+// (mc_stream.cuh::box_muller_pair; the TPU kernel's normal_method).
+#if defined(MC_BOX_MULLER) && MC_BOX_MULLER
+constexpr bool kBoxMuller = true;
+#else
+constexpr bool kBoxMuller = false;
+#endif
 
 // Parameter columns of one configuration (ops/mc_cuda.py::pack_mc_params).
 struct Params {
@@ -137,6 +147,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int s = 0; s < S; ++s) {
       const int k = k0 + kThreads * s;
       const Philox4 r = draw0(k, key);
+      if constexpr (kBoxMuller) {
+        // pairs (words 0, 1), (2, 3) and, with shape noise, block 1's (0, 1)
+        const NormalPair p0 = box_muller_pair(r.v[0], r.v[1]);
+        const NormalPair p1 = box_muller_pair(r.v[2], r.v[3]);
+        float a, b;
+        if (kShapeNoise) {
+          const Philox4 r2 = draw1(k, key);
+          const NormalPair p2 = box_muller_pair(r2.v[0], r2.v[1]);
+          a = fabsf(q.ow_h + p1.s * q.swh);
+          b = fabsf(q.oh_h + p2.c * q.shh);
+        } else {
+          a = fabsf(q.ow_h);
+          b = fabsf(q.oh_h);
+        }
+        sep[s] = obb_separated(q, p0.c, p0.s, p1.c, a, b);
+        continue;
+      }
       const float z_dx = normal_from_word(r.v[0], kWarp);
       const float z_dy = normal_from_word(r.v[1], kWarp);
       const float z_th = normal_from_word(r.v[2], kWarp);

@@ -6,7 +6,8 @@
 // the int32 number of samples among n whose noisy obstacle the robot,
 // translating by v t over the unit horizon (omega == 0, the caller's
 // contract), touches. Per sample: kernel 7's 3 standard normals (dx, dy,
-// dtheta) and table blends (mc_polygon_kernel.cu), then the EXACT
+// dtheta; erf_inv, or Box-Muller in a -DMC_BOX_MULLER=1 build) and table
+// blends (mc_polygon_kernel.cu), then the EXACT
 // first-contact window per SAT axis (`_axis_window`, mc_moving_polygon_
 // pallas.py:102-113), the obstacle moving by t v_rel (v_rel = -v t_max, the
 // table's last two rows):

@@ -11,7 +11,9 @@
 // per static shape.
 //
 // Stream. Kernel 1's with shape noise off (csrc/mc_stream.cuh): words 0-2
-// of draw block 0 as the normals dx, dy, dtheta.
+// of draw block 0 as the normals dx, dy, dtheta; in a build with
+// -DMC_BOX_MULLER=1, words 0-3 as two Box-Muller pairs, whose first three
+// outputs are dx, dy, dtheta (mc_stream.cuh::box_muller_pair).
 //
 // Staged table. The packed row (C, ROWS) of ops/mc_polygon_cuda.py::
 // _offsets keeps its layout in device memory; a block rearranges its row
@@ -47,12 +49,21 @@ struct Pose {
 __device__ __forceinline__ Pose sample_pose(const mc_stream::Philox4& r,
                                             float sigma_x, float sigma_y,
                                             float sigma_th) {
+  Pose p;
+#if defined(MC_BOX_MULLER) && MC_BOX_MULLER
+  // a Box-Muller build: pairs (words 0, 1) and (2, 3), normals c0, s0, c1
+  const mc_stream::NormalPair n01 = mc_stream::box_muller_pair(r.v[0], r.v[1]);
+  const mc_stream::NormalPair n23 = mc_stream::box_muller_pair(r.v[2], r.v[3]);
+  p.dx = __fmul_rn(n01.c, sigma_x);
+  p.dy = __fmul_rn(n01.s, sigma_y);
+  const float th = __fmul_rn(n23.c, sigma_th);
+#else
   using mc_stream::normal_from_word;
   const unsigned lanes = __activemask();  // the kernels' loops exit by lane
-  Pose p;
   p.dx = __fmul_rn(normal_from_word(r.v[0], lanes), sigma_x);
   p.dy = __fmul_rn(normal_from_word(r.v[1], lanes), sigma_y);
   const float th = __fmul_rn(normal_from_word(r.v[2], lanes), sigma_th);
+#endif
   sincosf(th, &p.st, &p.ct);
   p.u1 = dot2(p.ct, p.dx, p.st, p.dy);
   p.u2 = __fsub_rn(__fmul_rn(p.ct, p.dy), __fmul_rn(p.st, p.dx));

@@ -4,7 +4,9 @@
 // Replaces the TPU kernel collide2d_tpu/ops/mc_polygon_pallas.py::
 // _mc_poly_kernel. For each configuration row c it returns the int32 number
 // of colliding samples among n noise draws: per sample 3 standard normals
-// (dx, dy, dtheta) from 23-bit codes through XLA's float32 erf_inv, then the
+// (dx, dy, dtheta) from 23-bit codes through XLA's float32 erf_inv (in a
+// build with -DMC_BOX_MULLER=1, two Box-Muller pairs: mc_polygon.cuh::
+// sample_pose, the TPU kernel's normal_method="box_muller"), then the
 // separation test `_poly_separated` (mc_polygon_pallas.py:199-251) over the
 // row's precomputed tables (ops/mc_polygon_cuda.py::pack_polygon_mc_params):
 //

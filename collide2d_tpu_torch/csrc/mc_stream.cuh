@@ -5,10 +5,12 @@
 // Philox4x32-10 keyed by the round's two seed words (the folded threefry
 // key, as mc_pallas.py:375-378), counter (sample index low, sample index
 // high, row uid, draw block); each word's top 23 bits become a standard
-// normal through XLA's float32 erf_inv. The plain versions draw the same
-// words (collide2d_tpu_torch/mc/prng.py::philox4x32) and normals
-// (prng.py::normal_from_codes); tests/test_torch_mc_stream.py compiles this
-// header on the host and holds it to them.
+// normal through XLA's float32 erf_inv, or, in a Box-Muller build, pairs of
+// words one pair of normals (`box_muller_pair`, below). The plain versions
+// draw the same words (collide2d_tpu_torch/mc/prng.py::philox4x32) and
+// normals (prng.py::normal_from_codes, prng.py::box_muller_from_codes);
+// tests/test_torch_mc_stream.py compiles this header on the host and holds
+// it to them.
 //
 // What a sample does not repeat:
 // - the 10 round keys: the launcher computes them on the host (`philox_key`)
@@ -207,6 +209,39 @@ __device__ __forceinline__ float normal_from_word(uint32_t word, unsigned lanes)
 
 // Every lane of the warp (the `lanes` of a warp-uniform loop).
 constexpr unsigned kWarp = 0xffffffffu;
+
+// Box-Muller normals, the other draw of kernels 1, 7 and 14 (the TPU
+// kernels' normal_method="box_muller", mc_pallas.py:125-131). A build takes
+// them instead of erf_inv when it is compiled with -DMC_BOX_MULLER=1 (its own
+// library: ops/mc_cuda.py::normal_defines); without the define no kernel
+// reads this function and the erf_inv builds compile as before.
+//
+// One pair from two Philox words: each word's top 24 bits b give
+// u = (b + 1) * 2^-24 in (0, 1] (exact), then r = sqrt(-2 log u1),
+// a = 2 pi u2 and the pair (r cos a, r sin a). IEEE logf, sqrtf and sincosf,
+// never the __logf / __sinf intrinsics or fast math, so the plain version
+// (prng.py::box_muller_from_codes) follows it to an ulp or two. u1 >= 2^-24
+// keeps r <= 5.77: always finite.
+//
+// Pairing. The TPU kernel pairs across two samples of a tile row (its
+// layout's doing); here a sample takes its own pairs, so its normals stay a
+// function of (seed, uid, sample index) alone and counts keep invariant
+// under compaction, offsets and resumes. A sample's normals are the pairs'
+// outputs in order (c0, s0, c1, s1, c2): 3 normals take words 0-3 of draw
+// block 0 (two pairs, s1 unused), 5 normals also words 0-1 of block 1.
+struct NormalPair {
+  float c, s;
+};
+
+__device__ __forceinline__ NormalPair box_muller_pair(uint32_t w1, uint32_t w2) {
+  const float u1 = (static_cast<float>(w1 >> 8) + 1.0f) * 5.9604644775390625e-08f;
+  const float u2 = (static_cast<float>(w2 >> 8) + 1.0f) * 5.9604644775390625e-08f;
+  const float r = sqrtf(-2.0f * logf(u1));
+  float s, c;
+  sincosf(6.28318548f * u2, &s, &c);
+  NormalPair p = {r * c, r * s};
+  return p;
+}
 
 }  // namespace mc_stream
 }  // namespace collide2d

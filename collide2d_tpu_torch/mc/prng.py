@@ -10,7 +10,10 @@ Two generators:
   path's draws.
 - **Philox4x32-10** (Salmon et al., SC'11; Random123's constants), the
   generator of the fused Monte Carlo kernel (``csrc/mc_kernel.cu``). The
-  torch version here is the kernel's plain counterpart.
+  torch version here is the kernel's plain counterpart, with its two ways
+  to turn words into normals: erf_inv of 23-bit codes
+  (`normal_from_codes`) and Box-Muller pairs of 24-bit codes
+  (`box_muller_from_codes`).
 
 Representation: a host key is a numpy ``uint32`` array of shape (2,) —
 a JAX key's ``key_data`` taken as it is. Batched keys on a device are a
@@ -331,3 +334,23 @@ def normal_from_codes(codes: torch.Tensor) -> torch.Tensor:
     kernel's (see `erf_inv`)."""
     u = (codes.to(torch.float32) + 0.5) * (2.0**-22) - 1.0
     return erf_inv(u, xla_log1p=False) * float(SQRT2_F32)
+
+
+TWO_PI_F32 = np.float32(2 * np.pi)
+
+
+def box_muller_from_codes(b1: torch.Tensor, b2: torch.Tensor):
+    """One Box-Muller pair of standard normals from 24-bit codes b1, b2 in
+    [0, 2^24), the torch twin of ``csrc/mc_stream.cuh::box_muller_pair`` and
+    the formula of the TPU kernels' ``_box_muller`` (mc_pallas.py:125-131):
+    u = (b + 1) * 2^-24 in (0, 1], r = sqrt(-2 log u1), a = 2 pi u2, and
+    ``(r cos a, r sin a)``. The square root is correctly rounded (IEEE
+    ``sqrtf``); ``log``, ``cos`` and ``sin`` are torch's, which on a CUDA
+    tensor are the kernel's ``logf`` and ``sincosf`` and on the CPU differ
+    from them by an ulp or two."""
+    u1 = (b1.to(torch.float32) + 1.0) * (2.0**-24)
+    u2 = (b2.to(torch.float32) + 1.0) * (2.0**-24)
+    r = sqrt_rn(-2.0 * torch.log(u1))
+    a = float(TWO_PI_F32) * u2
+    return r * torch.cos(a), r * torch.sin(a)
+

@@ -19,6 +19,14 @@ words are (dx, dy, dtheta, dw) and block 1's first word is dh; block 1 is
 drawn only with shape noise. Counts are a pure function of (key, uid,
 round tag, sample index), so they do not change with the grid, repacking,
 row order or how one round's samples are split across calls (`offset`).
+
+Normals (``normal_method``, as the TPU kernels'): ``"erfinv"`` (the
+default) takes each word's top 23 bits through XLA's erf_inv;
+``"box_muller"`` takes pairs of words, (0, 1), (2, 3) and with shape noise
+block 1's (0, 1), each through one Box-Muller pair of 24-bit codes, and a
+sample's normals are the pairs' outputs in order (c0, s0, c1, s1, c2).
+Each method is its own build of the kernel (`normal_defines`), counted in
+its own launch counter; kernels 7 and 14 take the same option.
 """
 
 from __future__ import annotations
@@ -31,13 +39,27 @@ from collide2d_tpu_torch.mc import prng
 
 PARAM_COLS = 16
 _KERNEL = "mc_kernel"
-# Launches of the CUDA kernel in this process (never the plain version).
+NORMAL_METHODS = ("erfinv", "box_muller")
+# Launches of the CUDA kernel in this process (never the plain version):
+# its erf_inv build, and its Box-Muller build.
 LAUNCHES = 0
+BOX_MULLER_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, BOX_MULLER_LAUNCHES
     LAUNCHES = 0
+    BOX_MULLER_LAUNCHES = 0
+
+
+def normal_defines(normal_method: str) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines of a build of kernels 1, 7 and 14 that draws its
+    normals by ``normal_method``: none for erf_inv, ``MC_BOX_MULLER=1`` for
+    Box-Muller (its own library, `utils.cuda_build`)."""
+    if normal_method not in NORMAL_METHODS:
+        raise ValueError(f"normal_method must be one of {NORMAL_METHODS}, got "
+                         f"{normal_method!r}")
+    return (("MC_BOX_MULLER", 1),) if normal_method == "box_muller" else ()
 
 
 def pack_mc_params(configs, robot_wh) -> torch.Tensor:
@@ -93,20 +115,78 @@ def _obb_separated(p: torch.Tensor, z_dx, z_dy, z_th, z_dw, z_dh) -> torch.Tenso
     return sep
 
 
-def _philox_codes(uids, seed, j0: int, j1: int, offset: int, shape_noise: bool):
-    """23-bit codes (C, j1-j0, 3 or 5) of samples [j0, j1) (+ offset)."""
+def _philox_words(uids, seed, j0: int, j1: int, offset: int, n_words: int):
+    """The first ``n_words`` (<= 8) Philox words (C, j1-j0, n_words) of
+    samples [j0, j1) (+ offset): draw block 0's four, then block 1's."""
     dev = uids.device
     idx = torch.arange(j0, j1, dtype=torch.int64, device=dev) + int(offset)
     lo = (idx & prng.MASK32)[None, :]
     hi = (idx >> 32)[None, :]
     uid = (uids.to(torch.int64) & prng.MASK32)[:, None]
     s0, s1 = int(seed[0]), int(seed[1])
-    w = prng.philox4x32(lo, hi, uid, 0, s0, s1)
-    words = [w[0], w[1], w[2]]
-    if shape_noise:
-        words += [w[3], prng.philox4x32(lo, hi, uid, 1, s0, s1)[0]]
+    words = list(prng.philox4x32(lo, hi, uid, 0, s0, s1))
+    if n_words > 4:
+        words += list(prng.philox4x32(lo, hi, uid, 1, s0, s1))
     return torch.stack([torch.broadcast_to(x, (uid.shape[0], j1 - j0))
-                        for x in words], dim=-1) >> 9
+                        for x in words[:n_words]], dim=-1)
+
+
+def _box_muller_normals(codes: torch.Tensor, n_normals: int) -> torch.Tensor:
+    """(C, S, n_normals) normals of Box-Muller pairs over consecutive 24-bit
+    codes (C, S, 2 * pairs): outputs in order c0, s0, c1, s1, ..."""
+    c, s = prng.box_muller_from_codes(codes[..., 0::2], codes[..., 1::2])
+    return torch.stack([c, s], dim=-1).flatten(-2)[..., :n_normals]
+
+
+def philox_normals(uids, seed, j0: int, j1: int, offset: int, n_normals: int,
+                   normal_method: str = "erfinv") -> torch.Tensor:
+    """The normals (C, j1-j0, n_normals) the kernels draw for samples
+    [j0, j1) (+ offset) of rows ``uids``: n_normals 23-bit codes through
+    erf_inv, or ceil(n_normals / 2) Box-Muller pairs."""
+    normal_defines(normal_method)
+    if normal_method == "erfinv":
+        return prng.normal_from_codes(
+            _philox_words(uids, seed, j0, j1, offset, n_normals) >> 9)
+    pairs = -(-n_normals // 2)
+    words = _philox_words(uids, seed, j0, j1, offset, 2 * pairs)
+    return _box_muller_normals(words >> 8, n_normals)
+
+
+def uniform_normals(uniforms: torch.Tensor, normal_method: str = "erfinv"
+                    ) -> torch.Tensor:
+    """The TPU kernels' ``_TEST_UNIFORM_FN`` hook: pre-drawn (C, n, D)
+    uniforms in (0, 1], each the 24-bit code ``u * 2^24 - 1`` (exact), as
+    normals (C, n, D). erf_inv takes each code's top 23 bits. Box-Muller
+    pairs as the TPU kernel does for one step of n samples, two samples of a
+    tile row a pair: sample j < n/2 takes u1 = uniforms[:, j] and
+    u2 = uniforms[:, j + n/2] and gets r cos a, sample j + n/2 gets r sin a
+    (n even)."""
+    normal_defines(normal_method)
+    codes = (uniforms.to(torch.float32) * float(1 << 24) - 1.0).to(torch.int32)
+    if normal_method == "erfinv":
+        return prng.normal_from_codes(codes >> 1)
+    half = codes.shape[1] // 2
+    if 2 * half != codes.shape[1]:
+        raise ValueError(f"Box-Muller uniforms need an even sample count, got "
+                         f"{codes.shape[1]}")
+    c, s = prng.box_muller_from_codes(codes[:, :half], codes[:, half:])
+    return torch.cat([c, s], dim=1)
+
+
+def normal_chunks(uids, seed, n: int, offset: int, n_normals: int,
+                  normal_method: str, uniforms, step: int):
+    """The plain versions' normals, ``step`` samples at a time: yields
+    (C, <= step, n_normals) tensors of samples [0, n) in order, from Philox
+    or, when ``uniforms`` is given, from the test hook (`uniform_normals`)."""
+    z_all = None
+    if uniforms is not None:
+        z_all = uniform_normals(uniforms[:, :n, :n_normals], normal_method)
+    for j0 in range(0, n, step):
+        j1 = min(n, j0 + step)
+        if z_all is not None:
+            yield z_all[:, j0:j1]
+        else:
+            yield philox_normals(uids, seed, j0, j1, offset, n_normals, normal_method)
 
 
 def mc_counts_plain(
@@ -117,6 +197,7 @@ def mc_counts_plain(
     *,
     offset: int = 0,
     shape_noise: bool = True,
+    normal_method: str = "erfinv",
     uniforms: torch.Tensor | None = None,
     max_elems: int = 1 << 16,
 ) -> torch.Tensor:
@@ -124,9 +205,9 @@ def mc_counts_plain(
 
     ``seed``: the round's two uint32 words. ``uniforms``: optional
     pre-drawn (C, n, 3 or 5) floats in (0, 1] that replace Philox — each
-    becomes the 24-bit code ``u * 2^24 - 1`` and then the 23-bit code
-    ``>> 1``, exactly as the TPU kernel's ``_TEST_UNIFORM_FN`` hook
-    (mc_pallas.py:94-116), so tests can replay that kernel's draws.
+    becomes the 24-bit code ``u * 2^24 - 1``, then a normal as the TPU
+    kernel's ``_TEST_UNIFORM_FN`` hook (mc_pallas.py:94-116) makes it
+    (`uniform_normals`), so tests can replay that kernel's draws.
     ``max_elems``: rows x samples per chunk of the sample axis (the
     default keeps a chunk's temporaries in a CPU's cache). Returns int32
     (C,)."""
@@ -134,14 +215,8 @@ def mc_counts_plain(
     n = int(n)
     counts = torch.zeros((c,), dtype=torch.int32, device=params.device)
     step = max(1, max_elems // max(c, 1))
-    for j0 in range(0, n, step):
-        j1 = min(n, j0 + step)
-        if uniforms is None:
-            codes = _philox_codes(uids, seed, j0, j1, offset, shape_noise)
-        else:
-            u = uniforms[:, j0:j1].to(torch.float32)
-            codes = (u * float(1 << 24) - 1.0).to(torch.int32) >> 1
-        z = prng.normal_from_codes(codes)
+    for z in normal_chunks(uids, seed, n, offset, 5 if shape_noise else 3,
+                           normal_method, uniforms, step):
         if shape_noise:
             sep = _obb_separated(params, z[..., 0], z[..., 1], z[..., 2],
                                  z[..., 3], z[..., 4])
@@ -173,10 +248,10 @@ def _check_inputs(params: torch.Tensor, uids: torch.Tensor, n: int) -> None:
         raise ValueError(f"n must be >= 0, got {n}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
+def _kernel_lib(normal_method: str = "erfinv") -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_KERNEL)
+    lib = cuda_build.load(_KERNEL, normal_defines(normal_method))
     lib.mc_counts_launch.restype = ctypes.c_int
     lib.mc_counts_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -196,25 +271,30 @@ def mc_counts(
     *,
     offset: int = 0,
     shape_noise: bool = True,
+    normal_method: str = "erfinv",
 ) -> torch.Tensor:
     """Collision counts out of ``n`` samples per configuration: int32 (C,).
 
     ``params`` (C, 16) float32 from `pack_mc_params`; ``uids`` int32 (C,)
     row identities (the stream key); ``seed`` the round's two uint32
-    words; ``offset`` the index of the first sample. CUDA tensors launch
-    the kernel, CPU tensors run the plain version."""
-    global LAUNCHES
+    words; ``offset`` the index of the first sample; ``normal_method``
+    "erfinv" or "box_muller" (the module's docstring). CUDA tensors launch
+    the kernel's build for that method, CPU tensors run the plain
+    version."""
+    global LAUNCHES, BOX_MULLER_LAUNCHES
     _check_inputs(params, uids, n)
+    normal_defines(normal_method)
     if params.device.type == "cpu":
         return mc_counts_plain(params, uids, seed, n, offset=offset,
-                               shape_noise=shape_noise)
+                               shape_noise=shape_noise,
+                               normal_method=normal_method)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     counts = torch.zeros((params.shape[0],), dtype=torch.int32,
                          device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
-    lib = _kernel_lib()
+    lib = _kernel_lib(normal_method)
     if int(n) > lib.mc_max_samples_per_round():
         raise ValueError(
             f"n={n} exceeds the kernel's {lib.mc_max_samples_per_round()} "
@@ -229,7 +309,10 @@ def mc_counts(
     )
     if err != 0:
         raise RuntimeError(f"mc_counts_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if normal_method == "box_muller":
+        BOX_MULLER_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return counts
 
 
@@ -249,6 +332,7 @@ def mc_round_cuda(
     *,
     n_batch: int,
     shape_noise: bool = True,
+    normal_method: str = "erfinv",
 ) -> torch.Tensor:
     """One round on the fused kernel: int32 (C,) counts of ``n_batch``
     samples per configuration. ``round_tag`` must differ across rounds so
@@ -256,4 +340,4 @@ def mc_round_cuda(
     params = pack_mc_params(configs, robot_wh)
     return mc_counts(params, uids.to(torch.int32).contiguous(),
                      round_seed(key, round_tag), n_batch,
-                     shape_noise=shape_noise)
+                     shape_noise=shape_noise, normal_method=normal_method)

@@ -25,7 +25,9 @@ caller guarantees omega == 0 (the adaptive driver reads it back once).
 as kernel 7: `mc_polygon_cuda.shape_defines`) and counts the launch in
 ``LAUNCHES``; a failed build or launch raises; a CPU tensor runs
 `mc_moving_poly_counts_plain`. Stream: kernel 7's (Philox keyed by the
-round's seed words, counter (sample index, uid, 0), words 0-2).
+round's seed words, counter (sample index, uid, 0), words 0-2 through
+erf_inv, or with ``normal_method="box_muller"``, a build of its own, words
+0-3 as two Box-Muller pairs).
 """
 
 from __future__ import annotations
@@ -39,13 +41,16 @@ from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda
 
 _KERNEL = "mc_moving_polygon_kernel"
 _INF = float("inf")
-# Launches of the CUDA kernel in this process (never the plain version).
+# Launches of the CUDA kernel in this process (never the plain version):
+# its erf_inv builds, and its Box-Muller builds (``normal_method``).
 LAUNCHES = 0
+BOX_MULLER_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, BOX_MULLER_LAUNCHES
     LAUNCHES = 0
+    BOX_MULLER_LAUNCHES = 0
 
 
 def _static_rows(k: int, k2: int, k2a: int) -> int:
@@ -138,24 +143,19 @@ def _poly_window_hit(t: torch.Tensor, k: int, k2: int, k2a: int, z_dx, z_dy,
 
 def mc_moving_poly_counts_plain(params: torch.Tensor, uids: torch.Tensor, seed,
                                 n: int, *, k: int, k2: int, k2a: int,
-                                offset: int = 0,
+                                offset: int = 0, normal_method: str = "erfinv",
                                 uniforms: torch.Tensor | None = None,
                                 max_elems: int = 1 << 14) -> torch.Tensor:
     """The kernel's function in torch operations, on any device.
     ``uniforms``: optional (C, n, 3) floats in (0, 1] that replace Philox
-    (the TPU kernel's ``_TEST_UNIFORM_FN`` hook). Returns int32 (C,)."""
+    (the TPU kernel's ``_TEST_UNIFORM_FN`` hook, `mc_cuda.uniform_normals`).
+    Returns int32 (C,)."""
     c = params.shape[0]
     n = int(n)
     counts = torch.zeros((c,), dtype=torch.int32, device=params.device)
     step = max(1, max_elems // max(c, 1))
-    for j0 in range(0, n, step):
-        j1 = min(n, j0 + step)
-        if uniforms is None:
-            codes = mc_cuda._philox_codes(uids, seed, j0, j1, offset, False)
-        else:
-            u = uniforms[:, j0:j1].to(torch.float32)
-            codes = (u * float(1 << 24) - 1.0).to(torch.int32) >> 1
-        z = prng.normal_from_codes(codes)
+    for z in mc_cuda.normal_chunks(uids, seed, n, offset, 3, normal_method,
+                                   uniforms, step):
         hit = _poly_window_hit(params, k, k2, k2a, z[..., 0], z[..., 1], z[..., 2])
         counts += hit.sum(dim=1, dtype=torch.int32)
     return counts
@@ -180,10 +180,12 @@ def _check_inputs(params, uids, n, k, k2, k2a) -> None:
         raise ValueError(f"n must be >= 0, got {n}")
 
 
-def _kernel_lib(k: int, k2: int, k2a: int) -> ctypes.CDLL:
+def _kernel_lib(k: int, k2: int, k2a: int, normal_method: str = "erfinv"
+                ) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_KERNEL, mc_polygon_cuda.shape_defines(k, k2, k2a))
+    lib = cuda_build.load(_KERNEL, mc_polygon_cuda.shape_defines(k, k2, k2a)
+                          + mc_cuda.normal_defines(normal_method))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.mc_moving_poly_counts_launch.restype = ctypes.c_int
     lib.mc_moving_poly_counts_launch.argtypes = [p, p, p, i, i, i, i, i, ll, ll,
@@ -195,22 +197,27 @@ def _kernel_lib(k: int, k2: int, k2a: int) -> ctypes.CDLL:
 
 def mc_moving_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int,
                           *, k: int, k2: int, k2a: int,
-                          offset: int = 0) -> torch.Tensor:
+                          offset: int = 0,
+                          normal_method: str = "erfinv") -> torch.Tensor:
     """Trajectory-collision counts out of ``n`` samples per configuration:
     int32 (C,). ``params`` (C, ROWS) from `pack_moving_polygon_mc_params`;
-    ``uids`` int32 (C,); ``seed`` the round's two uint32 words. CUDA
-    tensors launch the kernel, CPU tensors run the plain version."""
-    global LAUNCHES
+    ``uids`` int32 (C,); ``seed`` the round's two uint32 words;
+    ``normal_method`` "erfinv" or "box_muller" (`ops.mc_cuda`). CUDA
+    tensors launch the kernel's build for that shape and method, CPU
+    tensors run the plain version."""
+    global LAUNCHES, BOX_MULLER_LAUNCHES
     _check_inputs(params, uids, n, k, k2, k2a)
+    mc_cuda.normal_defines(normal_method)
     if params.device.type == "cpu":
         return mc_moving_poly_counts_plain(params, uids, seed, n, k=k, k2=k2,
-                                           k2a=k2a, offset=offset)
+                                           k2a=k2a, offset=offset,
+                                           normal_method=normal_method)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     counts = torch.zeros((params.shape[0],), dtype=torch.int32, device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
-    lib = _kernel_lib(k, k2, k2a)
+    lib = _kernel_lib(k, k2, k2a, normal_method)
     if int(n) > lib.mc_moving_poly_max_samples_per_round():
         raise ValueError(f"n={n} exceeds the kernel's "
                          f"{lib.mc_moving_poly_max_samples_per_round()} samples "
@@ -222,14 +229,17 @@ def mc_moving_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int
         torch.cuda.current_stream(params.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mc_moving_poly_counts_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if normal_method == "box_muller":
+        BOX_MULLER_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return counts
 
 
 def mc_round_moving_polygons_cuda(key, uids: torch.Tensor, configs, robot_verts,
                                   round_tag: int, *, n_batch: int,
-                                  a_keep: tuple[int, ...] | None = None
-                                  ) -> torch.Tensor:
+                                  a_keep: tuple[int, ...] | None = None,
+                                  normal_method: str = "erfinv") -> torch.Tensor:
     """One round of a TRANSLATION-ONLY `MovingPolygonConfigs` batch on
     kernel 14: int32 (C,) counts of ``n_batch`` samples per configuration.
     ``a_keep`` as `mc_polygon_cuda.mc_round_polygons_cuda`'s."""
@@ -241,4 +251,4 @@ def mc_round_moving_polygons_cuda(key, uids: torch.Tensor, configs, robot_verts,
     return mc_moving_poly_counts(params, uids.to(torch.int32).contiguous(),
                                  mc_cuda.round_seed(key, round_tag), n_batch,
                                  k=configs.obstacle_verts.shape[1], k2=rv.shape[0],
-                                 k2a=len(a_keep))
+                                 k2a=len(a_keep), normal_method=normal_method)

@@ -28,8 +28,10 @@ colliding samples among ``n`` draws:
 
 Stream: kernel 1's (`ops.mc_cuda`) with shape noise off: Philox4x32-10
 keyed by the round's seed words, counter (sample index low, sample index
-high, row uid, 0), words 0-2 as 23-bit codes through XLA's erf_inv. Counts
-are a pure function of (key, uid, round tag, sample index).
+high, row uid, 0), words 0-2 as 23-bit codes through XLA's erf_inv, or,
+with ``normal_method="box_muller"`` (a build of its own), words 0-3 as two
+Box-Muller pairs. Counts are a pure function of (key, uid, round tag,
+sample index).
 
 Layout: the port stores a configuration's table contiguously, (C, ROWS);
 the TPU kernel's is its transpose, (ROWS, C).
@@ -47,13 +49,16 @@ from collide2d_tpu_torch.ops import mc_cuda
 from collide2d_tpu_torch.ops.geometry import edge_normals, transform_vertices
 
 _KERNEL = "mc_polygon_kernel"
-# Launches of the CUDA kernel in this process (never the plain version).
+# Launches of the CUDA kernel in this process (never the plain version):
+# its erf_inv builds, and its Box-Muller builds (``normal_method``).
 LAUNCHES = 0
+BOX_MULLER_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, BOX_MULLER_LAUNCHES
     LAUNCHES = 0
+    BOX_MULLER_LAUNCHES = 0
 
 
 def dedup_robot_axes(robot_verts) -> tuple[int, ...]:
@@ -186,28 +191,23 @@ def _poly_separated(t: torch.Tensor, k: int, k2: int, k2a: int,
 
 def mc_poly_counts_plain(params: torch.Tensor, uids: torch.Tensor, seed, n: int,
                          *, k: int, k2: int, k2a: int, offset: int = 0,
+                         normal_method: str = "erfinv",
                          uniforms: torch.Tensor | None = None,
                          max_elems: int = 1 << 14) -> torch.Tensor:
     """The kernel's function in torch operations, on any device.
 
     ``seed``: the round's two uint32 words. ``uniforms``: optional
-    pre-drawn (C, n, 3) floats in (0, 1] that replace Philox, each turned
-    into the 23-bit code ``(u * 2^24 - 1) >> 1`` as the TPU kernel's
-    ``_TEST_UNIFORM_FN`` hook does, so tests can replay that kernel's
+    pre-drawn (C, n, 3) floats in (0, 1] that replace Philox, turned into
+    normals as the TPU kernel's ``_TEST_UNIFORM_FN`` hook does
+    (`mc_cuda.uniform_normals`), so tests can replay that kernel's
     draws. ``max_elems``: rows x samples per chunk of the sample axis.
     Returns int32 (C,)."""
     c = params.shape[0]
     n = int(n)
     counts = torch.zeros((c,), dtype=torch.int32, device=params.device)
     step = max(1, max_elems // max(c, 1))
-    for j0 in range(0, n, step):
-        j1 = min(n, j0 + step)
-        if uniforms is None:
-            codes = mc_cuda._philox_codes(uids, seed, j0, j1, offset, False)
-        else:
-            u = uniforms[:, j0:j1].to(torch.float32)
-            codes = (u * float(1 << 24) - 1.0).to(torch.int32) >> 1
-        z = prng.normal_from_codes(codes)
+    for z in mc_cuda.normal_chunks(uids, seed, n, offset, 3, normal_method,
+                                   uniforms, step):
         sep = _poly_separated(params, k, k2, k2a, z[..., 0], z[..., 1], z[..., 2])
         counts += (~sep).sum(dim=1, dtype=torch.int32)
     return counts
@@ -239,10 +239,12 @@ def shape_defines(k: int, k2: int, k2a: int) -> tuple[tuple[str, int], ...]:
     return (("MC_POLY_K", int(k)), ("MC_POLY_K2", int(k2)), ("MC_POLY_K2A", int(k2a)))
 
 
-def _kernel_lib(k: int, k2: int, k2a: int) -> ctypes.CDLL:
+def _kernel_lib(k: int, k2: int, k2a: int, normal_method: str = "erfinv"
+                ) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_KERNEL, shape_defines(k, k2, k2a))
+    lib = cuda_build.load(_KERNEL, shape_defines(k, k2, k2a)
+                          + mc_cuda.normal_defines(normal_method))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.mc_poly_counts_launch.restype = ctypes.c_int
     lib.mc_poly_counts_launch.argtypes = [p, p, p, i, i, i, i, i, ll, ll, u, u, p]
@@ -252,26 +254,30 @@ def _kernel_lib(k: int, k2: int, k2a: int) -> ctypes.CDLL:
 
 
 def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
-                   k: int, k2: int, k2a: int, offset: int = 0) -> torch.Tensor:
+                   k: int, k2: int, k2a: int, offset: int = 0,
+                   normal_method: str = "erfinv") -> torch.Tensor:
     """Collision counts out of ``n`` samples per configuration: int32 (C,).
 
     ``params`` (C, ROWS) float32 from `pack_polygon_mc_params` for a
     K-gon obstacle, a K2-gon robot and K2A kept robot axes; ``uids`` int32
     (C,) row identities (the stream key); ``seed`` the round's two uint32
-    words; ``offset`` the index of the first sample. CUDA tensors launch
-    the kernel, CPU tensors run the plain version."""
-    global LAUNCHES
+    words; ``offset`` the index of the first sample; ``normal_method``
+    "erfinv" or "box_muller" (`ops.mc_cuda`). CUDA tensors launch the
+    kernel's build for that shape and method, CPU tensors run the plain
+    version."""
+    global LAUNCHES, BOX_MULLER_LAUNCHES
     _check_inputs(params, uids, n, k, k2, k2a)
+    mc_cuda.normal_defines(normal_method)
     if params.device.type == "cpu":
         return mc_poly_counts_plain(params, uids, seed, n, k=k, k2=k2, k2a=k2a,
-                                    offset=offset)
+                                    offset=offset, normal_method=normal_method)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     counts = torch.zeros((params.shape[0],), dtype=torch.int32,
                          device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
-    lib = _kernel_lib(k, k2, k2a)
+    lib = _kernel_lib(k, k2, k2a, normal_method)
     if int(n) > lib.mc_poly_max_samples_per_round():
         raise ValueError(
             f"n={n} exceeds the kernel's {lib.mc_poly_max_samples_per_round()} "
@@ -284,13 +290,17 @@ def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
         int(seed[1]) & prng.MASK32, stream)
     if err != 0:
         raise RuntimeError(f"mc_poly_counts_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if normal_method == "box_muller":
+        BOX_MULLER_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return counts
 
 
 def mc_round_polygons_cuda(key, uids: torch.Tensor, configs, robot_verts,
                            round_tag: int, *, n_batch: int,
-                           a_keep: tuple[int, ...] | None = None) -> torch.Tensor:
+                           a_keep: tuple[int, ...] | None = None,
+                           normal_method: str = "erfinv") -> torch.Tensor:
     """One round on the fused k-gon kernel: int32 (C,) counts of
     ``n_batch`` samples per configuration. ``robot_verts``: the (K2, 2)
     robot. ``a_keep``: its kept axes (`dedup_robot_axes`); None works them
@@ -304,4 +314,4 @@ def mc_round_polygons_cuda(key, uids: torch.Tensor, configs, robot_verts,
     return mc_poly_counts(params, uids.to(torch.int32).contiguous(),
                           mc_cuda.round_seed(key, round_tag), n_batch,
                           k=configs.obstacle_verts.shape[1], k2=rv.shape[0],
-                          k2a=len(a_keep))
+                          k2a=len(a_keep), normal_method=normal_method)

@@ -138,14 +138,8 @@ def mc_toi_counts_plain(params: torch.Tensor, uids: torch.Tensor, seed, n: int,
     steps_sum = torch.zeros((c,), dtype=torch.int64, device=dev)
     warp_sum = torch.zeros((c,), dtype=torch.int64, device=dev)
     step = max(32, max_elems // max(c, 1) // 32 * 32)
-    for j0 in range(0, n, step):
-        j1 = min(n, j0 + step)
-        if uniforms is None:
-            codes = mc_cuda._philox_codes(uids, seed, j0, j1, offset, shape_noise)
-        else:
-            u = uniforms[:, j0:j1].to(torch.float32)
-            codes = (u * float(1 << 24) - 1.0).to(torch.int32) >> 1
-        z = prng.normal_from_codes(codes)
+    for z in mc_cuda.normal_chunks(uids, seed, n, offset, 5 if shape_noise else 3,
+                                   "erfinv", uniforms, step):
         extra = (z[..., 3], z[..., 4]) if shape_noise else (None, None)
         hit, steps = _toi_hits(params, z[..., 0], z[..., 1], z[..., 2], *extra,
                                ca_iters, tol)

@@ -37,6 +37,7 @@ moved; the ratio `bench.py` checks is the same either way.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 
@@ -434,12 +435,19 @@ def bench_mc(configs: int = 65536, step_samples: int = 128, iters: int = 20,
 _MC_SEED = (123, 456)
 
 
+def _normal_suffix(normal_method: str) -> str:
+    """The JAX legs' metric suffix of a non-default normal draw."""
+    return "" if normal_method == "erfinv" else f"_{normal_method}"
+
+
 def bench_mc_cuda(configs: int = 65536, iters: int = 30, shape_noise: bool = True,
-                  device="cuda") -> dict:
+                  normal_method: str = "erfinv", device="cuda") -> dict:
     """Kernel 1, the fused rectangle Monte Carlo kernel (Philox normals,
     box test, per-row counts), 64 x 32 samples a configuration a call.
     ``shape_noise=False`` is the 3-normal variant the driver selects when
-    every w/h sigma is zero (the reference default workload)."""
+    every w/h sigma is zero (the reference default workload);
+    ``normal_method="box_muller"`` runs the kernel's Box-Muller build, the
+    A/B baseline of the erf_inv draw."""
     from collide2d_tpu_torch.ops.mc_cuda import mc_counts, pack_mc_params
 
     dev = _device(device)
@@ -448,11 +456,12 @@ def bench_mc_cuda(configs: int = 65536, iters: int = 30, shape_noise: bool = Tru
     n = 64 * 32
     dt = _seconds_per_iter(
         lambda i: mc_counts(params, uids, (_MC_SEED[0] + i, _MC_SEED[1] + i), n,
-                            shape_noise=shape_noise).sum(dtype=torch.int32),
-        iters, dev)
+                            shape_noise=shape_noise, normal_method=normal_method)
+        .sum(dtype=torch.int32), iters, dev)
     rate = configs * n / dt
     return {
-        "metric": "mc_samples_per_sec_cuda" + ("" if shape_noise else "_noshape"),
+        "metric": "mc_samples_per_sec_cuda" + ("" if shape_noise else "_noshape")
+        + _normal_suffix(normal_method),
         "value": rate,
         "unit": "samples/s",
         "vs_baseline": rate / SAT_TARGET,
@@ -464,7 +473,7 @@ def bench_mc_cuda(configs: int = 65536, iters: int = 30, shape_noise: bool = Tru
 
 
 def bench_mc_polygons_cuda(configs: int = 16384, k: int = 8, iters: int = 20,
-                           device="cuda") -> dict:
+                           normal_method: str = "erfinv", device="cuda") -> dict:
     """Kernel 7, the fused k-gon Monte Carlo kernel, on the production
     path: `example_polygon_configs` obstacles, the 4.07 x 1.74 robot as a
     4-gon with its 2 kept axes (`dedup_robot_axes`), 64 x 8 samples a
@@ -485,11 +494,12 @@ def bench_mc_polygons_cuda(configs: int = 16384, k: int = 8, iters: int = 20,
     n = 64 * 8
     dt = _seconds_per_iter(
         lambda i: mc_poly_counts(params, uids, (_MC_SEED[0] + i, _MC_SEED[1] + i), n,
-                                 k=k, k2=len(ROBOT_VERTS), k2a=len(a_keep))
+                                 k=k, k2=len(ROBOT_VERTS), k2a=len(a_keep),
+                                 normal_method=normal_method)
         .sum(dtype=torch.int32), iters, dev)
     rate = configs * n / dt
     return {
-        "metric": "mc_polygon_samples_per_sec_cuda",
+        "metric": "mc_polygon_samples_per_sec_cuda" + _normal_suffix(normal_method),
         "value": rate,
         "unit": "samples/s",
         "vs_baseline": rate / SAT_TARGET,
@@ -499,6 +509,716 @@ def bench_mc_polygons_cuda(configs: int = 16384, k: int = 8, iters: int = 20,
         "samples_per_config_per_iter": n,
         "device": _device_name(dev),
     }
+
+
+# ---- the kernel legs of the JAX bench beyond `run_all` ----
+
+
+def _param_boxes(n: int, seed: int, device):
+    """Two batches of param-form boxes as the JAX legs draw them (key
+    ``seed`` split 6: centres U(-6, 6)^2, full extents U(0.1, 5)^2, angles
+    U(0, 2 pi)): ``((c1, e1, t1), (c2, e2, t2))``."""
+    p = _pair_params(n, seed, device)
+    return p[:3], p[3:]
+
+
+def bench_obb_cuda(pairs: int = 1 << 23, iters: int = 100, device="cuda") -> dict:
+    """Kernel 5, the param-form box SAT count (`ops.sat_cuda.obb_count_cuda_t`)
+    on boxes packed by `pack_obbs` (no vertices): ``effective_gbps`` at the
+    48 B a pair it reads."""
+    from collide2d_tpu_torch.ops.sat_cuda import obb_count_cuda_t, pack_obbs
+
+    dev = _device(device)
+    b1, b2 = _param_boxes(pairs, 3, dev)
+    b1t, b2t = pack_obbs(*b1), pack_obbs(*b2)
+    dt = _seconds_per_iter(lambda i: obb_count_cuda_t(b1t, b2t, _shift(i)), iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "obb_param_pairs_per_sec_cuda",
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "seconds_per_iter": dt,
+        "pairs": pairs,
+        "effective_gbps": 48 * pairs / dt / 1e9,
+        "device": _device_name(dev),
+    }
+
+
+def bench_sat_cuda_bf16(pairs: int = 1 << 23, iters: int = 100, device="cuda") -> dict:
+    """Kernel 3 on bfloat16 coordinates (`pack_rects_bf16`: half the bytes
+    a pair, the test still in float32): ``effective_gbps`` at the 32 B a
+    pair it reads (the JAX leg reports 64, its 128-a-pair convention)."""
+    from collide2d_tpu_torch.ops.sat_cuda import pack_rects_bf16, sat_count_cuda_t
+
+    dev = _device(device)
+    r1, r2 = _random_pairs(pairs, device=dev)
+    r1t, r2t = pack_rects_bf16(r1), pack_rects_bf16(r2)
+    del r1, r2
+    dt = _seconds_per_iter(lambda i: sat_count_cuda_t(r1t, r2t, _shift(i)), iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "sat_rect_pairs_per_sec_cuda_bf16",
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "seconds_per_iter": dt,
+        "pairs": pairs,
+        "effective_gbps": 32 * pairs / dt / 1e9,
+        "device": _device_name(dev),
+    }
+
+
+def bench_sat_polygons_cuda(pairs: int = 1 << 22, k: int = 8, iters: int = 50,
+                            precision: str = "f32", device="cuda") -> dict:
+    """Kernel 6, the k-gon SAT labels over SoA-packed pairs, float32 or
+    (``precision="bf16"``, `pack_polygons_bf16`) bfloat16 coordinates. Each
+    call first shifts the second polygons' coordinates (a pass over them in
+    float32 and back, in both precisions, as the JAX leg)."""
+    from collide2d_tpu_torch.ops.polygon_cuda import (
+        pack_polygons,
+        pack_polygons_bf16,
+        sat_polygons_cuda_t,
+    )
+
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    dev = _device(device)
+    pack = pack_polygons_bf16 if precision == "bf16" else pack_polygons
+    t1 = pack(_random_convex_polygons(pairs, k, 0, 10.0, dev))
+    t2 = pack(_random_convex_polygons(pairs, k, 1, 10.0, dev))
+
+    def step(i):
+        t2s = (t2.float() + _shift(i)).to(t2.dtype)
+        return sat_polygons_cuda_t(t1, t2s, k1=k, k2=k).sum()
+
+    dt = _seconds_per_iter(step, iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "sat_polygon_pairs_per_sec_cuda" + ("_bf16" if precision == "bf16"
+                                                      else ""),
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "k": k,
+        "pairs": pairs,
+        "seconds_per_iter": dt,
+        "device": _device_name(dev),
+    }
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full float32 matrix products (TF32 would be another product)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def bench_sat_polygons_mxu(pairs: int = 1 << 20, k: int = 8, iters: int = 20,
+                           dtype: str = "f32", device="cuda") -> dict:
+    """The JAX bench's matrix-unit hypothesis for the k-gon SAT, kept under
+    its name (``mxu_dot``) so that digests compare: each pair's projections
+    as one batched (2K, 2) x (2, 2K) product (`torch.bmm`, no kernel of
+    this repository; full float32 with TF32 off, or bfloat16 operands,
+    whose product torch returns in bfloat16), then the min/max reduction
+    over the (N, 2K, 2K) tensor in device memory. The contraction depth is
+    2, so the product wastes the tensor cores; compare with
+    `bench_sat_polygons_cuda`."""
+    from collide2d_tpu_torch.ops.geometry import edge_normals
+
+    if dtype not in ("f32", "bf16"):
+        raise ValueError(f"dtype must be 'f32' or 'bf16', got {dtype!r}")
+    dev = _device(device)
+    p1 = _random_convex_polygons(pairs, k, 0, 10.0, dev)
+    p2 = _random_convex_polygons(pairs, k, 1, 10.0, dev)
+    dt_in = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def sat_dot(p1, p2):
+        axes = torch.cat([edge_normals(p1), edge_normals(p2)], dim=1).to(dt_in)
+        verts = torch.cat([p1, p2], dim=1).to(dt_in)
+        proj = torch.bmm(axes, verts.transpose(1, 2)).float()  # (N, 2K, 2K)
+        a, b = proj[..., :k], proj[..., k:]
+        sep = (a.amax(-1) < b.amin(-1)) | (b.amax(-1) < a.amin(-1))
+        return ~sep.any(-1)
+
+    with _no_tf32():
+        dt = _seconds_per_iter(
+            lambda i: sat_dot(p1, p2 + _shift(i)).sum(dtype=torch.int32), iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "sat_polygon_pairs_per_sec_mxu_dot" + ("_bf16" if dtype == "bf16"
+                                                         else ""),
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "k": k,
+        "pairs": pairs,
+        "seconds_per_iter": dt,
+        "note": "the batched-product prototype (torch.bmm); compare against "
+                "sat_polygon_pairs_per_sec_cuda",
+        "device": _device_name(dev),
+    }
+
+
+def bench_broad_phase_sat(pairs: int = 1 << 20, k: int = 8, iters: int = 50,
+                          density: float = 0.06, device="cuda") -> dict:
+    """Diagnostic: the k-gon SAT on a compacted candidate bucket
+    (`ops.broad_phase.collide_candidates`) against the dense pass, both on
+    the torch path (``impl='torch'``), as the JAX leg compares its two jnp
+    paths. The AABB-overlap density is set by the box side, P ~
+    (2 (2r) / L)^2 with r ~ 1."""
+    from collide2d_tpu_torch.ops.broad_phase import (
+        bucket_for,
+        candidate_mask,
+        collide_candidates,
+    )
+    from collide2d_tpu_torch.ops.sat import sat_polygons
+
+    dev = _device(device)
+    area_side = 4.0 / float(np.sqrt(density))
+    p1 = _random_convex_polygons(pairs, k, 0, area_side, dev)
+    p2 = _random_convex_polygons(pairs, k, 1, area_side, dev)
+    n_cand = int(candidate_mask(p1, p2).sum(dtype=torch.int64))
+    bucket = bucket_for(int(n_cand * 1.5) + 8, pairs)  # headroom for shifts
+
+    def pruned(i):
+        p2s = p2 + _shift(i)
+        return collide_candidates(p1, p2s, candidate_mask(p1, p2s), bucket=bucket,
+                                  impl="torch").sum()
+
+    dt_full = _seconds_per_iter(
+        lambda i: sat_polygons(p1, p2 + _shift(i)).sum(dtype=torch.int32), iters, dev)
+    dt_pruned = _seconds_per_iter(pruned, iters, dev)
+    return {
+        "metric": "broad_phase_sat_speedup",
+        "value": dt_full / dt_pruned,
+        "unit": "x",
+        "vs_baseline": 1.0,  # diagnostic only
+        "pairs": pairs,
+        "k": k,
+        "candidate_density": n_cand / pairs,
+        "bucket": bucket,
+        "full_pairs_per_sec": pairs / dt_full,
+        "pruned_pairs_per_sec": pairs / dt_pruned,
+        "device": _device_name(dev),
+    }
+
+
+def bench_distance(pairs: int = 1 << 21, iters: int = 20, device="cuda") -> dict:
+    """Signed distance of param-form box pairs on the torch path
+    (`ops.distance.rect_signed_distance`)."""
+    from collide2d_tpu_torch.ops.distance import rect_signed_distance
+
+    dev = _device(device)
+    (c1, e1, t1), (c2, e2, t2) = _param_boxes(pairs, 3, dev)
+    dt = _seconds_per_iter(
+        lambda i: rect_signed_distance(c1, e1, t1, c2 + _shift(i), e2, t2).sum(),
+        iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "rect_distance_pairs_per_sec",
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,  # vs the boolean-SAT north star
+        "pairs": pairs,
+        "seconds_per_iter": dt,
+        "device": _device_name(dev),
+    }
+
+
+def bench_distance_cuda(pairs: int = 1 << 23, iters: int = 100, device="cuda") -> dict:
+    """Kernel 8, the signed distance of param-form boxes
+    (`ops.distance_cuda.obb_distance_cuda_t`): ``effective_gbps`` at 52 B a
+    pair (48 in, 4 out)."""
+    from collide2d_tpu_torch.ops.distance_cuda import obb_distance_cuda_t
+    from collide2d_tpu_torch.ops.sat_cuda import pack_obbs
+
+    dev = _device(device)
+    b1, b2 = _param_boxes(pairs, 3, dev)
+    b1t, b2t = pack_obbs(*b1), pack_obbs(*b2)
+    dt = _seconds_per_iter(lambda i: obb_distance_cuda_t(b1t, b2t, _shift(i)).sum(),
+                           iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "rect_distance_pairs_per_sec_cuda",
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "pairs": pairs,
+        "seconds_per_iter": dt,
+        "effective_gbps": rate * 52e-9,
+        "device": _device_name(dev),
+    }
+
+
+def bench_polygon_distance(pairs: int = 1 << 20, k: int = 8, iters: int = 20,
+                           device="cuda") -> dict:
+    """Signed distance of convex k-gon pairs on the torch path
+    (`ops.distance.polygon_signed_distance`)."""
+    from collide2d_tpu_torch.ops.distance import polygon_signed_distance
+
+    dev = _device(device)
+    p1 = _random_convex_polygons(pairs, k, 0, 10.0, dev)
+    p2 = _random_convex_polygons(pairs, k, 1, 10.0, dev)
+    dt = _seconds_per_iter(
+        lambda i: polygon_signed_distance(p1, p2 + _shift(i)).sum(), iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "polygon_distance_pairs_per_sec",
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "k": k,
+        "pairs": pairs,
+        "seconds_per_iter": dt,
+        "device": _device_name(dev),
+    }
+
+
+def bench_polygon_distance_cuda(pairs: int = 1 << 22, k: int = 8, iters: int = 50,
+                                device="cuda") -> dict:
+    """Kernel 9, the signed distance of SoA-packed k-gon pairs
+    (`ops.distance_cuda.polygon_distance_cuda_t`)."""
+    from collide2d_tpu_torch.ops.distance_cuda import polygon_distance_cuda_t
+    from collide2d_tpu_torch.ops.polygon_cuda import pack_polygons
+
+    dev = _device(device)
+    t1 = pack_polygons(_random_convex_polygons(pairs, k, 0, 10.0, dev))
+    t2 = pack_polygons(_random_convex_polygons(pairs, k, 1, 10.0, dev))
+    dt = _seconds_per_iter(
+        lambda i: polygon_distance_cuda_t(t1, t2 + _shift(i), k1=k, k2=k).sum(),
+        iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "polygon_distance_pairs_per_sec_cuda",
+        "value": rate,
+        "unit": "pairs/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "k": k,
+        "pairs": pairs,
+        "seconds_per_iter": dt,
+        "device": _device_name(dev),
+    }
+
+
+def _toi_pairs(pairs: int, device):
+    """`bench_toi_cuda`'s packed moving boxes (JAX :483-497, key 9 split
+    8): box 1 at the origin, extents U(0.5, 3)^2, angle U(0, 7), rate U(-1,
+    1); box 2 at U(3, 6)^2 heading for the origin at unit speed, the same
+    extents, angles and rates."""
+    from collide2d_tpu_torch.ops.toi_cuda import pack_moving_obbs
+
+    ks = prng.split(prng.PRNGKey(9), 8)
+
+    def mk(i, lo, hi, shape):
+        return prng.uniform(ks[i], shape, lo, hi, device)
+
+    c2 = mk(0, 3, 6, (pairs, 2))
+    v2 = -c2 / torch.linalg.vector_norm(c2, dim=-1, keepdim=True)
+    zeros = torch.zeros_like(c2)
+    b1t = pack_moving_obbs(zeros, mk(1, 0.5, 3, (pairs, 2)), mk(2, 0, 7, (pairs,)),
+                           zeros, mk(3, -1, 1, (pairs,)))
+    b2t = pack_moving_obbs(c2, mk(4, 0.5, 3, (pairs, 2)), mk(5, 0, 7, (pairs,)), v2,
+                           mk(6, -1, 1, (pairs,)))
+    return b1t, b2t
+
+
+def bench_toi_cuda(pairs: int = 1 << 21, toi_iters: int = 64, iters: int = 20,
+                   device="cuda") -> dict:
+    """Kernel 12, conservative-advancement time of impact of rotating boxes
+    (`ops.toi_cuda.moving_obb_toi_cuda_t`, t_max 8, ``toi_iters`` steps,
+    tol 1e-4); each call nudges box 2's x centre by ``_shift(i)`` (a copy of
+    that row, as the JAX leg's ``.at[0].add``)."""
+    from collide2d_tpu_torch.ops.toi_cuda import moving_obb_toi_cuda_t
+
+    dev = _device(device)
+    b1t, b2t = _toi_pairs(pairs, dev)
+
+    def step(i):
+        shifted = torch.cat([b2t[:1] + _shift(i), b2t[1:]])
+        t = moving_obb_toi_cuda_t(b1t, shifted, t_max=8.0, iters=toi_iters, tol=1e-4)
+        return torch.where(torch.isfinite(t), t, 0.0).sum()
+
+    dt = _seconds_per_iter(step, iters, dev)
+    rate = pairs / dt
+    return {
+        "metric": "rect_toi_queries_per_sec_cuda",
+        "value": rate,
+        "unit": "queries/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "pairs": pairs,
+        "ca_iters": toi_iters,
+        "seconds_per_iter": dt,
+        "device": _device_name(dev),
+    }
+
+
+def _bench_moving_configs(configs: int, rotating: bool, seed: int = 5, device="cuda"):
+    """The trajectory legs' rectangle rows (JAX :527-540, numpy seed 5):
+    position U(-6, 6)^2, angle U(0, 2 pi), obstacle U(0.5, 5)^2, sigmas
+    U(0, 0.3)^5, velocity U(-2, 2)^2, omega U(-0.5, 0.5) (times 0 unless
+    ``rotating``), t_max U(0.5, 3)."""
+    from collide2d_tpu_torch.mc.moving import moving_configs
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return moving_configs(
+        f32(rng.uniform(-6, 6, (configs, 2))),
+        f32(rng.uniform(0, 2 * np.pi, configs)),
+        f32(rng.uniform(0.5, 5, (configs, 2))),
+        f32(rng.uniform(0, 0.3, (configs, 5))),
+        f32(rng.uniform(-2, 2, (configs, 2))),
+        f32(rng.uniform(-0.5, 0.5, configs) * (1.0 if rotating else 0.0)),
+        f32(rng.uniform(0.5, 3, configs)),
+        device=device)
+
+
+def _bench_moving_polygon_configs(configs: int, k: int, rotating: bool | None,
+                                  device="cuda"):
+    """The k-gon trajectory legs' rows (JAX :667-679 and :740-749, numpy
+    seed 7): position U(-6, 6)^2, angle U(0, 2 pi), the obstacles of
+    `_random_convex_polygons(configs, k, 2, 10.0)`, sigmas U(0, 0.3)^3,
+    velocity U(-2, 2)^2, omega U(-0.5, 0.5) (times 0 unless ``rotating``),
+    t_max U(0.5, 3). ``rotating=None`` is the fused leg's draw, which takes
+    no omega (so its t_max draws differ): omega 0."""
+    from collide2d_tpu_torch.mc.moving import moving_polygon_configs
+
+    rng = np.random.default_rng(7)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    position = f32(rng.uniform(-6, 6, (configs, 2)))
+    theta = f32(rng.uniform(0, 2 * np.pi, configs))
+    verts = _random_convex_polygons(configs, k, 2, 10.0, device)
+    sd = f32(rng.uniform(0, 0.3, (configs, 3)))
+    vel = f32(rng.uniform(-2, 2, (configs, 2)))
+    omega = 0.0 if rotating is None else f32(
+        rng.uniform(-0.5, 0.5, configs) * (1.0 if rotating else 0.0))
+    t_max = f32(rng.uniform(0.5, 3, configs))
+    return moving_polygon_configs(position, theta, verts, sd, vel, omega, t_max,
+                                  device=device)
+
+
+def bench_mc_moving_cuda(configs: int = 8192, step_samples: int = 2048, iters: int = 20,
+                         rotating: bool = False, device="cuda") -> dict:
+    """Kernel 13, fused trajectory Monte Carlo for rectangles
+    (`ops.mc_toi_cuda.mc_toi_counts`, shape noise on): translation-only rows
+    through the exact window, ``rotating=True`` through 48 advancement
+    steps (tol 1e-4)."""
+    from collide2d_tpu_torch.ops.mc_toi_cuda import mc_toi_counts, pack_mc_toi_params
+
+    dev = _device(device)
+    params = pack_mc_toi_params(_bench_moving_configs(configs, rotating, device=dev),
+                                ROBOT_WH)
+    uids = torch.arange(configs, dtype=torch.int32, device=dev)
+    ca = 48 if rotating else 0
+    dt = _seconds_per_iter(
+        lambda i: mc_toi_counts(params, uids, (i, i ^ 0x5BD1E995), step_samples,
+                                ca_iters=ca, tol=1e-4).sum(dtype=torch.int32),
+        iters, dev)
+    rate = configs * step_samples / dt
+    return {
+        "metric": ("mc_moving_samples_per_sec_cuda_rotating" if rotating
+                   else "mc_moving_samples_per_sec_cuda"),
+        "value": rate,
+        "unit": "samples/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "configs": configs,
+        "ca_iters": ca,
+        "seconds_per_iter": dt,
+        "device": _device_name(dev),
+    }
+
+
+def _split_keys(key, n: int, device):
+    """`jax.random.split(key, n)` as a batched key pair on ``device``."""
+    k0, k1 = (int(w) for w in np.asarray(key, np.uint32))
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return prng.threefry2x32(k0, k1, i >> 32, i & prng.MASK32)
+
+
+def _screen_fractions(masks) -> dict:
+    maybe, probe, amb = (m.float().mean().item() for m in masks)
+    return {"frac_definite_miss": round(1.0 - maybe, 4),
+            "frac_probe_hit": round(probe, 4), "frac_ambiguous_ca": round(amb, 4)}
+
+
+def _threefry_moving_leg(name: str, cfgs, robot, step_samples: int, iters: int,
+                         rotating: bool, screen: bool, chunk, dev) -> dict:
+    """A threefry trajectory leg: step i draws ``step_samples`` lanes a row
+    with tag i folded into each uid's key (as `mc.driver`'s rounds), through
+    ``chunk`` (`mc.moving.counts_chunk_moving[_polygons]`); rotating rows
+    run the screened cascade (``screen``) or the pure advancement loop."""
+    from collide2d_tpu_torch.mc.estimator import _per_config_keys
+
+    c = cfgs.num
+    k0, k1 = _per_config_keys(prng.PRNGKey(3), torch.arange(c, dtype=torch.int32,
+                                                            device=dev))
+    ca = 48 if rotating else 0
+    dt = _seconds_per_iter(
+        lambda i: chunk(prng.fold_in_pair(k0, k1, i), cfgs, robot, step_samples,
+                        ca_iters=ca, ca_screen=screen).sum(dtype=torch.int32),
+        iters, dev)
+    if rotating:
+        name += "_rotating" if screen else "_rotating_noscreen"
+    rate = c * step_samples / dt
+    out = {
+        "metric": name,
+        "value": rate,
+        "unit": "samples/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "configs": c,
+        "ca_iters": ca,
+        "seconds_per_iter": dt,
+    }
+    if rotating and screen:
+        # one diagnostic chunk outside the timing: the cascade's lane shares
+        _, masks = chunk(_split_keys(prng.PRNGKey(3), c, dev), cfgs, robot,
+                         step_samples, ca_iters=48, return_screen_masks=True)
+        out.update(_screen_fractions(masks))
+    out["device"] = _device_name(dev)
+    return out
+
+
+def bench_mc_moving(configs: int = 8192, step_samples: int = 512, iters: int = 10,
+                    rotating: bool = False, screen: bool = True, device="cuda") -> dict:
+    """Trajectory Monte Carlo for rectangles on the threefry path
+    (`mc.moving.counts_chunk_moving`, the JAX ``jnp`` draws): translation
+    rows through the exact window; ``rotating=True`` the screened cascade
+    (stage A is kernel 15 on the card), with its lane shares
+    (``frac_definite_miss``, ``frac_probe_hit``, ``frac_ambiguous_ca``), or
+    with ``screen=False`` the pure 48-step advancement loop."""
+    from collide2d_tpu_torch.mc.moving import counts_chunk_moving
+
+    dev = _device(device)
+    cfgs = _bench_moving_configs(configs, rotating, device=dev)
+    robot = torch.tensor(ROBOT_WH, dtype=torch.float32, device=dev)
+    return _threefry_moving_leg("mc_moving_samples_per_sec_jnp", cfgs, robot,
+                                step_samples, iters, rotating, screen,
+                                counts_chunk_moving, dev)
+
+
+def bench_mc_moving_polygons(configs: int = 4096, step_samples: int = 256,
+                             iters: int = 10, rotating: bool = False, k: int = 6,
+                             screen: bool = True, device="cuda") -> dict:
+    """Trajectory Monte Carlo for convex k-gons on the threefry path
+    (`mc.moving.counts_chunk_moving_polygons`): `bench_mc_moving`'s method
+    on `_bench_moving_polygon_configs` rows and the 4-gon robot."""
+    from collide2d_tpu_torch.mc.moving import counts_chunk_moving_polygons
+
+    dev = _device(device)
+    cfgs = _bench_moving_polygon_configs(configs, k, rotating, dev)
+    robot = torch.tensor(ROBOT_VERTS, dtype=torch.float32, device=dev)
+    out = _threefry_moving_leg("mc_moving_polygon_samples_per_sec_jnp", cfgs, robot,
+                               step_samples, iters, rotating, screen,
+                               counts_chunk_moving_polygons, dev)
+    out["k"] = k
+    return out
+
+
+def bench_mc_moving_polygons_cuda(configs: int = 4096, k: int = 6, iters: int = 20,
+                                  device="cuda") -> dict:
+    """Kernel 14, fused translation-only k-gon trajectories
+    (`ops.mc_moving_polygon_cuda.mc_moving_poly_counts`) on the fused leg's
+    rows (`_bench_moving_polygon_configs(..., None)`), the 4-gon robot with
+    its 2 kept axes, 64 x 4 samples a configuration a call."""
+    from collide2d_tpu_torch.ops.mc_moving_polygon_cuda import (
+        mc_moving_poly_counts,
+        pack_moving_polygon_mc_params,
+    )
+    from collide2d_tpu_torch.ops.mc_polygon_cuda import dedup_robot_axes
+
+    dev = _device(device)
+    robot = np.asarray(ROBOT_VERTS, np.float32)
+    a_keep = dedup_robot_axes(robot)
+    cfgs = _bench_moving_polygon_configs(configs, k, None, dev)
+    params = pack_moving_polygon_mc_params(cfgs, torch.as_tensor(robot, device=dev),
+                                           a_keep)
+    uids = torch.arange(configs, dtype=torch.int32, device=dev)
+    n = 64 * 4
+    dt = _seconds_per_iter(
+        lambda i: mc_moving_poly_counts(params, uids, (_MC_SEED[0] + i, _MC_SEED[1] + i),
+                                        n, k=k, k2=len(robot), k2a=len(a_keep))
+        .sum(dtype=torch.int32), iters, dev)
+    rate = configs * n / dt
+    return {
+        "metric": "mc_moving_polygon_samples_per_sec_cuda",
+        "value": rate,
+        "unit": "samples/s",
+        "vs_baseline": rate / SAT_TARGET,
+        "seconds_per_iter": dt,
+        "configs": configs,
+        "k": k,
+        "samples_per_config_per_iter": n,
+        "device": _device_name(dev),
+    }
+
+
+def _sparse_scene_configs(n: int, box: float = 25.0, seed: int = 0, device="cuda"):
+    """Configurations spread over a +-``box`` scene (JAX :857-870): only the
+    share near the obstacle can collide, the sparse workload where the
+    noise-aware broad phase pays."""
+    ks = prng.split(prng.PRNGKey(seed), 4)
+    return Configs(
+        position=prng.uniform(ks[0], (n, 2), -box, box, device),
+        pose_theta=prng.uniform(ks[1], (n,), 0, 2 * np.pi, device),
+        obstacle_wh=prng.uniform(ks[2], (n, 2), 0.1, 5, device),
+        std_dev=prng.uniform(ks[3], (n, 5), 0, 0.55, device),
+    )
+
+
+def bench_broad_phase(configs: int = 1 << 19, n_samples: int = 8192, reps: int = 3,
+                      device="cuda") -> dict:
+    """Wall-clock gain of the noise-aware broad phase on a sparse scene:
+    `collision_probability` against `collision_probability_pruned` (rows
+    that cannot touch within 6 sigma labeled 0 without sampling), both on
+    the threefry path as the JAX leg's jnp path, the best of ``reps`` host-
+    clock runs each after a warm one; the candidates' estimates must agree
+    bitwise."""
+    from collide2d_tpu_torch.mc.estimator import (
+        collision_probability,
+        collision_probability_pruned,
+    )
+    from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
+
+    dev = _device(device)
+    robot = torch.tensor(ROBOT_WH, dtype=torch.float32, device=dev)
+    cfgs = _sparse_scene_configs(configs, device=dev)
+    key = prng.PRNGKey(0)
+    mask = possible_collision_mask(cfgs, robot).cpu().numpy()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        cp = fn()
+        cp = cp.cpu().numpy() if isinstance(cp, torch.Tensor) else cp
+        return time.perf_counter() - t0, cp
+
+    def full():
+        return collision_probability(key, cfgs, robot, n_samples)
+
+    def pruned():
+        return collision_probability_pruned(key, cfgs, robot, n_samples)
+
+    timed(full), timed(pruned)
+    dt_full, cp_full = min((timed(full) for _ in range(reps)), key=lambda t: t[0])
+    dt_pruned, cp_pruned = min((timed(pruned) for _ in range(reps)), key=lambda t: t[0])
+    return {
+        "metric": "broad_phase_speedup",
+        "value": dt_full / dt_pruned,
+        "unit": "x",
+        "vs_baseline": dt_full / dt_pruned / 2.0,  # target: >= 2x
+        "configs": configs,
+        "n_samples": n_samples,
+        "candidate_density": float(mask.mean()),
+        "seconds_full": dt_full,
+        "seconds_pruned": dt_pruned,
+        "candidates_bitwise_equal": bool((cp_full[mask] == cp_pruned[mask]).all()),
+        "device": _device_name(dev),
+    }
+
+
+# ---- the agreement gates: the fused kernels against the threefry path ----
+
+
+AGREEMENT_MAX_Z = 6.0
+AGREEMENT_TAIL = 3 * 0.0027  # 3 x P(|z| > 3) under the null
+
+
+def agreement_stats(cp_kernel, cp_threefry, n_samples: int) -> dict:
+    """The agreement gate of two independent estimates of each row's
+    probability at ``n_samples`` samples each: z_i = |p_a - p_b| /
+    sqrt(pbar (1 - pbar) 2 / n) under the two-proportion null (0 where pbar
+    is 0 or 1); ``ok`` when max z < 6 and the share with z > 3 is at most 3
+    x 0.27%. Returns the JAX legs' fields (``value`` is max z)."""
+    a = np.asarray(cp_kernel, np.float64)
+    b = np.asarray(cp_threefry, np.float64)
+    diff = np.abs(a - b)
+    pooled = (a + b) / 2.0
+    var = pooled * (1.0 - pooled) * (2.0 / n_samples)
+    z = np.where(var > 0, diff / np.sqrt(np.maximum(var, 1e-300)), 0.0)
+    frac3 = float((z > 3.0).mean())
+    max_z = float(z.max())
+    ok = bool(max_z < AGREEMENT_MAX_Z and frac3 <= AGREEMENT_TAIL)
+    return {
+        "value": max_z,
+        "unit": "max_zscore",
+        "vs_baseline": 1.0 if ok else 0.0,
+        "ok": ok,
+        "n_samples": n_samples,
+        "frac_z_gt3": frac3,
+        "mean_abs_diff": float(diff.mean()),
+        "max_abs_diff": float(diff.max()),
+        # BASELINE.json's measure: rows whose two estimates agree within
+        # +-0.005 (at 65,536 samples a stricter bar than at 10k)
+        "frac_within_005": float((diff <= 0.005).mean()),
+    }
+
+
+def bench_agreement(configs: int = 4096, n_samples: int = 1 << 16, seed: int = 7,
+                    device="cuda") -> dict:
+    """Kernel 1 (``impl='cuda'``) against the threefry path at a fixed
+    ``n_samples`` on ``configs`` annulus configurations of the e2e tables
+    (JAX :1251-1331): `agreement_stats` of the two; the Philox stream and
+    its normals against JAX's draws in distribution, on the card."""
+    from collide2d_tpu_torch.mc.estimator import collision_probability
+
+    dev = _device(device)
+    k_tab, k_cfg, k_mc = prng.split(prng.PRNGKey(seed), 3)
+    poses, std_devs = _e2e_tables(k_tab, dev)
+    positions, pose, sd = _annulus(k_cfg, configs, poses, std_devs)
+    cfgs = Configs(position=positions, pose_theta=pose[:, 2], obstacle_wh=pose[:, 0:2],
+                   std_dev=sd)
+    robot = torch.tensor(ROBOT_WH, dtype=torch.float32, device=dev)
+    cp = {impl: collision_probability(k_mc, cfgs, robot, n_samples, impl=impl)
+          .cpu().numpy() for impl in ("cuda", "threefry")}
+    return {"metric": "cuda_vs_jnp_agreement", "configs": configs,
+            **agreement_stats(cp["cuda"], cp["threefry"], n_samples),
+            "device": _device_name(dev)}
+
+
+def _agreement_polygon_configs(configs: int, seed: int, k: int, moving: bool, device):
+    """`bench_agreement_polygons`' rows (JAX :1351-1376): static,
+    `example_polygon_configs(configs, k, seed)`; ``moving``, translation-only
+    k-gons on numpy ``seed``'s draws (vertices on ellipses U(0.5, 3)^2 at
+    sorted angles, velocity U(-2, 2)^2, t_max U(0.5, 3))."""
+    from collide2d_tpu_torch.mc.moving import moving_polygon_configs
+    from collide2d_tpu_torch.models.collision_model import example_polygon_configs
+
+    if not moving:
+        return example_polygon_configs(configs, k=k, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (configs, k)), axis=-1)
+    ab = rng.uniform(0.5, 3.0, (configs, 1, 2))
+    verts = f32(np.stack([np.cos(ang), np.sin(ang)], -1) * ab)
+    return moving_polygon_configs(
+        f32(rng.uniform(-6, 6, (configs, 2))), f32(rng.uniform(0, 2 * np.pi, configs)),
+        verts, f32(rng.uniform(0, 0.3, (configs, 3))),
+        f32(rng.uniform(-2, 2, (configs, 2))), 0.0, f32(rng.uniform(0.5, 3, configs)),
+        device=device)
+
+
+def bench_agreement_polygons(configs: int = 4096, n_samples: int = 1 << 16,
+                             seed: int = 7, k: int = 6, moving: bool = False,
+                             device="cuda") -> dict:
+    """Kernel 7 (static k-gons) or kernel 14 (``moving``, translation-only
+    trajectories, ``ca_iters=0``) against the threefry path, one round of
+    ``n_samples`` on every row (JAX :1334-1405): `agreement_stats`."""
+    from collide2d_tpu_torch.mc.estimator import mc_round
+
+    dev = _device(device)
+    cfgs = _agreement_polygon_configs(configs, seed, k, moving, dev)
+    robot = torch.tensor(ROBOT_VERTS, dtype=torch.float32, device=dev)
+    uids = torch.arange(configs, dtype=torch.int32, device=dev)
+    extra = {"ca_iters": 0} if moving else {}
+    cp = {impl: mc_round(prng.PRNGKey(seed + 1), uids, cfgs, robot, 0,
+                         n_batch=n_samples, impl=impl, **extra).cpu().numpy()
+          .astype(np.float64) / n_samples for impl in ("cuda", "threefry")}
+    return {"metric": "moving_polygon_agreement" if moving else "polygon_agreement",
+            "configs": configs, **agreement_stats(cp["cuda"], cp["threefry"], n_samples),
+            "device": _device_name(dev)}
 
 
 def _e2e_tables(key, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
@@ -513,39 +1233,78 @@ def _e2e_tables(key, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     return poses, prng.sqrt_rn(var)
 
 
-def bench_e2e(configs: int = 65536, seed: int = 0, batches: int = 6, overlap: int = 3,
-              device="cuda") -> dict:
-    """End-to-end adaptive labeling at the reference-default accuracy bins
-    and schedule: ``batches`` batches of ``configs`` annulus
-    configurations through the pipelined driver (`mc.driver.
-    run_interleaved`, ``overlap`` batches in flight), as the dataset
-    generator labels. One untimed pass builds the kernels at first use;
-    the timed pass repeats the same keys. ``steady_state_configs_per_sec``
-    is ``configs`` over the median gap between batch completions (the
-    first gap, which holds the pipeline's fill, left out)."""
-    from collide2d_tpu_torch.mc.driver import AdaptiveRun, run_interleaved
-    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+def _annulus(key, configs: int, poses, std_devs):
+    """``configs`` annulus configurations of the e2e tables (JAX
+    :1446-1457, :1287-1290): positions, and each row's pose and std devs."""
     from collide2d_tpu_torch.mc.noise import sample_configuration_batch
 
-    dev = _device(device)
-    k_tab, k_cfg, k_mc = prng.split(prng.PRNGKey(seed), 3)
-    poses, std_devs = _e2e_tables(k_tab, dev)
-    robot_wh = torch.tensor(ROBOT_WH, dtype=torch.float32, device=dev)
-    adaptive = AdaptiveConfig()
+    positions, _, _, pose, sd = sample_configuration_batch(
+        key, poses, std_devs, num_configs=configs,
+        r_offset=(ROBOT_WH[0] + ROBOT_WH[1]) / 4, spread=4.0)
+    return positions, pose, sd
 
-    def batch_cfgs(i: int) -> Configs:
-        positions, _, _, pose, sd = sample_configuration_batch(
-            prng.fold_in(k_cfg, i), poses, std_devs, num_configs=configs,
-            r_offset=(ROBOT_WH[0] + ROBOT_WH[1]) / 4, spread=4.0)
-        return Configs(position=positions, pose_theta=pose[:, 2],
-                       obstacle_wh=pose[:, 0:2], std_dev=sd)
+
+def _e2e_polygon_batch(k_cfg, k_geo, i: int, configs: int, k: int, poses,
+                       std_devs):
+    """Batch ``i`` of `bench_e2e_polygons` (JAX :1590-1611): the annulus
+    positions of `bench_e2e` and per-row random convex k-gons, vertices on
+    ellipses U(0.5, 2.5)^2 at sorted angles."""
+    from collide2d_tpu_torch.mc.estimator import PolygonConfigs
+
+    positions, pose, sd = _annulus(prng.fold_in(k_cfg, i), configs, poses, std_devs)
+    ka, kb = prng.split(prng.fold_in(k_geo, i), 2)
+    dev = positions.device
+    ang = prng.uniform(ka, (configs, k), 0.0, 2.0 * np.pi, dev).sort(dim=-1).values
+    ab = prng.uniform(kb, (configs, 1, 2), 0.5, 2.5, dev)
+    verts = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1) * ab
+    return PolygonConfigs(position=positions, pose_theta=pose[:, 2],
+                          obstacle_verts=verts, std_dev=sd[:, :3])
+
+
+def _opt_schedule(probe_cp) -> tuple[int, ...]:
+    """``schedule="opt"``: the measured-distribution DP schedule (JAX
+    :1458-1479) from a fixed-budget probe's cps: each row's earliest
+    possible convergence point, then checkpoint placement fit to them.
+    Checkpoints move where the CI criterion is tested, never the
+    criterion."""
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+    from collide2d_tpu_torch.mc.schedule_sim import (
+        min_convergence_points,
+        optimize_checkpoints,
+    )
+
+    base = AdaptiveConfig()
+    n_min, _ = min_convergence_points(np.asarray(probe_cp, np.float64), base, seed=5)
+    return tuple(optimize_checkpoints(n_min, base))
+
+
+def _e2e_run(metric: str, batch_cfgs, robot, k_mc, configs: int, schedule, ladder: str,
+             batches: int, overlap: int, dev) -> dict:
+    """The e2e legs' measurement: ``batches`` batches of ``configs`` rows
+    through the pipelined driver (`mc.driver.run_interleaved`, ``overlap``
+    in flight), once untimed (it builds the kernels at first use), then
+    again with the same keys, timed. ``schedule="opt"`` first probes batch
+    0 with 2^14 samples a row on the fused kernel (`_opt_schedule`).
+    ``steady_state_configs_per_sec`` is ``configs`` over the median gap
+    between batch completions (the first gap, which holds the pipeline's
+    fill, left out). Returns the fields both legs share."""
+    from collide2d_tpu_torch.mc.driver import AdaptiveRun, run_interleaved
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, collision_probability
+
+    out = {"metric": metric + (f"_{schedule}" if isinstance(schedule, str) else "")}
+    if schedule == "opt":
+        probe = collision_probability(prng.fold_in(k_mc, 999), batch_cfgs(0), robot,
+                                      1 << 14, impl="cuda")
+        schedule = _opt_schedule(probe.cpu().numpy())
+        out["n_checkpoints"] = len(schedule)
+    adaptive = AdaptiveConfig(schedule=schedule, ladder=ladder)
 
     def run():
         results, slots, done_at = {}, {}, {}
 
         def make(i):
             return lambda: (i, AdaptiveRun(prng.fold_in(k_mc, i), batch_cfgs(i),
-                                           robot_wh, adaptive))
+                                           robot, adaptive))
 
         def done_cb(i, r):
             results[i] = r.materialize()
@@ -558,25 +1317,23 @@ def bench_e2e(configs: int = 65536, seed: int = 0, batches: int = 6, overlap: in
 
     run()
     dt, results, slots, done_at = run()
-    total = configs * batches
-    rate = total / dt
+    rate = configs * batches / dt
     gaps = np.diff(sorted(done_at.values()))
-    steady = configs / float(np.median(gaps[1:])) if len(gaps) >= 3 else rate
     cp = np.concatenate([results[i][0] for i in sorted(results)])
     n_used = np.concatenate([results[i][1] for i in sorted(results)])
     done = np.concatenate([results[i][2] for i in sorted(results)])
     used = float(n_used.astype(np.float64).sum())
     return {
-        "metric": "configs_labeled_per_sec",
+        **out,
         "value": rate,
         "unit": "configs/s",
         "vs_baseline": rate,  # no reference number exists (BASELINE.md)
-        "configs": total,
+        "configs": configs * batches,
         "batches": batches,
         "overlap": overlap,
         "seconds": dt,
-        "configs_per_hour": rate * 3600,
-        "steady_state_configs_per_sec": steady,
+        "steady_state_configs_per_sec": (configs / float(np.median(gaps[1:]))
+                                         if len(gaps) >= 3 else rate),
         "converged_frac": float(done.mean()),
         "mean_samples_per_config": float(n_used.mean()),
         "mean_cp": float(cp.mean()),
@@ -586,6 +1343,58 @@ def bench_e2e(configs: int = 65536, seed: int = 0, batches: int = 6, overlap: in
         "slot_efficiency": (used / slots) if slots else 0.0,
         "device": _device_name(dev),
     }
+
+
+def bench_e2e(configs: int = 65536, seed: int = 0, batches: int = 6, schedule=None,
+              ladder: str = "eighth", overlap: int = 3, device="cuda") -> dict:
+    """End-to-end adaptive labeling at the reference-default accuracy bins:
+    ``batches`` batches of ``configs`` annulus configurations through the
+    pipelined driver (`mc.driver.run_interleaved`, ``overlap`` batches in
+    flight), as the dataset generator labels; kernel 1 on the card. One
+    untimed pass builds the kernels at first use; the timed pass repeats
+    the same keys. ``steady_state_configs_per_sec`` is ``configs`` over the
+    median gap between batch completions (the first gap, which holds the
+    pipeline's fill, left out). ``schedule``: None (the reference's),
+    ``"tuned"`` (the rule-of-three checkpoint added) or ``"opt"`` (the
+    measured-distribution DP schedule, `_opt_schedule`; ``n_checkpoints``
+    in the result); ``ladder``: the repack bucket ladder."""
+    from collide2d_tpu_torch.mc.estimator import Configs
+
+    dev = _device(device)
+    k_tab, k_cfg, k_mc = prng.split(prng.PRNGKey(seed), 3)
+    poses, std_devs = _e2e_tables(k_tab, dev)
+    robot_wh = torch.tensor(ROBOT_WH, dtype=torch.float32, device=dev)
+
+    def batch_cfgs(i: int) -> Configs:
+        positions, pose, sd = _annulus(prng.fold_in(k_cfg, i), configs, poses,
+                                       std_devs)
+        return Configs(position=positions, pose_theta=pose[:, 2],
+                       obstacle_wh=pose[:, 0:2], std_dev=sd)
+
+    out = _e2e_run("configs_labeled_per_sec", batch_cfgs, robot_wh, k_mc, configs,
+                   schedule, ladder, batches, overlap, dev)
+    out["configs_per_hour"] = out["value"] * 3600
+    return out
+
+
+def bench_e2e_polygons(configs: int = 32768, seed: int = 0, batches: int = 6, k: int = 6,
+                       schedule=None, ladder: str = "eighth", overlap: int = 3,
+                       device="cuda") -> dict:
+    """End-to-end adaptive k-gon labeling, `bench_e2e`'s method on convex
+    k-gon obstacles (`PolygonConfigs`: the annulus positions and per-row
+    random convex k-gons, `_e2e_polygon_batch`) and the 4.07 x 1.74 robot
+    as a 4-gon, through the same driver: kernel 7 on the card."""
+    dev = _device(device)
+    k_tab, k_cfg, k_mc, k_geo = prng.split(prng.PRNGKey(seed), 4)
+    poses, std_devs = _e2e_tables(k_tab, dev)
+    robot = torch.tensor(ROBOT_VERTS, dtype=torch.float32, device=dev)
+    out = _e2e_run("polygon_configs_labeled_per_sec",
+                   lambda i: _e2e_polygon_batch(k_cfg, k_geo, i, configs, k, poses,
+                                                std_devs),
+                   robot, k_mc, configs, schedule, ladder, batches, overlap, dev)
+    del out["mean_cp"]  # not among the JAX leg's fields
+    out["k"] = k
+    return out
 
 
 def bench_learned_train(rows: int = 1 << 21, batch: int = 8192, hidden=(256, 256, 256),

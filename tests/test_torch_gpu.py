@@ -10,8 +10,10 @@ their plain versions: the two share the Philox stream, the 23-bit codes,
 the erf_inv polynomial and the separation test, but round ``sincosf``,
 ``log1pf`` and contracted multiply-adds their own way, which can flip
 only a sample within an ulp of touching: the counts may differ by at most
-1e-5 of all samples. The SAT kernels (rectangles, boxes and k-gons) round
-every operation as their plain versions do: labels bitwise, counts exact.
+1e-5 of all samples. The Box-Muller builds of kernels 1, 7 and 14 are held
+to the same bar (their ``logf`` and ``sincosf`` against torch's). The SAT
+kernels (rectangles, boxes and k-gons) round every operation as their plain
+versions do: labels bitwise, counts exact.
 The bars of the geometry-query kernels stand above their tests below.
 Kernel 16 (the streaming-bandwidth probe) adds in another order than its
 plain version: within 1e-5 x (sum|r1| * s + sum|r2|), and bitwise equal
@@ -109,6 +111,26 @@ def test_kernel_matches_plain_at_odd_sizes_and_offsets(cuda, n, offset, shape_no
         second = mc_cuda.mc_counts(params, uids, SEED, n - cut, offset=offset + cut,
                                    shape_noise=shape_noise)
         assert torch.equal(first + second, got)
+
+
+@pytest.mark.parametrize("shape_noise", [False, True])
+@pytest.mark.parametrize("n,offset", [(8192, 0), (3000, (1 << 32) + 5)])
+def test_box_muller_kernel_matches_plain(cuda, shape_noise, n, offset):
+    """Kernel 1's Box-Muller build (its own library) against its plain
+    version, at the erf_inv build's bar; it counts in its own counter."""
+    c = 2048
+    params, uids = _case(cuda, c, shape_noise, seed=9)
+    before, bm_before = mc_cuda.LAUNCHES, mc_cuda.BOX_MULLER_LAUNCHES
+    kw = dict(offset=offset, shape_noise=shape_noise, normal_method="box_muller")
+    got = mc_cuda.mc_counts(params, uids, SEED, n, **kw)
+    want = mc_cuda.mc_counts_plain(params, uids, SEED, n, **kw)
+    torch.cuda.synchronize()
+    assert (mc_cuda.LAUNCHES, mc_cuda.BOX_MULLER_LAUNCHES) == (before, bm_before + 1)
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+    erfinv = mc_cuda.mc_counts(params, uids, SEED, n, offset=offset,
+                               shape_noise=shape_noise)
+    assert not torch.equal(erfinv, got)  # the other build, another stream
 
 
 def test_kernel_counts_invariant_under_split_and_compaction(cuda):
@@ -738,6 +760,33 @@ def test_mc_moving_polygon_kernel_matches_plain(cuda, mc_poly_libraries, shape):
                                            **dims)
     torch.cuda.synchronize()
     assert mmp.LAUNCHES == before + 1
+    assert 0 < int(want.sum()) < c * n
+    assert int((got - want).abs().sum()) <= 1e-5 * c * n
+
+
+@pytest.mark.parametrize("kernel", ["7", "14"])
+def test_box_muller_polygon_kernels_match_plain(cuda, kernel):
+    """The Box-Muller builds of kernels 7 and 14 (k = 8, the 4-gon robot's 2
+    kept axes) against their plain versions, at the erf_inv builds' bar."""
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as mmp
+
+    k, robot, a_keep = MC_POLY_SHAPES["k8"]
+    c, n = 2048, 8192
+    static, configs = _moving_polygons(cuda, c, 34, k=k)
+    mod = mc_polygon_cuda if kernel == "7" else mmp
+    pack = (mc_polygon_cuda.pack_polygon_mc_params if kernel == "7"
+            else mmp.pack_moving_polygon_mc_params)
+    params = pack(static if kernel == "7" else configs, robot, a_keep)
+    count = mod.mc_poly_counts if kernel == "7" else mmp.mc_moving_poly_counts
+    plain = (mod.mc_poly_counts_plain if kernel == "7"
+             else mmp.mc_moving_poly_counts_plain)
+    uids = torch.arange(c, dtype=torch.int32, device=cuda)
+    dims = dict(k=k, k2=len(robot), k2a=len(a_keep), normal_method="box_muller")
+    before, bm_before = mod.LAUNCHES, mod.BOX_MULLER_LAUNCHES
+    got = count(params, uids, SEED, n, **dims)
+    want = plain(params, uids, SEED, n, max_elems=1 << 20, **dims)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES, mod.BOX_MULLER_LAUNCHES) == (before, bm_before + 1)
     assert 0 < int(want.sum()) < c * n
     assert int((got - want).abs().sum()) <= 1e-5 * c * n
 

@@ -12,6 +12,12 @@
     pooled z-scores with mean z^2 in [0.75, 1.33] and max |z| < 6, rows
     where both estimates are 0 or both are 1 skipped.
 
+(d) ``normal_method="box_muller"``: fed the same stub draws, the plain
+    version equals ``mc_counts_pallas(..., normal_method="box_muller",
+    interpret=True)`` exactly (the stub's pairs replayed as the TPU kernel
+    pairs them); on Philox a sample's normals are its own pairs' outputs,
+    and its counts agree with the erf_inv stream's statistically.
+
 The CUDA kernel itself cannot run here: tests/test_torch_gpu.py holds it
 against this plain version and skips without a card.
 """
@@ -89,6 +95,81 @@ def test_plain_equals_tpu_kernel_on_stub_draws(monkeypatch, shape_noise):
         shape_noise=shape_noise, uniforms=torch.from_numpy(u))
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < c * sub  # both outcomes present
+
+
+@pytest.mark.parametrize("shape_noise", [True, False])
+def test_plain_box_muller_equals_tpu_kernel_on_stub_draws(monkeypatch, shape_noise):
+    """`normal_method="box_muller"`: the stub's calls 2d and 2d + 1 are pair
+    d's u1 and u2; the TPU kernel gives the first half of the samples r cos
+    a and the second r sin a, as `mc_cuda.uniform_normals` pairs them."""
+    c, sub = mcp.LANE_CONFIGS, 16
+    rng = np.random.default_rng(6)
+    cfg_np = _numpy_configs(rng, c, shape_sigma=0.4 if shape_noise else 0.0)
+    params_j = mcp.pack_mc_params(JConfigs(*map(jnp.asarray, cfg_np)),
+                                  jnp.asarray(ROBOT, jnp.float32))
+    monkeypatch.setattr(mcp, "_TEST_UNIFORM_FN", deterministic_uniform_stub())
+    want = np.asarray(mcp.mc_counts_pallas(
+        jnp.asarray([1, 2], jnp.int32), params_j, jnp.int32(1), sub=sub,
+        shape_noise=shape_noise, interpret=True, normal_method="box_muller"))
+    stub = deterministic_uniform_stub()
+    n_draws = 5 if shape_noise else 3
+    calls = [np.asarray(stub((sub // 2, c))) for _ in range(2 * n_draws)]
+    u = np.zeros((c, sub, n_draws), np.float32)
+    for d in range(n_draws):
+        u[:, : sub // 2, d] = calls[2 * d].T
+        u[:, sub // 2:, d] = calls[2 * d + 1].T
+    params = torch.from_numpy(np.ascontiguousarray(np.asarray(params_j).T))
+    got = mc_cuda.mc_counts_plain(
+        params, torch.arange(c, dtype=torch.int32), (1, 2), sub,
+        shape_noise=shape_noise, normal_method="box_muller",
+        uniforms=torch.from_numpy(u))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < c * sub  # both outcomes present
+
+
+def test_box_muller_philox_pairs_within_a_sample():
+    """The Box-Muller stream: a sample's normals are its own pairs' outputs
+    (c0, s0, c1, s1, c2) of words 0-3 of draw block 0 and 0-1 of block 1,
+    so they depend on (seed, uid, sample index) alone."""
+    uids = torch.tensor([3, 70000, 5], dtype=torch.int32)
+    seed = (0xDEADBEEF, 0x01234567)
+    z = mc_cuda.philox_normals(uids, seed, 10, 40, 7, 5, "box_muller")
+    w = mc_cuda._philox_words(uids, seed, 10, 40, 7, 6) >> 8
+    c0, s0 = prng.box_muller_from_codes(w[..., 0], w[..., 1])
+    c1, s1 = prng.box_muller_from_codes(w[..., 2], w[..., 3])
+    c2, _ = prng.box_muller_from_codes(w[..., 4], w[..., 5])
+    assert torch.equal(z, torch.stack([c0, s0, c1, s1, c2], dim=-1))
+    assert torch.equal(mc_cuda.philox_normals(uids, seed, 10, 40, 7, 3, "box_muller"),
+                       z[..., :3])
+    part = mc_cuda.philox_normals(uids[1:2], seed, 25, 40, 7, 5, "box_muller")
+    assert torch.equal(part, z[1:2, 15:])
+    with pytest.raises(ValueError, match="normal_method"):
+        mc_cuda.philox_normals(uids, seed, 0, 4, 0, 3, "polar")
+
+
+@pytest.mark.parametrize("shape_noise", [True, False])
+def test_box_muller_counts_agree_with_erfinv_statistically(shape_noise):
+    """The two normal draws are two streams of one distribution: per-row
+    pooled z-scores of their counts with mean z^2 in [0.6, 1.5] and max |z|
+    < 6, rows where both estimates are 0 or both are 1 skipped."""
+    c, n = 256, 8192
+    rng = np.random.default_rng(7)
+    params = mc_cuda.pack_mc_params(
+        configs_from_numpy(_numpy_configs(rng, c, 0.4 if shape_noise else 0.0), "cpu"),
+        ROBOT)
+    uids = torch.arange(c, dtype=torch.int32)
+    p = {m: mc_cuda.mc_counts(params, uids, (9, 10), n, shape_noise=shape_noise,
+                              normal_method=m).numpy() / n
+         for m in mc_cuda.NORMAL_METHODS}
+    a, b = p["erfinv"], p["box_muller"]
+    keep = ~(((a == 0) & (b == 0)) | ((a == 1) & (b == 1)))
+    a, b = a[keep], b[keep]
+    pbar = (a + b) / 2
+    z = (a - b) / np.sqrt(pbar * (1 - pbar) * 2 / n)
+    print(f"{a.size} rows compared: mean z^2 {np.mean(z * z):.3f}, "
+          f"max |z| {np.abs(z).max():.2f}")
+    assert a.size >= 80
+    assert 0.6 <= np.mean(z * z) <= 1.5 and np.abs(z).max() < 6
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,11 @@
     Philox stream, and its counts do not change under compaction or an
     offset split.
 
+(d) ``normal_method="box_muller"``: the plain version equals the TPU
+    kernel's Box-Muller draws in interpret mode on the stub, counts equal
+    kernel 7's Box-Muller counts at zero velocity and keep under
+    compaction and an offset split.
+
 The CUDA kernel itself runs in tests/test_torch_gpu.py (skipped here).
 """
 
@@ -91,6 +96,57 @@ def test_plain_equals_tpu_kernel_on_stub_draws(monkeypatch, batch, dedup):
         k2a=k2a, uniforms=_stub_uniforms(c, sub))
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < c * sub
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_plain_box_muller_equals_tpu_kernel_on_stub_draws(monkeypatch, batch, dedup):
+    """`normal_method="box_muller"` on the same stub draws (pair d's u1 and
+    u2 are calls 2d and 2d + 1, as `mc_cuda.uniform_normals` reads them)."""
+    jb, _ = batch
+    c, sub = jmmp.LANE_CONFIGS, 16
+    a_keep = (0, 1) if dedup else None
+    k2a = 2 if dedup else K2
+    params_j = jmmp.pack_moving_polygon_mc_params(jb, jnp.asarray(ROBOT), a_keep)
+    monkeypatch.setattr(mcp, "_TEST_UNIFORM_FN", deterministic_uniform_stub())
+    want = np.asarray(jmmp.mc_moving_poly_counts_pallas(
+        jnp.asarray([1, 2], jnp.int32), params_j, jnp.int32(1), sub=sub, k=K,
+        k2=K2, k2_axes=k2a, interpret=True, normal_method="box_muller"))
+    params = torch.from_numpy(np.ascontiguousarray(np.asarray(params_j).T))
+    got = mmp.mc_moving_poly_counts_plain(
+        params, torch.arange(c, dtype=torch.int32), (1, 2), sub, k=K, k2=K2,
+        k2a=k2a, normal_method="box_muller", uniforms=_stub_uniforms(c, sub))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < c * sub
+
+
+def test_box_muller_zero_velocity_is_bitwise_kernel_7(batch):
+    """The Box-Muller builds of kernels 14 and 7 draw the same normals: at
+    zero velocity their plain versions count alike, and the counts keep
+    under compaction and an offset split."""
+    _, tb = batch
+    still = tb._replace(velocity=torch.zeros_like(tb.velocity))
+    uids = torch.arange(128, dtype=torch.int32)
+    seed, dims = (0x0BADF00D, 0x12345678), dict(k=K, k2=K2, k2a=2)
+    kw = dict(normal_method="box_muller", **dims)
+    moving = mmp.mc_moving_poly_counts(
+        mmp.pack_moving_polygon_mc_params(still, ROBOT, (0, 1)), uids, seed, 512, **kw)
+    static = mc_polygon_cuda.mc_poly_counts(
+        mc_polygon_cuda.pack_polygon_mc_params(still, ROBOT, (0, 1)), uids, seed, 512,
+        **kw)
+    assert torch.equal(moving, static) and 0 < int(static.sum()) < 128 * 512
+    erfinv = mc_polygon_cuda.mc_poly_counts(
+        mc_polygon_cuda.pack_polygon_mc_params(still, ROBOT, (0, 1)), uids, seed, 512,
+        **dims)
+    assert not torch.equal(erfinv, static)  # another stream
+    params = mmp.pack_moving_polygon_mc_params(tb, ROBOT, (0, 1))
+    whole = mmp.mc_moving_poly_counts(params, uids, seed, 700, **kw)
+    split = (mmp.mc_moving_poly_counts(params, uids, seed, 300, **kw)
+             + mmp.mc_moving_poly_counts(params, uids, seed, 400, offset=300, **kw))
+    assert torch.equal(split, whole)
+    keep = torch.arange(1, 128, 5)
+    assert torch.equal(mmp.mc_moving_poly_counts(params[keep].contiguous(),
+                                                 uids[keep].contiguous(), seed, 700,
+                                                 **kw), whole[keep])
 
 
 def test_zero_velocity_is_bitwise_kernel_7(batch):

@@ -25,6 +25,10 @@ k-gon path on the CPU, against the JAX package.
     differs per (K, K2, K2A) and is stable, and each wrapper loads the
     library of the shape it is called with (no nvcc needed).
 
+(h) ``normal_method="box_muller"``: the plain version equals the TPU
+    kernel's Box-Muller draws in interpret mode on the stub, and a
+    Box-Muller build of kernels 7 and 14 is a library of its own.
+
 The CUDA kernel itself cannot run here: tests/test_torch_gpu.py holds it
 against this plain version and skips without a card.
 """
@@ -124,6 +128,35 @@ def test_plain_equals_tpu_kernel_on_stub_draws(monkeypatch, batch, dedup):
                                    uniforms=torch.from_numpy(u))
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < c * sub  # both outcomes present
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_plain_box_muller_equals_tpu_kernel_on_stub_draws(monkeypatch, batch, dedup):
+    """`normal_method="box_muller"`: the stub's calls 2d and 2d + 1 are pair
+    d's u1 and u2, the first half of the samples taking r cos a and the
+    second r sin a (`mc_cuda.uniform_normals`)."""
+    b, _ = batch
+    c, sub, k, k2 = jmp.LANE_CONFIGS, 16, 6, 4
+    a_keep = jmp.dedup_robot_axes(ROBOT) if dedup else None
+    k2a = k2 if a_keep is None else len(a_keep)
+    params_j = jmp.pack_polygon_mc_params(b, jnp.asarray(ROBOT), a_keep)
+    monkeypatch.setattr(mcp, "_TEST_UNIFORM_FN", deterministic_uniform_stub())
+    want = np.asarray(jmp.mc_poly_counts_pallas(
+        jnp.asarray([1, 2], jnp.int32), params_j, jnp.int32(1), sub=sub,
+        k=k, k2=k2, k2_axes=k2a, interpret=True, normal_method="box_muller"))
+    stub = deterministic_uniform_stub()
+    calls = [np.asarray(stub((sub // 2, c))) for _ in range(6)]
+    u = np.zeros((c, sub, 3), np.float32)
+    for d in range(3):
+        u[:, : sub // 2, d] = calls[2 * d].T
+        u[:, sub // 2:, d] = calls[2 * d + 1].T
+    params = torch.from_numpy(np.ascontiguousarray(np.asarray(params_j).T))
+    got = tmp.mc_poly_counts_plain(params, torch.arange(c, dtype=torch.int32),
+                                   (1, 2), sub, k=k, k2=k2, k2a=k2a,
+                                   normal_method="box_muller",
+                                   uniforms=torch.from_numpy(u))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < c * sub
 
 
 def test_fully_degenerate_robot_has_no_robot_axes(batch):
@@ -239,6 +272,37 @@ def test_library_path_is_one_per_shape_and_stable(source):
         "-DMC_POLY_K=8", "-DMC_POLY_K2=4", "-DMC_POLY_K2A=2"]
     # a source built without defines keeps the name it had before defines
     assert cuda_build.library_path("mc_kernel") == cuda_build.library_path("mc_kernel", ())
+
+
+@pytest.mark.parametrize("module,fn", [(tmp, "mc_poly"), (tmmp, "mc_moving_poly")])
+def test_box_muller_is_a_library_of_its_own(monkeypatch, module, fn):
+    """A Box-Muller build adds ``-DMC_BOX_MULLER=1`` to the shape's defines:
+    another hashed library, and the erf_inv build keeps its path."""
+    from types import SimpleNamespace
+
+    from collide2d_tpu_torch.ops import mc_cuda
+
+    source = module._KERNEL
+    erfinv = cuda_build.library_path(source, tmp.shape_defines(8, 4, 2))
+    box = cuda_build.library_path(
+        source, tmp.shape_defines(8, 4, 2) + mc_cuda.normal_defines("box_muller"))
+    assert box != erfinv and mc_cuda.normal_defines("erfinv") == ()
+    assert cuda_build.define_flags(mc_cuda.normal_defines("box_muller")) == [
+        "-DMC_BOX_MULLER=1"]
+    assert cuda_build.library_path("mc_kernel", mc_cuda.normal_defines("box_muller")) \
+        != cuda_build.library_path("mc_kernel")
+    seen = []
+
+    def load(name, defines=()):
+        seen.append((name, defines))
+        return SimpleNamespace(**{f"{fn}_counts_launch": SimpleNamespace(),
+                                  f"{fn}_max_samples_per_round": SimpleNamespace()})
+
+    monkeypatch.setattr(cuda_build, "load", load)
+    module._kernel_lib(8, 4, 2, "box_muller")
+    assert seen == [(source, tmp.shape_defines(8, 4, 2) + (("MC_BOX_MULLER", 1),))]
+    with pytest.raises(ValueError, match="normal_method"):
+        module._kernel_lib(8, 4, 2, "polar")
 
 
 @pytest.mark.parametrize("module,fn", [(tmp, "mc_poly"), (tmmp, "mc_moving_poly")])

@@ -19,7 +19,12 @@ central and another run the general form everywhere), and held to:
 - the normals within 1e-6 (absolute) of ``prng.normal_from_codes``: the two
   differ only where the host's ``log1pf`` and torch's ``log1p`` round
   differently by an ulp (on 55,878 codes with glibc; at most 4.8e-7, in
-  erf_inv's tails).
+  erf_inv's tails);
+- the Box-Muller pair (`box_muller_pair`, the normals of the kernels'
+  Box-Muller builds) within 4 ulp of the pair's radius r (absolute) of
+  ``prng.box_muller_from_codes`` on the words' top 24 bits, every code's
+  extremes included: the two take the host's ``logf`` and ``sincosf``
+  against torch's ``log``, ``cos`` and ``sin``, an ulp or two apart.
 
 It skips only where g++ is absent.
 """
@@ -59,6 +64,7 @@ using namespace collide2d::mc_stream;
 // the words of SampleStream<false> and of SampleStream<true>.
 // normals OUT: every code's normal with the vote, then without it; prints
 // the codes on the central branch and the codes whose bits differ.
+// boxmuller IN OUT: word pairs -> the Box-Muller pair (c, s) of each.
 int main(int argc, char** argv) {
   if (argc == 4 && !strcmp(argv[1], "philox")) {
     FILE* in = fopen(argv[2], "rb");
@@ -94,6 +100,19 @@ int main(int argc, char** argv) {
     fwrite(z, sizeof(float), codes, out);
     fclose(out);
     printf("%ld %ld\n", central, differ);
+    return 0;
+  }
+  if (argc == 4 && !strcmp(argv[1], "boxmuller")) {
+    FILE* in = fopen(argv[2], "rb");
+    FILE* out = fopen(argv[3], "wb");
+    uint32_t w[2];
+    while (fread(w, 4, 2, in) == 2) {
+      const NormalPair p = box_muller_pair(w[0], w[1]);
+      fwrite(&p.c, 4, 1, out);
+      fwrite(&p.s, 4, 1, out);
+    }
+    fclose(in);
+    fclose(out);
     return 0;
   }
   return 2;
@@ -159,3 +178,30 @@ def test_erfinv_central_branch_is_the_general_form_on_every_code(stream_program,
     want = prng.normal_from_codes(torch.arange(codes, dtype=torch.int32))
     assert torch.isfinite(z).all()
     assert float((z - want).abs().max()) <= 1e-6
+
+
+def test_box_muller_pair_matches_prng(stream_program, tmp_path):
+    rng = np.random.default_rng(1)
+    m = 1 << 18
+    w = rng.integers(0, 1 << 32, (m, 2), dtype=np.uint64)
+    # the codes' extremes: u1 = 2^-24 (the largest radius), u1 = 1 (r = 0),
+    # u2 at 1/4, 1/2 and 1 of the turn
+    w[:8, 0] = np.array([0, 255, 0xFFFFFF00, 0xFFFFFFFF, 0, 0, 0, 0], np.uint64)
+    w[:8, 1] = np.array([0, 0x3FFFFF00, 0x7FFFFF00, 0xFFFFFFFF] * 2, np.uint64)
+    inp, out = tmp_path / "in.bin", tmp_path / "out.bin"
+    w.astype(np.uint32).tofile(inp)
+    subprocess.run([str(stream_program), "boxmuller", str(inp), str(out)], check=True,
+                   timeout=60)
+    got = np.fromfile(out, np.float32).reshape(m, 2)
+    codes = torch.from_numpy((w >> np.uint64(8)).astype(np.int64))
+    c, s = prng.box_muller_from_codes(codes[:, 0], codes[:, 1])
+    want = np.stack([c.numpy(), s.numpy()], axis=1)
+    assert np.isfinite(got).all()
+    u1 = (codes[:, 0].numpy().astype(np.float64) + 1) * 2.0**-24
+    r = np.sqrt(-2 * np.log(u1)).astype(np.float32)
+    ulp = np.spacing(np.maximum(r, np.float32(2.0**-24)))[:, None]
+    assert np.abs(got - want).max(initial=0) <= 4 * ulp.max()
+    assert (np.abs(got - want) <= 4 * ulp).all()
+    print(f"bitwise on {(got == want).mean():.2%} of normals")
+    assert (got == want).mean() > 0.5
+

@@ -6,6 +6,10 @@ Tolerances: key words, bits, uniforms and integers exact (XLA contracts
 which `prng.fma` reproduces). Normals within 1 ulp: `prng.log1p` follows
 XLA's CPU ``log1p`` inside ``erf_inv``, and an FMA emulated in float64
 may still round a tie differently; the test reports how many differ.
+Box-Muller pairs (`prng.box_muller_from_codes`, the kernels' Box-Muller
+builds) against the TPU kernels' ``_box_muller`` formula on the same 24-bit
+codes: within 4 ulp of the pair's radius r (absolute; measured at most 2),
+since torch's and XLA's CPU ``log``, ``cos`` and ``sin`` round apart.
 """
 
 import numpy as np
@@ -132,3 +136,28 @@ def test_philox_random123_pi_vector():
     out = prng.philox4x32(0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344,
                           0xA4093822, 0x299F31D0)
     assert out == (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)
+
+
+def test_box_muller_matches_the_tpu_kernels_formula(monkeypatch):
+    import collide2d_tpu.ops.mc_pallas as mcp
+
+    rng = np.random.default_rng(5)
+    n = 1 << 18
+    b = rng.integers(0, 1 << 24, (2, n)).astype(np.int32)
+    b[0, :4] = [0, 1, (1 << 24) - 1, (1 << 24) - 2]  # r largest, r = 0
+    b[1, :4] = [0, (1 << 24) - 1, 1 << 22, 1 << 23]  # a = 0, 2 pi, pi/2, pi
+    u = (b.astype(np.float32) + 1) * np.float32(2.0**-24)  # exact
+    draws = iter([u[0], u[1]])
+    monkeypatch.setattr(mcp, "_TEST_UNIFORM_FN", lambda shape: jnp.asarray(next(draws)))
+    jc, js = (np.asarray(x) for x in mcp._box_muller((n,)))
+    tc, ts = (x.numpy() for x in prng.box_muller_from_codes(torch.from_numpy(b[0]),
+                                                            torch.from_numpy(b[1])))
+    r = np.sqrt(-2 * np.log(u[0].astype(np.float64))).astype(np.float32)
+    ulp = np.spacing(np.maximum(r, np.float32(2.0**-24)))
+    for got, want in ((tc, jc), (ts, js)):
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want) <= 4 * ulp).all()
+        print(f"bitwise on {(got == want).mean():.2%}, at most "
+              f"{(np.abs(got - want) / ulp).max():.1f} ulp of r")
+    assert np.abs(tc).max() < 5.8 and np.abs(ts).max() < 5.8
+
