@@ -260,6 +260,33 @@ raises, and the script then exits non-zero without printing a result):
    output, the three agreement legs ok, every kernel it runs launched
    (kernel 1's Box-Muller build among them, its A/B leg); each leg's line,
    the digest and the bench's wall seconds.
+23. the multi-device path (it runs inside phase 3's directory, between
+   phases 11 and 12) over `_mesh_cards`: four logical entries of cuda:0 on
+   a one-card machine, every card on a machine with an even number of
+   them. ``generate`` at phase 3's settings, one batch, on the (n, 1) mesh
+   that ``--data_parallel`` builds and on the (n/2, 2) mesh
+   (``GenerateConfig(mesh=...)``), in turns with the unsharded call: batch
+   0 is phase 3's byte for byte every time (label seconds and configs/s of
+   each beside phase 3's; kernel 1's launches on this path);
+   ``generate --data_parallel`` (no mesh on one card): the same bytes;
+   ``--trace_dir`` on a 16,384-row generate leaves a non-empty
+   torch.profiler trace (its events and kernel events counted); kernels 1,
+   7, 13 and 14 one round each on 100,000 of phase 3's rows and on phases
+   10's, 15's and 17's inputs under both meshes: one launch a mesh entry,
+   counts bitwise the unsharded launch's (fingerprint, host ms of each);
+   kernel 15 through a threefry round of 2,048 rotating rectangles (phase
+   16's kind) x 1,024 samples under both meshes, bitwise too; the threefry path under a (1, n) sample
+   mesh on 4,096 of phase 3's rows at a 20,000 cap: labels bitwise the
+   unsharded run's; two processes over gloo (both on cuda:0, or each on
+   half the cards; `_MESH_WORKER`): their `process_batch_range` slices of
+   phase 3's 2 x 100,000 rows are phase 3's files byte for byte (tables
+   too), and a `global_mesh` run (config axis over both processes) on
+   16,384 rows gives each process the single-process labels bit for bit;
+   and data-parallel ``train_model`` (on two entries of cuda:0, or every
+   card; float32, full width, 3 epochs on phase 3's rows) within rtol
+   2e-4, atol 2e-5 of the single-device run. The kernels line gives
+   kernels 1, 7, 13, 14 and 15 a ``launches_by_path`` with this path
+   beside their main one.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path (the Box-Muller builds of
@@ -605,7 +632,8 @@ def _check_batch(path: Path, rows_expected: int = 100_000) -> np.ndarray:
     return rows
 
 
-def phase_main_path(work: Path) -> int:
+def phase_main_path(work: Path):
+    """Phase 3: returns kernel 1's launches and the run's `GenerateStats`."""
     from collide2d_tpu_torch.ops import mc_cuda
 
     t = time.monotonic()
@@ -631,7 +659,7 @@ def phase_main_path(work: Path) -> int:
           mean_samples_per_config=f"{stats.samples_used / stats.rows:.1f}",
           slot_efficiency=f"{stats.samples_used / stats.slots_dispatched:.4f}",
           zero_share=f"{zero_share:.4f}", kernel_launches=launches)
-    return launches
+    return launches, stats
 
 
 ACCEPT_ROWS = 32_768
@@ -3252,6 +3280,290 @@ def phase_full_bench() -> dict:
 # ---- kernels 1, 7, 13 and 14: the counts' fingerprint and the issue floor ----
 
 
+_MESH_WORKER = r"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch.distributed as dist
+
+from collide2d_tpu_torch.data.pipeline import GenerateConfig, generate_dataset
+from collide2d_tpu_torch.mc import prng
+from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities
+from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+from collide2d_tpu_torch.parallel import (
+    global_mesh, initialize_multihost, process_batch_range)
+from chip_smoke import ROBOT_WH, _head_configs
+
+addr, rank, data, shared, out, rows, devices = sys.argv[1:]
+devices = devices.split(",")
+initialize_multihost(addr, 2, int(rank))
+r = process_batch_range(2)
+generate_dataset(GenerateConfig(data_dir=shared, num_batches=len(r), batch_size=100_000,
+                                start_batch_count=r.start, seed=7, verbose=False))
+mesh = global_mesh(devices=devices)
+assert mesh.shape == {"config": 2 * len(devices), "sample": 1}, mesh
+assert mesh.spans_processes, mesh
+cp, n, done = adaptive_collision_probabilities(
+    prng.PRNGKey(21), _head_configs(Path(data), int(rows)), ROBOT_WH,
+    AdaptiveConfig(), mesh=mesh)
+np.savez(out, cp=cp, n=n, done=done)
+dist.destroy_process_group()
+"""
+MESH_GLOBAL_ROWS = 16_384
+MESH_THREEFRY_ROWS = 4096
+MESH_ROT_ROWS, MESH_ROT_SAMPLES = 2048, 1024
+
+
+def _head_configs(data: Path, n: int):
+    """`Configs` of the first ``n`` rows of ``data``'s batch 0 on the card,
+    gathered from its tables on the host (a gather computes nothing, so the
+    rows equal the pipeline's device gather bit for bit)."""
+    from collide2d_tpu_torch.data import schemas
+    from collide2d_tpu_torch.mc.estimator import Configs
+
+    rows = np.load(data / "0.npy")[:n]
+    positions, var_idx, pose_idx = schemas.unpack_relabel_rows(rows[:, [0, 1, 3, 4]])
+    poses = np.load(data / "poses.npy")
+    sd = np.sqrt(np.load(data / "variances.npy"))
+    pose_rows = poses[pose_idx.astype(np.int64)]
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),  # noqa: E731
+                                    device="cuda")
+    return Configs(f32(positions), f32(pose_rows[:, 2]), f32(pose_rows[:, 0:2]),
+                   f32(sd[var_idx.astype(np.int64)]))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_cards() -> tuple[list, str]:
+    """The entries of phase 23's meshes and their description: every card
+    when the machine has an even number of two or more, else four logical
+    entries of cuda:0 (a repeated device is a shard that runs in turn)."""
+    n = torch.cuda.device_count()
+    if n >= 2 and n % 2 == 0:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} cards"
+    return [torch.device("cuda", 0)] * 4, "cuda:0 x4"
+
+
+def phase_mesh(work: Path, main_stats) -> dict:
+    """Phase 23: the multi-device path over `_mesh_cards` (logical meshes
+    of cuda:0 on a one-card machine, real ones on several cards), beside
+    phase 3's `GenerateStats`; returns the launches of kernels 1, 7, 13,
+    14 and 15 on it."""
+    from collide2d_tpu_torch.data.pipeline import GenerateConfig, generate_dataset
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities as acp
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, mc_round
+    from collide2d_tpu_torch.models import learned
+    from collide2d_tpu_torch.ops import (
+        mc_cuda, mc_moving_polygon_cuda, mc_polygon_cuda, mc_toi_cuda, screen_cuda)
+    from collide2d_tpu_torch.parallel import make_mesh
+
+    cards, where = _mesh_cards()
+    real = where != "cuda:0 x4"
+    n = len(cards)
+    meshes = {"config": make_mesh(cards), "mesh": make_mesh(cards, sample_axis=2)}
+    shapes = {k: "({config},{sample})".format(**m.shape) for k, m in meshes.items()}
+    data = work / "main"
+    ref0 = (data / "0.npy").read_bytes()
+    launches = {}
+
+    # (a) generate at phase 3's settings, one batch, on the (n, 1) mesh that
+    # --data_parallel builds and on the (n/2, 2) mesh, in turns with the
+    # unsharded call: batch 0 is phase 3's byte for byte every time.
+    t = time.monotonic()
+    tables = dict(pose_dir=str(data / "poses.npy"), variance_dir=str(data / "variances.npy"))
+    runs = {"plain": [], "config": [], "mesh": []}
+    for turn in ("plain", "config", "mesh", "mesh", "config", "plain"):
+        out = work / f"mesh_{turn}_{len(runs[turn])}"
+        mc_cuda.reset_launches()
+        stats = generate_dataset(GenerateConfig(
+            data_dir=str(out), num_batches=1, batch_size=100_000, seed=7, verbose=False,
+            mesh=meshes.get(turn), **tables))
+        torch.cuda.synchronize()
+        if turn == "mesh":
+            launches["1"] = mc_cuda.LAUNCHES
+        runs[turn].append(stats.label_seconds)
+        if (out / "0.npy").read_bytes() != ref0:
+            raise RuntimeError(f"generate ({turn}) batch 0 differs from phase 3's")
+    if launches["1"] <= 0:
+        raise RuntimeError("the mesh path never launched kernel 1")
+    label = {k: min(v) for k, v in runs.items()}
+    _line("23 mesh generate", time.monotonic() - t, entries=where,
+          meshes=f"{shapes['config']},{shapes['mesh']}", rows=100_000, bitwise_phase3=True,
+          **{f"label_s_{k}": "/".join(f"{x:.3f}" for x in v) for k, v in runs.items()},
+          **{f"configs_per_s_{k}": f"{1e5 / s:.1f}" for k, s in label.items()},
+          phase3_label_s_2_batches=f"{main_stats.label_seconds:.3f}",
+          phase3_configs_per_s=f"{main_stats.rows / main_stats.label_seconds:.1f}",
+          kernel1_launches=launches["1"])
+
+    # (b) the CLI: --data_parallel is no mesh on one card and the (n, 1)
+    # mesh on several; the same bytes. Beside it --trace_dir on a smaller
+    # generate leaves a non-empty trace.
+    t = time.monotonic()
+    out = work / "mesh_cli"
+    _quiet(_generate, ["--device", "cuda", "-n", "1", "-b", "100000", "--seed", "7",
+                       "--data_parallel", "--pose_dir", tables["pose_dir"],
+                       "--variance_dir", tables["variance_dir"], "--data_dir", str(out)])
+    if (out / "0.npy").read_bytes() != ref0:
+        raise RuntimeError("generate --data_parallel batch 0 differs from phase 3's")
+    trace_dir = work / "trace"
+    _quiet(_generate, ["--device", "cuda", "-n", "1", "-b", "16384", "--num_poses",
+                       "4096", "--num_variances", "4096", "--seed", "3", "--trace_dir",
+                       str(trace_dir), "--data_dir", str(work / "mesh_trace")])
+    traces = list(trace_dir.glob("trace_*.json"))
+    if len(traces) != 1 or traces[0].stat().st_size == 0:
+        raise RuntimeError(f"--trace_dir wrote {traces}")
+    events = json.loads(traces[0].read_text()).get("traceEvents", [])
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    _line("23 mesh cli", time.monotonic() - t, data_parallel_bitwise_phase3=True,
+          trace_bytes=traces[0].stat().st_size, trace_events=len(events),
+          trace_kernel_events=len(kernel_events),
+          trace_has_mc_counts=any("mc_counts" in e.get("name", "") for e in kernel_events))
+
+    # (c) kernels 1, 7, 13 and 14: one round each on 100,000 of phase 3's
+    # rows and on phases 10's, 15's and 17's inputs, under both meshes:
+    # one launch a mesh entry (added to the path's launches), counts
+    # bitwise the unsharded launch's. Then
+    # kernel 15, through the threefry path: a round of rotating rectangles
+    # (phase 16's kind), its stage A on the card of every shard, bitwise too.
+    t = time.monotonic()
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    key = prng.PRNGKey(12)
+    fields = {}
+    rounds = (("1", _head_configs(data, 100_000), ROBOT_WH, mc_cuda,
+               dict(n_batch=N_CHECK, impl="cuda")),
+              ("7", _polygon_workload(POLY_ROWS, seed=11), robot, mc_polygon_cuda,
+               dict(n_batch=N_CHECK, impl="cuda")),
+              ("13", _moving_rects(TRAJ_ROWS, False), ROBOT_WH, mc_toi_cuda,
+               dict(n_batch=N_CHECK, impl="cuda", ca_iters=0)),
+              ("14", _moving_kgons(TRAJ_ROWS), robot, mc_moving_polygon_cuda,
+               dict(n_batch=N_CHECK, impl="cuda", ca_iters=0)),
+              ("15", _moving_rects(MESH_ROT_ROWS, True), ROBOT_WH, screen_cuda,
+               dict(n_batch=MESH_ROT_SAMPLES, impl="threefry")))
+    for kernel, configs, rb, mod, kw in rounds:
+        reps = 1 if kernel == "15" else 3  # a threefry round takes ~1e2 ms
+        uids = torch.arange(configs.num, dtype=torch.int32, device=cards[0])
+        base = mc_round(key, uids, configs, rb, 3, **kw)
+        fp = _fingerprint(base)
+        fields[f"k{kernel}_fingerprint"] = f"{fp[0]},{fp[1]}"
+        fields[f"k{kernel}_ms_plain"] = f"{_host_ms(lambda: mc_round(key, uids, configs, rb, 3, **kw), reps):.3f}"  # noqa: E501
+        for name, mesh in meshes.items():
+            mod.reset_launches()
+            got = mc_round(key, uids, configs, rb, 3, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            count = mod.LAUNCHES
+            launches[kernel] = launches.get(kernel, 0) + count
+            # the fused kernels launch once an entry; stage A once a step
+            if (count != n if kernel != "15" else count <= 0) or not torch.equal(got, base):
+                raise RuntimeError(f"kernel {kernel} under the {shapes[name]} mesh: "
+                                   f"{count} launches, bitwise={torch.equal(got, base)}")
+            fields[f"k{kernel}_launches_{shapes[name]}"] = count
+            fields[f"k{kernel}_ms_{shapes[name]}"] = f"{_host_ms(lambda: mc_round(key, uids, configs, rb, 3, mesh=mesh, **kw), reps):.3f}"  # noqa: E501
+    _line("23 mesh kernels", time.monotonic() - t, entries=where, bitwise=True,
+          samples=N_CHECK, rows_k15=MESH_ROT_ROWS, samples_k15=MESH_ROT_SAMPLES, **fields)
+
+    # (d) the threefry path under a (1, n) sample mesh: an adaptive run of
+    # 4,096 of phase 3's rows at a 20,000-sample cap, bitwise unsharded.
+    t = time.monotonic()
+    configs = _head_configs(data, MESH_THREEFRY_ROWS)
+    cfg = AdaptiveConfig(impl="threefry", max_samples=20_000)
+    t1 = time.monotonic()
+    base = acp(prng.PRNGKey(22), configs, ROBOT_WH, cfg)
+    plain_s = time.monotonic() - t1
+    t1 = time.monotonic()
+    got = acp(prng.PRNGKey(22), configs, ROBOT_WH, cfg,
+              mesh=make_mesh(cards, sample_axis=n))
+    mesh_s = time.monotonic() - t1
+    if not all(np.array_equal(a, b) for a, b in zip(got, base)):
+        raise RuntimeError(f"threefry labels under a (1, {n}) sample mesh differ")
+    _line("23 mesh threefry", time.monotonic() - t, rows=MESH_THREEFRY_ROWS, cap=20_000,
+          mesh=f"(1,{n})", entries=where, bitwise=True, seconds_plain=f"{plain_s:.3f}",
+          seconds_mesh=f"{mesh_s:.3f}", mean_cp=f"{base[0].mean():.4f}")
+
+    # (e) two processes over gloo (both on cuda:0, or each on half the
+    # cards): disjoint process_batch_range slices of phase 3's 2 x 100,000
+    # rows (the union is phase 3's files byte for byte), then a global mesh
+    # (config axis over both processes) labeling 16,384 of its rows: every
+    # process's labels equal this process's unsharded run.
+    t = time.monotonic()
+    shared = work / "mesh_shared"
+    outs = [work / f"mesh_global_{r}.npz" for r in (0, 1)]
+    addr = f"localhost:{_free_port()}"
+    half = n // 2 if real else 1
+    procs = []
+    try:
+        for r in (0, 1):
+            env = dict(os.environ, PYTHONPATH=str(HERE))
+            if real:
+                env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                    str(i) for i in range(r * half, (r + 1) * half))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _MESH_WORKER, addr, str(r), str(data), str(shared),
+                 str(outs[r]), str(MESH_GLOBAL_ROWS),
+                 ",".join(f"cuda:{i}" for i in range(half))],
+                cwd=str(HERE), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise RuntimeError(f"mesh worker exited {p.returncode}: "
+                                   f"{err.decode()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_s = time.monotonic() - t
+    for name in ("0.npy", "1.npy", "poses.npy", "variances.npy"):
+        if (shared / name).read_bytes() != (data / name).read_bytes():
+            raise RuntimeError(f"two-process union: {name} differs from phase 3's")
+    t1 = time.monotonic()
+    want = acp(prng.PRNGKey(21), _head_configs(data, MESH_GLOBAL_ROWS), ROBOT_WH,
+               AdaptiveConfig())
+    one_s = time.monotonic() - t1
+    for out in outs:
+        with np.load(out) as z:
+            if not all(np.array_equal(z[k], w) for k, w in zip(("cp", "n", "done"), want)):
+                raise RuntimeError(f"{out.name}: global-mesh labels differ")
+    _line("23 mesh processes", two_s, processes=2, backend="gloo", cards_each=half,
+          union_bitwise_phase3=True, global_mesh_rows=MESH_GLOBAL_ROWS,
+          global_labels_bitwise=True, single_process_label_s=f"{one_s:.3f}")
+
+    # (f) data-parallel training over every card (two entries of cuda:0 on
+    # one card) against one device, float32, within the CPU test's tolerance.
+    t = time.monotonic()
+    dp_cards = cards if real else cards[:2]
+    feats, labels = learned.load_training_data(str(data), device="cuda")
+    kw = dict(hidden=(256, 256, 256), epochs=3, batch_size=8192, val_fraction=0.0,
+              seed=2, compute_dtype="float32")
+    seconds = {"single": [], "dp": []}
+    result = {}
+    for kind in ("single", "dp", "dp", "single"):
+        t1 = time.monotonic()
+        result[kind] = learned.train_model(
+            feats, labels, learned.TrainConfig(**kw, data_parallel=kind == "dp"),
+            devices=dp_cards, device="cuda")
+        seconds[kind].append(time.monotonic() - t1)
+    single, dp = result["single"], result["dp"]
+    worst = 0.0
+    for k in single.params:
+        a, b = np.asarray(dp.params[k]), np.asarray(single.params[k])
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5)
+        worst = max(worst, float(np.abs(a - b).max()))
+    _line("23 mesh train", time.monotonic() - t, rows=feats.shape[0],
+          devices=f"{len(dp_cards)} cards" if real else "2x cuda:0", epochs=3,
+          max_abs_param_diff=f"{worst:.3e}",
+          **{f"seconds_{k}": "/".join(f"{x:.3f}" for x in v) for k, v in seconds.items()},
+          loss_single=f"{single.history[-1]:.5f}", loss_dp=f"{dp.history[-1]:.5f}")
+    return launches
+
+
 def _fingerprint(counts: torch.Tensor) -> tuple[int, int]:
     """(sum of the counts, sum of counts[c] * (c % 9973)): equal fingerprints
     on the same inputs say the bits held."""
@@ -3586,7 +3898,7 @@ def main() -> int:
     check = phase_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        launches = phase_main_path(work)
+        launches, main_stats = phase_main_path(work)
         phase_acceptance(work)
         phase_invariance(work)
         sat = phase_sat()
@@ -3597,6 +3909,7 @@ def main() -> int:
         poly_sat = phase_polygon_sat()
         poly_mc = phase_mc_polygon()
         poly_mc["launches"] = phase_polylabel(work)
+        mesh_launches = phase_mesh(work, main_stats)
     queries = phase_distance()
     # kernel 8 runs on two paths: the geometry queries (phase 12) and the
     # learned model's features (phase 8c), each counted from 0
@@ -3622,6 +3935,13 @@ def main() -> int:
     full_bench = phase_full_bench()
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
+    # kernels 1, 7, 13, 14 and 15 also run on the mesh path (phase 23),
+    # each path counted from 0
+    for entry, path, kernel in ((poly_mc, "polylabel", "7"), (mc_toi, "movelabel", "13"),
+                                (moving_poly, "movelabel", "14"),
+                                (screen, "movelabel", "15")):
+        entry["launches_by_path"] = {path: entry["launches"], "mesh": mesh_launches[kernel]}
+        entry["launches"] += mesh_launches[kernel]
     default = check["default"]
     bm1 = dict(default["box_muller"], launches=full_bench["launches"]["1bm"],
                max_abs_err=max(check[k]["box_muller"]["max_abs_err"] for k in check))
@@ -3632,7 +3952,8 @@ def main() -> int:
         "route": "cuda",
         "source": "collide2d_tpu_torch/csrc/mc_kernel.cu",
         "replaces": "collide2d_tpu/ops/mc_pallas.py:207",
-        "launches": launches,
+        "launches": launches + mesh_launches["1"],
+        "launches_by_path": {"generate": launches, "mesh": mesh_launches["1"]},
         "max_abs_err": max(check[k]["max_abs_err"] for k in check),
         "ms": default["kernel_ms"],
         "plain_ms": default["plain_ms"],

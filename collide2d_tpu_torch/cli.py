@@ -16,11 +16,14 @@ Flag names and defaults are the JAX package's (``collide2d_tpu/cli.py``,
 after the reference's generate_dataset.cu:66-169 and ztest.cu:49-101),
 plus ``--device`` (default ``cuda``). ``--impl`` takes ``auto`` (= the
 fused kernel, ``cuda``), ``cuda`` or ``threefry`` (the per-draw reference
-path). Flags of features this port does not have yet (``--data_parallel``,
-``--sample_parallel``, ``--trace_dir``) are still parsed, so that using
-one fails with an error that names it instead of being silently ignored.
-A negative ``--checkpoint_every`` is an error (the JAX package reads it
-as "every group").
+path). ``--data_parallel`` spreads the configuration axis over every
+device of ``--device``'s kind (every visible card; one CPU device is no
+mesh) and ``--sample_parallel S`` each configuration's samples over S of
+them; labels are bitwise a single-device run's (`parallel`). A
+``--sample_parallel`` larger than the device count exits with an error.
+``--trace_dir`` writes a ``torch.profiler`` trace of generate, relabel
+or ztest. A negative ``--checkpoint_every`` is an error (the JAX package
+reads it as "every group").
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from collide2d_tpu_torch.data.pipeline import (
     GenerateConfig,
     RelabelConfig,
     ZTestConfig,
+    _mesh_for,
     generate_dataset,
     relabel_dataset,
     ztest,
@@ -58,7 +62,7 @@ def _checkpoint_every(value: str) -> int:
 
 
 def _add_common(p: argparse.ArgumentParser, checkpoint_help: str) -> None:
-    """Flags shared by generate, relabel and ztest, ported or rejected."""
+    """Flags shared by generate, relabel and ztest."""
     p.add_argument("--schedule", default="reference",
                    choices=["reference", "tuned", "opt"],
                    help="convergence-checkpoint schedule: 'reference' (the "
@@ -82,20 +86,23 @@ def _add_common(p: argparse.ArgumentParser, checkpoint_help: str) -> None:
     p.add_argument("--checkpoint_every", type=_checkpoint_every, default=0,
                    help=checkpoint_help)
     p.add_argument("--trace_dir", default="",
-                   help="profiler trace capture; not ported yet")
+                   help="write a torch.profiler trace (Chrome JSON) of the "
+                        "labeling into this directory")
     p.add_argument("--verbose", type=_bool_flag, default=True,
                    help="per-sync progress lines + batch progress")
 
 
-def _reject_unported(parser: argparse.ArgumentParser,
-                     args: argparse.Namespace) -> None:
-    """Fail loudly on every flag whose feature the port lacks."""
-    if getattr(args, "trace_dir", ""):
-        parser.error("--trace_dir is not supported by collide2d-torch yet")
-    if getattr(args, "data_parallel", False):
-        parser.error("--data_parallel is not supported by collide2d-torch yet")
-    if getattr(args, "sample_parallel", 0):
-        parser.error("--sample_parallel is not supported by collide2d-torch yet")
+def _require_devices(name: str, args: argparse.Namespace) -> None:
+    """Exit, as the JAX CLI does, when ``--sample_parallel`` asks for more
+    devices than ``--device``'s kind has."""
+    from collide2d_tpu_torch.parallel.sharding import local_devices
+
+    s = getattr(args, "sample_parallel", 0)
+    if s and s > 1:
+        n = len(local_devices(args.device))
+        if n < s:
+            raise SystemExit(f"{name}: sample_parallel={s} needs that many "
+                             f"devices, have {n}")
 
 
 _BATCH_CHECKPOINT_HELP = "rounds between mid-batch checkpoints (0 = off)"
@@ -152,7 +159,8 @@ def _add_generate(sub) -> None:
                         "data_dir/checkpoint_{batch}.npz (one per in-flight "
                         "pipelined batch; requires a fixed --seed)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device runs; not ported yet")
+                   help="shard the configuration axis over every device of "
+                        "--device's kind (labels unchanged)")
     p.add_argument("--overlap_batches", type=int, default=d.overlap_batches,
                    help="cross-batch pipelining depth: batch i+1's rounds "
                         "interleave with batch i's convergence tail; "
@@ -194,6 +202,8 @@ def generate_config(args: argparse.Namespace) -> GenerateConfig:
         verbose=args.verbose,
         impl=args.impl,
         ladder=args.ladder,
+        data_parallel=args.data_parallel,
+        trace_dir=args.trace_dir,
         device=args.device,
     )
 
@@ -218,9 +228,12 @@ def _add_relabel(sub) -> None:
                    help="whether or not to shuffle data")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device runs; not ported yet")
-    p.add_argument("--sample_parallel", type=int, default=0,
-                   help="multi-device sample sharding; not ported yet")
+                   help="shard the configuration axis over every device of "
+                        "--device's kind (labels unchanged)")
+    p.add_argument("--sample_parallel", type=int, default=d.sample_parallel,
+                   help="shard each configuration's samples over this many "
+                        "devices (labels unchanged; ignored with "
+                        "--data_parallel)")
     p.add_argument("--resume", action="store_true",
                    help="skip already-written output batches and resume "
                         "mid-batch from per-batch checkpoint files "
@@ -252,11 +265,16 @@ def relabel_config(args: argparse.Namespace) -> RelabelConfig:
         overlap_batches=args.overlap_batches,
         checkpoint_every=args.checkpoint_every,
         resume=args.resume,
+        data_parallel=args.data_parallel,
+        sample_parallel=args.sample_parallel,
+        trace_dir=args.trace_dir,
         device=args.device,
     )
 
 
 def _run_relabel(args: argparse.Namespace) -> int:
+    if not args.data_parallel:
+        _require_devices("relabel", args)
     relabel_dataset(relabel_config(args))
     return 0
 
@@ -280,8 +298,9 @@ def _add_ztest(sub) -> None:
     p.add_argument("--n_batch", type=int, default=d.n_batch,
                    help="samples per round (fixed schedule)")
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--sample_parallel", type=int, default=0,
-                   help="multi-device sample sharding; not ported yet")
+    p.add_argument("--sample_parallel", type=int, default=d.sample_parallel,
+                   help="shard each configuration's samples over this many "
+                        "devices (must divide --n_batch; labels unchanged)")
     _add_common(p, "rounds between mid-run checkpoints to "
                    "data_dir/ztest_checkpoint.npz (0 = off; a rerun with the "
                    "same --seed auto-resumes from it)")
@@ -289,6 +308,7 @@ def _add_ztest(sub) -> None:
 
 
 def _run_ztest(args: argparse.Namespace) -> int:
+    _require_devices("ztest", args)
     ztest(ZTestConfig(
         data_dir=args.data_dir,
         data_file_in=args.data_file_in,
@@ -307,6 +327,8 @@ def _run_ztest(args: argparse.Namespace) -> int:
         prune_sigma=args.prune_sigma,
         ladder=args.ladder,
         checkpoint_every=args.checkpoint_every,
+        sample_parallel=args.sample_parallel,
+        trace_dir=args.trace_dir,
         device=args.device,
     ))
     return 0
@@ -341,7 +363,7 @@ def _run_compare(args: argparse.Namespace) -> int:
 
 def _add_label_flags(p: argparse.ArgumentParser, impl_help: str = _IMPL_HELP) -> None:
     """Flags shared by the adaptive-labeling commands (polylabel,
-    movelabel), ported or rejected."""
+    movelabel)."""
     p.add_argument("--max_samples", type=int, default=4_000_000,
                    help="per-configuration sample cap")
     p.add_argument("--accuracy_bins", type=float, nargs="+",
@@ -367,9 +389,12 @@ def _add_label_flags(p: argparse.ArgumentParser, impl_help: str = _IMPL_HELP) ->
     p.add_argument("--device", default="cuda",
                    help="torch device the labeling runs on")
     p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device runs; not ported yet")
+                   help="shard the configuration axis over every device of "
+                        "--device's kind (labels unchanged)")
     p.add_argument("--sample_parallel", type=int, default=0,
-                   help="multi-device sample sharding; not ported yet")
+                   help="shard each configuration's samples over this many "
+                        "devices (labels unchanged); ignored with "
+                        "--data_parallel")
     p.add_argument("--checkpoint_every", type=_checkpoint_every, default=0,
                    help="rounds between mid-run checkpoints to "
                         "<data_out>.checkpoint.npz (0 = off; a rerun with "
@@ -398,6 +423,8 @@ def _label(name: str, args: argparse.Namespace, configs, robot, **cfg_extra):
         ladder=args.ladder,
         **cfg_extra,
     )
+    _require_devices(name, args)
+    mesh = _mesh_for(args)
     seed = args.seed if args.seed is not None else int(time.time())
     progress = None
     if args.verbose:
@@ -408,7 +435,7 @@ def _label(name: str, args: argparse.Namespace, configs, robot, **cfg_extra):
         prng.PRNGKey(seed), configs, robot, cfg, progress=progress,
         checkpoint_path=(args.data_out + ".checkpoint.npz"
                          if args.checkpoint_every else None),
-        checkpoint_every=args.checkpoint_every)
+        checkpoint_every=args.checkpoint_every, mesh=mesh)
     np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
     return done
 
@@ -626,7 +653,8 @@ def _add_train(sub) -> None:
                    help="product input dtype (outputs and sums are always "
                         "f32); bfloat16 runs on the card's tensor cores")
     p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device runs; not ported yet")
+                   help="split each minibatch over every device of "
+                        "--device's kind (gradients summed on the first)")
     p.add_argument("--accuracy_bins", type=float, nargs="+",
                    default=[0.0, 0.01, 0.1, 1.0],
                    help="bins for the per-bin validation MAE report")
@@ -670,6 +698,7 @@ def _run_train(args: argparse.Namespace) -> int:
         val_fraction=args.val_fraction,
         seed=args.seed,
         compute_dtype=args.compute_dtype,
+        data_parallel=args.data_parallel,
         verbose=args.verbose,
     )
     result = train_model(features, labels, cfg,
@@ -720,8 +749,7 @@ def _run_predict(args: argparse.Namespace) -> int:
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
-    """Parse a command line; flags of unported features exit with an
-    error that names them."""
+    """Parse a command line."""
     parser = argparse.ArgumentParser(
         prog="collide2d-torch",
         description="2D convex collision engine on PyTorch/CUDA "
@@ -741,11 +769,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     _add_show(sub)
     _add_train(sub)
     _add_predict(sub)
-    args = parser.parse_args(argv)
-    if args.command in ("generate", "relabel", "ztest", "polylabel", "movelabel",
-                        "train"):
-        _reject_unported(parser, args)
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -13,6 +13,10 @@ that cannot touch cp = 0 without sampling. Neither is in the reference.
 ``checkpoint_every`` writes each batch's loop state every that many
 rounds (``checkpoint_{batch}.npz``; ztest: ``ztest_checkpoint.npz``), and
 ``resume`` skips written batches and resumes mid-batch from those files.
+``data_parallel`` / ``sample_parallel`` / ``mesh`` shard each run's rounds
+over several devices (`parallel`; labels bitwise the unsharded run's), and
+``trace_dir`` writes a profiler trace of the labeling
+(`utils.profiling.trace`).
 
 Tables (``poses.npy``, ``variances.npy``, ``meta/``) and batch files keep
 the JAX package's byte layout, so either package reads the other's
@@ -56,7 +60,7 @@ from collide2d_tpu_torch.utils.io_npy import (
     mkdirs,
     save_npy,
 )
-from collide2d_tpu_torch.utils.profiling import StepTimer
+from collide2d_tpu_torch.utils.profiling import StepTimer, trace
 
 TWO_PI = 2.0 * math.pi
 
@@ -102,6 +106,9 @@ class GenerateConfig:
     # checkpoint_{abs_batch}.npz, one per in-flight batch (needs a fixed
     # seed, so the keys reproduce).
     resume: bool = False
+    data_parallel: bool = False  # shard the config axis over every card
+    mesh: object = None  # explicit parallel.Mesh (tests / custom topologies)
+    trace_dir: str = ""  # write a torch.profiler trace of the labeling here
     device: str = "cuda"
 
     @property
@@ -139,6 +146,12 @@ class RelabelConfig:
     # output numbering is pinned by a .relabel_start marker, so a rerun
     # continues the same window instead of appending again.
     resume: bool = False
+    data_parallel: bool = False
+    # Shard each configuration's sample budget over this many devices (as
+    # ZTestConfig.sample_parallel; ignored with data_parallel or a mesh).
+    sample_parallel: int = 0
+    mesh: object = None  # explicit parallel.Mesh (tests / custom topologies)
+    trace_dir: str = ""  # write a torch.profiler trace of the labeling here
     device: str = "cuda"
 
     @property
@@ -170,6 +183,13 @@ class ZTestConfig:
     # Mid-run checkpoints every N rounds to data_dir/ztest_checkpoint.npz;
     # a rerun with the same seed resumes from it.
     checkpoint_every: int = 0
+    # Shard each configuration's sample budget over this many devices: a
+    # (1, sample_parallel) mesh whose labels are bitwise the single-device
+    # ones (estimator._sample_sharded_counts / _cuda_sharded_counts). Must
+    # divide n_batch. 0 = off.
+    sample_parallel: int = 0
+    mesh: object = None  # explicit parallel.Mesh (tests / custom topologies)
+    trace_dir: str = ""  # write a torch.profiler trace of the run here
     device: str = "cuda"
 
     @property
@@ -200,6 +220,28 @@ def _progress_logger(cfg, total: int):
         last["active"] = num_left
 
     return cb
+
+
+def _mesh_for(cfg):
+    """The mesh a pipeline config asks for: an explicit ``mesh`` > data
+    parallel (every device of ``cfg.device``'s kind on the config axis; no
+    mesh over fewer than two) > ``sample_parallel`` (a (1, s) mesh)."""
+    if getattr(cfg, "mesh", None) is not None:
+        return cfg.mesh
+    from collide2d_tpu_torch.parallel.sharding import local_devices, make_mesh
+
+    devices = local_devices(cfg.device)
+    if getattr(cfg, "data_parallel", False):
+        if len(devices) < 2:
+            return None
+        return make_mesh(devices)
+    s = getattr(cfg, "sample_parallel", 0)
+    if s and s > 1:
+        if len(devices) < s:
+            raise ValueError(f"sample_parallel={s} needs that many devices, "
+                             f"have {len(devices)}")
+        return make_mesh(devices[:s], sample_axis=s)
+    return None
 
 
 def _master_key(seed: int | None) -> np.ndarray:
@@ -292,7 +334,8 @@ def _opt_schedule(cfg, key, probe: Configs, accuracy_bins,
 
 def _label_batch(key, positions, pose_idx, var_idx, poses, std_devs, robot_wh,
                  adaptive: AdaptiveConfig, device, progress=None,
-                 checkpoint_path=None, checkpoint_every: int = 0) -> np.ndarray:
+                 checkpoint_path=None, checkpoint_every: int = 0,
+                 mesh=None) -> np.ndarray:
     """Label one batch (ztest's core): host gather of the table rows, one
     adaptive run on ``device``, rows back in INPUT order."""
     pose_idx = np.asarray(pose_idx, np.int64)
@@ -313,6 +356,7 @@ def _label_batch(key, positions, pose_idx, var_idx, poses, std_devs, robot_wh,
     cp, _, _ = adaptive_collision_probabilities(
         key, configs, robot_wh, adaptive, progress=progress,
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        mesh=mesh,
     )
     return schemas.pack_dataset_rows(positions, cp, var_idx, pose_idx)
 
@@ -451,6 +495,7 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
     _log(cfg, "Begin computation...")
     begin = time.monotonic()
     overlap = max(1, int(cfg.overlap_batches or 1))
+    mesh = _mesh_for(cfg)
     pending = _pending_batches(
         cfg, cfg.num_batches,
         lambda i: batch_path(data_dir, cfg.start_batch_count + i))
@@ -477,6 +522,7 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
             progress=_progress_logger(cfg, cfg.batch_size),
             checkpoint_path=_checkpoint_path(cfg, data_dir, abs_index),
             checkpoint_every=cfg.checkpoint_every,
+            mesh=mesh,
         )
         # The host needs positions/indices only at pack time: start the
         # copies now, off the critical path.
@@ -488,7 +534,7 @@ def generate_dataset(cfg: GenerateConfig) -> GenerateStats:
         )
         return tag, run
 
-    with native.AsyncNpyWriter() as writer:
+    with native.AsyncNpyWriter() as writer, trace(cfg.trace_dir or None):
         run_interleaved(
             [functools.partial(_start, i) for i in pending],
             overlap,
@@ -593,6 +639,7 @@ def relabel_dataset(cfg: RelabelConfig) -> GenerateStats:
         prune_sigma=cfg.prune_sigma, ladder=cfg.ladder,
     )
     native.available()  # the writer's g++ build is set-up, not labeling
+    mesh = _mesh_for(cfg)
 
     def _start(batch_index: int):
         positions, var_idx, pose_idx = read_batch(batch_index)
@@ -604,6 +651,7 @@ def relabel_dataset(cfg: RelabelConfig) -> GenerateStats:
             progress=_progress_logger(cfg, len(positions)),
             checkpoint_path=_checkpoint_path(cfg, data_out, abs_index),
             checkpoint_every=cfg.checkpoint_every,
+            mesh=mesh,
         )
         tag = dict(target=batch_path(data_out, abs_index),
                    positions=positions, pose_idx=pose_idx, var_idx=var_idx)
@@ -615,7 +663,7 @@ def relabel_dataset(cfg: RelabelConfig) -> GenerateStats:
     begin = time.monotonic()
     state = {"done": num_batches - len(pending), "samples_used": 0, "slots": 0,
              "rows": 0}
-    with native.AsyncNpyWriter() as writer:
+    with native.AsyncNpyWriter() as writer, trace(cfg.trace_dir or None):
         run_interleaved(
             [functools.partial(_start, i) for i in pending],
             max(1, int(cfg.overlap_batches or 1)),
@@ -696,14 +744,25 @@ def ztest(cfg: ZTestConfig) -> np.ndarray:
         prune_sigma=cfg.prune_sigma,
         ladder=cfg.ladder,
     )
-    rows = _label_batch(
-        _master_key(cfg.seed), positions, pose_idx, var_idx, poses, std_devs,
-        cfg.robot_wh, adaptive, torch.device(cfg.device),
-        progress=_progress_logger(cfg, len(positions)),
-        checkpoint_path=(data_dir / "ztest_checkpoint.npz"
-                         if cfg.checkpoint_every else None),
-        checkpoint_every=cfg.checkpoint_every,
-    )
+    mesh = cfg.mesh
+    if mesh is None and cfg.sample_parallel and cfg.sample_parallel > 1:
+        if cfg.n_batch % cfg.sample_parallel:
+            raise ValueError(
+                f"sample_parallel={cfg.sample_parallel} must divide "
+                f"n_batch={cfg.n_batch}"
+            )
+        # Pure sample sharding: a (config=1, sample=s) mesh; the deep
+        # per-pair budget is the axis that scales here.
+        mesh = _mesh_for(cfg)
+    with trace(cfg.trace_dir or None):
+        rows = _label_batch(
+            _master_key(cfg.seed), positions, pose_idx, var_idx, poses,
+            std_devs, cfg.robot_wh, adaptive, torch.device(cfg.device),
+            progress=_progress_logger(cfg, len(positions)),
+            checkpoint_path=(data_dir / "ztest_checkpoint.npz"
+                             if cfg.checkpoint_every else None),
+            checkpoint_every=cfg.checkpoint_every, mesh=mesh,
+        )
     out = rows[:, 2].copy() if cfg.cps_only else rows  # ztest.cu:391-396
     if cfg.shuffle:
         out = out[native.std_shuffle_perm(len(out), 0)]

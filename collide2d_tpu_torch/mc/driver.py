@@ -470,7 +470,7 @@ class _TorchOps:
                  acc_bins: tuple, bin_acc: tuple, shape_noise: bool = True,
                  poly_a_keep: tuple[int, ...] | None = None,
                  ca: tuple[int, float] = (48, 1e-4), progress=None,
-                 checkpoint_write=None) -> None:
+                 checkpoint_write=None, mesh=None) -> None:
         self.key = key
         self.state = state
         self.outs = outs
@@ -485,6 +485,8 @@ class _TorchOps:
         self.ca_iters, self.ca_tol = ca
         self._progress = progress
         self._checkpoint_write = checkpoint_write
+        # Rounds' counts run sharded over this mesh; the state stays here.
+        self.mesh = mesh
         # Device sample-slots dispatched so far (n_batch x rounds x buffer
         # rows, padding and post-freeze rows included).
         self.dispatched_slots = 0
@@ -503,7 +505,7 @@ class _TorchOps:
             accuracy_bins=self.acc_bins, bin_accuracy=self.bin_acc,
             use_vertices=self.cfg.use_vertices, shape_noise=self.shape_noise,
             poly_a_keep=self.poly_a_keep, ca_iters=self.ca_iters,
-            ca_tol=self.ca_tol, screen_impl=self.cfg.screen_impl,
+            ca_tol=self.ca_tol, screen_impl=self.cfg.screen_impl, mesh=self.mesh,
         )
         return _CopyToHost(num_done)
 
@@ -596,7 +598,7 @@ def _resolve_trajectory(configs, cfg: AdaptiveConfig) -> tuple[str, tuple[int, f
 
 def adaptive_collision_probabilities(
     key, configs, robot_wh, cfg: AdaptiveConfig = AdaptiveConfig(), *,
-    progress=None, checkpoint_path=None, checkpoint_every: int = 0,
+    progress=None, checkpoint_path=None, checkpoint_every: int = 0, mesh=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Label every configuration to its bin's CI accuracy target.
 
@@ -610,10 +612,22 @@ def adaptive_collision_probabilities(
     call with the same key, row count and configuration type resumes from
     the file (any other file is ignored); a clean finish deletes it. Both
     estimator paths key their streams by (key, uid, sample index), so a
-    resumed run's labels are bitwise an uninterrupted run's."""
+    resumed run's labels are bitwise an uninterrupted run's.
+
+    Several devices: pass a `parallel.make_mesh` (or `global_mesh`) mesh.
+    Each round's counts then run over its config blocks and sample shards
+    (`estimator._cuda_sharded_counts` on the kernel path,
+    `estimator._sample_sharded_counts` on the threefry path) and come back
+    to ``configs``' device, where the state, the stopping rule, repacks and
+    checkpoints stay. Both paths key their streams by uid and sample index
+    or step tag, so BOTH mesh axes are value-level no-ops: the labels equal
+    an unsharded run's bit for bit, and ``impl='auto'`` keeps the kernel
+    (JAX's 'auto' falls back to jnp under a mesh, driver.py:901-909, only
+    because its kernel streams are tied to block position). A checkpoint
+    written under a mesh is the file an unsharded run writes."""
     run = AdaptiveRun(key, configs, robot_wh, cfg, progress=progress,
                       checkpoint_path=checkpoint_path,
-                      checkpoint_every=checkpoint_every)
+                      checkpoint_every=checkpoint_every, mesh=mesh)
     run.scheduler.run()
     return run.materialize()
 
@@ -622,12 +636,13 @@ class AdaptiveRun:
     """One adaptive labeling run: device-state set-up (or its restore from
     a checkpoint), a scheduler over `_TorchOps`, and the final
     materialize. An object, so the dataset pipeline can interleave the
-    sync groups of several runs."""
+    sync groups of several runs. ``mesh``: as
+    `adaptive_collision_probabilities`'s."""
 
     def __init__(self, key, configs, robot_wh,
                  cfg: AdaptiveConfig = AdaptiveConfig(), *,
                  progress=None, checkpoint_path=None,
-                 checkpoint_every: int = 0) -> None:
+                 checkpoint_every: int = 0, mesh=None) -> None:
         if checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
         c = configs.num
@@ -654,6 +669,8 @@ class AdaptiveRun:
             # start; k-gon batches have no shape sigmas.
             shape_noise = bool((configs.std_dev[:, 3:] != 0.0).any())
         robot_wh = torch.as_tensor(robot_wh, dtype=torch.float32, device=device)
+        n_sample = est._mesh_axis(mesh, "sample")
+        self.n_shards = est._mesh_axis(mesh, "config")
         state, num_real = self._initial_state(configs, robot_wh, cfg)
         outs = _OutState(
             k=torch.zeros((c + 1,), dtype=torch.int32, device=device),
@@ -676,9 +693,12 @@ class AdaptiveRun:
             key, state, outs, robot_wh, cfg, impl=impl, acc_bins=acc_bins,
             bin_acc=bin_acc, shape_noise=shape_noise, poly_a_keep=poly_a_keep,
             ca=ca, progress=progress, checkpoint_write=checkpoint_write,
+            mesh=mesh,
         )
         self.scheduler = AdaptiveScheduler(cfg, self.ops, num_real=num_real,
-                                           impl=impl, checkpoint_every=checkpoint_every,
+                                           impl=impl, n_sample=n_sample,
+                                           n_shards=self.n_shards,
+                                           checkpoint_every=checkpoint_every,
                                            **counters)
         self._host_outs = None
 
@@ -705,7 +725,13 @@ class AdaptiveRun:
             keep0 = np.flatnonzero(keep)
             if keep0.size == 0:
                 return None, 0
-            bucket = min(_round_up_bucket(keep0.size, cfg.min_active, cfg.ladder), c)
+            # Shard-aligned, as the scheduler's repack buckets.
+            shards = self.n_shards
+            bucket = min(
+                -(-_round_up_bucket(keep0.size, cfg.min_active, cfg.ladder)
+                  // shards) * shards,
+                -(-c // shards) * shards,
+            )
             pad0 = np.concatenate([keep0, np.full(bucket - keep0.size, keep0[0])])
             gather = torch.as_tensor(pad0, dtype=torch.int64, device=device)
             real = torch.arange(bucket, device=device) < keep0.size

@@ -10,7 +10,7 @@ convex k-gon `PolygonConfigs` and their trajectory forms (`mc.moving`'s
   (round seed, row uid, sample index). On CUDA tensors the kernel runs; on
   CPU tensors its plain version gives the same counts.
 - ``'threefry'`` — the per-draw reference: the JAX package's ``jnp`` path
-  (`_counts_chunk` through `_mc_round_threefry`) with the same threefry
+  (`_counts_chunk` through `_threefry_counts`) with the same threefry
   draws, so it reproduces that path's counts up to the rare sample within
   an ulp of a separation boundary.
 
@@ -18,6 +18,11 @@ convex k-gon `PolygonConfigs` and their trajectory forms (`mc.moving`'s
 see `mc_round` and `mc.driver._resolve_trajectory`). `_fused_round` runs a
 run of same-plan rounds, the `mc.stats` convergence test and label
 freezing, as its JAX namesake does inside one program.
+
+Under a `parallel.Mesh` a round's counts run over the mesh's config
+blocks and sample shards (`_cuda_sharded_counts`, `_sample_sharded_counts`)
+and come back to the rows' device; both paths give counts bitwise equal
+to the unsharded round's.
 """
 
 from __future__ import annotations
@@ -196,10 +201,14 @@ def _plan_round(cfg, sim_n: int, n_sample: int, impl: str) -> tuple[int, int]:
     The kernel path rounds n_batch up to the 64-sample granule and uses
     step 64, which only advances the round tag; the threefry path keeps
     the JAX ``jnp`` plan. Extra samples count in n_samples, so the CI
-    criterion is evaluated at the true draw count. The port runs one
-    device per run (``n_sample`` must be 1)."""
-    if n_sample != 1:
-        raise ValueError(f"sample axis {n_sample} is not supported")
+    criterion is evaluated at the true draw count. The plan does not
+    depend on the sample axis ``n_sample``, so a sharded run plans the
+    rounds of an unsharded one at every axis: `_sample_sharded_counts`
+    round-robins any step count. (JAX's plan falls back to a shard-specific
+    plan when the steps do not divide by the axis, estimator.py:225-240,
+    because its shard_map needs equal steps a shard; the port does not.)
+    An explicit ``step_samples`` keeps JAX's rule that ``step * n_sample``
+    divides n_batch."""
     nb = cfg.batch_for(sim_n)
     if impl == "cuda":
         nb = -(-nb // KERNEL_GRANULE) * KERNEL_GRANULE
@@ -207,9 +216,10 @@ def _plan_round(cfg, sim_n: int, n_sample: int, impl: str) -> tuple[int, int]:
         step = cfg.step_samples
         if impl == "cuda":
             return nb, min(step, nb)
-        if nb % step:
+        if nb % (step * n_sample):
             raise ValueError(
-                f"step_samples={step} must divide n_batch={nb}"
+                f"step_samples={step} x sample axis {n_sample} must divide "
+                f"n_batch={nb}"
             )
         return nb, step
     if impl == "cuda":
@@ -286,31 +296,185 @@ def _counts_chunk(keys, configs: Configs, robot_wh: torch.Tensor,
     return hit.sum(dim=-1, dtype=torch.int32)
 
 
-def _mc_round_threefry(key, uids, configs: Configs, robot_wh, chunk_offset: int,
-                       n_steps: int, *, step_samples: int,
-                       use_vertices: bool = False, ca_iters: int = 48,
-                       ca_tol: float = 1e-4,
-                       screen_impl: str = "auto") -> torch.Tensor:
-    """Threefry round: ``n_steps`` steps of ``step_samples`` lanes; step i
-    draws with tag ``chunk_offset + i`` folded into each uid's key, so a
-    row's stream is continuous across rounds whatever the compaction."""
+def _threefry_counts(key, uids, configs: Configs, robot_wh, tags, *,
+                     step_samples: int, use_vertices: bool = False,
+                     ca_iters: int = 48, ca_tol: float = 1e-4,
+                     screen_impl: str = "auto") -> torch.Tensor:
+    """Threefry counts summed over the steps ``tags``: step tag t draws
+    ``step_samples`` lanes with t folded into each uid's key. A round's
+    step i has tag ``chunk_offset + i``, so a row's stream is continuous
+    across rounds whatever the compaction."""
     k0, k1 = _per_config_keys(key, uids)
     robot_wh = torch.as_tensor(robot_wh, dtype=torch.float32,
                                device=configs.position.device)
     counts = torch.zeros((configs.num,), dtype=torch.int32,
                          device=configs.position.device)
-    for i in range(int(n_steps)):
-        step_keys = prng.fold_in_pair(k0, k1, int(chunk_offset) + i)
+    for tag in tags:
+        step_keys = prng.fold_in_pair(k0, k1, int(tag))
         counts += _counts_chunk(step_keys, configs, robot_wh, step_samples,
                                 use_vertices, ca_iters, ca_tol, screen_impl)
     return counts
+
+
+def _mesh_axis(mesh, name: str) -> int:
+    return 1 if mesh is None else dict(mesh.shape).get(name, 1)
+
+
+def _mesh_counts(configs, uids: torch.Tensor, mesh, prepare, shard_fn) -> torch.Tensor:
+    """Round counts over a ``(config, sample)`` mesh, on ``configs``' device.
+
+    Config block i (`parallel.sharding.config_blocks`) goes to its mesh
+    row's first device, where ``prepare(block, uids, devices)`` returns
+    one input for each sample shard, on that shard's device (``devices``:
+    the row's); ``shard_fn(input, j)`` gives shard j's partial counts on
+    its device; the partials are summed on the row's first device. Every
+    input is in place before the first launch: a copy between cards runs
+    on the source card's stream, so one made after a kernel there would
+    wait for it and the cards would take turns. Entries of other processes
+    are skipped, and when the mesh spans processes the (C,) counts are
+    summed over the group with one ``all_reduce``, so every process holds
+    every row's counts."""
+    from collide2d_tpu_torch.parallel.sharding import config_blocks
+
+    out_dev = configs.position.device
+    staged = []
+    for i, (lo, hi) in enumerate(config_blocks(configs.num, mesh)):
+        if hi == lo or not mesh.is_local(i):
+            continue
+        lead = mesh.devices[i, 0]
+        block = type(configs)(*(a[lo:hi].to(lead) for a in configs))
+        staged.append((lo, hi, lead, prepare(block, uids[lo:hi].to(lead),
+                                             list(mesh.devices[i]))))
+    launched = [(lo, hi, lead, [shard_fn(x, j) for j, x in enumerate(inputs)])
+                for lo, hi, lead, inputs in staged]
+    counts = torch.zeros((configs.num,), dtype=torch.int32, device=out_dev)
+    for lo, hi, lead, parts in launched:
+        total = parts[0].to(lead)
+        for part in parts[1:]:
+            total = total + part.to(lead)
+        counts[lo:hi] = total.to(out_dev)
+    if mesh.spans_processes:
+        import torch.distributed as dist
+
+        host = counts.cpu()
+        dist.all_reduce(host)
+        counts = host.to(out_dev)
+    return counts
+
+
+def _replicas(block, uids, devices, *, robot_wh):
+    """`_mesh_counts`' ``prepare`` of both paths: the config block, its
+    uids and the robot, one copy on each sample shard's device."""
+    return [(type(block)(*(a.to(d) for a in block)), uids.to(d),
+             torch.as_tensor(robot_wh, dtype=torch.float32, device=d))
+            for d in devices]
+
+
+def _sample_sharded_counts(key, uids, configs: Configs, robot_wh,
+                           chunk_offset: int, n_steps: int, *,
+                           step_samples: int, use_vertices: bool, mesh,
+                           ca_iters: int = 48, ca_tol: float = 1e-4,
+                           screen_impl: str = "auto") -> torch.Tensor:
+    """Threefry round counts with STEPS round-robined over the ``sample``
+    mesh axis: shard s runs the steps ``i = s + j * n_sample`` of the
+    single-device stream with its tags ``chunk_offset + i`` (JAX
+    estimator.py:519-575), config blocks run their own rows, and int32
+    sums are exact and order-free, so the counts equal the unsharded
+    round's bit for bit. Every step runs once at any ``n_steps``."""
+    n_sample = _mesh_axis(mesh, "sample")
+    first = int(chunk_offset)
+    last = first + int(n_steps)
+
+    def shard(inputs, j):
+        block, bu, robot = inputs
+        return _threefry_counts(
+            key, bu, block, robot, range(first + j, last, n_sample),
+            step_samples=step_samples, use_vertices=use_vertices,
+            ca_iters=ca_iters, ca_tol=ca_tol, screen_impl=screen_impl)
+
+    return _mesh_counts(configs, uids, mesh, functools.partial(
+        _replicas, robot_wh=robot_wh), shard)
+
+
+def _kernel_round(key, uids, configs, robot_wh, round_tag: int, n: int, *,
+                  offset: int = 0, shape_noise: bool = True,
+                  poly_a_keep: tuple[int, ...] | None = None,
+                  ca_iters: int = 48, ca_tol: float = 1e-4) -> torch.Tensor:
+    """(C,) counts of the round's samples ``offset`` to ``offset + n`` on
+    the fused kernel of ``configs``' class: kernel 1 (`Configs`), 7
+    (`PolygonConfigs`), 13 (`MovingConfigs`) or 14 (`MovingPolygonConfigs`,
+    translation-only), through its round wrapper (its plain version on CPU
+    tensors)."""
+    if isinstance(configs, MovingPolygonConfigs):
+        return mc_moving_polygon_cuda.mc_round_moving_polygons_cuda(
+            key, uids, configs, robot_wh, round_tag, n_batch=n, offset=offset,
+            a_keep=poly_a_keep)
+    if isinstance(configs, MovingConfigs):
+        return mc_toi_cuda.mc_round_moving_cuda(
+            key, uids, configs, robot_wh, round_tag, n_batch=n, offset=offset,
+            shape_noise=shape_noise, ca_iters=ca_iters, tol=ca_tol)
+    if isinstance(configs, PolygonConfigs):
+        return mc_polygon_cuda.mc_round_polygons_cuda(
+            key, uids, configs, robot_wh, round_tag, n_batch=n, offset=offset,
+            a_keep=poly_a_keep)
+    return mc_cuda.mc_round_cuda(key, uids, configs, robot_wh, round_tag,
+                                 n_batch=n, offset=offset,
+                                 shape_noise=shape_noise)
+
+
+def _granule_ranges(n: int, n_shards: int) -> list[tuple[int, int]]:
+    """(offset, count) of each sample shard of an ``n``-sample round: the
+    round's 64-sample granules split as JAX splits steps (``g // S``, one
+    more for the first ``g % S`` shards), the last shard also taking a
+    sub-granule tail, so the shards cover [0, n) exactly once."""
+    g, tail = divmod(int(n), KERNEL_GRANULE)
+    per, extra = divmod(g, n_shards)
+    out, lo = [], 0
+    for j in range(n_shards):
+        cnt = (per + (1 if j < extra else 0)) * KERNEL_GRANULE
+        if j == n_shards - 1:
+            cnt += tail
+        out.append((lo, cnt))
+        lo += cnt
+    return out
+
+
+def _cuda_sharded_counts(key, uids, configs, robot_wh, round_tag: int, *,
+                         n_batch: int, mesh, shape_noise: bool = True,
+                         poly_a_keep: tuple[int, ...] | None = None,
+                         ca_iters: int = 48, ca_tol: float = 1e-4) -> torch.Tensor:
+    """The fused kernels (1, 7, 13, 14 by configuration class) under a
+    ``(config, sample)`` mesh: counterpart of JAX's
+    ``_pallas_sharded_counts`` (estimator.py:578). Sample shard j of a
+    config block runs the kernel's round on its own device over its
+    contiguous range of sample indices (`_granule_ranges`, through the
+    wrappers' ``offset``). The streams are keyed by (round seed, uid,
+    sample index), so the summed counts equal the unsharded launch's bit
+    for bit — a stronger contract than JAX's, whose kernel streams are
+    tied to block position."""
+    ranges = _granule_ranges(n_batch, _mesh_axis(mesh, "sample"))
+    if poly_a_keep is None and isinstance(
+            configs, (PolygonConfigs, MovingPolygonConfigs)):
+        poly_a_keep = mc_polygon_cuda.dedup_robot_axes(
+            torch.as_tensor(robot_wh, dtype=torch.float32).cpu().numpy())
+
+    def shard(inputs, j):
+        block, bu, robot = inputs
+        offset, n = ranges[j]
+        return _kernel_round(key, bu, block, robot, round_tag, n, offset=offset,
+                             shape_noise=shape_noise, poly_a_keep=poly_a_keep,
+                             ca_iters=ca_iters, ca_tol=ca_tol)
+
+    return _mesh_counts(configs, uids, mesh, functools.partial(
+        _replicas, robot_wh=robot_wh), shard)
 
 
 def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
              n_batch: int, step_samples: int = 0, use_vertices: bool = False,
              impl: str = "threefry", shape_noise: bool = True,
              poly_a_keep: tuple[int, ...] | None = None, ca_iters: int = 48,
-             ca_tol: float = 1e-4, screen_impl: str = "auto") -> torch.Tensor:
+             ca_tol: float = 1e-4, screen_impl: str = "auto",
+             mesh=None) -> torch.Tensor:
     """One round: int32 (C,) collision counts of ``n_batch`` samples.
     `PolygonConfigs` batches take ``robot_wh`` as (K2, 2) robot vertices;
     ``poly_a_keep`` is their kernel's robot-axis subset
@@ -322,7 +486,12 @@ def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
     advancement loop: it needs ``ca_iters == 0``, the caller's assertion
     that the batch is translation-only (the adaptive driver checks omega
     once); 'auto' resolves to kernel 14 only then, else to the threefry
-    path."""
+    path.
+
+    ``mesh`` (`parallel.make_mesh`): the round runs sharded over its
+    config and sample axes (`_cuda_sharded_counts`,
+    `_sample_sharded_counts`) with counts bitwise the unsharded round's,
+    returned on ``configs``' device."""
     if isinstance(configs, MovingPolygonConfigs):
         if impl == "auto":
             impl = "cuda" if ca_iters == 0 else "threefry"
@@ -333,32 +502,32 @@ def mc_round(key, uids, configs: Configs, robot_wh, chunk_offset: int, *,
                 "as the adaptive driver does; rotating trajectory k-gons run the "
                 "threefry CA path — use 'threefry' or 'auto')")
     impl = resolve_impl(impl)
-    if impl == "cuda" and isinstance(configs, MovingPolygonConfigs):
-        return mc_moving_polygon_cuda.mc_round_moving_polygons_cuda(
-            key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
-            a_keep=poly_a_keep)
-    if impl == "cuda" and isinstance(configs, MovingConfigs):
-        return mc_toi_cuda.mc_round_moving_cuda(
-            key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
-            shape_noise=shape_noise, ca_iters=ca_iters, tol=ca_tol)
-    if impl == "cuda" and isinstance(configs, PolygonConfigs):
-        return mc_polygon_cuda.mc_round_polygons_cuda(
-            key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
-            a_keep=poly_a_keep)
     if impl == "cuda":
-        return mc_cuda.mc_round_cuda(key, uids, configs, robot_wh,
-                                     chunk_offset, n_batch=n_batch,
-                                     shape_noise=shape_noise)
+        if mesh is not None:
+            return _cuda_sharded_counts(
+                key, uids, configs, robot_wh, chunk_offset, n_batch=n_batch,
+                mesh=mesh, shape_noise=shape_noise, poly_a_keep=poly_a_keep,
+                ca_iters=ca_iters, ca_tol=ca_tol)
+        return _kernel_round(key, uids, configs, robot_wh, chunk_offset,
+                             n_batch, shape_noise=shape_noise,
+                             poly_a_keep=poly_a_keep, ca_iters=ca_iters,
+                             ca_tol=ca_tol)
     if step_samples <= 0:
         step_samples = _largest_divisor_leq(n_batch, 512)
     if n_batch % step_samples:
         raise ValueError(f"step_samples={step_samples} must divide "
                          f"n_batch={n_batch}")
-    return _mc_round_threefry(key, uids, configs, robot_wh, chunk_offset,
-                              n_batch // step_samples,
-                              step_samples=step_samples,
-                              use_vertices=use_vertices, ca_iters=ca_iters,
-                              ca_tol=ca_tol, screen_impl=screen_impl)
+    if mesh is not None:
+        return _sample_sharded_counts(
+            key, uids, configs, robot_wh, chunk_offset, n_batch // step_samples,
+            step_samples=step_samples, use_vertices=use_vertices, mesh=mesh,
+            ca_iters=ca_iters, ca_tol=ca_tol, screen_impl=screen_impl)
+    first = int(chunk_offset)
+    return _threefry_counts(key, uids, configs, robot_wh,
+                            range(first, first + n_batch // step_samples),
+                            step_samples=step_samples, use_vertices=use_vertices,
+                            ca_iters=ca_iters, ca_tol=ca_tol,
+                            screen_impl=screen_impl)
 
 
 def collision_probability(key, configs: Configs, robot_wh, n_samples: int, *,
@@ -507,14 +676,16 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
                  shape_noise: bool = True,
                  poly_a_keep: tuple[int, ...] | None = None,
                  ca_iters: int = 48, ca_tol: float = 1e-4,
-                 screen_impl: str = "auto",
+                 screen_impl: str = "auto", mesh=None,
                  ) -> tuple[_LoopState, torch.Tensor]:
     """``n_rounds`` same-plan rounds with convergence and label freezing.
 
     Round r draws with tag ``chunk_offset + r * chunk_step`` and tests
     convergence at ``n_samples_after + r * nb``; labels freeze at the
     first round the criterion holds (generate_dataset.cu:455-464). Returns
-    the new state and the device-resident count of done real rows."""
+    the new state and the device-resident count of done real rows. Under a
+    ``mesh`` only the round counts are sharded (`mc_round`); the state
+    stays on its device."""
     n_true, done = state.n_true, state.done
     k_frozen, n_frozen = state.k_frozen, state.n_frozen
     for r in range(int(n_rounds)):
@@ -523,7 +694,7 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
                           step_samples=step_samples, use_vertices=use_vertices,
                           impl=impl, shape_noise=shape_noise,
                           poly_a_keep=poly_a_keep, ca_iters=ca_iters,
-                          ca_tol=ca_tol, screen_impl=screen_impl)
+                          ca_tol=ca_tol, screen_impl=screen_impl, mesh=mesh)
         n_true = n_true + counts
         n_after = int(n_samples_after) + r * int(nb)
         conv = stats.is_converged(n_after, n_true, accuracy_bins, bin_accuracy)

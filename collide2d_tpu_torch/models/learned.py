@@ -23,6 +23,8 @@ module closes that loop on the card:
   constants, epochs of shuffled minibatches drawn by JAX's own
   permutation (`permutation`), with one host sync an epoch. The split,
   standardization and validation run in numpy on the host, as in JAX.
+  ``data_parallel`` splits each minibatch over several devices, each
+  computing its slice's gradient on a replica (`run_epoch_data_parallel`).
 
 `collide2d-torch train` fits a model from a generated dataset directory;
 `collide2d-torch predict` writes a bare cps vector (the ztest
@@ -35,6 +37,7 @@ The module imports torch and numpy, never jax or optax.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -152,7 +155,7 @@ class TrainConfig:
     val_fraction: float = 0.05
     seed: int = 0
     compute_dtype: str = "bfloat16"  # product input dtype; f32 outputs
-    data_parallel: bool = False  # multi-GPU: not ported (raises)
+    data_parallel: bool = False  # split each minibatch over the devices
     verbose: bool = False
 
 
@@ -349,6 +352,46 @@ def run_epoch(model: MLP, opt, key, x: torch.Tensor, y: torch.Tensor, compute_dt
     return total / steps
 
 
+def run_epoch_data_parallel(model: MLP, opt, replicas: list, key,
+                            xy: list, compute_dtype, batch_size: int,
+                            steps: int) -> torch.Tensor:
+    """`run_epoch` with each minibatch split over devices: replica r (an
+    `MLP` on its own device, with its own copy of the rows in ``xy[r]``)
+    takes the r-th contiguous slice of the minibatch's indices, its loss
+    weighted by the slice's share so the replicas' gradients sum to the
+    gradient of the whole minibatch's mean loss. The gradients are summed
+    in replica order into ``model`` (the optimizer's parameters), one
+    AdamW step runs there, and the new parameters are copied back out to
+    every replica. Returns the mean loss on ``model``'s device."""
+    lead = next(model.parameters()).device
+    perm = permutation(key, xy[0][0].shape[0], lead)[: steps * batch_size]
+    total = torch.zeros((), device=lead)
+    params = list(model.parameters())
+    for idx in perm.reshape(steps, batch_size):
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        # Every slice goes out before any replica computes: a copy between
+        # cards runs on the source card's stream, behind its work.
+        parts = [part.to(x.device) for (x, _), part in
+                 zip(xy, idx.tensor_split(len(replicas)))]
+        for rep, (x, y), part in zip(replicas, xy, parts):
+            if part.numel() == 0:
+                continue
+            loss = _bce(apply_model(rep, x.index_select(0, part), compute_dtype),
+                        y.index_select(0, part)) * (part.numel() / batch_size)
+            rep.zero_grad(set_to_none=True)
+            loss.backward()
+            for p, q in zip(params, rep.parameters()):
+                p.grad += q.grad.to(lead)
+            total += loss.detach().to(lead)
+        opt.step()
+        with torch.no_grad():
+            for rep in replicas:
+                for p, q in zip(params, rep.parameters()):
+                    q.copy_(p)
+    return total / steps
+
+
 @dataclasses.dataclass
 class TrainResult:
     params: dict
@@ -382,9 +425,12 @@ def train_model(
     JAX-style dict of float32 numpy arrays.
 
     ``cfg.data_parallel`` over more than one device (``devices``, default
-    every local card, as JAX's ``jax.local_devices()``) raises: the
-    multi-GPU port is ROADMAP.md queue 1 item 5. Over one device it is a
-    no-op, as in JAX.
+    every card for a CUDA ``device``, as JAX's ``jax.local_devices()``;
+    entries may repeat a device): the training rows are cut to a multiple
+    of the device count before the steps are counted (JAX's rule), every
+    device holds a replica of the parameters and of the rows, and each
+    minibatch is split over them (`run_epoch_data_parallel`). Over one
+    device it is a no-op, as in JAX.
     """
     features = np.asarray(features, np.float32)
     labels = np.asarray(labels, np.float32)
@@ -396,11 +442,8 @@ def train_model(
         dev = torch.device(device)
         devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                    if dev.type == "cuda" else [dev])
-    devs = list(devices)
-    if cfg.data_parallel and len(devs) > 1:
-        raise ValueError(
-            f"data-parallel training over {len(devs)} devices is not ported to "
-            "collide2d_tpu_torch yet (ROADMAP.md queue 1 item 5, multi-GPU)")
+    devs = [torch.device(d) for d in devices]
+    parallel = cfg.data_parallel and len(devs) > 1
     n = features.shape[0]
     rng = np.random.default_rng(cfg.seed)
     order = rng.permutation(n)
@@ -423,14 +466,30 @@ def train_model(
     opt = adamw(model, cfg.learning_rate, cfg.weight_decay)
     x_dev = torch.from_numpy(np.ascontiguousarray(xtr)).to(device)
     y_dev = torch.from_numpy(np.ascontiguousarray(ytr)).to(device)
+    if parallel:
+        # The rows tile the devices evenly (JAX's rule); the steps are
+        # counted after the cut.
+        usable = (x_dev.shape[0] // len(devs)) * len(devs)
+        x_dev, y_dev = x_dev[:usable], y_dev[:usable]
+        replicas = [copy.deepcopy(model).to(d) for d in devs]
+        copies: dict = {}
+        xy = [copies.setdefault(str(d), (x_dev.to(d), y_dev.to(d))) for d in devs]
     steps = x_dev.shape[0] // cfg.batch_size
+    if steps == 0:
+        raise ValueError(
+            f"batch_size={cfg.batch_size} exceeds the {x_dev.shape[0]} "
+            "training rows left after the data-parallel truncation")
 
     key = prng.PRNGKey(cfg.seed + 1)
     history = []
     for epoch in range(cfg.epochs):
         key, sub = prng.split(key)
-        loss = run_epoch(model, opt, sub, x_dev, y_dev, compute_dtype,
-                         cfg.batch_size, steps)
+        if parallel:
+            loss = run_epoch_data_parallel(model, opt, replicas, sub, xy,
+                                           compute_dtype, cfg.batch_size, steps)
+        else:
+            loss = run_epoch(model, opt, sub, x_dev, y_dev, compute_dtype,
+                             cfg.batch_size, steps)
         history.append(float(loss))
         if cfg.verbose:
             print(f"[train] epoch {epoch + 1}/{cfg.epochs} "

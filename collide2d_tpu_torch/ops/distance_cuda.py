@@ -158,10 +158,11 @@ def obb_distance_cuda_t(b1t: torch.Tensor, b2t: torch.Tensor, shift: float = 0.0
     n = b1t.shape[1] * b1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=b1t.device)
     lib = _kernel_lib()
-    stream = torch.cuda.current_stream(b1t.device).cuda_stream
-    _launched("obb_distance", lib.obb_distance_launch(
-        b1t.data_ptr(), b2t.data_ptr(), out.data_ptr(), n, sat_cuda._f32(shift),
-        stream))
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(b1t.device):
+        _launched("obb_distance", lib.obb_distance_launch(
+            b1t.data_ptr(), b2t.data_ptr(), out.data_ptr(), n,
+            sat_cuda._f32(shift), torch.cuda.current_stream(b1t.device).cuda_stream))
     return out
 
 
@@ -288,14 +289,16 @@ def _polygon_distance(p1t, p2t, k1, k2, block, counts):
     n = p1t.shape[1] * p1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
     lib = _kernel_lib(counts is not None)
-    stream = torch.cuda.current_stream(p1t.device).cuda_stream
-    _launched("polygon_distance", lib.polygon_distance_launch(
-        p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
-        stream))
-    if counts is not None:
-        err = lib.polygon_distance_counts(counts)
-        if err != 0:
-            raise RuntimeError(f"polygon_distance_counts failed: CUDA error {err}")
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(p1t.device):
+        _launched("polygon_distance", lib.polygon_distance_launch(
+            p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
+            torch.cuda.current_stream(p1t.device).cuda_stream))
+        if counts is not None:
+            err = lib.polygon_distance_counts(counts)
+            if err != 0:
+                raise RuntimeError(
+                    f"polygon_distance_counts failed: CUDA error {err}")
     return out
 
 

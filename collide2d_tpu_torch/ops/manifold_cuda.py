@@ -180,10 +180,12 @@ def polygon_manifold_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
                       device=p1t.device)
     n = p1t.shape[1] * p1t.shape[2]
     lib = _kernel_lib()
-    stream = torch.cuda.current_stream(p1t.device).cuda_stream
-    err = lib.polygon_manifold_launch(p1t.data_ptr(), p2t.data_ptr(),
-                                      out.data_ptr(), n, int(k1), int(k2),
-                                      sat_cuda._f32(margin), stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(p1t.device):
+        err = lib.polygon_manifold_launch(
+            p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
+            sat_cuda._f32(margin),
+            torch.cuda.current_stream(p1t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"polygon_manifold_launch failed: CUDA error {err}")
     LAUNCHES += 1

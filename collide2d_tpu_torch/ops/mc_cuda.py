@@ -300,13 +300,15 @@ def mc_counts(
             f"n={n} exceeds the kernel's {lib.mc_max_samples_per_round()} "
             "samples per call; split the round with `offset`"
         )
-    stream = torch.cuda.current_stream(params.device).cuda_stream
-    err = lib.mc_counts_launch(
-        params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
-        int(params.shape[0]), int(n), int(offset),
-        int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32,
-        int(bool(shape_noise)), stream,
-    )
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(params.device):
+        err = lib.mc_counts_launch(
+            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
+            int(params.shape[0]), int(n), int(offset),
+            int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32,
+            int(bool(shape_noise)),
+            torch.cuda.current_stream(params.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"mc_counts_launch failed: CUDA error {err}")
     if normal_method == "box_muller":
@@ -331,13 +333,15 @@ def mc_round_cuda(
     round_tag: int,
     *,
     n_batch: int,
+    offset: int = 0,
     shape_noise: bool = True,
     normal_method: str = "erfinv",
 ) -> torch.Tensor:
     """One round on the fused kernel: int32 (C,) counts of ``n_batch``
-    samples per configuration. ``round_tag`` must differ across rounds so
-    every round draws fresh samples."""
+    samples per configuration, the round's sample indices ``offset`` on
+    (a sample shard's part of the round). ``round_tag`` must differ across
+    rounds so every round draws fresh samples."""
     params = pack_mc_params(configs, robot_wh)
     return mc_counts(params, uids.to(torch.int32).contiguous(),
-                     round_seed(key, round_tag), n_batch,
+                     round_seed(key, round_tag), n_batch, offset=offset,
                      shape_noise=shape_noise, normal_method=normal_method)

@@ -282,12 +282,14 @@ def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
         raise ValueError(
             f"n={n} exceeds the kernel's {lib.mc_poly_max_samples_per_round()} "
             "samples per call; split the round with `offset`")
-    stream = torch.cuda.current_stream(params.device).cuda_stream
-    err = lib.mc_poly_counts_launch(
-        params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
-        int(params.shape[0]), int(params.shape[1]), int(k), int(k2), int(k2a),
-        int(n), int(offset), int(seed[0]) & prng.MASK32,
-        int(seed[1]) & prng.MASK32, stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(params.device):
+        err = lib.mc_poly_counts_launch(
+            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
+            int(params.shape[0]), int(params.shape[1]), int(k), int(k2),
+            int(k2a), int(n), int(offset), int(seed[0]) & prng.MASK32,
+            int(seed[1]) & prng.MASK32,
+            torch.cuda.current_stream(params.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mc_poly_counts_launch failed: CUDA error {err}")
     if normal_method == "box_muller":
@@ -298,11 +300,12 @@ def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
 
 
 def mc_round_polygons_cuda(key, uids: torch.Tensor, configs, robot_verts,
-                           round_tag: int, *, n_batch: int,
+                           round_tag: int, *, n_batch: int, offset: int = 0,
                            a_keep: tuple[int, ...] | None = None,
                            normal_method: str = "erfinv") -> torch.Tensor:
     """One round on the fused k-gon kernel: int32 (C,) counts of
-    ``n_batch`` samples per configuration. ``robot_verts``: the (K2, 2)
+    ``n_batch`` samples per configuration, the round's sample indices
+    ``offset`` on (`mc_cuda.mc_round_cuda`). ``robot_verts``: the (K2, 2)
     robot. ``a_keep``: its kept axes (`dedup_robot_axes`); None works them
     out here, which reads a robot on the card back to the host, so the
     adaptive driver passes them. ``round_tag`` must differ across rounds."""
@@ -314,4 +317,5 @@ def mc_round_polygons_cuda(key, uids: torch.Tensor, configs, robot_verts,
     return mc_poly_counts(params, uids.to(torch.int32).contiguous(),
                           mc_cuda.round_seed(key, round_tag), n_batch,
                           k=configs.obstacle_verts.shape[1], k2=rv.shape[0],
-                          k2a=len(a_keep), normal_method=normal_method)
+                          k2a=len(a_keep), offset=offset,
+                          normal_method=normal_method)

@@ -206,11 +206,13 @@ def mc_toi_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
         raise ValueError(f"n={n} exceeds the kernel's "
                          f"{lib.mc_toi_max_samples_per_round()} samples per call; "
                          "split the round with `offset`")
-    err = lib.mc_toi_counts_launch(
-        params.data_ptr(), uids.data_ptr(), counts.data_ptr(), int(params.shape[0]),
-        int(n), int(offset), int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32,
-        int(bool(shape_noise)), int(ca_iters), prng._f32(tol),
-        torch.cuda.current_stream(params.device).cuda_stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(params.device):
+        err = lib.mc_toi_counts_launch(
+            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
+            int(params.shape[0]), int(n), int(offset), int(seed[0]) & prng.MASK32,
+            int(seed[1]) & prng.MASK32, int(bool(shape_noise)), int(ca_iters),
+            prng._f32(tol), torch.cuda.current_stream(params.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mc_toi_counts_launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -218,12 +220,15 @@ def mc_toi_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
 
 
 def mc_round_moving_cuda(key, uids: torch.Tensor, configs, robot_wh,
-                         round_tag: int, *, n_batch: int, shape_noise: bool = True,
-                         ca_iters: int = 48, tol: float = 1e-4) -> torch.Tensor:
+                         round_tag: int, *, n_batch: int, offset: int = 0,
+                         shape_noise: bool = True, ca_iters: int = 48,
+                         tol: float = 1e-4) -> torch.Tensor:
     """One round of a `MovingConfigs` batch on kernel 13: int32 (C,) counts
-    of ``n_batch`` samples per configuration, seeded by
-    ``fold_in(key, round_tag)`` as kernel 1's rounds."""
+    of ``n_batch`` samples per configuration, the round's sample indices
+    ``offset`` on, seeded by ``fold_in(key, round_tag)`` as kernel 1's
+    rounds."""
     params = pack_mc_toi_params(configs, robot_wh)
     return mc_toi_counts(params, uids.to(torch.int32).contiguous(),
                          mc_cuda.round_seed(key, round_tag), n_batch,
-                         shape_noise=shape_noise, ca_iters=ca_iters, tol=tol)
+                         offset=offset, shape_noise=shape_noise,
+                         ca_iters=ca_iters, tol=tol)

@@ -155,10 +155,12 @@ def sat_polygons_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
     if n == 0:
         return out
     lib = _kernel_lib()
-    stream = torch.cuda.current_stream(p1t.device).cuda_stream
-    err = lib.polygon_sat_launch(p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(),
-                                 n, int(k1), int(k2),
-                                 int(p1t.dtype == torch.bfloat16), stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(p1t.device):
+        err = lib.polygon_sat_launch(
+            p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
+            int(p1t.dtype == torch.bfloat16),
+            torch.cuda.current_stream(p1t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"polygon_sat_launch failed: CUDA error {err}")
     LAUNCHES += 1

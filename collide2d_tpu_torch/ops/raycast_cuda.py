@@ -224,16 +224,18 @@ def _cuda_or_plain(origin, direction, table, t_max, tile_shapes, faces):
         return t, idx, normal
     kp = int(table.shape[1])
     lib = _kernel_lib(kp, faces is not None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.scene_raycast_launch(origin.data_ptr(), direction.data_ptr(), table.data_ptr(),
-                                   t.data_ptr(), idx.data_ptr(), normal.data_ptr(), r,
-                                   int(table.shape[0]), kp, float(t_max), int(tile_shapes),
-                                   stream)
-    if err != 0:
-        raise RuntimeError(f"scene_raycast_launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    if faces is not None:
-        err = lib.scene_raycast_faces(ctypes.byref(faces))
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(dev):
+        err = lib.scene_raycast_launch(
+            origin.data_ptr(), direction.data_ptr(), table.data_ptr(),
+            t.data_ptr(), idx.data_ptr(), normal.data_ptr(), r,
+            int(table.shape[0]), kp, float(t_max), int(tile_shapes),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"scene_raycast_faces failed: CUDA error {err}")
+            raise RuntimeError(f"scene_raycast_launch failed: CUDA error {err}")
+        LAUNCHES += 1
+        if faces is not None:
+            err = lib.scene_raycast_faces(ctypes.byref(faces))
+            if err != 0:
+                raise RuntimeError(f"scene_raycast_faces failed: CUDA error {err}")
     return t, idx, normal

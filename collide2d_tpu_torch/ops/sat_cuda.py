@@ -149,11 +149,13 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
         raise ValueError("packed inputs must be contiguous")
     lib = _kernel_lib()
     n = a.shape[1] * a.shape[2]
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     args = [a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _f32(shift)]
     if name.startswith("sat"):
         args.append(int(a.dtype == torch.bfloat16))
-    err = getattr(lib, f"{name}_launch")(*args, stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(a.device):
+        err = getattr(lib, f"{name}_launch")(
+            *args, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}_launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

@@ -153,10 +153,12 @@ def rotating_screen(z: torch.Tensor, params: torch.Tensor, *, n_seg: int = 8,
         return flags, t0
     f32 = prng._f32
     lib = _kernel_lib(int(n_seg))
-    err = lib.rotating_screen_launch(
-        z.data_ptr(), params.data_ptr(), flags.data_ptr(), t0.data_ptr(), c, s,
-        int(n_seg), f32(1.0 / n_seg), f32(0.5 / n_seg), f32(tol),
-        f32(np.pi), torch.cuda.current_stream(z.device).cuda_stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(z.device):
+        err = lib.rotating_screen_launch(
+            z.data_ptr(), params.data_ptr(), flags.data_ptr(), t0.data_ptr(), c,
+            s, int(n_seg), f32(1.0 / n_seg), f32(0.5 / n_seg), f32(tol),
+            f32(np.pi), torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rotating_screen_launch failed: CUDA error {err}")
     LAUNCHES += 1

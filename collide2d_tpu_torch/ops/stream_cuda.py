@@ -104,11 +104,13 @@ def _launch(a: torch.Tensor, b: torch.Tensor, s: float) -> torch.Tensor:
     blocks = lib.stream_sum_blocks(n, sms)
     # [partials of a | partials of b | ticket (bits 0) | result]
     scratch = torch.zeros((2 * blocks + 2,), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     base = scratch.data_ptr()
-    err = lib.stream_sum_launch(a.data_ptr(), b.data_ptr(), n, _f32(s), blocks,
-                                base, base + 8 * blocks, base + 8 * blocks + 4,
-                                stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(a.device):
+        err = lib.stream_sum_launch(
+            a.data_ptr(), b.data_ptr(), n, _f32(s), blocks, base,
+            base + 8 * blocks, base + 8 * blocks + 4,
+            torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stream_sum_launch failed: CUDA error {err}")
     LAUNCHES += 1

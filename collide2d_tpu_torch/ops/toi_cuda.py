@@ -133,10 +133,12 @@ def moving_obb_toi_cuda_t(b1t: torch.Tensor, b2t: torch.Tensor, *,
     n = b1t.shape[1] * b1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=b1t.device)
     lib = _kernel_lib()
-    stream = torch.cuda.current_stream(b1t.device).cuda_stream
-    err = lib.moving_obb_toi_launch(b1t.data_ptr(), b2t.data_ptr(), out.data_ptr(),
-                                    n, sat_cuda._f32(t_max), int(iters),
-                                    sat_cuda._f32(tol), stream)
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(b1t.device):
+        err = lib.moving_obb_toi_launch(
+            b1t.data_ptr(), b2t.data_ptr(), out.data_ptr(), n,
+            sat_cuda._f32(t_max), int(iters), sat_cuda._f32(tol),
+            torch.cuda.current_stream(b1t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moving_obb_toi_launch failed: CUDA error {err}")
     LAUNCHES += 1

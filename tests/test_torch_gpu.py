@@ -1256,3 +1256,80 @@ def test_cuda_saved_model_predicts_the_same_on_the_cpu(cuda, tmp_path):
     np.testing.assert_array_equal(a, again.cp_from_features(feats).cpu().numpy())
     b = learned.LearnedCollisionModel.load(path, device="cpu").cp_from_features(feats).numpy()
     np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)
+
+
+# Multi-device rounds on logical meshes of the one card: kernels 1, 7, 13
+# and 14 under a (2, 2) mesh (each sample shard a contiguous range of
+# sample indices through the round wrappers' offset) give counts BITWISE
+# the unsharded launch's, since the Philox
+# streams are keyed by (seed, uid, sample index).
+@pytest.mark.parametrize("kernel", ["1", "7", "13", "14"])
+def test_mesh_round_is_bitwise_the_unsharded_launch(cuda, kernel):
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import mc_round
+    from collide2d_tpu_torch.parallel import make_mesh
+
+    configs, robot, mod = _resume_case(cuda, kernel)
+    uids = torch.arange(configs.num, dtype=torch.int32, device=cuda)
+    kw = dict(n_batch=4096, impl="cuda", ca_iters=0)
+    key = prng.PRNGKey(11)
+    base = mc_round(key, uids, configs, robot, 3, **kw)
+    mod.reset_launches()
+    got = mc_round(key, uids, configs, robot, 3, mesh=make_mesh([cuda] * 4, sample_axis=2),
+                   **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == 4
+    assert got.device == base.device and torch.equal(got, base)
+    assert 0 < int(base.sum()) < configs.num * 4096
+
+
+@pytest.mark.parametrize("n", [4096 + 64 * 5, 4096 + 64 * 5 + 33])
+def test_mesh_uneven_granule_split_is_bitwise(cuda, n):
+    """Kernel 1 over 3 sample shards and 3 uneven config blocks (4,096 rows):
+    69 granules, 23 a shard, with and without a 33-sample tail."""
+    from collide2d_tpu_torch.mc import estimator as est
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.parallel import make_mesh
+
+    configs, robot, _ = _resume_case(cuda, "1")
+    uids = torch.arange(configs.num, dtype=torch.int32, device=cuda)
+    key = prng.PRNGKey(12)
+    base = mc_cuda.mc_round_cuda(key, uids, configs, robot, 5, n_batch=n,
+                                 shape_noise=False)
+    got = est._cuda_sharded_counts(key, uids, configs, robot, 5, n_batch=n,
+                                   mesh=make_mesh([cuda] * 9, sample_axis=3),
+                                   shape_noise=False)
+    assert torch.equal(got, base)
+
+
+def test_mesh_resume_is_bitwise_on_kernel_1(cuda, tmp_path):
+    """A kernel-1 run interrupted under a (2, 2) logical mesh resumes from
+    its checkpoint, without the mesh, to the unsharded labels bit for bit."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.driver import adaptive_collision_probabilities as acp
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+    from collide2d_tpu_torch.parallel import make_mesh
+
+    configs, robot, mod = _resume_case(cuda, "1")
+    cfg, key = AdaptiveConfig(max_samples=200_000), prng.PRNGKey(9)
+    base = acp(key, configs, robot, cfg)
+    mesh = make_mesh([cuda] * 4, sample_axis=2)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(acp(key, configs, robot, cfg, mesh=mesh), base))
+    ckpt = tmp_path / "ckpt.npz"
+
+    def bomb(*, round, **kw):
+        if round >= 3:
+            raise _Stop
+
+    with pytest.raises(_Stop):
+        acp(key, configs, robot, cfg, progress=bomb, checkpoint_path=str(ckpt),
+            checkpoint_every=1, mesh=mesh)
+    with np.load(ckpt) as z:
+        n_saved = int(z["n_samples"])
+    seen = []
+    out = acp(key, configs, robot, cfg, checkpoint_path=str(ckpt), checkpoint_every=1,
+              progress=lambda **kw: seen.append(kw["n_samples"]))
+    assert n_saved > 0 and min(seen) > n_saved
+    for got, want in zip(out, base):
+        np.testing.assert_array_equal(got, want)

@@ -26,6 +26,7 @@ tolerances, each with its reason:
 - ``.npz`` artifacts exchanged both ways: bfloat16 cps within atol 2e-3.
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -522,18 +523,27 @@ def test_cli_train_predict_on_generated_dataset(tmp_path, jax_dataset):
         np.testing.assert_allclose(cps, np.load(jout), rtol=0, atol=1e-5)
 
 
-def test_data_parallel_is_rejected(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["train", "--data_dir", str(tmp_path), "--device", "cpu",
-                   "--data_parallel"])
-    assert e.value.code != 0
-    assert "--data_parallel" in capsys.readouterr().err
+def test_data_parallel_is_rejected(tmp_path, jax_dataset):
+    """Data-parallel training runs now: over ["cpu", "cpu"] it trains, and
+    ``train --data_parallel`` on the one CPU device writes the
+    single-device run's model; over one device it is a no-op, as in JAX."""
+    train = ["train", "--data_dir", str(jax_dataset), "--hidden", "8", "--epochs",
+             "1", "--batch_size", "64", "--verbose", "0", "--device", "cpu"]
+    assert tcli.main([*train, "--out", str(tmp_path / "a.npz")]) == 0
+    assert tcli.main([*train, "--out", str(tmp_path / "b.npz"), "--data_parallel"]) == 0
+    with np.load(tmp_path / "a.npz") as x, np.load(tmp_path / "b.npz") as y:
+        for k in x.files:
+            np.testing.assert_array_equal(x[k], y[k])
     feats, labels = _toy_problem(n=256)
     cfg = tl.TrainConfig(hidden=(8,), epochs=1, batch_size=64, data_parallel=True)
-    with pytest.raises(ValueError, match="queue 1 item 5"):
-        tl.train_model(feats, labels, cfg, devices=["cpu", "cpu"], device="cpu")
-    # one device: data_parallel is a no-op, as in JAX
-    assert np.isfinite(tl.train_model(feats, labels, cfg, device="cpu").history[-1])
+    res = tl.train_model(feats, labels, cfg, devices=["cpu", "cpu"], device="cpu")
+    assert np.isfinite(res.history[-1])
+    one = dataclasses.replace(cfg, data_parallel=False)
+    a = tl.train_model(feats, labels, cfg, device="cpu")
+    b = tl.train_model(feats, labels, one, device="cpu")
+    assert a.history == b.history
+    for k in a.params:
+        np.testing.assert_array_equal(a.params[k], b.params[k])
 
 
 def test_learned_module_imports_no_jax():
@@ -541,3 +551,43 @@ def test_learned_module_imports_no_jax():
             "assert 'jax' not in sys.modules and 'optax' not in sys.modules; "
             "assert 'collide2d_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.mark.parametrize("n_dev", [2, 3])
+def test_data_parallel_training_matches_single_device(n_dev):
+    """tests/test_learned.py:119 on the port: f32 data-parallel training over
+    ["cpu"] * n_dev (each replica the gradient of its slice of every
+    minibatch, summed on the first) agrees with the single-device run and
+    with JAX's data-parallel run on its CPU mesh (the same devices count).
+    1,152 rows divide over 2 and 3 devices, so no row is cut."""
+    from tests.conftest import cpu_devices
+
+    feats, labels = _toy_problem(n=1152, seed=3)
+    kw = dict(hidden=(32,), epochs=3, batch_size=128, val_fraction=0.0, seed=2,
+              compute_dtype="float32")
+    single = tl.train_model(feats, labels, tl.TrainConfig(**kw), device="cpu")
+    dp = tl.train_model(feats, labels, tl.TrainConfig(**kw, data_parallel=True),
+                        devices=["cpu"] * n_dev, device="cpu")
+    jdp = jl.train_model(feats, labels, jl.TrainConfig(**kw, data_parallel=True),
+                         devices=cpu_devices()[:n_dev])
+    for k in single.params:
+        np.testing.assert_allclose(dp.params[k], single.params[k],
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(dp.params[k], np.asarray(jdp.params[k]),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def test_data_parallel_truncation_respects_batch_count():
+    """tests/test_learned.py:167 on the port: over 3 devices the 512 rows are
+    cut to 510 before the steps are counted, and the run trains."""
+    feats, labels = _toy_problem(n=512, seed=6)
+    res = tl.train_model(
+        feats, labels,
+        tl.TrainConfig(hidden=(8,), epochs=1, batch_size=128, val_fraction=0.0,
+                       seed=0, data_parallel=True),
+        devices=["cpu"] * 3, device="cpu")
+    assert np.isfinite(res.history[-1])
+    with pytest.raises(ValueError, match="data-parallel truncation"):
+        tl.train_model(feats[:130], labels[:130], tl.TrainConfig(
+            hidden=(8,), epochs=1, batch_size=130, val_fraction=0.0,
+            data_parallel=True), devices=["cpu"] * 3, device="cpu")

@@ -248,12 +248,27 @@ def test_polygon_model_trajectory_entry_points_match_jax():
     (["--schedule", "opt"], "--schedule"),
 ])
 def test_unported_movelabel_flags_fail_loudly(tmp_path, capsys, flags, name):
+    """The multi-device flags run (--data_parallel over the one CPU device:
+    the labels of a run without it; --sample_parallel 2 with one device:
+    JAX's "needs that many devices" exit, nothing written); --schedule opt
+    stays an argparse error."""
     np.savez(tmp_path / "in.npz", **_rect_fields(4, 14, False))
+    cmd = ["movelabel", "--device", "cpu", "--data_in", str(tmp_path / "in.npz"),
+           "--seed", "3", "--max_samples", "2000"]
+    if name == "--data_parallel":
+        assert tcli.main([*cmd, "--data_out", str(tmp_path / "ref.npz")]) == 0
+        assert tcli.main([*cmd, "--data_out", str(tmp_path / "out.npz"), *flags]) == 0
+        with np.load(tmp_path / "ref.npz") as ref, np.load(tmp_path / "out.npz") as out:
+            for f in ("cp", "n_samples", "converged"):
+                np.testing.assert_array_equal(out[f], ref[f])
+        return
     with pytest.raises(SystemExit) as e:
-        tcli.main(["movelabel", "--device", "cpu", "--data_in", str(tmp_path / "in.npz"),
-                   "--data_out", str(tmp_path / "out.npz"), *flags])
+        tcli.main([*cmd, "--data_out", str(tmp_path / "out.npz"), *flags])
     assert e.value.code != 0
-    assert name in capsys.readouterr().err
+    if name == "--sample_parallel":
+        assert "needs that many devices, have 1" in str(e.value.code)
+    else:
+        assert name in capsys.readouterr().err
     assert not (tmp_path / "out.npz").exists()
 
 

@@ -143,7 +143,7 @@ def test_import_leaves_jax_out():
     code = ("import sys, collide2d_tpu_torch, collide2d_tpu_torch.cli, "
             "collide2d_tpu_torch.ops.mc_cuda, collide2d_tpu_torch.data.pipeline, "
             "collide2d_tpu_torch.data.balance, collide2d_tpu_torch.data.visualize, "
-            "collide2d_tpu_torch.models.learned; "
+            "collide2d_tpu_torch.models.learned, collide2d_tpu_torch.parallel; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'optax' not in sys.modules, 'optax imported'; "
             "assert 'collide2d_tpu' not in sys.modules, 'collide2d_tpu imported'")
@@ -154,16 +154,29 @@ def test_import_leaves_jax_out():
     (["--data_parallel"], "--data_parallel"),
     (["--trace_dir", "t"], "--trace_dir"),
 ])
-def test_unported_generate_flags_fail_loudly(tmp_path, capsys, flags, name):
+def test_unported_generate_flags_fail_loudly(tmp_path, flags, name):
+    """Both flags run now: --data_parallel over the one CPU device is no
+    mesh and writes the bytes of a run without it; --trace_dir leaves a
+    non-empty torch.profiler trace beside the same bytes."""
+    cmd = ["generate", "--device", "cpu", "-n", "1", "-b", "64", "--num_poses", "8",
+           "--num_variances", "8", "--max_samples", "2000", "--seed", "5",
+           "--verbose", "false"]
+    assert tcli.main([*cmd, "--data_dir", str(tmp_path / "ref")]) == 0
+    if name == "--trace_dir":
+        flags = ["--trace_dir", str(tmp_path / "t")]
+    assert tcli.main([*cmd, "--data_dir", str(tmp_path / "out"), *flags]) == 0
+    assert ((tmp_path / "out" / "0.npy").read_bytes()
+            == (tmp_path / "ref" / "0.npy").read_bytes())
+    if name == "--trace_dir":
+        traces = list((tmp_path / "t").glob("trace_*.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 0
+
+
+def test_unported_ztest_flag_fails_loudly(tmp_path):
+    """--sample_parallel 2 with one device exits as JAX's CLI does, before
+    anything runs."""
     with pytest.raises(SystemExit) as e:
-        tcli.main(["generate", "--device", "cpu", "--data_dir", str(tmp_path), *flags])
-    assert e.value.code != 0
-    assert name in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())  # nothing ran
-
-
-def test_unported_ztest_flag_fails_loudly(tmp_path, capsys):
-    with pytest.raises(SystemExit):
         tcli.main(["ztest", "--device", "cpu", "--data_dir", str(tmp_path),
                    "--sample_parallel", "2"])
-    assert "--sample_parallel" in capsys.readouterr().err
+    assert "sample_parallel=2 needs that many devices, have 1" in str(e.value.code)
+    assert not any(tmp_path.iterdir())

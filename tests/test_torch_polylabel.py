@@ -176,12 +176,27 @@ def test_from_padded_matches_jax_and_validates():
     (["--schedule", "opt"], "--schedule"),
 ])
 def test_unported_polylabel_flags_fail_loudly(tmp_path, capsys, flags, name):
+    """--data_parallel runs (over the one CPU device: the labels of a run
+    without it); --sample_parallel 2 with one device exits as JAX's CLI
+    does; a negative --checkpoint_every and --schedule opt stay argparse
+    errors. Nothing is written by a refused command."""
     data = _npz(tmp_path / "in.npz", n=8)
+    cmd = ["polylabel", "--device", "cpu", "--data_in", str(data), "--seed", "3",
+           "--max_samples", "2000"]
+    if name == "--data_parallel":
+        assert tcli.main([*cmd, "--data_out", str(tmp_path / "ref.npz")]) == 0
+        assert tcli.main([*cmd, "--data_out", str(tmp_path / "out.npz"), *flags]) == 0
+        with np.load(tmp_path / "ref.npz") as ref, np.load(tmp_path / "out.npz") as out:
+            for f in ("cp", "n_samples", "converged"):
+                np.testing.assert_array_equal(out[f], ref[f])
+        return
     with pytest.raises(SystemExit) as e:
-        tcli.main(["polylabel", "--device", "cpu", "--data_in", str(data),
-                   "--data_out", str(tmp_path / "out.npz"), *flags])
+        tcli.main([*cmd, "--data_out", str(tmp_path / "out.npz"), *flags])
     assert e.value.code != 0
-    assert name in capsys.readouterr().err
+    if name == "--sample_parallel":
+        assert "needs that many devices, have 1" in str(e.value.code)
+    else:
+        assert name in capsys.readouterr().err
     assert not (tmp_path / "out.npz").exists()  # nothing ran
 
 

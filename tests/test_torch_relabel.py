@@ -285,10 +285,28 @@ def test_ztest_rejects_opt_schedule(dataset, tmp_path):
     (["--data_parallel"], "--data_parallel"),
     (["--sample_parallel", "2"], "--sample_parallel"),
 ])
-def test_unported_relabel_flags_fail_loudly(tmp_path, capsys, flags, name):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["relabel", "--device", "cpu", "--data_in", str(tmp_path),
-                   "--data_out", str(tmp_path / "out"), *flags])
-    assert e.value.code != 0
-    assert name in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()  # nothing ran
+def test_unported_relabel_flags_fail_loudly(dataset, tmp_path, flags, name):
+    """--trace_dir and --data_parallel (over the one CPU device) run and
+    write the batches of a run without them (the trace beside them);
+    --sample_parallel 2 with one device exits as JAX's CLI does, before
+    anything runs."""
+    _, inp = dataset
+    if name == "--sample_parallel":
+        with pytest.raises(SystemExit) as e:
+            tcli.main(["relabel", "--device", "cpu", "--data_in", str(inp),
+                       "--data_out", str(tmp_path / "out"), *flags])
+        assert "sample_parallel=2 needs that many devices, have 1" in str(e.value.code)
+        assert not (tmp_path / "out").exists()  # nothing ran
+        return
+    ref, out = _out_dir(dataset, tmp_path / "ref"), _out_dir(dataset, tmp_path / "out")
+    if name == "--trace_dir":
+        flags = ["--trace_dir", str(tmp_path / "t")]
+    args = ["relabel", "--device", "cpu", "--data_in", str(inp), "--shuffle", "false",
+            "--max_samples", "2000", "--seed", "9", "--verbose", "false"]
+    assert tcli.main([*args, "--data_out", str(ref)]) == 0
+    assert tcli.main([*args, "--data_out", str(out), *flags]) == 0
+    for i in range(2):
+        assert (out / f"{i}.npy").read_bytes() == (ref / f"{i}.npy").read_bytes()
+    if name == "--trace_dir":
+        traces = list((tmp_path / "t").glob("trace_*.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 0
