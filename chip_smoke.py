@@ -22,7 +22,11 @@ raises, and the script then exits non-zero without printing a result):
    streaming-bandwidth probe (csrc/stream_kernel.cu); the query kernels'
    library also in its build that counts kernel 9's passes; the Box-Muller
    builds (-DMC_BOX_MULLER=1) of kernels 1, 7 (k = 8 and 6) and 14 (k = 8),
-   and kernel 14 at the bench's k = 6 (phase 17 and the bench);
+   and kernel 14 at the bench's k = 6 (phase 17 and the bench); kernel 7 at
+   k = 20 (phase 26); and kernels 6, 9 and 10 at the K bucket pairs above 16
+   that phases 24 and 25 launch ((4, 32), (4, 64), (32, 32): one library
+   each, `polygon_cuda.kernel_defines`), with ptxas's registers and spill
+   bytes;
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -287,11 +291,46 @@ raises, and the script then exits non-zero without printing a result):
    2e-4, atol 2e-5 of the single-device run. The kernels line gives
    kernels 1, 7, 13, 14 and 15 a ``launches_by_path`` with this path
    beside their main one.
+24. k-gons above 16 vertices: kernels 6 (float32 and bfloat16 planes), 9
+   and 10 at 2^20 pairs of a 4-gon against 17-, 20-, 32- and 64-gons and of
+   32-gons against 32-gons (`_random_polygons`), each against its plain
+   version: labels bitwise, kernel 9 within 2e-5 with 0 signs apart (and
+   its sign kernel 6's label), kernel 10's counts apart on at most 1e-5 of
+   the pairs and values within 2e-5; every case timed (CUDA events, 20
+   launches after a warm-up) beside its plain version and bound, with the
+   card's name and power limit; the bucket pairs (4, 32) and (32, 32) are
+   entries of the kernels line (with ptxas's registers and spill bytes);
+25. the routes at k = 20, each bucket pair's launches counted from 0: a
+   4-gon robot (bucket pair (4, 32)) and a 20-gon robot ((32, 32)) against
+   2^20 `example_polygon_configs` 20-gons through
+   `PolygonCollisionProbabilityModel.collide`, `CollisionProbabilityModel
+   .collide_polygons`, ``distance(impl='auto')`` and ``contact_manifold``
+   (labels equal ``impl='torch'``'s, distance signs the labels, values
+   within 2e-5 of ``impl='torch'`` on 2^16 rows, manifold counts as phase
+   13); with the 20-gon robot, the scene queries on 2,048 of the bench's
+   20-gons in a 40-side box: the matrix bitwise `ops.sat.sat_polygons` on
+   every pair on the card, the swept pairs (window 512) the matrix's, the
+   dense manifolds as phase 20's (`_scene_manifold_check`); kernels 6, 9
+   and 10 launched on both routes;
+26. kernel 7 at k = 20 against the 4-gon robot (its own library) against
+   its plain version on the same Philox stream, 16,384 rows x 4,096
+   samples: sum |dcount| <= 1e-5 of the samples; kernel ms, plain ms, bound;
+   then ``PolygonCollisionProbabilityModel.label`` on those rows launches it
+   (its entry's launches);
+27. the five torch examples (``examples/*_torch.py``), each ``main(device=
+   "cuda")`` in process at the JAX examples' sizes: each finishes, its
+   numbers are checked (quickstart's labels [1 1 0] and the JAX file's k-gon
+   label, contact_queries' labels, scene pairs and ray as the JAX file
+   prints them, trajectory_validation's times of impact, probabilities in
+   [0, 1]), and each prints the kernels it launched (every count read
+   from 0 before it); the kernels line adds them as an ``examples`` path.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path (the Box-Muller builds of
 kernels 1, 7 and 14 as entries of their own: launches in the full bench,
-and in phases 10's and 17's Box-Muller rounds), with ``bound_ms``: the larger
+and in phases 10's and 17's Box-Muller rounds; kernels 6, 9 and 10 at the
+bucket pairs (4, 32) and (32, 32) and kernel 7 at k = 20 too: launches on
+phases 25's and 26's routes), with ``bound_ms``: the larger
 of the bytes the function must move over 3.35 TB/s and the FP32
 operations its source writes for these inputs over 67 TFLOP/s (an FMA
 counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
@@ -478,15 +517,23 @@ def phase_build():
         ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
         ("mc_polygon_kernel", shape_defines(6, 4, 2) + bm),
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
-        ("mc_moving_polygon_kernel", shape_defines(6, 4, 2))]
-    with ThreadPoolExecutor(len(jobs)) as pool:
+        ("mc_moving_polygon_kernel", shape_defines(6, 4, 2)),
+        ("mc_polygon_kernel", shape_defines(20, 4, 2))]  # phase 26
+    # kernels 6, 9 and 10 at the bucket pairs above 16 of phases 24 and 25,
+    # with ptxas's report (registers, spill bytes)
+    reported = big_k_builds()
+    with ThreadPoolExecutor(len(jobs) + len(reported)) as pool:
+        big = [pool.submit(_build_reported, *job) for job in reported]
         libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
+        libs += [f.result() for f in big]
+    jobs += reported
     for job in jobs:
         cuda_build.load(*job)
     _line("1 build", time.monotonic() - t,
           kernels=",".join(f"{name}.cu" + "".join(f":{v}" for _, v in defs)
                            for name, defs in jobs),
-          libraries=",".join(lib.name for lib in libs))
+          libraries=",".join(lib.name for lib in libs),
+          above_16=_json({f"{k[0]}:{k[1]}x{k[2]}": v for k, v in BIG_K_PTXAS.items()}))
 
 
 def _rect_mc_params(c: int, shape_noise: bool) -> torch.Tensor:
@@ -1404,8 +1451,11 @@ def phase_polygon_sat() -> dict:
             lambda: polygon_cuda.sat_polygons_plain(a, b, k1, k2), reps=1)
         nbytes = (2 * k1 + 2 * k2) * a.element_size() + 4
         bound, bound_by = _bound_ms(nbytes * n, sat_poly_ops_per_pair(k1, k2) * n)
+        fingerprint = output_fingerprint(got)
         _line("9 k-gon sat", time.monotonic() - t, case=tag, k1=k1, k2=k2,
               pairs=n, labels_differ=differ, collision_share=f"{share:.4f}",
+              fingerprint=_json(fingerprint),
+              parent_rows_equal=fingerprint == PARENT_FINGERPRINTS[f"polygon_sat_{tag}"],
               kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
               bound_ms=f"{bound:.4f}", bound_by=bound_by,
               kernel_pairs_per_s=f"{n / kernel_ms * 1e3:.4e}",
@@ -1692,7 +1742,10 @@ def _bench_polygons(g, n: int, k: int, area_side: float = 10.0) -> torch.Tensor:
 
 
 def _bucket(k: int) -> int:
-    return 4 if k <= 4 else 8 if k <= 8 else 16
+    """The K bucket kernels 6, 9 and 10 pad a k-gon to."""
+    from collide2d_tpu_torch.ops.polygon_cuda import k_bucket
+
+    return k_bucket(k)
 
 
 # FP32 operations per pair written in csrc/obb_distance.cuh (kernel 8 adds
@@ -1972,6 +2025,7 @@ def phase_manifold() -> dict:
             lambda: manifold_cuda.polygon_manifold_plain(a, b, 8, 8, margin))
         bound, bound_by = _bound_ms((128 + 36) * n, manifold_ops(8, 8) * n)
         counts = torch.bincount(ref[0].reshape(-1).to(torch.int64), minlength=3)
+        fingerprint = output_fingerprint(out)
         result["max_abs_err"] = max(result["max_abs_err"], err)
         if margin == 0.0:
             result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
@@ -1982,7 +2036,10 @@ def phase_manifold() -> dict:
               kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
               bound_by=bound_by, ops_per_pair=manifold_ops(8, 8),
               kernel_pairs_per_s=f"{n / ms * 1e3:.4e}",
-              kernel_gb_per_s=f"{164 * n / (ms * 1e-3) / 1e9:.1f}")
+              kernel_gb_per_s=f"{164 * n / (ms * 1e-3) / 1e9:.1f}",
+              fingerprint=_json(fingerprint),
+              parent_rows_equal=fingerprint == PARENT_FINGERPRINTS[
+                  f"polygon_manifold_m{margin}"])
         del out, ref
     return result
 
@@ -2736,6 +2793,18 @@ PARENT_FINGERPRINTS.update({
     "polygon_distance_k8": [[3991350494082069, 1442949483532275846]],
     "polygon_distance_k4_k8": [[4048248728329246, 1723718990348694370]],
 })
+# Kernels 6 and 10 at K <= 16 before their builds took buckets above 16 (the
+# default build is unchanged), on phases 9's and 13's inputs, as the
+# libraries of the earlier sources gave them on an NVIDIA H100 80GB HBM3: a
+# phase prints whether its rows still give them.
+PARENT_FINGERPRINTS.update({
+    "polygon_sat_k8": [[2969604972347392, -3641570457343229952]],
+    "polygon_sat_k8_bf16": [[2967587193356288, -3651264824303681536]],
+    "polygon_sat_k4_k6": [[2147658332372992, -7745487865244549120]],
+    "polygon_sat_k4_k8": [[2350249095987200, -6731089513440870400]],
+    "polygon_manifold_m0.0": [[10277302339206905, -4093843761959985904]],
+    "polygon_manifold_m0.1": [[10312058850344697, -3921371372812138925]],
+})
 
 
 def screen_inputs():
@@ -2991,8 +3060,9 @@ def _scene_manifold_check(tag: str, man, polys) -> dict:
     p1 = polys.index_select(0, pairs[:count, 0].long())
     p2 = polys.index_select(0, pairs[:count, 1].long())
     a, b = pad_pairs(p1, p2, 8 * polygon_cuda.LANE_BLOCK)
+    k = polys.shape[1]
     plain = manifold_cuda.unpack_manifold(manifold_cuda.polygon_manifold_plain(
-        polygon_cuda.pack_polygons(a), polygon_cuda.pack_polygons(b), 8, 8), count)
+        polygon_cuda.pack_polygons(a), polygon_cuda.pack_polygons(b), k, k), count)
     differ_plain, err_plain = _manifold_diff(got, plain)
 
     scale = torch.maximum(p1.abs().amax((1, 2)), p2.abs().amax((1, 2))).clamp(min=1.0)
@@ -3129,6 +3199,400 @@ def phase_scene_swept() -> None:
           dense_ms=f"{dense_ms:.3f}",
           dense_equivalent_pairs_per_s=f"{n * n / ms * 1e3:.4e}",
           narrow_pairs_per_s=f"{n * w / ms * 1e3:.4e}")
+
+
+# ---- phases 24-27: k-gons above 16 vertices, kernel 7 at K = 20, the examples ----
+
+
+BIG_K_PAIRS = 1 << 20
+# Phase 24's (K1, K2): a 4-gon against 17-, 20-, 32- and 64-gons (the bucket
+# pairs (4, 32) and (4, 64)) and 32-gons against 32-gons; every case is
+# timed, and the kernels line carries the bucket pairs of `BIG_K_ENTRIES`
+# (the ones phase 25's routes at k = 20 launch).
+BIG_K_CASES = ((4, 17), (4, 20), (4, 32), (4, 64), (32, 32))
+BIG_K_ENTRIES = ((4, 32), (32, 32))
+BIG_K_ROWS = 1 << 20  # phase 25's model rows at k = 20
+# (kernels line name, library, the TPU kernel it replaces)
+BIG_K_KERNELS = (("sat_polygons", "polygon_kernel", "polygon_pallas.py:92"),
+                 ("polygon_distance", "distance_kernel", "distance_pallas.py:229"),
+                 ("polygon_manifold", "manifold_kernel", "manifold_pallas.py:181"))
+# ptxas's registers and spill bytes of each big-bucket build (phase 1),
+# by (library, K1 bucket, K2 bucket)
+BIG_K_PTXAS: dict = {}
+# Phase 26: kernel 7 at K = 20 against the 4-gon robot (2 kept axes)
+K20_MC_ROWS, K20_MC_SAMPLES = 16_384, 4096
+# Phase 27: the torch examples, and what the JAX files print for their
+# deterministic numbers (quickstart's k-gon label, contact_queries' labels,
+# scene pairs and the shape the ray hits)
+EXAMPLES = ("quickstart", "polygon_labeling", "contact_queries", "trajectory_validation",
+            "train_model")
+QUICKSTART_KGON_LABEL = 1
+# The kernels line's names (K <= 16 builds) by `bench.launch_counts`' numbers
+KERNEL_NUMBERS = {
+    "mc_counts": "1", "mc_counts_box_muller": "1bm", "sat_label": "2", "sat_count": "3",
+    "obb_label": "4", "obb_count": "5", "sat_polygons": "6", "mc_poly_counts": "7",
+    "mc_poly_counts_box_muller": "7bm", "obb_distance": "8", "polygon_distance": "9",
+    "polygon_manifold": "10", "scene_raycast": "11", "moving_obb_toi": "12",
+    "mc_toi_counts": "13", "mc_moving_poly_counts": "14",
+    "mc_moving_poly_counts_box_muller": "14bm", "rotating_screen": "15", "stream_sum": "16"}
+CONTACT_LABELS, CONTACT_SCENE_PAIRS, CONTACT_RAY_SHAPE = [1, 0, 0], 49, 15
+
+
+def big_k_builds() -> list:
+    """The libraries of kernels 6, 9 and 10 at the bucket pairs phases 24
+    and 25 launch: (library, defines)."""
+    from collide2d_tpu_torch.ops.polygon_cuda import kernel_defines
+
+    return [(lib, kernel_defines(k1, k2)) for _, lib, _ in BIG_K_KERNELS
+            for k1, k2 in ((4, 32), (4, 64), (32, 32))]
+
+
+def _build_reported(name: str, defines) -> Path:
+    """Build ``csrc/<name>.cu`` with ``defines`` where `cuda_build.load`
+    looks for it, with ptxas's report (the -Xptxas -v flag does not change
+    the binary) kept in `BIG_K_PTXAS`."""
+    from collide2d_tpu_torch.utils import cuda_build
+    from collide2d_tpu_torch.utils.mc_ab import _nvcc_report
+
+    lib = cuda_build.library_path(name, defines)
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.so")
+        t = time.monotonic()
+        report = _nvcc_report(cuda_build.CSRC_DIR / f"{name}.cu", defines, tmp)
+        os.replace(tmp, lib)
+        d = dict(defines)
+        # the k-gon kernel's float32 instantiation (kernel 6 also builds a
+        # bfloat16 one, the distance library kernel 8)
+        fn = next(v for k, v in sorted(report.items())
+                  if "polygon_" in k and "bfloat16" not in k)
+        BIG_K_PTXAS[(name, d["POLY_KB1"], d["POLY_KB2"])] = dict(
+            fn, build_s=round(time.monotonic() - t, 1))
+    return lib
+
+
+def phase_big_k(card: str) -> dict:
+    """Phase 24: kernels 6, 9 and 10 above 16 vertices against their plain
+    versions at 2^20 pairs; returns the kernels line's entries of
+    `BIG_K_ENTRIES` by (name, (K1, K2)) (phase 25 adds their launches)."""
+    from collide2d_tpu_torch.ops import distance_cuda, manifold_cuda, polygon_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    n = BIG_K_PAIRS
+    entries = {}
+    for k1, k2 in BIG_K_CASES:
+        t = time.monotonic()
+        a = polygon_cuda.pack_polygons(_random_polygons(g, n, k1, 3.0))
+        b = polygon_cuda.pack_polygons(_random_polygons(g, n, k2, 3.0))
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        calls = {
+            "sat_polygons": (lambda: polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2),
+                             lambda: polygon_cuda.sat_polygons_plain(a, b, k1, k2)),
+            "polygon_distance": (
+                lambda: distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2),
+                lambda: distance_cuda.polygon_distance_plain(a, b, k1, k2)),
+            "polygon_manifold": (
+                lambda: manifold_cuda.polygon_manifold_cuda_t(a, b, k1=k1, k2=k2),
+                lambda: manifold_cuda.polygon_manifold_plain(a, b, k1, k2))}
+        label, want_label = calls["sat_polygons"][0](), calls["sat_polygons"][1]().reshape(-1)
+        label16 = polygon_cuda.sat_polygons_cuda_t(a16, b16, k1=k1, k2=k2)
+        want16 = polygon_cuda.sat_polygons_plain(a16, b16, k1, k2).reshape(-1)
+        dist, want_dist = (f() for f in calls["polygon_distance"])
+        want_dist = want_dist.reshape(-1)
+        man, want_man = (f() for f in calls["polygon_manifold"])
+        torch.cuda.synchronize()
+        differ = int((label != want_label.float()).sum())
+        differ16 = int((label16 != want16.float()).sum())
+        err9 = float((dist - want_dist).abs().max())
+        signs9 = int(((dist <= 0) != (want_dist <= 0)).sum())
+        vs_label = int(((dist <= 0) != (label > 0)).sum())
+        differ10, err10 = _manifold_diff(manifold_cuda.unpack_manifold(man, n),
+                                         manifold_cuda.unpack_manifold(want_man, n))
+        share = float(want_label.float().mean())
+        if (differ or differ16 or err9 > 2e-5 or signs9 or vs_label
+                or differ10 > 1e-5 * n or err10 > 2e-5 or not 0.0 < share < 1.0):
+            raise RuntimeError(
+                f"k-gons ({k1}, {k2}): {differ} labels ({differ16} bf16) differ from kernel "
+                f"6's plain version; kernel 9 by {err9}, {signs9} signs, {vs_label} against "
+                f"kernel 6; kernel 10 {differ10} counts, values by {err10}; share {share}")
+        timing = {}
+        for name, lib, _ in BIG_K_KERNELS:
+            fn, plain = calls[name]
+            ms, plain_ms = _compare(fn, plain)
+            nbytes = (2 * k1 + 2 * k2) * 4 + (36 if name == "polygon_manifold" else 4)
+            ops = {"sat_polygons": sat_poly_ops_per_pair, "polygon_distance":
+                   polygon_distance_ops, "polygon_manifold": manifold_ops}[name](k1, k2)
+            bound, bound_by = _bound_ms(nbytes * n, ops * n)
+            timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+            key = (_bucket(k1), _bucket(k2))
+            if key in BIG_K_ENTRIES:
+                entry = entries.setdefault((name, key), dict(max_abs_err=0.0))
+                err = {"sat_polygons": float(differ), "polygon_distance": err9,
+                       "polygon_manifold": err10}[name]
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                if (k1, k2) == key:  # the timed case fills its bucket exactly
+                    ptxas = BIG_K_PTXAS.get((lib, *key), {})
+                    entry.update(timing[name], registers=ptxas.get("registers"),
+                                 spill_stores_bytes=ptxas.get("spill_stores"),
+                                 spill_loads_bytes=ptxas.get("spill_loads"),
+                                 stack_frame_bytes=ptxas.get("stack_frame"))
+        bf16_ms = _events_ms(lambda: polygon_cuda.sat_polygons_cuda_t(a16, b16, k1=k1, k2=k2),
+                             reps=20)
+        _line("24 k-gons above 16", time.monotonic() - t, k1=k1, k2=k2,
+              buckets=f"{_bucket(k1)}x{_bucket(k2)}", pairs=n, card=card.replace(" ", "_"),
+              labels_differ=differ, labels_differ_bf16=differ16,
+              collision_share=f"{share:.4f}",
+              distance_max_abs_diff=f"{err9:.3e}",
+              distance_bitwise=bool(torch.equal(dist, want_dist)),
+              distance_sign_mismatch_vs_kernel6=vs_label,
+              manifold_counts_differ=differ10, manifold_max_abs_diff=f"{err10:.3e}",
+              manifold_bitwise=bool(torch.equal(man, want_man)),
+              kernel6_bf16_ms=f"{bf16_ms:.4f}",
+              **{f"{name}_{k}": (f"{v:.4f}" if isinstance(v, float) else v)
+                 for name, row in timing.items() for k, v in row.items()})
+        del a, b, a16, b16, label, label16, dist, man, want_label, want16, want_dist, want_man
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _regular_polygon(k: int, radius: float) -> np.ndarray:
+    """A CCW regular k-gon around the origin: (k, 2) float32."""
+    ang = np.arange(k) * (2.0 * np.pi / k)
+    return (radius * np.stack([np.cos(ang), np.sin(ang)], -1)).astype(np.float32)
+
+
+def _big_k_scene_matrix(polys: torch.Tensor, rows: int = 128) -> torch.Tensor:
+    """`ops.sat.sat_polygons` on every pair of one shape set on its card,
+    ``rows`` rows of the matrix at a time, diagonal False."""
+    from collide2d_tpu_torch.ops.sat import sat_polygons
+
+    n = polys.shape[0]
+    out = []
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        i = torch.arange(r0, r1, device=polys.device).repeat_interleave(n)
+        j = torch.arange(n, device=polys.device).repeat(r1 - r0)
+        out.append((sat_polygons(polys[i], polys[j]) == 1).reshape(r1 - r0, n))
+    m = torch.cat(out)
+    m.fill_diagonal_(False)
+    return m
+
+
+def phase_big_k_routes(entries: dict) -> None:
+    """Phase 25: the model and scene routes at k = 20 on the card; sets the
+    launches of `phase_big_k`'s entries (each counted from 0 over its bucket
+    pair's route: the 4-gon robot's for (4, 32), the 20-gon robot's and the
+    scenes' for (32, 32))."""
+    from collide2d_tpu_torch import bench
+    from collide2d_tpu_torch.models.collision_model import (
+        CollisionProbabilityModel,
+        PolygonCollisionProbabilityModel,
+        example_polygon_configs,
+    )
+    from collide2d_tpu_torch.ops import scene
+
+    configs = example_polygon_configs(BIG_K_ROWS, k=20, seed=25, device="cuda")
+    sub = slice(0, 1 << 16)
+    head = type(configs)(*(a[sub] for a in configs))
+    routes = {(4, 32): PolygonCollisionProbabilityModel(np.asarray(POLY_ROBOT, np.float32)),
+              (32, 32): PolygonCollisionProbabilityModel(_regular_polygon(20, 1.2))}
+    for key, model in routes.items():
+        t = time.monotonic()
+        bench.reset_launch_counts()
+        labels = model.collide(configs)
+        labels_cp = CollisionProbabilityModel().collide_polygons(
+            model._placed_robot(configs), configs.obstacle_verts)
+        dist = model.distance(configs, impl="auto")
+        man = model.contact_manifold(configs)
+        scene_fields = {}
+        if key == (32, 32):
+            g = torch.Generator(device="cuda").manual_seed(25)
+            polys = _bench_polygons(g, SCENE_N, 20, area_side=40.0)
+            m = scene.scene_collision_matrix(polys, row_tile=64)
+            window = 512
+            pairs, count, overflow, exceeded = scene.scene_colliding_pairs_swept(
+                polys, capacity=SCENE_CAPACITY, window=window)
+            sman = scene.scene_contact_manifolds(polys, capacity=SCENE_CAPACITY)
+        torch.cuda.synchronize()
+        launched = bench.launch_counts()
+        counts = {name: launched[KERNEL_NUMBERS[name]] for name, _, _ in BIG_K_KERNELS}
+        if min(counts.values()) <= 0:
+            raise RuntimeError(f"the k = 20 routes of bucket pair {key} launched {counts}")
+        for name, n in counts.items():
+            entries[(name, key)]["launches"] = n
+        want = model.collide(head, impl="torch")
+        d_torch = model.distance(head, impl="torch")
+        m_torch = model.contact_manifold(head, impl="torch")
+        torch.cuda.synchronize()
+        label_differ = int((labels[sub] != want).sum()) + int((labels_cp != labels).sum())
+        sign = int(((dist <= 0).to(torch.int32) != labels).sum())
+        d_err = float((dist[sub] - d_torch).abs().max())
+        m_differ, m_err = _manifold_diff(tuple(a[sub] for a in man), m_torch)
+        share = float(labels.float().mean())
+        if label_differ or sign or d_err > 2e-5 or m_differ > 1e-5 * (1 << 16) \
+                or m_err > 2e-5 or not 0.0 < share < 1.0:
+            raise RuntimeError(
+                f"k = 20 model route {key}: {label_differ} labels differ from impl='torch', "
+                f"{sign} distance signs from the labels, distances by {d_err}, {m_differ} "
+                f"manifold counts by {m_err}; share {share}")
+        if key == (32, 32):
+            want_m = _big_k_scene_matrix(polys)
+            c = int(count)
+            want_pairs = torch.triu(want_m, 1).nonzero().to(torch.int32)
+            if not (torch.equal(m, want_m) and torch.equal(m, m.T)):
+                raise RuntimeError(f"the k = 20 matrix differs from sat_polygons on "
+                                   f"{int((m != want_m).sum())} pairs")
+            if bool(exceeded) or bool(overflow) or c != len(want_pairs) \
+                    or not torch.equal(pairs[:c], want_pairs):
+                raise RuntimeError(f"the k = 20 swept pairs: count {c}, {len(want_pairs)} in "
+                                   f"the matrix, exceeded {bool(exceeded)}")
+            if not (torch.equal(sman[0][:c], want_pairs) and int(sman[1]) == c):
+                raise RuntimeError("the k = 20 scene manifolds listed other pairs")
+            scene_fields = dict(
+                scene_shapes=SCENE_N, scene_window=window, scene_pairs=c,
+                matrix_equal_sat_polygons=True, swept_equal_matrix=True,
+                **_scene_manifold_check("k = 20 dense manifolds", sman, polys))
+        _line("25 k = 20 routes", time.monotonic() - t, buckets=f"{key[0]}x{key[1]}",
+              rows=BIG_K_ROWS, robot_k=len(model.robot_verts), obstacle_k=20,
+              launches=_json(counts), collision_share=f"{share:.4f}",
+              labels_differ_vs_torch=label_differ, distance_sign_mismatch=sign,
+              distance_max_abs_vs_torch=f"{d_err:.3e}",
+              manifold_counts_differ_vs_torch=m_differ,
+              manifold_max_abs_vs_torch=f"{m_err:.3e}", **scene_fields)
+
+
+def phase_mc_polygon_k20() -> dict:
+    """Phase 26: kernel 7 at K = 20 (a library of its own) against its plain
+    version on the same Philox stream, then on `PolygonCollisionProbabilityModel
+    .label`'s route (its launches); returns its kernels line entry."""
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+    from collide2d_tpu_torch.models.collision_model import (
+        PolygonCollisionProbabilityModel,
+        example_polygon_configs,
+    )
+    from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda
+
+    t = time.monotonic()
+    dev = torch.device("cuda")
+    c, n = K20_MC_ROWS, K20_MC_SAMPLES
+    robot = np.asarray(POLY_ROBOT, np.float32)
+    a_keep = mc_polygon_cuda.dedup_robot_axes(robot)
+    configs = example_polygon_configs(c, k=20, seed=26, device=dev)
+    params = mc_polygon_cuda.pack_polygon_mc_params(configs, robot, a_keep)
+    dims = dict(k=20, k2=len(robot), k2a=len(a_keep))
+    uids = torch.arange(c, dtype=torch.int32, device=dev)
+    seed = mc_cuda.round_seed(prng.PRNGKey(26), 1)
+    got = mc_polygon_cuda.mc_poly_counts(params, uids, seed, n, **dims)
+    want = mc_polygon_cuda.mc_poly_counts_plain(params, uids, seed, n, max_elems=1 << 22,
+                                                **dims)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    total = int(diff.sum())
+    if total > MISMATCH_BOUND * c * n or not 0 < int(got.sum()) < c * n:
+        raise RuntimeError(f"kernel 7 at K = 20: sum|dcount| {total} against its plain "
+                           f"version (bar {MISMATCH_BOUND * c * n:.0f}), counts "
+                           f"{int(got.sum())} of {c * n}")
+    ms, plain_ms = _compare(
+        lambda: mc_polygon_cuda.mc_poly_counts(params, uids, seed, n, **dims),
+        lambda: mc_polygon_cuda.mc_poly_counts_plain(params, uids, seed, n,
+                                                     max_elems=1 << 22, **dims))
+    bound, bound_by = _bound_ms(c * (params.shape[1] * 4 + 8),
+                                c * n * mc_poly_ops_per_sample(**dims))
+    mc_polygon_cuda.reset_launches()
+    cp, used, done = PolygonCollisionProbabilityModel(robot).label(
+        prng.PRNGKey(27), configs, AdaptiveConfig(max_samples=100_000))
+    launches = mc_polygon_cuda.LAUNCHES
+    if launches <= 0 or not (np.isfinite(cp).all() and (cp >= 0).all() and (cp <= 1).all()):
+        raise RuntimeError(f"the k = 20 label route launched kernel 7 {launches} times")
+    _line("26 k-gon mc k = 20", time.monotonic() - t, C=c, n=n, k=20, k2=len(robot),
+          kept_axes=len(a_keep), table_rows=params.shape[1], sum_abs_dcount=total,
+          rows_differ=int((diff > 0).sum()), counts_fingerprint=_json(_fingerprint(got)),
+          kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
+          bound_by=bound_by, label_route_launches=launches,
+          label_mean_samples=f"{used.mean():.1f}", label_converged=f"{done.mean():.4f}")
+    return dict(launches=launches, max_abs_err=int(diff.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by)
+
+
+def _example_checks(name: str, out: dict) -> dict:
+    """Phase 27's checks of one example's returned numbers; the fields its
+    line prints."""
+    def probabilities(*arrays):
+        for a in arrays:
+            a = np.asarray(a, np.float64)
+            if not (np.isfinite(a).all() and (a >= 0).all() and (a <= 1).all()):
+                raise RuntimeError(f"example {name}: a probability outside [0, 1]")
+
+    if name == "quickstart":
+        if out["labels"].tolist() != [1, 1, 0] or out["kgon_label"] != QUICKSTART_KGON_LABEL:
+            raise RuntimeError(f"quickstart: labels {out['labels']}, k-gon label "
+                               f"{out['kgon_label']}")
+        probabilities(out["cp_fixed"], out["cp_adaptive"], out["cp_pruned"])
+        return dict(labels=_json(out["labels"].tolist()), kgon_label=out["kgon_label"],
+                    cp_adaptive=_json(out["cp_adaptive"].tolist()),
+                    samples_used=_json(out["n_used"].tolist()))
+    if name == "polygon_labeling":
+        probabilities(out["cp_fixed"], out["cp"])
+        if not 0.0 < out["collision_rate"] < 1.0:
+            raise RuntimeError(f"polygon_labeling: collision rate {out['collision_rate']}")
+        return dict(collision_rate=f"{out['collision_rate']:.4f}",
+                    mean_cp=f"{out['cp'].mean():.4f}",
+                    mean_samples=f"{out['n_used'].mean():.1f}",
+                    converged=f"{out['converged'].mean():.4f}")
+    if name == "contact_queries":
+        if (out["labels"].tolist() != CONTACT_LABELS or out["n_pairs"] != CONTACT_SCENE_PAIRS
+                or out["ray"][1] != CONTACT_RAY_SHAPE
+                or not (out["distance"][0] < 0 < out["distance"][1])):
+            raise RuntimeError(f"contact_queries: labels {out['labels']}, distances "
+                               f"{out['distance']}, {out['n_pairs']} scene pairs, ray shape "
+                               f"{out['ray'][1]}")
+        return dict(labels=_json(out["labels"].tolist()),
+                    distance=_json([round(float(x), 5) for x in out["distance"]]),
+                    scene_pairs=out["n_pairs"], ray_shape=out["ray"][1])
+    if name == "trajectory_validation":
+        toi = out["toi"]
+        if not (abs(toi[0] - 6.965) <= 1e-3 and abs(toi[1] - 6.965) <= 1e-3
+                and np.isinf(toi[2])):
+            raise RuntimeError(f"trajectory_validation: time of impact {toi}")
+        probabilities(out["cp_fixed"], out["cp"], out["cp_kgon"])
+        return dict(toi=_json([float(x) for x in toi]),
+                    cp_fixed=_json(out["cp_fixed"].tolist()), pruned=out["pruned"],
+                    converged=f"{out['converged'].mean():.4f}",
+                    kgon_converged=f"{out['converged_kgon'].mean():.4f}")
+    probabilities(out["pred"], out["val_mae"])
+    if not np.isfinite(out["history"]).all():
+        raise RuntimeError("train_model: a non-finite loss")
+    return dict(rows=out["rows"], first_loss=f"{out['history'][0]:.5f}",
+                last_loss=f"{out['history'][-1]:.5f}", val_mae=f"{out['val_mae']:.4f}",
+                batch0_mae=f"{out['batch0_mae']:.4f}",
+                batch0_mean_predictor_mae=f"{out['batch0_mean_mae']:.4f}")
+
+
+def phase_examples() -> dict:
+    """Phase 27: each torch example's ``main(device="cuda")`` in process at
+    the JAX examples' sizes; returns the launches each kernel took over all
+    five, by number."""
+    import importlib.util
+
+    from collide2d_tpu_torch import bench
+
+    total: dict = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", HERE / "examples" / f"{name}_torch.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        bench.reset_launch_counts()
+        t = time.monotonic()
+        out, printed = _quiet(module.main, "cuda")
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in bench.launch_counts().items() if v}
+        for k, v in ran.items():
+            total[k] = total.get(k, 0) + v
+        _line(f"27 example {name}", time.monotonic() - t, kernels_launched=_json(ran),
+              printed_lines=len(printed.splitlines()), **_example_checks(name, out))
+    return total
 
 
 # ---- phase 22: the bench entry points and kernel 16 ----
@@ -3933,6 +4397,10 @@ def main() -> int:
     phase_scene_swept()
     stream = phase_bench()
     full_bench = phase_full_bench()
+    big_k = phase_big_k(card)
+    phase_big_k_routes(big_k)
+    mc_poly_k20 = phase_mc_polygon_k20()
+    example_launches = phase_examples()
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
     # kernels 1, 7, 13, 14 and 15 also run on the mesh path (phase 23),
@@ -4027,7 +4495,29 @@ def main() -> int:
         "source": "collide2d_tpu_torch/csrc/stream_kernel.cu",
         "replaces": "collide2d_tpu/utils/benchmarks.py:990",
         **stream,
+    }] + [{
+        # kernels 6, 9 and 10 above 16 vertices: their builds for the bucket
+        # pairs the k = 20 routes take (phases 24 and 25)
+        "name": f"{name}_k{key[0]}_k{key[1]}",
+        "route": "cuda",
+        "source": f"collide2d_tpu_torch/csrc/{lib}.cu",
+        "replaces": f"collide2d_tpu/ops/{replaces}",
+        **big_k[(name, key)],
+        "library_ms": None,
+    } for name, lib, replaces in BIG_K_KERNELS for key in BIG_K_ENTRIES] + [{
+        "name": "mc_poly_counts_k20",
+        "route": "cuda",
+        "source": "collide2d_tpu_torch/csrc/mc_polygon_kernel.cu",
+        "replaces": "collide2d_tpu/ops/mc_polygon_pallas.py:254",
+        **mc_poly_k20,
+        "library_ms": None,
     }]}
+    # the examples' launches (phase 27), a path of their own
+    for entry in kernels["kernels"]:
+        n = example_launches.get(KERNEL_NUMBERS.get(entry["name"]), 0)
+        if n:
+            entry.setdefault("launches_by_path", {"main": entry["launches"]})["examples"] = n
+            entry["launches"] += n
     print(f"[done] seconds={time.monotonic() - t0:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

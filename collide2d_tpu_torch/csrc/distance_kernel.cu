@@ -51,13 +51,15 @@
 // an SM (80 registers) 0.593-0.594: occupancy moves the time more than
 // the instructions do (utils/query_ab.py; PERF.md section 6). A
 // point-segment test clamps its parameter with one saturating multiply
-// (14 operations, was 17). K is a run-time value: the build carries
-// buckets 4, 8 and 16 for each polygon and pads in registers
-// (polygon_soa.cuh). The padding is exact for the sign: a zero edge is
-// masked to -inf in the gap max and a duplicate vertex adds no projection;
-// it can move the separation distance by rounding (a zero-length
-// segment's point distance against the closing edge's clamped one), so the
-// plain version pads to the same bucket. K above 16 is refused. With
+// (14 operations, was 17). K is a run-time value: the default build
+// carries buckets 4, 8 and 16 for each polygon and pads in registers
+// (polygon_soa.cuh); a K above 16 pads to the next power of two in a build
+// for that one pair of buckets (`POLY_KB1` / `POLY_KB2`), the same body.
+// The padding is exact for the sign: a zero edge is masked to -inf in the
+// gap max and a duplicate vertex adds no projection; it can move the
+// separation distance by rounding (a zero-length segment's point distance
+// against the closing edge's clamped one), so the plain version pads to
+// the same bucket. With
 // -DPOLYDIST_COUNT=1 the library also counts the pairs through every axis
 // and through the segment tests (polygon_distance_counts); the default
 // build does not.
@@ -211,6 +213,7 @@ unsigned grid_for(long long n, long long per_block) {
   return blocks > INT_MAX ? 0u : static_cast<unsigned>(blocks);
 }
 
+#if !POLY_KB1
 template <int K1>
 bool launch_k2(const float* p1, const float* p2, float* out, long long n,
                int k1, int k2, unsigned grid, cudaStream_t s) {
@@ -221,6 +224,7 @@ bool launch_k2(const float* p1, const float* p2, float* out, long long n,
     default: return false;
   }
 }
+#endif
 
 }  // namespace
 
@@ -239,7 +243,8 @@ extern "C" int obb_distance_launch(const float* b1, const float* b2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `k1`/`k2`: the vertices of each polygon (1..16).
+// `k1`/`k2`: the vertices of each polygon (>= 1; a pair of buckets the
+// build carries, else cudaErrorInvalidValue).
 extern "C" int polygon_distance_launch(const float* p1, const float* p2,
                                        float* out, long long n, int k1, int k2,
                                        void* stream) {
@@ -248,12 +253,19 @@ extern "C" int polygon_distance_launch(const float* p1, const float* p2,
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
+#if POLY_KB1
+  if (collide2d::build_carries(k1, k2)) {
+    polygon_distance_kernel<POLY_KB1, POLY_KB2><<<grid, kThreads, 0, s>>>(p1, p2, out, n, k1, k2);
+    ok = true;
+  }
+#else
   switch (collide2d::k_bucket(k1)) {
     case 4: ok = launch_k2<4>(p1, p2, out, n, k1, k2, grid, s); break;
     case 8: ok = launch_k2<8>(p1, p2, out, n, k1, k2, grid, s); break;
     case 16: ok = launch_k2<16>(p1, p2, out, n, k1, k2, grid, s); break;
     default: ok = false;
   }
+#endif
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

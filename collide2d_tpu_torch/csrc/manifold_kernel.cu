@@ -22,13 +22,15 @@
 // win (jnp.argmax / argmin order). No gathers, no shared memory, no
 // intermediate in device memory; the 9 stores are coalesced.
 //
-// K at run time: the build carries buckets 4, 8 and 16 for each polygon
-// and pads in registers by repeating the last vertex (polygon_soa.cuh). The
-// padding is exact for every face choice: a zero edge has separation -inf
-// in the reference max and alignment +inf in the incident min, a
+// K at run time: the default build carries buckets 4, 8 and 16 for each
+// polygon and pads in registers by repeating the last vertex
+// (polygon_soa.cuh); a K above 16 pads to the next power of two in a build
+// for that one pair of buckets (`POLY_KB1` / `POLY_KB2`), the same body.
+// The padding is exact for every face choice: a zero edge has separation
+// -inf in the reference max and alignment +inf in the incident min, a
 // duplicate vertex moves no minimum, and the real faces keep their order
-// and their arithmetic; the incident loop runs over the common
-// max(K1, K2), as the Pallas kernel's does. K above 16 is refused.
+// and their arithmetic; the incident loop runs over the common bucket
+// max(K1, K2), as the Pallas kernel's runs over the common max(K1, K2).
 //
 // Rounding. Products and sums are __fmul_rn / __fadd_rn / __fsub_rn in the
 // Pallas body's order, the reference-body bias is the literal
@@ -188,6 +190,7 @@ unsigned grid_for(long long n) {
   return blocks > INT_MAX ? 0u : static_cast<unsigned>(blocks);
 }
 
+#if !POLY_KB1
 template <int K1>
 bool launch_k2(const float* p1, const float* p2, float* out, long long n,
                int k1, int k2, float margin, unsigned grid, cudaStream_t s) {
@@ -198,12 +201,13 @@ bool launch_k2(const float* p1, const float* p2, float* out, long long n,
     default: return false;
   }
 }
+#endif
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `n` is the number of pairs (8M),
-// `k1`/`k2` the vertices of each polygon (1..16), `out` 9 planes of n
-// floats. Launches on `stream`, does not synchronise, and returns
+// `k1`/`k2` the vertices of each polygon (>= 1; a pair of buckets the build
+// carries, else cudaErrorInvalidValue), `out` 9 planes of n floats. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch (0 = ok).
 extern "C" int polygon_manifold_launch(const float* p1, const float* p2,
                                        float* out, long long n, int k1, int k2,
@@ -213,12 +217,20 @@ extern "C" int polygon_manifold_launch(const float* p1, const float* p2,
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
+#if POLY_KB1
+  if (collide2d::build_carries(k1, k2)) {
+    polygon_manifold_kernel<POLY_KB1, POLY_KB2><<<grid, kThreads, 0, s>>>(
+        p1, p2, out, n, k1, k2, margin);
+    ok = true;
+  }
+#else
   switch (collide2d::k_bucket(k1)) {
     case 4: ok = launch_k2<4>(p1, p2, out, n, k1, k2, margin, grid, s); break;
     case 8: ok = launch_k2<8>(p1, p2, out, n, k1, k2, margin, grid, s); break;
     case 16: ok = launch_k2<16>(p1, p2, out, n, k1, k2, margin, grid, s); break;
     default: ok = false;
   }
+#endif
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

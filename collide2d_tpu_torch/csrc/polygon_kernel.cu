@@ -17,11 +17,16 @@
 // copies is the zero axis (its intervals are [0, 0] on both bodies, which
 // never separate), and the edge from the last slot back to vertex 0 is the
 // real closing edge. So the kernel needs no masks, and the same holds for
-// the padding it adds itself: the build carries K = 4, 8 and 16 for each
-// polygon, and a K1-gon with K1 <= 4 runs the K = 4 body with slots K1..3
-// copied from slot K1-1 in registers (likewise 8 and 16). The labels equal
-// the unpadded test's bit for bit, since every real projection is computed
-// by the same operations. K above 16 is refused (the wrapper raises).
+// the padding it adds itself: the default build carries K = 4, 8 and 16 for
+// each polygon, and a K1-gon with K1 <= 4 runs the K = 4 body with slots
+// K1..3 copied from slot K1-1 in registers (likewise 8 and 16). A K above
+// 16 pads to the next power of two (32, 64, ...) in a build of its own for
+// that pair of buckets (`POLY_KB1` / `POLY_KB2`, polygon_soa.cuh), built at
+// first use by the wrapper: the same body, so the argument holds at any
+// bucket. The labels equal the unpadded test's bit for bit, since every
+// real projection is computed by the same operations. At large buckets the
+// vertex arrays no longer fit the registers and spill to local memory, and
+// the unrolled body outgrows the instruction cache: it stays right, not fast.
 //
 // What bounds it on this card. At K1 = K2 = 8 a f32 pair reads 2 x 16
 // coordinates x 4 bytes and writes a 4-byte label, 132 bytes: 0.33 ms for
@@ -48,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "polygon_soa.cuh"
 
 namespace {
 
@@ -136,15 +143,6 @@ __global__ void __launch_bounds__(kThreads)
   out[p] = sep ? 0.0f : 1.0f;
 }
 
-// The build's K bucket for a polygon of k vertices, 0 if none carries it.
-int bucket(int k) {
-  if (k < 1) return 0;
-  if (k <= 4) return 4;
-  if (k <= 8) return 8;
-  if (k <= 16) return 16;
-  return 0;
-}
-
 template <int K1, int K2, typename T>
 void launch(const void* p1, const void* p2, float* out, long long n, int k1,
             int k2, unsigned grid, cudaStream_t s) {
@@ -152,10 +150,20 @@ void launch(const void* p1, const void* p2, float* out, long long n, int k1,
       static_cast<const T*>(p1), static_cast<const T*>(p2), out, n, k1, k2);
 }
 
+#if POLY_KB1
+// A build for one bucket pair above 16: its one instantiation.
+template <typename T>
+bool launch_k1(const void* p1, const void* p2, float* out, long long n, int k1,
+               int k2, unsigned grid, cudaStream_t s) {
+  if (!collide2d::build_carries(k1, k2)) return false;
+  launch<POLY_KB1, POLY_KB2, T>(p1, p2, out, n, k1, k2, grid, s);
+  return true;
+}
+#else
 template <int K1, typename T>
 bool launch_k2(const void* p1, const void* p2, float* out, long long n, int k1,
                int k2, unsigned grid, cudaStream_t s) {
-  switch (bucket(k2)) {
+  switch (collide2d::k_bucket(k2)) {
     case 4: launch<K1, 4, T>(p1, p2, out, n, k1, k2, grid, s); return true;
     case 8: launch<K1, 8, T>(p1, p2, out, n, k1, k2, grid, s); return true;
     case 16: launch<K1, 16, T>(p1, p2, out, n, k1, k2, grid, s); return true;
@@ -166,19 +174,20 @@ bool launch_k2(const void* p1, const void* p2, float* out, long long n, int k1,
 template <typename T>
 bool launch_k1(const void* p1, const void* p2, float* out, long long n, int k1,
                int k2, unsigned grid, cudaStream_t s) {
-  switch (bucket(k1)) {
+  switch (collide2d::k_bucket(k1)) {
     case 4: return launch_k2<4, T>(p1, p2, out, n, k1, k2, grid, s);
     case 8: return launch_k2<8, T>(p1, p2, out, n, k1, k2, grid, s);
     case 16: return launch_k2<16, T>(p1, p2, out, n, k1, k2, grid, s);
     default: return false;
   }
 }
+#endif
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `n` is the number of pairs (8M);
-// `k1`/`k2` the vertices of each polygon (1..16); `bf16` selects bfloat16
-// planes. Launches on `stream`, does not synchronise, and returns
+// `k1`/`k2` the vertices of each polygon (>= 1; a pair of buckets the build
+// carries, else cudaErrorInvalidValue); `bf16` selects bfloat16 planes. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch (0 = ok).
 extern "C" int polygon_sat_launch(const void* p1, const void* p2, float* out,
                                   long long n, int k1, int k2, int bf16,

@@ -8,24 +8,47 @@
 // plane[c][p]. One thread takes one pair, so neighbouring threads read
 // neighbouring addresses of every plane and each load is coalesced.
 //
-// The kernels are compiled for K = 4, 8 and 16; a polygon of k <= K
-// vertices fills slots k..K-1 with copies of vertex k-1 (the repeat-last
-// padding of `ops.sat.sat_polygons`), which adds only zero-length edges and
-// duplicate vertices.
+// The kernels are compiled for K buckets: 4, 8 and 16 in the default
+// build, and one bucket pair above 16 (a power of two: 32, 64, 128, ...)
+// in a build of its own (`POLY_KB1` / `POLY_KB2`, below). A polygon of
+// k <= K vertices fills slots k..K-1 with copies of vertex k-1 (the
+// repeat-last padding of `ops.sat.sat_polygons`), which adds only
+// zero-length edges and duplicate vertices.
 
 #pragma once
 
 #include "fp32_rn.cuh"
 
+// A build for the pair of K buckets (POLY_KB1, POLY_KB2), one of them
+// above 16 (ops/polygon_cuda.py::kernel_defines), carries that one
+// instantiation; the default build (0, 0) carries every pair of 4, 8 and
+// 16 and no other.
+#ifndef POLY_KB1
+#define POLY_KB1 0
+#endif
+#ifndef POLY_KB2
+#define POLY_KB2 0
+#endif
+
 namespace collide2d {
 
-// The build's K bucket for a polygon of k vertices, 0 if none carries it.
+// The K bucket of a polygon of k vertices: 4, 8 or 16 up to 16, else the
+// next power of two (ops/polygon_cuda.py::k_bucket); 0 for k < 1.
 inline int k_bucket(int k) {
   if (k < 1) return 0;
   if (k <= 4) return 4;
   if (k <= 8) return 8;
   if (k <= 16) return 16;
-  return 0;
+  int b = 32;
+  while (b < k) b *= 2;
+  return b;
+}
+
+// Whether this build carries the bucket pair of (k1, k2).
+inline bool build_carries(int k1, int k2) {
+  const int b1 = k_bucket(k1), b2 = k_bucket(k2);
+  if (POLY_KB1 != 0) return b1 == POLY_KB1 && b2 == POLY_KB2;
+  return b1 != 0 && b2 != 0 && b1 <= 16 && b2 <= 16;
 }
 
 // Vertices 0..k-1 of pair p from the float32 planes of `src`; slots

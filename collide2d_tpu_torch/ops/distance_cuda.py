@@ -17,10 +17,12 @@ boxes are the (6, 8, M) SoA of `sat_cuda.pack_obbs` (cx, cy, cos, sin,
 
 The ``*_cuda_t`` functions take packed batches and route on their device:
 a CUDA tensor launches ``csrc/distance_kernel.cu`` (built at first use by
-`utils.cuda_build`) and counts the launch in ``LAUNCHES[name]``; a failed
-build or launch raises; a CPU tensor runs the plain version. The kernels
-have no backward: inputs that require grad raise (the differentiable path
-is `ops.distance`, ``impl='torch'`` on the models).
+`utils.cuda_build`; k-gons above 16 vertices in the library of their
+bucket pair, `polygon_cuda.kernel_defines`) and counts the launch in
+``LAUNCHES[name]``; a failed build or launch raises; a CPU tensor runs the
+plain version. The kernels have no backward: inputs that require grad
+raise (the differentiable path is `ops.distance`, ``impl='torch'`` on the
+models).
 `polygon_distance_passes` runs kernel 9 through the library's build that
 counts the pairs its passes take (every axis; the segment tests).
 
@@ -39,7 +41,6 @@ from collide2d_tpu_torch.ops import polygon_cuda, sat_cuda
 
 LANE_BLOCK = sat_cuda.LANE_BLOCK  # boxes: the M % block contract of pack_obbs
 POLY_LANE_BLOCK = polygon_cuda.LANE_BLOCK
-MAX_K = polygon_cuda.MAX_K
 _KERNEL = "distance_kernel"
 # Launches of each CUDA kernel in this process (never the plain versions).
 LAUNCHES = {"obb_distance": 0, "polygon_distance": 0}
@@ -113,10 +114,13 @@ def obb_distance_plain(b1t: torch.Tensor, b2t: torch.Tensor,
                                     b2t[2], b2t[3], b2t[4], b2t[5])
 
 
-def distance_defines(count: bool = False) -> tuple[tuple[str, int], ...]:
-    """The ``-D`` defines of the library: ``count`` builds the variant that
-    counts kernel 9's pairs through each pass (`polygon_distance_passes`)."""
-    return (("POLYDIST_COUNT", 1),) if count else ()
+def distance_defines(count: bool = False, k1: int = 4,
+                     k2: int = 4) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines of the library that carries kernel 9 at (k1, k2)
+    (`polygon_cuda.kernel_defines`; the default build at K <= 16):
+    ``count`` builds the variant that counts kernel 9's pairs through each
+    pass (`polygon_distance_passes`)."""
+    return ((("POLYDIST_COUNT", 1),) if count else ()) + polygon_cuda.kernel_defines(k1, k2)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -133,10 +137,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _kernel_lib(count: bool = False) -> ctypes.CDLL:
+def _kernel_lib(count: bool = False, k1: int = 4, k2: int = 4) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    return bind(cuda_build.load(_KERNEL, distance_defines(count)))
+    return bind(cuda_build.load(_KERNEL, distance_defines(count, k1, k2)))
 
 
 def _launched(name: str, err: int) -> None:
@@ -184,8 +188,9 @@ def rect_distance_cuda(c1, ext1, th1, c2, ext2, th2, *,
 
 def _padded_columns(pt: torch.Tensor, k: int):
     """The x and y rows of a packed (2k, 8, M) batch, each padded to the
-    kernel's K bucket by repeating row k-1: two (K, 8, M) tensors."""
-    kb = 4 if k <= 4 else 8 if k <= 8 else MAX_K
+    kernel's K bucket (`polygon_cuda.k_bucket`) by repeating row k-1: two
+    (K, 8, M) tensors."""
+    kb = polygon_cuda.k_bucket(k)
     x, y = pt[:k], pt[k:]
     if kb > k:
         x = torch.cat([x, x[k - 1:k].expand(kb - k, *x.shape[1:])])
@@ -257,8 +262,6 @@ def check_polygons(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int,
         raise ValueError(f"unsupported device {p1t.device}")
     if p1t.shape[2] % block:
         raise ValueError(f"M={p1t.shape[2]} must be a multiple of block={block}")
-    if max(k1, k2) > MAX_K:
-        raise ValueError(f"the kernel takes K1, K2 <= {MAX_K}, got {k1} and {k2}")
     if not (p1t.is_contiguous() and p2t.is_contiguous()):
         raise ValueError("packed inputs must be contiguous")
 
@@ -288,7 +291,7 @@ def _polygon_distance(p1t, p2t, k1, k2, block, counts):
         return polygon_distance_plain(p1t, p2t, k1, k2).reshape(-1)
     n = p1t.shape[1] * p1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
-    lib = _kernel_lib(counts is not None)
+    lib = _kernel_lib(counts is not None, k1, k2)
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(p1t.device):
         _launched("polygon_distance", lib.polygon_distance_launch(

@@ -10,8 +10,9 @@ needs no masks inside the test (see `ops.sat.sat_polygons`).
 `sat_polygons_cuda_t` takes packed batches and routes on their device:
 
 - a CUDA tensor launches ``csrc/polygon_kernel.cu`` (built at first use by
-  `utils.cuda_build`) and counts the launch in ``LAUNCHES``; a K above
-  `MAX_K`, a failed build or a failed launch raises;
+  `utils.cuda_build`: one library for the K buckets 4, 8 and 16, and one
+  for each pair of buckets above 16, `kernel_defines`) and counts the
+  launch in ``LAUNCHES``; a failed build or a failed launch raises;
 - a CPU tensor runs `sat_polygons_plain`: the same test in torch
   operations on the same packed rows (`ops.sat.polygon_columns_collide`),
   each product and sum rounded on its own.
@@ -32,7 +33,7 @@ import torch
 from collide2d_tpu_torch.ops.sat import polygon_columns_collide
 
 LANE_BLOCK = 512  # lanes per block of the TPU grid; kept for the M % block contract
-MAX_K = 16  # the largest K of either polygon the kernel build carries
+REGISTER_BUCKETS = (4, 8, 16)  # the K buckets of the default build
 _KERNEL = "polygon_kernel"
 _DTYPES = (torch.float32, torch.bfloat16)
 # Launches of the CUDA kernel in this process (never the plain version).
@@ -42,6 +43,29 @@ LAUNCHES = 0
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def k_bucket(k: int) -> int:
+    """The K a polygon of ``k`` vertices is padded to inside the kernels
+    6, 9 and 10: 4, 8 or 16 up to 16, else the next power of two
+    (``csrc/polygon_soa.cuh::k_bucket``)."""
+    if k < 1:
+        raise ValueError(f"a polygon needs at least one vertex, got k={k}")
+    for b in REGISTER_BUCKETS:
+        if k <= b:
+            return b
+    return 1 << (k - 1).bit_length()
+
+
+def kernel_defines(k1: int, k2: int) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines of the library of kernels 6, 9 and 10 that
+    carries the bucket pair of (k1, k2): none for the default build (every
+    pair of 4, 8 and 16), else ``POLY_KB1`` / ``POLY_KB2`` (a build for
+    that one pair, compiled at its first use)."""
+    b1, b2 = k_bucket(k1), k_bucket(k2)
+    if max(b1, b2) <= REGISTER_BUCKETS[-1]:
+        return ()
+    return (("POLY_KB1", b1), ("POLY_KB2", b2))
 
 
 def pad_polygons(p: torch.Tensor, k: int) -> torch.Tensor:
@@ -127,10 +151,10 @@ def _check(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int) -> None:
         raise ValueError(f"M={p1t.shape[2]} must be a multiple of block={LANE_BLOCK}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
+def _kernel_lib(k1: int, k2: int) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_KERNEL)
+    lib = cuda_build.load(_KERNEL, kernel_defines(k1, k2))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.polygon_sat_launch.restype = ctypes.c_int
     lib.polygon_sat_launch.argtypes = [p, p, p, ll, i, i, i, p]
@@ -146,15 +170,13 @@ def sat_polygons_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
     _check(p1t, p2t, k1, k2)
     if p1t.device.type == "cpu":
         return sat_polygons_plain(p1t, p2t, k1, k2).reshape(-1).to(torch.float32)
-    if max(k1, k2) > MAX_K:
-        raise ValueError(f"the kernel takes K1, K2 <= {MAX_K}, got {k1} and {k2}")
     if not (p1t.is_contiguous() and p2t.is_contiguous()):
         raise ValueError("packed inputs must be contiguous")
     n = p1t.shape[1] * p1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
     if n == 0:
         return out
-    lib = _kernel_lib()
+    lib = _kernel_lib(k1, k2)
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(p1t.device):
         err = lib.polygon_sat_launch(

@@ -20,8 +20,7 @@ test is kernel 6 (`ops.polygon_cuda`) and the manifolds kernel 10
 (`ops.manifold_cuda`); on CPU tensors they are `ops.sat.sat_polygons` and
 `ops.manifold.polygon_contact_manifold`. Kernel 6 is bitwise
 `sat_polygons`, so the matrix and both pair lists are bitwise the JAX
-package's on either device. A ``k`` above `polygon_cuda.MAX_K` on a CUDA
-tensor raises.
+package's on either device, at any ``k``.
 
 Padding follows `sat.sat_polygons` (repeat-last or a per-shape ``mask``).
 Indices are int64 inside and int32 out.
@@ -45,9 +44,6 @@ def _prepare(polys, mask) -> torch.Tensor:
     p = _normalize_padding(torch.as_tensor(polys, dtype=torch.float32), mask)
     if p.dim() != 3 or p.shape[-1] != 2:
         raise ValueError(f"polys must be (N, k, 2), got {tuple(p.shape)}")
-    if _on_card(p) and p.shape[1] > polygon_cuda.MAX_K:
-        raise ValueError(f"kernel 6 takes k <= {polygon_cuda.MAX_K}, got "
-                         f"{p.shape[1]}; run the scene on CPU tensors")
     return p
 
 

@@ -296,10 +296,14 @@ def test_cpu_tensors_never_launch_and_grad_raises():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    a = tpc.pack_polygons(torch.zeros((4096, 17, 2)))
-    b = tpc.pack_polygons(torch.zeros((4096, 4, 2)))
-    with pytest.raises(ValueError, match="K1, K2 <= 16"):
-        tdc.polygon_distance_cuda_t(a, b, k1=17, k2=4)
+    # k = 17 is taken (the K = 32 bucket) and equals the jnp path
+    rng = np.random.default_rng(17)
+    p1, p2 = polygons(rng, 4096, 17), polygons(rng, 4096, 4)
+    a, b = tpc.pack_polygons(torch.from_numpy(p1)), tpc.pack_polygons(torch.from_numpy(p2))
+    got = tdc.polygon_distance_cuda_t(a, b, k1=17, k2=4).numpy()
+    np.testing.assert_allclose(got, np.asarray(jit(jd.polygon_signed_distance)(*_j(p1, p2))),
+                               rtol=0, atol=KERNEL_ATOL)
+    assert (got < 0).any() and (got > 0).any()
     with pytest.raises(ValueError, match="float32"):
         tdc.polygon_distance_cuda_t(a.bfloat16(), b.bfloat16(), k1=17, k2=4)
     box = tsc.pack_obbs(torch.zeros((8192, 2)), torch.ones((8192, 2)), torch.zeros(8192))

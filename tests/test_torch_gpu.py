@@ -266,13 +266,37 @@ def test_polygon_kernel_matches_plain(cuda, k1, k2, bf16):
     assert 0 < int(want.sum()) < n
 
 
-def test_polygon_kernel_refuses_k_above_16(cuda):
-    a = polygon_cuda.pack_polygons(torch.zeros((4096, 17, 2), device=cuda))
-    b = polygon_cuda.pack_polygons(torch.zeros((4096, 4, 2), device=cuda))
-    before = polygon_cuda.LAUNCHES
-    with pytest.raises(ValueError, match="K1, K2 <= 16"):
-        polygon_cuda.sat_polygons_cuda_t(a, b, k1=17, k2=4)
-    assert polygon_cuda.LAUNCHES == before
+# Above 16 vertices kernels 6, 9 and 10 pad to the next power of two, each
+# pair of buckets a library of its own built at first use: bitwise their
+# plain versions (which pad to the same bucket) as below 16.
+@pytest.mark.parametrize("k1,k2", [(17, 4), (4, 17), (4, 20), (20, 20), (4, 32),
+                                   (32, 32)])
+def test_polygon_kernels_take_k_above_16(cuda, k1, k2):
+    n = 1 << 16
+    rng = np.random.default_rng(k1 * 101 + k2)
+    p1, p2 = _polygons(rng, n, k1, cuda), _polygons(rng, n, k2, cuda)
+    a, b = polygon_cuda.pack_polygons(p1), polygon_cuda.pack_polygons(p2)
+    before = (polygon_cuda.LAUNCHES, distance_cuda.LAUNCHES["polygon_distance"],
+              manifold_cuda.LAUNCHES)
+    label = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
+    label_bf16 = polygon_cuda.sat_polygons_cuda_t(a.bfloat16(), b.bfloat16(), k1=k1, k2=k2)
+    dist = distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2)
+    man = manifold_cuda.polygon_manifold_cuda_t(a, b, k1=k1, k2=k2, margin=0.05)
+    torch.cuda.synchronize()
+    assert (polygon_cuda.LAUNCHES, distance_cuda.LAUNCHES["polygon_distance"],
+            manifold_cuda.LAUNCHES) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    assert torch.equal(label, polygon_cuda.sat_polygons_plain(a, b, k1, k2).reshape(-1).float())
+    assert torch.equal(label_bf16, polygon_cuda.sat_polygons_plain(
+        a.bfloat16(), b.bfloat16(), k1, k2).reshape(-1).float())
+    assert torch.equal(dist, distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1))
+    assert torch.equal(dist <= 0, label > 0)
+    differ, err = _manifold_agreement(
+        man, manifold_cuda.polygon_manifold_plain(a, b, k1, k2, 0.05))
+    assert differ <= 1e-5 * n and err <= 2e-5
+    assert 0 < float(label.mean()) < 1
+    # the drop-in the models call pads N and takes the same library
+    assert torch.equal(polygon_cuda.sat_polygons_cuda(p1[:1000], p2[:1000]),
+                       label[:1000].to(torch.int32))
 
 
 def test_polygon_models_launch_the_kernel(cuda):
@@ -1103,8 +1127,38 @@ def test_scene_functions_on_cuda_match_cpu(cuda):
     assert float((points - want[3][:c]).abs().amax(-1)[valid].max()) <= 1e-4
     assert float((depths - want[4][:c]).abs()[valid].max()) <= 1e-4
     assert float((normal - want[5][:c]).abs().max()) <= 2e-5
-    with pytest.raises(ValueError, match="CPU"):
-        scene.scene_collision_matrix(torch.zeros((4, 17, 2), device=cuda))
+    # k = 20 (the K = 32 bucket): the matrix is `ops.sat.sat_polygons` on
+    # every pair (the CPU route's dense tiles, like JAX's, refuse k1 + k2 >
+    # 32 on a broadcast tile), the swept lists and manifolds the CPU's
+    from collide2d_tpu_torch.ops.sat import sat_polygons
+
+    polys = _polygons(rng, 200, 20, cuda, spread=12.0)
+    host = polys.cpu()
+    polygon_cuda.reset_launches()
+    manifold_cuda.reset_launches()
+    m = scene.scene_collision_matrix(polys, row_tile=37).cpu()
+    i, j = torch.meshgrid(torch.arange(200), torch.arange(200), indexing="ij")
+    want_m = (sat_polygons(host[i.reshape(-1)], host[j.reshape(-1)]) == 1).reshape(200, 200)
+    want_m.fill_diagonal_(False)
+    assert torch.equal(m, want_m) and 0 < int(m.sum())
+    pairs, count, _ = scene.scene_colliding_pairs(polys, capacity=2048)
+    assert torch.equal(pairs[: int(count)].cpu(), torch.nonzero(torch.triu(want_m)).int())
+    kw = dict(capacity=2048, window=199)
+    got = scene.scene_colliding_pairs_swept(polys, **kw)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(got, scene.scene_colliding_pairs_swept(host, **kw)))
+    got = scene.scene_contact_manifolds(polys, broad_phase="swept", **kw)
+    want = scene.scene_contact_manifolds(host, broad_phase="swept", **kw)
+    torch.cuda.synchronize()
+    assert polygon_cuda.LAUNCHES > 0 and manifold_cuda.LAUNCHES > 0
+    c = int(want[1])
+    assert int(got[1]) == c > 0
+    count, points, depths, normal = (a.cpu()[:c] for a in got[2:6])
+    assert int((count != want[2][:c]).sum()) <= 1e-5 * c
+    valid = torch.arange(2)[None] < want[2][:c, None]
+    assert float((points - want[3][:c]).abs().amax(-1)[valid].max()) <= 1e-4
+    assert float((depths - want[4][:c]).abs()[valid].max()) <= 1e-4
+    assert float((normal - want[5][:c]).abs().max()) <= 2e-5
 
 
 def _stream_tolerance(a: torch.Tensor, b: torch.Tensor, s: float) -> float:

@@ -234,10 +234,14 @@ def test_cpu_tensors_never_launch_and_grad_raises():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    a = tpc.pack_polygons(torch.zeros((4096, 17, 2)))
-    b = tpc.pack_polygons(torch.zeros((4096, 4, 2)))
-    with pytest.raises(ValueError, match="K1, K2 <= 16"):
-        tmc.polygon_manifold_cuda_t(a, b, k1=17, k2=4)
+    # k = 17 is taken (the K = 32 bucket) and equals the jnp path
+    rng = np.random.default_rng(17)
+    p1, p2 = polygons(rng, 4096, 17), polygons(rng, 4096, 4)
+    a, b = tpc.pack_polygons(torch.from_numpy(p1)), tpc.pack_polygons(torch.from_numpy(p2))
+    out = tmc.polygon_manifold_cuda_t(a, b, k1=17, k2=4)
+    want = jit(jmf.polygon_contact_manifold)(*(jnp.asarray(x) for x in (p1, p2)))
+    assert_manifolds_agree(tmc.unpack_manifold(out, 4096), want, KERNEL_ATOL)
+    assert (np.asarray(want[0]) == 2).any()
     with pytest.raises(ValueError, match="must be"):
         tmc.polygon_manifold_cuda_t(a, b, k1=16, k2=4)
     with pytest.raises(ValueError, match="float32"):

@@ -9,7 +9,8 @@ away, CUDA's rounded intrinsics as plain float operations under
 the kernel drives a pair: a pair the early test settles takes ``sqrt(d2)``
 alone, any other its gap first and ``sqrt(d2)`` only when the gap is not
 below 0. Held to ``ops/distance_cuda.py::polygon_distance_plain`` bit for
-bit at every (K1, K2) bucket pair of 4, 8 and 16 and at vertex counts that
+bit at every (K1, K2) bucket pair of 4, 8 and 16, at buckets above 16 (32
+and 64, which a card builds one pair at a time) and at vertex counts that
 pad (zero-length edges), on batches that mix overlapping and separated
 pairs, that all overlap and that are all separated; every pair the early
 test settles must have a gap that is not below 0, and the test must settle
@@ -107,6 +108,8 @@ static int by_k2(int k2, FILE* in, FILE* out) {
     case 4: return run<K1, 4>(in, out);
     case 8: return run<K1, 8>(in, out);
     case 16: return run<K1, 16>(in, out);
+    case 32: return run<K1, 32>(in, out);
+    case 64: return run<K1, 64>(in, out);
   }
   return 2;
 }
@@ -122,6 +125,7 @@ int main(int argc, char** argv) {
     case 4: rc = by_k2<4>(k2, in, out); break;
     case 8: rc = by_k2<8>(k2, in, out); break;
     case 16: rc = by_k2<16>(k2, in, out); break;
+    case 32: rc = by_k2<32>(k2, in, out); break;
   }
   fclose(in);
   fclose(out);
@@ -143,10 +147,6 @@ def pair_program(tmp_path_factory):
                     str(cuda_build.CSRC_DIR), "-o", str(exe), str(src)], check=True,
                    capture_output=True, timeout=300)
     return exe
-
-
-def _bucket(k: int) -> int:
-    return 4 if k <= 4 else 8 if k <= 8 else 16
 
 
 def _polygons(rng, n, k, side):
@@ -176,7 +176,8 @@ def _run(program, tmp_path, a, b):
     differ from IEEE's by an ulp): the header's scales take them from a
     table of torch's roots of the edges' |normal|^2, and the distance of a
     separated pair is torch's root of the header's d2."""
-    n, k1, k2 = a.shape[0], _bucket(a.shape[1]), _bucket(b.shape[1])
+    n, k1, k2 = (a.shape[0], polygon_cuda.k_bucket(a.shape[1]),
+                 polygon_cuda.k_bucket(b.shape[1]))
     pa = polygon_cuda.pad_polygons(torch.from_numpy(a), k1)
     pb = polygon_cuda.pad_polygons(torch.from_numpy(b), k2)
     keys = torch.unique(torch.cat([_edge_norms(pa).reshape(-1), _edge_norms(pb).reshape(-1),
@@ -211,7 +212,8 @@ def _plain(a, b):
 
 
 @pytest.mark.parametrize("k1,k2", [(4, 4), (4, 8), (4, 16), (8, 4), (8, 8), (8, 16),
-                                   (16, 4), (16, 8), (16, 16), (3, 5), (6, 12), (8, 13)])
+                                   (16, 4), (16, 8), (16, 16), (3, 5), (6, 12), (8, 13),
+                                   (4, 20), (4, 32), (4, 64), (20, 20), (32, 32)])
 def test_pairs_are_the_plain_distance_bit_for_bit(pair_program, tmp_path, k1, k2):
     rng = np.random.default_rng(100 * k1 + k2)
     n = 3001

@@ -211,8 +211,32 @@ def test_card_route_matches_jax(card_route):
         _assert_equal(ts.scene_colliding_pairs_swept(tp, capacity=cap, window=window),
                       js.scene_colliding_pairs_swept(jnp.asarray(p), capacity=cap,
                                                      window=window))
-    with pytest.raises(ValueError, match="k <= 16"):
-        ts.scene_collision_matrix(torch.zeros((4, 17, 2)))
+    # k above 16: kernel 6 pads to the K = 32 bucket. JAX's dense queries
+    # stack both polygons' edge normals on a broadcast tile, which its jnp
+    # `sat_polygons` refuses at k1 + k2 > 32, so the matrix and the dense
+    # list are held to JAX's `sat_polygons` on every pair (tests/test_scene.py's
+    # oracle) and the swept list to JAX's
+    from collide2d_tpu.ops.sat import sat_polygons as j_sat_polygons
+    from tests.test_scene import _random_scene as j_random_scene
+
+    for kmax, n in ((17, 40), (20, 33)):
+        p = np.array(j_random_scene(np.random.default_rng(kmax), n=n, spread=4.0,
+                                    kmax=kmax))
+        tp = torch.from_numpy(p)
+        i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        want_m = np.array(j_sat_polygons(jnp.asarray(p[i.reshape(-1)]),
+                                         jnp.asarray(p[j.reshape(-1)]))).reshape(n, n) == 1
+        np.fill_diagonal(want_m, False)
+        got_m = ts.scene_collision_matrix(tp, row_tile=7).numpy()
+        np.testing.assert_array_equal(got_m, want_m)
+        assert 0 < got_m.sum() < n * (n - 1)
+        pairs, count, overflow = ts.scene_colliding_pairs(tp, capacity=1024, row_tile=7)
+        want_pairs = np.argwhere(np.triu(want_m))
+        assert int(count) == len(want_pairs) and not bool(overflow)
+        np.testing.assert_array_equal(pairs[: int(count)].numpy(), want_pairs)
+        _assert_equal(ts.scene_colliding_pairs_swept(tp, capacity=1024, window=n - 1),
+                      js.scene_colliding_pairs_swept(jnp.asarray(p), capacity=1024,
+                                                     window=n - 1))
 
 
 def test_card_route_manifolds_match_jax(card_route):
@@ -227,4 +251,20 @@ def test_card_route_manifolds_match_jax(card_route):
     valid = np.arange(2)[None] < got[2][:c, None]
     for i, atol in ((3, 2e-5), (4, 2e-5)):
         np.testing.assert_allclose(got[i][:c][valid], want[i][:c][valid], rtol=0, atol=atol)
+    np.testing.assert_allclose(got[5][:c], want[5][:c], rtol=0, atol=2e-5)
+    # k = 20 (kernel 10 at the K = 32 bucket) after the swept broad phase,
+    # which JAX runs at any k
+    from tests.test_scene import _random_scene as j_random_scene
+
+    p = np.array(j_random_scene(np.random.default_rng(20), n=33, spread=4.0, kmax=20))
+    kw = dict(capacity=512, broad_phase="swept", window=32)
+    got = _np(ts.scene_contact_manifolds(torch.from_numpy(p), **kw))
+    want = _np(js.scene_contact_manifolds(jnp.asarray(p), **kw))
+    np.testing.assert_array_equal(got[0], want[0])
+    c = int(got[1])
+    assert c == want[1] >= 3 and not bool(got[6])
+    np.testing.assert_array_equal(got[2][:c], want[2][:c])
+    valid = np.arange(2)[None] < got[2][:c, None]
+    for i in (3, 4):
+        np.testing.assert_allclose(got[i][:c][valid], want[i][:c][valid], rtol=0, atol=2e-5)
     np.testing.assert_allclose(got[5][:c], want[5][:c], rtol=0, atol=2e-5)
