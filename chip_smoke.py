@@ -23,10 +23,13 @@ raises, and the script then exits non-zero without printing a result):
    library also in its build that counts kernel 9's passes; the Box-Muller
    builds (-DMC_BOX_MULLER=1) of kernels 1, 7 (k = 8 and 6) and 14 (k = 8),
    and kernel 14 at the bench's k = 6 (phase 17 and the bench); kernel 7 at
-   k = 20 (phase 26); and kernels 6, 9 and 10 at the K bucket pairs above 16
-   that phases 24 and 25 launch ((4, 32), (4, 64), (32, 32): one library
-   each, `polygon_cuda.kernel_defines`), with ptxas's registers and spill
-   bytes;
+   k = 20 (phase 26); and kernel 9 at the K bucket pairs above 16 that
+   phases 24 and 25 launch ((4, 32), (4, 64), (32, 32): one library each,
+   `polygon_cuda.kernel_defines`), with ptxas's registers and spill bytes;
+   kernels 6 and 10 take every K in their one library, and the line prints
+   ptxas's registers and spill bytes and the SASS instructions of their
+   functions above 16 vertices beside the earlier design's
+   (`PARENT_BIG_K_BUILDS`);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -292,16 +295,21 @@ raises, and the script then exits non-zero without printing a result):
    kernels 1, 7, 13, 14 and 15 a ``launches_by_path`` with this path
    beside their main one.
 24. k-gons above 16 vertices: kernels 6 (float32 and bfloat16 planes), 9
-   and 10 at 2^20 pairs of a 4-gon against 17-, 20-, 32- and 64-gons and of
-   32-gons against 32-gons (`_random_polygons`), each against its plain
-   version: labels bitwise, kernel 9 within 2e-5 with 0 signs apart (and
-   its sign kernel 6's label), kernel 10's counts apart on at most 1e-5 of
-   the pairs and values within 2e-5; every case timed (CUDA events, 20
-   launches after a warm-up) beside its plain version and bound, with the
-   card's name and power limit; the bucket pairs (4, 32) and (32, 32) are
-   entries of the kernels line (with ptxas's registers and spill bytes);
-25. the routes at k = 20, each bucket pair's launches counted from 0: a
-   4-gon robot (bucket pair (4, 32)) and a 20-gon robot ((32, 32)) against
+   and 10 at 2^20 pairs of a 4-gon against 17-, 20-, 32- and 64-gons, of
+   32-gons against 32-gons and of 20-gons against 20-gons
+   (`big_k_inputs`), each against its plain version: kernels 6 and 10
+   bitwise (every output ``torch.equal``), kernel 9 within 2e-5 with 0 signs
+   apart (and its sign kernel 6's label); the outputs of 6 and 10 against
+   the earlier design's rows (`PARENT_FINGERPRINTS`, `parent_rows_equal`);
+   every case timed (CUDA events, 20 launches after a warm-up) beside its
+   plain version and bound (kernels 6 and 10 at the true K, 9 at its
+   buckets), kernel 6 also beside its issue floor (`big_k_issue_floor`),
+   with the card's name and power limit; the entries of the kernels line
+   are kernels 6 and 10 at (4, 20) and (20, 20) and kernel 9 at the bucket
+   pairs (4, 32) and (32, 32), what phase 25's routes launch;
+25. the routes at k = 20, each route's launches counted from 0: a 4-gon
+   robot (kernels 6 and 10 at (4, 20), 9 at the bucket pair (4, 32)) and a
+   20-gon robot ((20, 20); 9 at (32, 32)) against
    2^20 `example_polygon_configs` 20-gons through
    `PolygonCollisionProbabilityModel.collide`, `CollisionProbabilityModel
    .collide_polygons`, ``distance(impl='auto')`` and ``contact_manifold``
@@ -311,7 +319,8 @@ raises, and the script then exits non-zero without printing a result):
    20-gons in a 40-side box: the matrix bitwise `ops.sat.sat_polygons` on
    every pair on the card, the swept pairs (window 512) the matrix's, the
    dense manifolds as phase 20's (`_scene_manifold_check`); kernels 6, 9
-   and 10 launched on both routes;
+   and 10 launched on both routes; the ms of each route's ``collide`` and
+   ``contact_manifold`` calls (CUDA events, 5 calls after a warm-up);
 26. kernel 7 at k = 20 against the 4-gon robot (its own library) against
    its plain version on the same Philox stream, 16,384 rows x 4,096
    samples: sum |dcount| <= 1e-5 of the samples; kernel ms, plain ms, bound;
@@ -504,8 +513,8 @@ def phase_build():
     # at the JAX bench's k = 6, phase 17 checks it)
     bm = normal_defines("box_muller")
     jobs = [(name, ()) for name in (
-        "mc_kernel", "sat_kernel", "polygon_kernel", "distance_kernel",
-        "manifold_kernel", "toi_kernel", "mc_toi_kernel", "stream_kernel")] + [
+        "mc_kernel", "sat_kernel", "distance_kernel", "toi_kernel", "mc_toi_kernel",
+        "stream_kernel")] + [
         ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2)),
         ("mc_polygon_kernel", shape_defines(6, 4, 2)),
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2)),
@@ -519,9 +528,9 @@ def phase_build():
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
         ("mc_moving_polygon_kernel", shape_defines(6, 4, 2)),
         ("mc_polygon_kernel", shape_defines(20, 4, 2))]  # phase 26
-    # kernels 6, 9 and 10 at the bucket pairs above 16 of phases 24 and 25,
-    # with ptxas's report (registers, spill bytes)
-    reported = big_k_builds()
+    # kernels 6 and 10 (every K in one library) and kernel 9 at the bucket
+    # pairs above 16 of phases 24 and 25, with ptxas's report
+    reported = [("polygon_kernel", ()), ("manifold_kernel", ())] + big_k_builds()
     with ThreadPoolExecutor(len(jobs) + len(reported)) as pool:
         big = [pool.submit(_build_reported, *job) for job in reported]
         libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
@@ -529,11 +538,13 @@ def phase_build():
     jobs += reported
     for job in jobs:
         cuda_build.load(*job)
+    above_16 = {f"{d[0][1]}x{d[1][1]}": _ptxas(name, d, "polygon_distance")
+                for name, d in big_k_builds()}
     _line("1 build", time.monotonic() - t,
           kernels=",".join(f"{name}.cu" + "".join(f":{v}" for _, v in defs)
                            for name, defs in jobs),
           libraries=",".join(lib.name for lib in libs),
-          above_16=_json({f"{k[0]}:{k[1]}x{k[2]}": v for k, v in BIG_K_PTXAS.items()}))
+          above_16_kernel9=_json(above_16), above_16_kernels_6_10=_json(big_k_report()))
 
 
 def _rect_mc_params(c: int, shape_noise: bool) -> torch.Tensor:
@@ -1790,13 +1801,19 @@ def polygon_distance_ops_evaluated(k1: int, k2: int, pairs: int, undecided: int,
 
 
 def manifold_ops(k1: int, k2: int) -> int:
-    """csrc/manifold_kernel.cu at the K buckets: each face of one body
-    against the other's KO vertices 15 + 4 KO (normal, 1/|n|, offset, KO
-    projections of 3 and mins, separation, select, compare); the reference
-    bias 4; each incident face 13; the two clips, the depths and the filter
-    67."""
-    k1, k2 = _bucket(k1), _bucket(k2)
-    return k1 * (15 + 4 * k2) + k2 * (15 + 4 * k1) + 4 + 13 * max(k1, k2) + 67
+    """csrc/manifold_kernel.cu at the K buckets up to 16 vertices, at the
+    true K above (csrc/polygon_big_k.cuh): each face of one body against the
+    other's KO vertices 15 + 4 KO (normal, 1/|n|, offset, KO projections of 3
+    and mins, separation, select, compare); the reference bias 4; each
+    incident face 13 (up to 16, over the common bucket max(K1, K2); above,
+    over the incident body's faces, counted at the smaller K: at least what
+    the pairs need); the two clips, the depths and the filter 67."""
+    if max(k1, k2) <= 16:
+        k1, k2 = _bucket(k1), _bucket(k2)
+        incident = max(k1, k2)
+    else:
+        incident = min(k1, k2)
+    return k1 * (15 + 4 * k2) + k2 * (15 + 4 * k1) + 4 + 13 * incident + 67
 
 
 def _compare(fn, plain, reps: int = 20):
@@ -2807,6 +2824,46 @@ PARENT_FINGERPRINTS.update({
 })
 
 
+# The earlier design of kernels 6 and 10 above 16 vertices (a library for
+# each pair of K buckets, the body unrolled over the buckets): ptxas's
+# registers and spill-store bytes and the SASS instructions of each bucket
+# pair's float32 function, as utils/query_ab.py read them from the earlier
+# sources' builds on an NVIDIA H100 80GB HBM3 (phase 1 prints them beside
+# the run-time-K functions').
+PARENT_BIG_K_BUILDS = {
+    "sat_polygons": {"4x32": dict(registers=94, spill_stores=0, sass=7167),
+                     "32x32": dict(registers=168, spill_stores=0, sass=21702),
+                     "4x64": dict(registers=167, spill_stores=0, sass=24414)},
+    "polygon_manifold": {"4x32": dict(registers=205, spill_stores=0, sass=5626),
+                         "32x32": dict(registers=160, spill_stores=0, sass=14725),
+                         "4x64": dict(registers=255, spill_stores=824, sass=11152)},
+}
+
+# Kernels 6 (labels, float32 and bfloat16 planes) and 10 (margin 0) above
+# 16 vertices in the earlier design (a library for each pair of K buckets)
+# on phase 24's inputs (`big_k_inputs`), as utils/query_ab.py read them on
+# an NVIDIA H100 80GB HBM3 from the earlier sources' builds.
+PARENT_FINGERPRINTS.update({
+    "big_k_4x17": [[329483919818752, 1640757966741176320],
+                   [329561690603520, 1641228327643512832],
+                   [-782761526561883, -3914664952651500938]],
+    "big_k_4x20": [[333896612839424, 1661828265897099264],
+                   [334023389872128, 1662498184502444032],
+                   [-750063819967205, -3743491299431443230]],
+    "big_k_4x32": [[339419403911168, 1691019588554194944],
+                   [339500370755584, 1691445551926607872],
+                   [-699624905204249, -3484234034538074998]],
+    "big_k_4x64": [[342456725929984, 1705410294567665664],
+                   [342636770623488, 1706228828881289216],
+                   [-658841336284128, -3306533953886626280]],
+    "big_k_32x32": [[461941415870464, 2301244876483723264],
+                    [462112937738240, 2302085115238416384],
+                    [-39235053761605, -191368695126953906]],
+    "big_k_20x20": [[449318045614080, 2235590648944132096],
+                    [449388358926336, 2235935721112207360],
+                    [-114840416382766, -578808021985297786]],
+})
+
 def screen_inputs():
     """Phase 18's inputs on the card, at the JAX bench's step: draws z
     (8,192, 512, 5) and the rotating rows' params (8,192, 16)."""
@@ -3205,20 +3262,31 @@ def phase_scene_swept() -> None:
 
 
 BIG_K_PAIRS = 1 << 20
-# Phase 24's (K1, K2): a 4-gon against 17-, 20-, 32- and 64-gons (the bucket
-# pairs (4, 32) and (4, 64)) and 32-gons against 32-gons; every case is
-# timed, and the kernels line carries the bucket pairs of `BIG_K_ENTRIES`
-# (the ones phase 25's routes at k = 20 launch).
-BIG_K_CASES = ((4, 17), (4, 20), (4, 32), (4, 64), (32, 32))
-BIG_K_ENTRIES = ((4, 32), (32, 32))
+# Phase 24's (K1, K2): a 4-gon against 17-, 20-, 32- and 64-gons (kernel 9's
+# bucket pairs (4, 32) and (4, 64)), 32-gons against 32-gons and 20-gons
+# against 20-gons (the k = 20 routes' shape); every case is timed.
+BIG_K_CASES = ((4, 17), (4, 20), (4, 32), (4, 64), (32, 32), (20, 20))
 BIG_K_ROWS = 1 << 20  # phase 25's model rows at k = 20
 # (kernels line name, library, the TPU kernel it replaces)
 BIG_K_KERNELS = (("sat_polygons", "polygon_kernel", "polygon_pallas.py:92"),
                  ("polygon_distance", "distance_kernel", "distance_pallas.py:229"),
                  ("polygon_manifold", "manifold_kernel", "manifold_pallas.py:181"))
-# ptxas's registers and spill bytes of each big-bucket build (phase 1),
-# by (library, K1 bucket, K2 bucket)
-BIG_K_PTXAS: dict = {}
+# Kernels 6 and 10 run above 16 vertices at the true K (one library for every
+# K), kernel 9 at its K buckets (a library per bucket pair)
+RUN_TIME_K = ("sat_polygons", "polygon_manifold")
+# Phase 25's routes: the 4-gon and the 20-gon robot against 20-gons, as
+# (K1, K2) and kernel 9's bucket pair; the kernels line's entries above 16
+# are kernels 6 and 10 at the first, 9 at the second (`_big_k_key`)
+BIG_K_ROUTES = (((4, 20), (4, 32)), ((20, 20), (32, 32)))
+# ptxas's report of the builds phase 1 reads it for, by (library, defines):
+# the kernels' registers, stack and spill bytes, and the nvcc seconds
+BUILD_PTXAS: dict = {}
+# The functions of kernels 6 and 10 above 16 vertices: phase 1 prints their
+# ptxas report and SASS instructions (the tiled float32 instantiations, what
+# phase 24's cases run)
+BIG_K_FUNCTIONS = {"sat_polygons": ("polygon_kernel", "polygon_sat_big_k_kernelIfLi128EE"),
+                   "polygon_manifold": ("manifold_kernel",
+                                        "polygon_manifold_big_k_kernelILi128EE")}
 # Phase 26: kernel 7 at K = 20 against the 4-gon robot (2 kept axes)
 K20_MC_ROWS, K20_MC_SAMPLES = 16_384, 4096
 # Phase 27: the torch examples, and what the JAX files print for their
@@ -3239,51 +3307,89 @@ CONTACT_LABELS, CONTACT_SCENE_PAIRS, CONTACT_RAY_SHAPE = [1, 0, 0], 49, 15
 
 
 def big_k_builds() -> list:
-    """The libraries of kernels 6, 9 and 10 at the bucket pairs phases 24
-    and 25 launch: (library, defines)."""
+    """Kernel 9's libraries at the bucket pairs phases 24 and 25 launch
+    (kernels 6 and 10 take every K in their default library): (library,
+    defines)."""
     from collide2d_tpu_torch.ops.polygon_cuda import kernel_defines
 
-    return [(lib, kernel_defines(k1, k2)) for _, lib, _ in BIG_K_KERNELS
-            for k1, k2 in ((4, 32), (4, 64), (32, 32))]
+    return [("distance_kernel", kernel_defines(k1, k2)) for k1, k2 in ((4, 32), (4, 64), (32, 32))]
 
 
 def _build_reported(name: str, defines) -> Path:
     """Build ``csrc/<name>.cu`` with ``defines`` where `cuda_build.load`
     looks for it, with ptxas's report (the -Xptxas -v flag does not change
-    the binary) kept in `BIG_K_PTXAS`."""
-    from collide2d_tpu_torch.utils import cuda_build
-    from collide2d_tpu_torch.utils.mc_ab import _nvcc_report
+    the binary) kept in `BUILD_PTXAS`."""
+    from collide2d_tpu_torch.utils import ab, cuda_build
 
     lib = cuda_build.library_path(name, defines)
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.so")
         t = time.monotonic()
-        report = _nvcc_report(cuda_build.CSRC_DIR / f"{name}.cu", defines, tmp)
+        report = ab.nvcc_report(cuda_build.CSRC_DIR / f"{name}.cu", defines, tmp)
         os.replace(tmp, lib)
-        d = dict(defines)
-        # the k-gon kernel's float32 instantiation (kernel 6 also builds a
-        # bfloat16 one, the distance library kernel 8)
-        fn = next(v for k, v in sorted(report.items())
-                  if "polygon_" in k and "bfloat16" not in k)
-        BIG_K_PTXAS[(name, d["POLY_KB1"], d["POLY_KB2"])] = dict(
-            fn, build_s=round(time.monotonic() - t, 1))
+        BUILD_PTXAS[(name, tuple(defines))] = dict(functions=report,
+                                                   build_s=round(time.monotonic() - t, 1))
     return lib
+
+
+def _ptxas(name: str, defines, function: str) -> dict:
+    """ptxas's report of the function whose mangled name holds ``function``
+    in a build of phase 1, with the build's nvcc seconds ({} where the
+    library was built before this run)."""
+    build = BUILD_PTXAS.get((name, tuple(defines)))
+    if build is None:
+        return {}
+    return dict(next(v for k, v in sorted(build["functions"].items()) if function in k),
+                build_s=build["build_s"])
+
+
+def big_k_report() -> dict:
+    """Phase 1's report of kernels 6 and 10 above 16 vertices: each
+    function's ptxas registers, stack and spill bytes and SASS
+    instructions, beside the earlier design's (`PARENT_BIG_K_BUILDS`)."""
+    from collide2d_tpu_torch.utils import cuda_build
+
+    out = {}
+    for name, (lib, function) in BIG_K_FUNCTIONS.items():
+        ins = _sass_function(cuda_build.library_path(lib), function)
+        out[name] = dict(_ptxas(lib, (), function), sass=len(ins),
+                         parent=PARENT_BIG_K_BUILDS[name])
+    return out
+
+
+def big_k_inputs():
+    """Phase 24's cases in order, from one generator: (k1, k2, a, b) with
+    ``a``, ``b`` the packed float32 (2 k, 8, M) planes of `BIG_K_PAIRS`
+    pairs of `_random_polygons` on the card."""
+    from collide2d_tpu_torch.ops import polygon_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for k1, k2 in BIG_K_CASES:
+        a = polygon_cuda.pack_polygons(_random_polygons(g, BIG_K_PAIRS, k1, 3.0))
+        b = polygon_cuda.pack_polygons(_random_polygons(g, BIG_K_PAIRS, k2, 3.0))
+        yield k1, k2, a, b
+
+
+def _big_k_key(name: str, k1: int, k2: int):
+    """The kernels line's key of a case: (K1, K2) for kernels 6 and 10,
+    kernel 9's bucket pair."""
+    return (k1, k2) if name in RUN_TIME_K else (_bucket(k1), _bucket(k2))
 
 
 def phase_big_k(card: str) -> dict:
     """Phase 24: kernels 6, 9 and 10 above 16 vertices against their plain
-    versions at 2^20 pairs; returns the kernels line's entries of
-    `BIG_K_ENTRIES` by (name, (K1, K2)) (phase 25 adds their launches)."""
+    versions at 2^20 pairs; returns the kernels line's entries by (name,
+    `_big_k_key`) for phase 25's routes (phase 25 adds their launches)."""
     from collide2d_tpu_torch.ops import distance_cuda, manifold_cuda, polygon_cuda
+    from collide2d_tpu_torch.utils import cuda_build
 
-    g = torch.Generator(device="cuda").manual_seed(24)
     n = BIG_K_PAIRS
+    route_keys = {(name, _big_k_key(name, *shape)) for name, _, _ in BIG_K_KERNELS
+                  for shape, _ in BIG_K_ROUTES}
     entries = {}
-    for k1, k2 in BIG_K_CASES:
+    for k1, k2, a, b in big_k_inputs():
         t = time.monotonic()
-        a = polygon_cuda.pack_polygons(_random_polygons(g, n, k1, 3.0))
-        b = polygon_cuda.pack_polygons(_random_polygons(g, n, k2, 3.0))
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         calls = {
             "sat_polygons": (lambda: polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2),
@@ -3308,30 +3414,49 @@ def phase_big_k(card: str) -> dict:
         vs_label = int(((dist <= 0) != (label > 0)).sum())
         differ10, err10 = _manifold_diff(manifold_cuda.unpack_manifold(man, n),
                                          manifold_cuda.unpack_manifold(want_man, n))
+        bitwise = dict(labels=torch.equal(label, want_label.float()),
+                       labels_bf16=torch.equal(label16, want16.float()),
+                       manifold=torch.equal(man, want_man))
         share = float(want_label.float().mean())
-        if (differ or differ16 or err9 > 2e-5 or signs9 or vs_label
-                or differ10 > 1e-5 * n or err10 > 2e-5 or not 0.0 < share < 1.0):
+        if (not all(bitwise.values()) or err9 > 2e-5 or signs9 or vs_label
+                or not 0.0 < share < 1.0):
             raise RuntimeError(
                 f"k-gons ({k1}, {k2}): {differ} labels ({differ16} bf16) differ from kernel "
                 f"6's plain version; kernel 9 by {err9}, {signs9} signs, {vs_label} against "
-                f"kernel 6; kernel 10 {differ10} counts, values by {err10}; share {share}")
+                f"kernel 6; kernel 10 {differ10} counts, values by {err10} (bitwise "
+                f"{bitwise}); share {share}")
+        fingerprint = output_fingerprint(label, label16, man)
+        parent = PARENT_FINGERPRINTS.get(f"big_k_{k1}x{k2}")
+        # the pairs kernel 6's first pass leaves to its second
+        undecided = n - int(sat_first_pass(a, b, k1, k2).sum())
         timing = {}
         for name, lib, _ in BIG_K_KERNELS:
             fn, plain = calls[name]
             ms, plain_ms = _compare(fn, plain)
             nbytes = (2 * k1 + 2 * k2) * 4 + (36 if name == "polygon_manifold" else 4)
-            ops = {"sat_polygons": sat_poly_ops_per_pair, "polygon_distance":
-                   polygon_distance_ops, "polygon_manifold": manifold_ops}[name](k1, k2)
-            bound, bound_by = _bound_ms(nbytes * n, ops * n)
+            if name == "sat_polygons":  # 5 (k1 + k2) an axis, at the axes evaluated
+                ops = 5 * (k1 + k2) * big_k_work(name, k1, k2, n, undecided)[0]
+            else:
+                ops = {"polygon_distance": polygon_distance_ops,
+                       "polygon_manifold": manifold_ops}[name](k1, k2) * n
+            bound, bound_by = _bound_ms(nbytes * n, ops)
             timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
-            key = (_bucket(k1), _bucket(k2))
-            if key in BIG_K_ENTRIES:
+            if name in BIG_K_FUNCTIONS:
+                floor = big_k_issue_floor(cuda_build.library_path(lib), name, k1, k2, n,
+                                          undecided)
+                timing[name].update(issue_floor_ms=floor["issue_floor_ms"],
+                                    sass_per_pair=floor["sass_per_pair"])
+            key = _big_k_key(name, k1, k2)
+            if (name, key) in route_keys:
                 entry = entries.setdefault((name, key), dict(max_abs_err=0.0))
                 err = {"sat_polygons": float(differ), "polygon_distance": err9,
                        "polygon_manifold": err10}[name]
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                if (k1, k2) == key:  # the timed case fills its bucket exactly
-                    ptxas = BIG_K_PTXAS.get((lib, *key), {})
+                if (k1, k2) == key:  # the timed case is the route's shape
+                    ptxas = (_ptxas(lib, (), BIG_K_FUNCTIONS[name][1])
+                             if name in BIG_K_FUNCTIONS else
+                             _ptxas(lib, polygon_cuda.kernel_defines(k1, k2),
+                                    "polygon_distance"))
                     entry.update(timing[name], registers=ptxas.get("registers"),
                                  spill_stores_bytes=ptxas.get("spill_stores"),
                                  spill_loads_bytes=ptxas.get("spill_loads"),
@@ -3339,14 +3464,18 @@ def phase_big_k(card: str) -> dict:
         bf16_ms = _events_ms(lambda: polygon_cuda.sat_polygons_cuda_t(a16, b16, k1=k1, k2=k2),
                              reps=20)
         _line("24 k-gons above 16", time.monotonic() - t, k1=k1, k2=k2,
-              buckets=f"{_bucket(k1)}x{_bucket(k2)}", pairs=n, card=card.replace(" ", "_"),
+              kernel9_buckets=f"{_bucket(k1)}x{_bucket(k2)}", pairs=n,
+              tile_pairs=polygon_cuda.tile_pairs(k1, k2), card=card.replace(" ", "_"),
               labels_differ=differ, labels_differ_bf16=differ16,
               collision_share=f"{share:.4f}",
               distance_max_abs_diff=f"{err9:.3e}",
               distance_bitwise=bool(torch.equal(dist, want_dist)),
               distance_sign_mismatch_vs_kernel6=vs_label,
               manifold_counts_differ=differ10, manifold_max_abs_diff=f"{err10:.3e}",
-              manifold_bitwise=bool(torch.equal(man, want_man)),
+              labels_bitwise=bitwise["labels"], labels_bf16_bitwise=bitwise["labels_bf16"],
+              manifold_bitwise=bitwise["manifold"], kernel6_undecided=undecided,
+              fingerprint=_json(fingerprint),
+              parent_rows_equal=fingerprint == parent,
               kernel6_bf16_ms=f"{bf16_ms:.4f}",
               **{f"{name}_{k}": (f"{v:.4f}" if isinstance(v, float) else v)
                  for name, row in timing.items() for k, v in row.items()})
@@ -3380,9 +3509,9 @@ def _big_k_scene_matrix(polys: torch.Tensor, rows: int = 128) -> torch.Tensor:
 
 def phase_big_k_routes(entries: dict) -> None:
     """Phase 25: the model and scene routes at k = 20 on the card; sets the
-    launches of `phase_big_k`'s entries (each counted from 0 over its bucket
-    pair's route: the 4-gon robot's for (4, 32), the 20-gon robot's and the
-    scenes' for (32, 32))."""
+    launches of `phase_big_k`'s entries (each counted from 0 over its route:
+    the 4-gon robot's for (4, 20) and kernel 9's (4, 32), the 20-gon robot's
+    and the scenes' for (20, 20) and (32, 32))."""
     from collide2d_tpu_torch import bench
     from collide2d_tpu_torch.models.collision_model import (
         CollisionProbabilityModel,
@@ -3394,9 +3523,9 @@ def phase_big_k_routes(entries: dict) -> None:
     configs = example_polygon_configs(BIG_K_ROWS, k=20, seed=25, device="cuda")
     sub = slice(0, 1 << 16)
     head = type(configs)(*(a[sub] for a in configs))
-    routes = {(4, 32): PolygonCollisionProbabilityModel(np.asarray(POLY_ROBOT, np.float32)),
-              (32, 32): PolygonCollisionProbabilityModel(_regular_polygon(20, 1.2))}
-    for key, model in routes.items():
+    robots = (np.asarray(POLY_ROBOT, np.float32), _regular_polygon(20, 1.2))
+    for (key, buckets), robot in zip(BIG_K_ROUTES, robots):
+        model = PolygonCollisionProbabilityModel(robot)
         t = time.monotonic()
         bench.reset_launch_counts()
         labels = model.collide(configs)
@@ -3405,7 +3534,7 @@ def phase_big_k_routes(entries: dict) -> None:
         dist = model.distance(configs, impl="auto")
         man = model.contact_manifold(configs)
         scene_fields = {}
-        if key == (32, 32):
+        if key == (20, 20):
             g = torch.Generator(device="cuda").manual_seed(25)
             polys = _bench_polygons(g, SCENE_N, 20, area_side=40.0)
             m = scene.scene_collision_matrix(polys, row_tile=64)
@@ -3417,9 +3546,9 @@ def phase_big_k_routes(entries: dict) -> None:
         launched = bench.launch_counts()
         counts = {name: launched[KERNEL_NUMBERS[name]] for name, _, _ in BIG_K_KERNELS}
         if min(counts.values()) <= 0:
-            raise RuntimeError(f"the k = 20 routes of bucket pair {key} launched {counts}")
+            raise RuntimeError(f"the k = 20 route {key} launched {counts}")
         for name, n in counts.items():
-            entries[(name, key)]["launches"] = n
+            entries[(name, _big_k_key(name, *key))]["launches"] = n
         want = model.collide(head, impl="torch")
         d_torch = model.distance(head, impl="torch")
         m_torch = model.contact_manifold(head, impl="torch")
@@ -3435,7 +3564,7 @@ def phase_big_k_routes(entries: dict) -> None:
                 f"k = 20 model route {key}: {label_differ} labels differ from impl='torch', "
                 f"{sign} distance signs from the labels, distances by {d_err}, {m_differ} "
                 f"manifold counts by {m_err}; share {share}")
-        if key == (32, 32):
+        if key == (20, 20):
             want_m = _big_k_scene_matrix(polys)
             c = int(count)
             want_pairs = torch.triu(want_m, 1).nonzero().to(torch.int32)
@@ -3452,8 +3581,12 @@ def phase_big_k_routes(entries: dict) -> None:
                 scene_shapes=SCENE_N, scene_window=window, scene_pairs=c,
                 matrix_equal_sat_polygons=True, swept_equal_matrix=True,
                 **_scene_manifold_check("k = 20 dense manifolds", sman, polys))
-        _line("25 k = 20 routes", time.monotonic() - t, buckets=f"{key[0]}x{key[1]}",
-              rows=BIG_K_ROWS, robot_k=len(model.robot_verts), obstacle_k=20,
+        route_ms = {f"{call}_ms": f"{_events_ms(fn, reps=5):.4f}" for call, fn in (
+            ("collide", lambda: model.collide(configs)),
+            ("contact_manifold", lambda: model.contact_manifold(configs)))}
+        _line("25 k = 20 routes", time.monotonic() - t, shape=f"{key[0]}x{key[1]}",
+              kernel9_buckets=f"{buckets[0]}x{buckets[1]}",
+              rows=BIG_K_ROWS, robot_k=len(model.robot_verts), obstacle_k=20, **route_ms,
               launches=_json(counts), collision_share=f"{share:.4f}",
               labels_differ_vs_torch=label_differ, distance_sign_mismatch=sign,
               distance_max_abs_vs_torch=f"{d_err:.3e}",
@@ -4089,19 +4222,34 @@ def _shortest_iteration(ins: list, start: int, end: int, also: tuple = (),
     raise RuntimeError("no path through the loop")
 
 
-def _sass_function(lib: Path, kernel: str) -> list:
-    """The SASS of the kernel whose mangled name holds ``kernel`` in the
-    library (``cuobjdump -sass``) as (address, predicate, opcode, operands)
-    tuples, ``NOP`` padding left out."""
+# `_sass_functions`' reads, by (library, modification time, size): a
+# library's SASS is read once a run
+_SASS_READ: dict = {}
+
+
+def _sass_functions(lib: Path) -> dict:
+    """The SASS of each kernel in the library (``cuobjdump -sass``), by
+    mangled name: (address, predicate, opcode, operands) tuples, ``NOP``
+    padding left out."""
     from collide2d_tpu_torch.utils import cuda_build
 
-    tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    body = next(part for part in text.split("Function : ")[1:]
-                if kernel in part.split("\n", 1)[0])
-    return [(int(a, 16), pred.strip(), op, args)
-            for a, pred, op, args in _SASS_LINE.findall(body) if op != "NOP"]
+    stat = Path(lib).stat()
+    key = (str(lib), stat.st_mtime_ns, stat.st_size)
+    if key not in _SASS_READ:
+        tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+        text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        _SASS_READ[key] = {part.split("\n", 1)[0].strip(): [
+            (int(a, 16), pred.strip(), op, args)
+            for a, pred, op, args in _SASS_LINE.findall(part) if op != "NOP"]
+            for part in text.split("Function : ")[1:]}
+    return _SASS_READ[key]
+
+
+def _sass_function(lib: Path, kernel: str) -> list:
+    """The SASS of the kernel whose mangled name holds ``kernel`` in the
+    library (`_sass_functions`)."""
+    return next(ins for name, ins in _sass_functions(lib).items() if kernel in name)
 
 
 def _count(ins: list, lo: int, hi: int) -> dict:
@@ -4338,6 +4486,126 @@ def polygon_distance_issue_floor(lib: Path, k1: int, k2: int, pairs: int,
                 sm_clock_mhz=now, sm_clock_max_mhz=top)
 
 
+def _sass_names(lib: Path) -> list:
+    """The mangled names of the library's kernels."""
+    return list(_sass_functions(lib))
+
+
+# Kernels 6 and 10 by number and by kernels-line name: (the run-time-K
+# function's name, its template arguments before P, the K <= 16 function's
+# name and its template arguments after the buckets, the minima a vertex
+# folds for each axis or face)
+_BIG_K_SASS = {"sat_polygons": ("polygon_sat_big_k_kernel", "f", "polygon_sat_kernel", "f", 2),
+               "polygon_manifold": ("polygon_manifold_big_k_kernel", "", "polygon_manifold_kernel",
+                                    "", 1)}
+_BIG_K_SASS["6"], _BIG_K_SASS["10"] = _BIG_K_SASS["sat_polygons"], _BIG_K_SASS["polygon_manifold"]
+
+
+def big_k_work(kernel: str, k1: int, k2: int, pairs: int, undecided: int) -> tuple:
+    """(axes or faces, projections) kernel 6 or 10 evaluates above 16
+    vertices (csrc/polygon_big_k.cuh): kernel 6 the first pass's 8 axes for
+    every pair and, for the ``undecided`` pairs, every edge normal of a
+    polygon of more than 4 vertices, each projecting the k1 + k2 vertices;
+    kernel 10 the k1 + k2 faces, each against the other polygon's
+    vertices."""
+    if _BIG_K_SASS[kernel][4] == 1:
+        return (k1 + k2) * pairs, 2 * k1 * k2 * pairs
+    rest = (k1 if k1 > 4 else 0) + (k2 if k2 > 4 else 0)
+    axes = 8 * pairs + rest * undecided
+    return axes, (k1 + k2) * axes
+
+
+def big_k_issue_floor(lib: Path, kernel: str, k1: int, k2: int, pairs: int,
+                      undecided: int) -> dict:
+    """Kernel 6's or 10's issue floor for ``pairs`` pairs at (k1, k2) above
+    16 vertices, from the library's SASS, in either design:
+
+    - run-time K (csrc/polygon_big_k.cuh; the instantiation for the case's
+      tile, `tile_pairs`), at the work the pairs evaluate (`big_k_work`;
+      ``undecided``: the pairs kernel 6's first pass leaves): each
+      projection at the rate of the main vertex walk (the innermost loop
+      with the most minima a load: a block of `kAxes` axes or `kFaces`
+      faces, two vertices an iteration; its shortest iteration over the
+      projections it folds); each axis or face at the set-up of that block
+      (the shortest path through the loop around the walk that folds
+      nothing, over the block's axes or faces); kernel 10's incident loop
+      (its shortest iteration) once a face of the smaller polygon. The
+      remainder blocks, the first pass's set-up, the clips and the tile's
+      copy count nothing beyond that;
+    - the earlier design (a library for the case's bucket pair, its body
+      unrolled): the shortest path from its entry to its last exit, a pair.
+
+    Every forward branch may go either way (the division's and square
+    root's slow paths count nothing)."""
+    from collide2d_tpu_torch.ops.polygon_cuda import tile_pairs
+
+    base, args, small, small_args, minima = _BIG_K_SASS[kernel]
+    if not any(base in name for name in _sass_names(lib)):
+        fn = f"{small}ILi{_bucket(k1)}ELi{_bucket(k2)}E{small_args}E"
+        ins = _sass_function(lib, fn)
+        exits = [a for a, pred, op, _ in ins if op.startswith("EXIT") and not pred]
+        per_pair = _shortest_iteration(ins, ins[0][0], max(exits))[0]
+        ms, now, top = _issue_ms(per_pair * pairs)
+        return dict(design="unrolled", function=fn, sass=len(ins), sass_per_pair=per_pair,
+                    issue_floor_ms=ms, sm_clock_mhz=now, sm_clock_max_mhz=top)
+    fn = f"{base}I{args}Li{tile_pairs(k1, k2)}EE"
+    ins = _sass_function(lib, fn)
+    loops = _loops(ins)
+
+    def around(x):
+        return min((y for y in loops if _inside(y, x)), default=None,
+                   key=lambda y: y["end"] - y["start"])
+
+    walks = [x for x in loops if _holds(ins, x, "FMNMX") and _holds(ins, x, "LDS")
+             and not any(_inside(x, y) for y in loops)]
+    if not walks:
+        raise RuntimeError(f"{fn}: no vertex walk (a loop of loads and minima) in the SASS")
+    walk = max(walks, key=lambda x: (_holds(ins, x, "FMNMX") / _holds(ins, x, "LDS"),
+                                     around(x) is not None, -x["start"]))
+    per_iteration = _shortest_iteration(ins, walk["start"], walk["end"])[0]
+    folded = _holds(ins, walk, "FMNMX") // minima  # projections an iteration
+    size = folded // 2  # the block's axes or faces (two vertices an iteration)
+    block = around(walk)
+    setup = 0 if block is None else _shortest_iteration(
+        ins, block["start"], block["end"], also=("FMNMX",), count=0)[0]
+    items, projections = big_k_work(kernel, k1, k2, pairs, undecided)
+    total = per_iteration / folded * projections + setup / size * items
+    incident = 0
+    if minima == 1:  # kernel 10's incident loop: the one with an 1/|n| and no minima
+        loop = _largest([x for x in loops if not _holds(ins, x, "FMNMX")],
+                        lambda x: _holds(ins, x, "MUFU.RSQ"), "the incident loop")
+        incident = _shortest_iteration(ins, loop["start"], loop["end"])[0]
+        total += incident * min(k1, k2) * pairs
+    ms, now, top = _issue_ms(total)
+    return dict(design="run-time K", function=fn, sass=len(ins),
+                sass_walk_iteration=per_iteration, projections_per_iteration=folded,
+                sass_per_projection=per_iteration / folded, sass_block_setup=setup,
+                block=size, sass_incident=incident, sass_per_pair=total / pairs,
+                issue_floor_ms=ms, sm_clock_mhz=now, sm_clock_max_mhz=top)
+
+
+def _inside(outer: dict, inner: dict) -> bool:
+    return outer["start"] <= inner["start"] and inner["end"] <= outer["end"] and outer != inner
+
+
+def sat_first_pass(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
+    """Whether kernel 6's first pass above 16 vertices
+    (csrc/polygon_big_k.cuh::spread_axes_separate) separates each packed
+    pair: polygon 1's edges u k1 / 4 and polygon 2's u k2 / 4 (u < 4), each
+    product and sum rounded on its own; bool (n,)."""
+    x1, y1 = p1t[:k1].float(), p1t[k1:].float()
+    x2, y2 = p2t[:k2].float(), p2t[k2:].float()
+    sep = torch.zeros(p1t.shape[1:], dtype=torch.bool, device=p1t.device)
+    for x, y, k in ((x1, y1, k1), (x2, y2, k2)):
+        for u in range(4):
+            i = u * k // 4
+            j = (i + 1) % k
+            ax, ay = y[j] - y[i], x[i] - x[j]
+            q1, q2 = ax * x1 + ay * y1, ax * x2 + ay * y2
+            sep |= (q1.amax(0) < q2.amin(0)) | (q2.amax(0) < q1.amin(0))
+    return sep.reshape(-1)
+
+
 def output_fingerprint(*outputs: torch.Tensor) -> list:
     """`_fingerprint` of each output's 32-bit words, flattened: equal
     fingerprints on the same inputs say the outputs' bits held."""
@@ -4496,15 +4764,16 @@ def main() -> int:
         "replaces": "collide2d_tpu/utils/benchmarks.py:990",
         **stream,
     }] + [{
-        # kernels 6, 9 and 10 above 16 vertices: their builds for the bucket
-        # pairs the k = 20 routes take (phases 24 and 25)
+        # kernels 6, 9 and 10 above 16 vertices on the k = 20 routes (phases
+        # 24 and 25): 6 and 10 at the routes' K, 9 at its bucket pairs
         "name": f"{name}_k{key[0]}_k{key[1]}",
         "route": "cuda",
         "source": f"collide2d_tpu_torch/csrc/{lib}.cu",
         "replaces": f"collide2d_tpu/ops/{replaces}",
         **big_k[(name, key)],
         "library_ms": None,
-    } for name, lib, replaces in BIG_K_KERNELS for key in BIG_K_ENTRIES] + [{
+    } for name, lib, replaces in BIG_K_KERNELS
+        for key in (_big_k_key(name, *shape) for shape, _ in BIG_K_ROUTES)] + [{
         "name": "mc_poly_counts_k20",
         "route": "cuda",
         "source": "collide2d_tpu_torch/csrc/mc_polygon_kernel.cu",

@@ -22,15 +22,18 @@
 // win (jnp.argmax / argmin order). No gathers, no shared memory, no
 // intermediate in device memory; the 9 stores are coalesced.
 //
-// K at run time: the default build carries buckets 4, 8 and 16 for each
-// polygon and pads in registers by repeating the last vertex
-// (polygon_soa.cuh); a K above 16 pads to the next power of two in a build
-// for that one pair of buckets (`POLY_KB1` / `POLY_KB2`), the same body.
-// The padding is exact for every face choice: a zero edge has separation
-// -inf in the reference max and alignment +inf in the incident min, a
-// duplicate vertex moves no minimum, and the real faces keep their order
-// and their arithmetic; the incident loop runs over the common bucket
-// max(K1, K2), as the Pallas kernel's runs over the common max(K1, K2).
+// K at run time. Up to 16 vertices a polygon (`polygon_manifold_kernel`)
+// the build carries buckets 4, 8 and 16 for each polygon and pads in
+// registers by repeating the last vertex (polygon_soa.cuh). The padding is
+// exact for every face choice: a zero edge has separation -inf in the
+// reference max and alignment +inf in the incident min, a duplicate vertex
+// moves no minimum, and the real faces keep their order and their
+// arithmetic; the incident loop runs over the common bucket max(K1, K2), as
+// the Pallas kernel's runs over the common max(K1, K2). Above 16 vertices in
+// either polygon (`polygon_manifold_big_k_kernel`): run-time loops over the
+// true K1 and K2, the pairs' vertices staged in shared memory and 8 faces a
+// vertex walk (polygon_big_k.cuh, with its argument that the outputs are
+// the same bits).
 //
 // Rounding. Products and sums are __fmul_rn / __fadd_rn / __fsub_rn in the
 // Pallas body's order, the reference-body bias is the literal
@@ -48,12 +51,14 @@
 #include <limits.h>
 #include <math.h>
 
+#include "polygon_big_k.cuh"
 #include "polygon_soa.cuh"
 
 namespace {
 
 using collide2d::dot2;
 using collide2d::inv_norm;
+using collide2d::big_k::clip_halfplane;
 
 constexpr int kThreads = 256;
 
@@ -86,33 +91,6 @@ __device__ __forceinline__ Face best_face(const float (&xs)[K],
     if (s > f.sep) f = Face{s, ux, uy, xs[i], ys[i], xs[j], ys[j]};
   }
   return f;
-}
-
-// Clip [w1, w2] to the half-plane pn . x <= off (manifold._clip_segment).
-__device__ __forceinline__ void clip_halfplane(float& w1x, float& w1y,
-                                               float& w2x, float& w2y,
-                                               float pnx, float pny,
-                                               float off) {
-  const float d1 = __fsub_rn(dot2(w1x, pnx, w1y, pny), off);
-  const float d2 = __fsub_rn(dot2(w2x, pnx, w2y, pny), off);
-  const float denom = __fsub_rn(d1, d2);
-  const float t = fminf(fmaxf(__fdiv_rn(d1, denom == 0.0f ? 1.0f : denom), 0.0f), 1.0f);
-  const bool crossing = (d1 > 0.0f) != (d2 > 0.0f);
-  const float mx = __fadd_rn(w1x, __fmul_rn(t, __fsub_rn(w2x, w1x)));
-  const float my = __fadd_rn(w1y, __fmul_rn(t, __fsub_rn(w2y, w1y)));
-  float o1x = (d1 > 0.0f && crossing) ? mx : w1x;
-  float o1y = (d1 > 0.0f && crossing) ? my : w1y;
-  float o2x = (d2 > 0.0f && crossing) ? mx : w2x;
-  float o2y = (d2 > 0.0f && crossing) ? my : w2y;
-  if (d1 > 0.0f && d2 > 0.0f) {  // both outside: collapse to the closer one
-    const bool use1 = d1 <= d2;
-    o1x = o2x = use1 ? w1x : w2x;
-    o1y = o2y = use1 ? w1y : w2y;
-  }
-  w1x = o1x;
-  w1y = o1y;
-  w2x = o2x;
-  w2y = o2y;
 }
 
 template <int K1, int K2>
@@ -190,7 +168,6 @@ unsigned grid_for(long long n) {
   return blocks > INT_MAX ? 0u : static_cast<unsigned>(blocks);
 }
 
-#if !POLY_KB1
 template <int K1>
 bool launch_k2(const float* p1, const float* p2, float* out, long long n,
                int k1, int k2, float margin, unsigned grid, cudaStream_t s) {
@@ -201,36 +178,91 @@ bool launch_k2(const float* p1, const float* p2, float* out, long long n,
     default: return false;
   }
 }
-#endif
+
+// Above 16 vertices: one pair a thread at the true K1 and K2, a block's P
+// pairs staged in shared memory, or (P == 0) read in device memory where a
+// 32-pair tile does not fit (polygon_big_k.cuh).
+template <int P>
+__global__ void __launch_bounds__(collide2d::big_k::kMaxPairs)
+    polygon_manifold_big_k_kernel(const float* __restrict__ p1,
+                                  const float* __restrict__ p2,
+                                  float* __restrict__ out, long long n, int k1,
+                                  int k2, float margin, bool vec) {
+  using collide2d::big_k::Polygon;
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float r[9];
+  if constexpr (P > 0) {
+    const float* tile = collide2d::big_k::stage_pairs<P>(p1, p2, n, k1, k2, p - threadIdx.x,
+                                                         vec);
+    if (p >= n) return;
+    collide2d::big_k::manifold(Polygon<float, P>{tile + threadIdx.x, 0, k1},
+                               Polygon<float, P>{tile + 2 * k1 * P + threadIdx.x, 0, k2},
+                               margin, r);
+  } else {
+    if (p >= n) return;
+    collide2d::big_k::manifold(Polygon<float, 0>{p1 + p, n, k1},
+                               Polygon<float, 0>{p2 + p, n, k2}, margin, r);
+  }
+#pragma unroll
+  for (int c = 0; c < 9; ++c) out[c * n + p] = r[c];
+}
+
+template <int P>
+cudaError_t launch_big_k_tiles(const float* p1, const float* p2, float* out, long long n,
+                               int k1, int k2, float margin, cudaStream_t s) {
+  const size_t bytes = 2ull * (k1 + k2) * P * sizeof(float);
+  const long long blocks = (n + P - 1) / P;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = collide2d::big_k::allow_tile(polygon_manifold_big_k_kernel<P>, bytes);
+  if (err != cudaSuccess) return err;
+  polygon_manifold_big_k_kernel<P><<<static_cast<unsigned>(blocks), P, bytes, s>>>(
+      p1, p2, out, n, k1, k2, margin, collide2d::big_k::planes_aligned(p1, p2, n));
+  return cudaSuccess;
+}
+
+cudaError_t launch_big_k(const float* p1, const float* p2, float* out, long long n,
+                         int k1, int k2, float margin, cudaStream_t s) {
+  switch (collide2d::big_k::tile_pairs(k1, k2, sizeof(float))) {
+    case 128: return launch_big_k_tiles<128>(p1, p2, out, n, k1, k2, margin, s);
+    case 64: return launch_big_k_tiles<64>(p1, p2, out, n, k1, k2, margin, s);
+    case 32: return launch_big_k_tiles<32>(p1, p2, out, n, k1, k2, margin, s);
+    default: break;
+  }
+  constexpr int kThreadsUntiled = collide2d::big_k::kMaxPairs;
+  const long long blocks = (n + kThreadsUntiled - 1) / kThreadsUntiled;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  polygon_manifold_big_k_kernel<0><<<static_cast<unsigned>(blocks), kThreadsUntiled, 0, s>>>(
+      p1, p2, out, n, k1, k2, margin, false);
+  return cudaSuccess;
+}
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `n` is the number of pairs (8M),
-// `k1`/`k2` the vertices of each polygon (>= 1; a pair of buckets the build
-// carries, else cudaErrorInvalidValue), `out` 9 planes of n floats. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 = ok).
+// `k1`/`k2` the vertices of each polygon (>= 1; any K: above 16 in either
+// polygon the run-time-K body), `out` 9 planes of n floats. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launch (0 = ok).
 extern "C" int polygon_manifold_launch(const float* p1, const float* p2,
                                        float* out, long long n, int k1, int k2,
                                        float margin, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (k1 < 1 || k2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k1 > 16 || k2 > 16) {
+    const cudaError_t err = launch_big_k(p1, p2, out, n, k1, k2, margin, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   const unsigned grid = grid_for(n);
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
-#if POLY_KB1
-  if (collide2d::build_carries(k1, k2)) {
-    polygon_manifold_kernel<POLY_KB1, POLY_KB2><<<grid, kThreads, 0, s>>>(
-        p1, p2, out, n, k1, k2, margin);
-    ok = true;
-  }
-#else
   switch (collide2d::k_bucket(k1)) {
     case 4: ok = launch_k2<4>(p1, p2, out, n, k1, k2, margin, grid, s); break;
     case 8: ok = launch_k2<8>(p1, p2, out, n, k1, k2, margin, grid, s); break;
     case 16: ok = launch_k2<16>(p1, p2, out, n, k1, k2, margin, grid, s); break;
     default: ok = false;
   }
-#endif
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,21 +12,22 @@
 // plane: each load is coalesced without repacking. bf16 planes are upcast
 // exactly on load (__bfloat162float); the test always runs in float32.
 //
-// Padding. Polygons are padded to a fixed K by repeating their last vertex.
-// A repeated vertex never moves a projection interval, the edge between two
+// Two bodies. Up to 16 vertices a polygon (`polygon_sat_kernel`, below):
+// polygons are padded to a fixed K by repeating their last vertex. A
+// repeated vertex never moves a projection interval, the edge between two
 // copies is the zero axis (its intervals are [0, 0] on both bodies, which
 // never separate), and the edge from the last slot back to vertex 0 is the
 // real closing edge. So the kernel needs no masks, and the same holds for
-// the padding it adds itself: the default build carries K = 4, 8 and 16 for
-// each polygon, and a K1-gon with K1 <= 4 runs the K = 4 body with slots
-// K1..3 copied from slot K1-1 in registers (likewise 8 and 16). A K above
-// 16 pads to the next power of two (32, 64, ...) in a build of its own for
-// that pair of buckets (`POLY_KB1` / `POLY_KB2`, polygon_soa.cuh), built at
-// first use by the wrapper: the same body, so the argument holds at any
-// bucket. The labels equal the unpadded test's bit for bit, since every
-// real projection is computed by the same operations. At large buckets the
-// vertex arrays no longer fit the registers and spill to local memory, and
-// the unrolled body outgrows the instruction cache: it stays right, not fast.
+// the padding it adds itself: the build carries K = 4, 8 and 16 for each
+// polygon, and a K1-gon with K1 <= 4 runs the K = 4 body with slots K1..3
+// copied from slot K1-1 in registers (likewise 8 and 16). The labels equal
+// the unpadded test's bit for bit, since every real projection is computed
+// by the same operations. Above 16 vertices in either polygon
+// (`polygon_sat_big_k_kernel`): run-time loops over the true K1 and K2,
+// the pairs' vertices staged in shared memory, 8 axes a vertex walk, and a
+// first pass over 8 spread axes that settles most separated pairs before
+// the rest (polygon_big_k.cuh, with its argument that the labels are the
+// same bits).
 //
 // What bounds it on this card. At K1 = K2 = 8 a f32 pair reads 2 x 16
 // coordinates x 4 bytes and writes a 4-byte label, 132 bytes: 0.33 ms for
@@ -54,6 +55,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "polygon_big_k.cuh"
 #include "polygon_soa.cuh"
 
 namespace {
@@ -150,16 +152,6 @@ void launch(const void* p1, const void* p2, float* out, long long n, int k1,
       static_cast<const T*>(p1), static_cast<const T*>(p2), out, n, k1, k2);
 }
 
-#if POLY_KB1
-// A build for one bucket pair above 16: its one instantiation.
-template <typename T>
-bool launch_k1(const void* p1, const void* p2, float* out, long long n, int k1,
-               int k2, unsigned grid, cudaStream_t s) {
-  if (!collide2d::build_carries(k1, k2)) return false;
-  launch<POLY_KB1, POLY_KB2, T>(p1, p2, out, n, k1, k2, grid, s);
-  return true;
-}
-#else
 template <int K1, typename T>
 bool launch_k2(const void* p1, const void* p2, float* out, long long n, int k1,
                int k2, unsigned grid, cudaStream_t s) {
@@ -181,22 +173,105 @@ bool launch_k1(const void* p1, const void* p2, float* out, long long n, int k1,
     default: return false;
   }
 }
-#endif
+
+// Above 16 vertices: one pair a thread at the true K1 and K2, a block's P
+// pairs staged in shared memory, or (P == 0) read in device memory where a
+// 32-pair tile does not fit (polygon_big_k.cuh). In a tile each pair takes
+// the first pass's spread axes; the pairs it leaves undecided are listed
+// and take the second pass packed onto the block's first lanes, so a warp
+// runs every axis only for pairs that need it.
+template <typename T, int P>
+__global__ void __launch_bounds__(collide2d::big_k::kMaxPairs)
+    polygon_sat_big_k_kernel(const T* __restrict__ p1, const T* __restrict__ p2,
+                             float* __restrict__ out, long long n, int k1, int k2,
+                             bool vec) {
+  using collide2d::big_k::Polygon;
+  const long long p0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const int t = threadIdx.x;
+  if constexpr (P > 0) {
+    __shared__ int undecided[P];
+    __shared__ int count;
+    if (t == 0) count = 0;
+    const T* tile = collide2d::big_k::stage_pairs<P>(p1, p2, n, k1, k2, p0, vec);
+    const T* tile2 = tile + 2 * k1 * P;
+    bool open = false;
+    if (p0 + t < n) {
+      open = !collide2d::big_k::spread_axes_separate(Polygon<T, P>{tile + t, 0, k1},
+                                                     Polygon<T, P>{tile2 + t, 0, k2});
+      if (!open) out[p0 + t] = 0.0f;
+    }
+    collide2d::big_k::append(open, t, undecided, &count);
+    __syncthreads();
+    for (int i = t; i < count; i += P) {
+      const int u = undecided[i];
+      out[p0 + u] = collide2d::big_k::rest_separate(Polygon<T, P>{tile + u, 0, k1},
+                                                    Polygon<T, P>{tile2 + u, 0, k2})
+                        ? 0.0f
+                        : 1.0f;
+    }
+  } else {
+    if (p0 + t >= n) return;
+    out[p0 + t] = collide2d::big_k::sat_label(Polygon<T, 0>{p1 + p0 + t, n, k1},
+                                              Polygon<T, 0>{p2 + p0 + t, n, k2});
+  }
+}
+
+template <typename T, int P>
+cudaError_t launch_big_k_tiles(const T* p1, const T* p2, float* out, long long n, int k1,
+                               int k2, cudaStream_t s) {
+  const size_t bytes = 2ull * (k1 + k2) * P * sizeof(T);
+  const long long blocks = (n + P - 1) / P;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      collide2d::big_k::allow_tile(polygon_sat_big_k_kernel<T, P>, bytes);
+  if (err != cudaSuccess) return err;
+  polygon_sat_big_k_kernel<T, P><<<static_cast<unsigned>(blocks), P, bytes, s>>>(
+      p1, p2, out, n, k1, k2, collide2d::big_k::planes_aligned(p1, p2, n));
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_big_k(const void* p1v, const void* p2v, float* out, long long n,
+                         int k1, int k2, cudaStream_t s) {
+  const T* p1 = static_cast<const T*>(p1v);
+  const T* p2 = static_cast<const T*>(p2v);
+  switch (collide2d::big_k::tile_pairs(k1, k2, sizeof(T))) {
+    case 128: return launch_big_k_tiles<T, 128>(p1, p2, out, n, k1, k2, s);
+    case 64: return launch_big_k_tiles<T, 64>(p1, p2, out, n, k1, k2, s);
+    case 32: return launch_big_k_tiles<T, 32>(p1, p2, out, n, k1, k2, s);
+    default: break;
+  }
+  constexpr int kThreadsUntiled = collide2d::big_k::kMaxPairs;
+  const long long blocks = (n + kThreadsUntiled - 1) / kThreadsUntiled;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  polygon_sat_big_k_kernel<T, 0><<<static_cast<unsigned>(blocks), kThreadsUntiled, 0, s>>>(
+      p1, p2, out, n, k1, k2, false);
+  return cudaSuccess;
+}
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `n` is the number of pairs (8M);
-// `k1`/`k2` the vertices of each polygon (>= 1; a pair of buckets the build
-// carries, else cudaErrorInvalidValue); `bf16` selects bfloat16 planes. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 = ok).
+// `k1`/`k2` the vertices of each polygon (>= 1; any K: above 16 in either
+// polygon the run-time-K body); `bf16` selects bfloat16 planes. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launch (0 = ok).
 extern "C" int polygon_sat_launch(const void* p1, const void* p2, float* out,
                                   long long n, int k1, int k2, int bf16,
                                   void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (k1 < 1 || k2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k1 > 16 || k2 > 16) {
+    const cudaError_t err =
+        bf16 ? launch_big_k<__nv_bfloat16>(p1, p2, out, n, k1, k2, s)
+             : launch_big_k<float>(p1, p2, out, n, k1, k2, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid = static_cast<unsigned>(blocks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ok =
       bf16 ? launch_k1<__nv_bfloat16>(p1, p2, out, n, k1, k2, grid, s)
            : launch_k1<float>(p1, p2, out, n, k1, k2, grid, s);

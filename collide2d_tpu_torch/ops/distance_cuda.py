@@ -17,12 +17,12 @@ boxes are the (6, 8, M) SoA of `sat_cuda.pack_obbs` (cx, cy, cos, sin,
 
 The ``*_cuda_t`` functions take packed batches and route on their device:
 a CUDA tensor launches ``csrc/distance_kernel.cu`` (built at first use by
-`utils.cuda_build`; k-gons above 16 vertices in the library of their
-bucket pair, `polygon_cuda.kernel_defines`) and counts the launch in
-``LAUNCHES[name]``; a failed build or launch raises; a CPU tensor runs the
-plain version. The kernels have no backward: inputs that require grad
-raise (the differentiable path is `ops.distance`, ``impl='torch'`` on the
-models).
+`utils.cuda_build`; kernel 9 takes k-gons above 16 vertices in the
+library of their bucket pair, `polygon_cuda.kernel_defines`) and counts
+the launch in ``LAUNCHES[name]``; a failed build or launch raises; a CPU
+tensor runs the plain version. The kernels have no backward: inputs that
+require grad raise (the differentiable path is `ops.distance`,
+``impl='torch'`` on the models).
 `polygon_distance_passes` runs kernel 9 through the library's build that
 counts the pairs its passes take (every axis; the segment tests).
 
@@ -117,7 +117,8 @@ def obb_distance_plain(b1t: torch.Tensor, b2t: torch.Tensor,
 def distance_defines(count: bool = False, k1: int = 4,
                      k2: int = 4) -> tuple[tuple[str, int], ...]:
     """The ``-D`` defines of the library that carries kernel 9 at (k1, k2)
-    (`polygon_cuda.kernel_defines`; the default build at K <= 16):
+    (`polygon_cuda.kernel_defines`, kernel 9's bucket-pair rule; the
+    default build at K <= 16):
     ``count`` builds the variant that counts kernel 9's pairs through each
     pass (`polygon_distance_passes`)."""
     return ((("POLYDIST_COUNT", 1),) if count else ()) + polygon_cuda.kernel_defines(k1, k2)

@@ -13,10 +13,11 @@ unit normals are ``n * (1 / sqrt(|n|^2))`` in two IEEE operations, as the
 kernel computes them, so both choose the same faces.
 
 `polygon_manifold_cuda_t` routes on the device of its inputs: a CUDA tensor
-launches ``csrc/manifold_kernel.cu`` (built at first use; k-gons above 16
-vertices in the library of their bucket pair,
-`polygon_cuda.kernel_defines`) and counts the launch in ``LAUNCHES``; a
-failed build or launch raises; a CPU tensor runs the plain version. Inputs
+launches ``csrc/manifold_kernel.cu`` (built at first use, one library for
+every K: above 16 vertices in either polygon a body that loops over the true
+K1 and K2, ``csrc/polygon_big_k.cuh``, whose outputs are the padded body's
+bits) and counts the launch in ``LAUNCHES``; a failed build or launch
+raises; a CPU tensor runs the plain version. Inputs
 that require grad raise (the kernel has no backward).
 `polygon_manifold_cuda` is the drop-in for
 `ops.manifold.polygon_contact_manifold` on repeat-padded (N, K, 2) inputs.
@@ -159,14 +160,18 @@ def polygon_manifold_plain(p1t: torch.Tensor, p2t: torch.Tensor, k1: int,
     ])
 
 
-def _kernel_lib(k1: int, k2: int) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load(_KERNEL, polygon_cuda.kernel_defines(k1, k2))
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launch function's C signature on a loaded library."""
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.polygon_manifold_launch.restype = ctypes.c_int
     lib.polygon_manifold_launch.argtypes = [p, p, p, ll, i, i, ctypes.c_float, p]
     return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from collide2d_tpu_torch.utils import cuda_build
+
+    return bind(cuda_build.load(_KERNEL))
 
 
 def polygon_manifold_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
@@ -181,7 +186,7 @@ def polygon_manifold_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
     out = torch.empty((9,) + tuple(p1t.shape[1:]), dtype=torch.float32,
                       device=p1t.device)
     n = p1t.shape[1] * p1t.shape[2]
-    lib = _kernel_lib(k1, k2)
+    lib = _kernel_lib()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(p1t.device):
         err = lib.polygon_manifold_launch(

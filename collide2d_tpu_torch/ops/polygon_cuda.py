@@ -10,9 +10,11 @@ needs no masks inside the test (see `ops.sat.sat_polygons`).
 `sat_polygons_cuda_t` takes packed batches and routes on their device:
 
 - a CUDA tensor launches ``csrc/polygon_kernel.cu`` (built at first use by
-  `utils.cuda_build`: one library for the K buckets 4, 8 and 16, and one
-  for each pair of buckets above 16, `kernel_defines`) and counts the
-  launch in ``LAUNCHES``; a failed build or a failed launch raises;
+  `utils.cuda_build`, one library for every K: the K buckets 4, 8 and 16
+  padded in registers, and above 16 vertices in either polygon a body that
+  loops over the true K1 and K2 with the pairs' vertices staged in shared
+  memory, `tile_pairs` to a block, ``csrc/polygon_big_k.cuh``) and counts
+  the launch in ``LAUNCHES``; a failed build or a failed launch raises;
 - a CPU tensor runs `sat_polygons_plain`: the same test in torch
   operations on the same packed rows (`ops.sat.polygon_columns_collide`),
   each product and sum rounded on its own.
@@ -46,9 +48,9 @@ def reset_launches() -> None:
 
 
 def k_bucket(k: int) -> int:
-    """The K a polygon of ``k`` vertices is padded to inside the kernels
-    6, 9 and 10: 4, 8 or 16 up to 16, else the next power of two
-    (``csrc/polygon_soa.cuh::k_bucket``)."""
+    """The K a polygon of ``k`` vertices is padded to inside kernel 9, and
+    inside kernels 6 and 10 up to 16: 4, 8 or 16 up to 16, else the next
+    power of two (``csrc/polygon_soa.cuh::k_bucket``)."""
     if k < 1:
         raise ValueError(f"a polygon needs at least one vertex, got k={k}")
     for b in REGISTER_BUCKETS:
@@ -58,14 +60,33 @@ def k_bucket(k: int) -> int:
 
 
 def kernel_defines(k1: int, k2: int) -> tuple[tuple[str, int], ...]:
-    """The ``-D`` defines of the library of kernels 6, 9 and 10 that
-    carries the bucket pair of (k1, k2): none for the default build (every
-    pair of 4, 8 and 16), else ``POLY_KB1`` / ``POLY_KB2`` (a build for
-    that one pair, compiled at its first use)."""
+    """The ``-D`` defines of kernel 9's library that carries the bucket pair
+    of (k1, k2) (`distance_cuda.distance_defines`): none for the default
+    build (every pair of 4, 8 and 16), else ``POLY_KB1`` / ``POLY_KB2`` (a
+    build for that one pair, compiled at its first use). Kernels 6 and 10
+    take every K in their one library."""
     b1, b2 = k_bucket(k1), k_bucket(k2)
     if max(b1, b2) <= REGISTER_BUCKETS[-1]:
         return ()
     return (("POLY_KB1", b1), ("POLY_KB2", b2))
+
+
+# `tile_pairs`' constants (csrc/polygon_big_k.cuh): the largest P of 128, 64
+# and 32 whose tile leaves room for three blocks an SM, else 32 while a tile
+# fits one block's most, else none.
+TILE_PAIRS = (128, 64, 32)
+TILE_BYTES, MAX_TILE_BYTES = 75_776, 231_424
+
+
+def tile_pairs(k1: int, k2: int, elem_bytes: int = 4) -> int:
+    """The pairs a block of kernel 6 or 10 stages in shared memory above 16
+    vertices (``csrc/polygon_big_k.cuh::tile_pairs``): 128, 64 or 32, or 0
+    where the body reads the planes in device memory."""
+    column = 2 * (k1 + k2) * elem_bytes
+    for p in TILE_PAIRS[:-1]:
+        if column * p <= TILE_BYTES:
+            return p
+    return TILE_PAIRS[-1] if column * TILE_PAIRS[-1] <= MAX_TILE_BYTES else 0
 
 
 def pad_polygons(p: torch.Tensor, k: int) -> torch.Tensor:
@@ -151,14 +172,18 @@ def _check(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int) -> None:
         raise ValueError(f"M={p1t.shape[2]} must be a multiple of block={LANE_BLOCK}")
 
 
-def _kernel_lib(k1: int, k2: int) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load(_KERNEL, kernel_defines(k1, k2))
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launch function's C signature on a loaded library."""
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.polygon_sat_launch.restype = ctypes.c_int
     lib.polygon_sat_launch.argtypes = [p, p, p, ll, i, i, i, p]
     return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from collide2d_tpu_torch.utils import cuda_build
+
+    return bind(cuda_build.load(_KERNEL))
 
 
 def sat_polygons_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
@@ -176,7 +201,7 @@ def sat_polygons_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
     if n == 0:
         return out
-    lib = _kernel_lib(k1, k2)
+    lib = _kernel_lib()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(p1t.device):
         err = lib.polygon_sat_launch(

@@ -39,11 +39,8 @@ It exits non-zero when any counts or labels differ."""
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
-import re
-import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -57,7 +54,7 @@ from collide2d_tpu_torch.ops import mc_cuda
 from collide2d_tpu_torch.ops import mc_moving_polygon_cuda as m14
 from collide2d_tpu_torch.ops import mc_polygon_cuda as m7
 from collide2d_tpu_torch.ops import mc_toi_cuda as m13
-from collide2d_tpu_torch.utils import cuda_build
+from collide2d_tpu_torch.utils import ab, cuda_build
 
 _RECT = ((-2.035, -0.87), (2.035, -0.87), (2.035, 0.87), (-2.035, 0.87))
 _K = 8
@@ -76,31 +73,10 @@ _LIBS = {
            [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _U, _U, _P],
            "mc_moving_poly_batch_samples"),
 }
-_TURNS = ("other", "this", "this", "other")
 
 
 def _defines(kernel: str):
     return m7.shape_defines(_K, len(_RECT), 2) if kernel in ("7", "14") else ()
-
-
-def _nvcc_report(src: Path, defines, out: Path) -> dict:
-    """Build ``src`` with the wrappers' flags and ``defines`` into ``out``;
-    ptxas's registers, stack frame and spill bytes of each kernel, by
-    mangled name."""
-    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
-           *cuda_build.define_flags(defines), "-Xptxas", "-v", "-o", str(out), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    props = dict(re.findall(r"Function properties for (\S+)\s+(\d+ bytes stack frame, "
-                            r"\d+ bytes spill stores, \d+) bytes spill loads", proc.stderr))
-    report = {}
-    for name, regs in re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) "
-                                 r"registers", proc.stderr, re.S):
-        stack, stores, loads = (int(x) for x in re.findall(r"\d+", props[name]))
-        report[name] = dict(registers=int(regs), stack_frame=stack, spill_stores=stores,
-                            spill_loads=loads)
-    return report
 
 
 def _instances(kernel: str, case: dict) -> tuple[str, ...]:
@@ -149,18 +125,10 @@ def _bind(lib: ctypes.CDLL, kernel: str) -> ctypes.CDLL:
     return lib
 
 
-@contextlib.contextmanager
 def _swapped(libs: dict | None):
-    """The wrappers launch ``libs``' kernels inside (None: their own)."""
-    mods = [_LIBS[k][1] for k in (libs or {})]
-    saved = [m._kernel_lib for m in mods]
-    for (kernel, lib), mod in zip((libs or {}).items(), mods):
-        mod._kernel_lib = lambda *_, lib=lib: lib
-    try:
-        yield
-    finally:
-        for mod, fn in zip(mods, saved):
-            mod._kernel_lib = fn
+    """`ab.swapped` with the other version's libraries by kernel (None:
+    every wrapper its own)."""
+    return ab.swapped({_LIBS[k][1]: lib for k, lib in (libs or {}).items()})
 
 
 def _cases(cs, kernels) -> list[dict]:
@@ -207,7 +175,7 @@ def _turns(cs, other_libs: dict, case: dict) -> dict:
     uids = torch.arange(params.shape[0], dtype=torch.int32, device="cuda")
     seed = mc_cuda.round_seed(prng.PRNGKey(12), 3)
     counts, ms = [], {"other": [], "this": []}
-    for tag in _TURNS:
+    for tag in ab.TURNS:
         with _swapped(other_libs if tag == "other" else None):
             counts.append(fn(params, uids, seed, n, **kw))
             ms[tag].append(cs._events_ms(lambda: fn(params, uids, seed, n, **kw),
@@ -260,7 +228,7 @@ def _end_to_end(cs, other_libs: dict, kernels, report: dict) -> None:
         for name, (rows, run) in runs.items():
             run(work / f"{name}_warm")
             seconds, labels = {"other": [], "this": []}, {}
-            for i, tag in enumerate(_TURNS):
+            for i, tag in enumerate(ab.TURNS):
                 with _swapped(other_libs if tag == "other" else None):
                     s, labels[tag] = run(work / f"{name}_{i}")
                 seconds[tag].append(s)
@@ -296,7 +264,7 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory(prefix="mc_ab_") as tmp:
         libs = [Path(tmp) / f"{tag}_{k}.so" for tag, k, _ in jobs]
         with ThreadPoolExecutor(len(jobs)) as pool:
-            ptxas = list(pool.map(lambda j, lib: _nvcc_report(j[2], _defines(j[1]), lib),
+            ptxas = list(pool.map(lambda j, lib: ab.nvcc_report(j[2], _defines(j[1]), lib),
                                   jobs, libs))
         built = {(tag, k): (lib, rep) for (tag, k, _), lib, rep in zip(jobs, libs, ptxas)}
         other_libs = {k: _bind(ctypes.CDLL(str(built["other", k][0])), k) for k in kernels}

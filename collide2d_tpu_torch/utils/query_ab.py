@@ -1,23 +1,33 @@
-"""Kernels 12 (time of impact) and 9 (k-gon signed distance) of this
-checkout against another version's sources, on one card, in turns.
+"""Kernels 12 (time of impact), 9 (k-gon signed distance), 6 (k-gon SAT
+labels) and 10 (contact manifolds) of this checkout against another
+version's sources, on one card, in turns.
 
     git archive <commit> collide2d_tpu_torch/csrc | tar -x -C .chipwork/parent
     python -m collide2d_tpu_torch.utils.query_ab \\
-        .chipwork/parent/collide2d_tpu_torch/csrc [--out DIR] [--kernels 12,9]
+        .chipwork/parent/collide2d_tpu_torch/csrc [--out DIR] [--kernels 12,9,6,10]
 
 Run it from the root of a checkout (it uses `chip_smoke.py`'s inputs,
-timers, SASS reader and issue floors, and `utils/mc_ab.py`'s ptxas
-report) on a machine with a card and ``nvcc``. The other version's
-``toi_kernel.cu`` and ``distance_kernel.cu`` must keep the C entry points
-of the wrappers (``moving_obb_toi_launch``, ``polygon_distance_launch``).
-``--kernels`` keeps one of the two (default both). A variant sweep is the
-same run against a copy of this checkout's csrc with one constant edited
-(kernel 12's ``kPairsPerLane`` or ``kRefillAt``, kernel 9's
-``kMinBlocks``). It prints (and with ``--out`` writes to
+timers, SASS reader and issue floors, and `utils/ab.py`'s ptxas report and
+turns) on a machine with a card and ``nvcc``. The other version's
+``toi_kernel.cu``, ``distance_kernel.cu``, ``polygon_kernel.cu`` and
+``manifold_kernel.cu`` must keep the C entry points of the wrappers
+(``moving_obb_toi_launch``, ``polygon_distance_launch``,
+``polygon_sat_launch``, ``polygon_manifold_launch``). For kernels 6 and 10
+an other version whose source reads the bucket-pair defines (the earlier
+design: a library per pair of K buckets above 16) also builds once for
+each bucket pair that phase 24's cases take
+(``polygon_cuda.kernel_defines``). ``--kernels`` keeps a subset (default all
+four). A variant sweep is the same run against a copy of this checkout's
+csrc with one constant edited (kernel 12's ``kPairsPerLane`` or
+``kRefillAt``, kernel 9's ``kMinBlocks``, kernel 6's ``kAxes``, kernel
+10's ``kFaces``). It prints (and with ``--out`` writes to
 ``DIR/query_ab.json``):
 
 - ptxas registers, spill bytes and stack frame of each version's kernels,
   and each version's issue floor at the cases' work (`issue_floor`);
+- for kernels 6 and 10, whether each function of both versions' default
+  builds at K <= 16 has the same SASS, and the SASS instructions of each
+  version's function above 16 (`chip_smoke.big_k_issue_floor`);
 - for each case, ms by CUDA events (20 launches after a warm-up) in turns
   (other, this, this, other), whether every output is ``torch.equal`` row by
   row across the turns and to the plain version, and the outputs'
@@ -27,20 +37,25 @@ same run against a copy of this checkout's csrc with one constant edited
   of the rotating pairs at one and at zero steps; kernel 9 on phase 12's
   ``k8`` and ``k4_k8`` cases (`chip_smoke.polygon_distance_inputs`), with
   the pairs each pass of this version takes (its counting build), and on
-  2^20 pairs of the bench's 16-gons (the largest bucket);
+  2^20 pairs of the bench's 16-gons (the largest bucket); kernel 6 (float32
+  and bfloat16 planes) and kernel 10 (margin 0) on each of phase 24's
+  cases above 16 vertices (`chip_smoke.big_k_inputs`);
 - end to end, in turns with the other version's library swapped into the
-  wrapper: phase 14's ``time_of_impact`` call and phase 12's k-gon
-  ``distance`` call (CUDA events, 5 calls after a warm-up), and whether
-  their results are equal.
+  wrapper: phase 14's ``time_of_impact`` call, phase 12's k-gon
+  ``distance`` call, and phase 25's k = 20 routes' ``collide`` and
+  ``contact_manifold`` calls (the 4-gon robot and the 20-gon robot against
+  2^20 20-gons) (CUDA events, 5 calls after a warm-up), and whether their
+  results are equal.
 
-It exits non-zero when any output or result differs."""
+It exits non-zero when any output or result differs, or when a K <= 16
+function of kernel 6 or 10 has other SASS than the other version's."""
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
+import re
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -48,44 +63,22 @@ from pathlib import Path
 
 import torch
 
-from collide2d_tpu_torch.ops import distance_cuda, toi_cuda
-from collide2d_tpu_torch.utils import cuda_build
-from collide2d_tpu_torch.utils.mc_ab import _nvcc_report
+from collide2d_tpu_torch.ops import distance_cuda, manifold_cuda, polygon_cuda, toi_cuda
+from collide2d_tpu_torch.utils import ab, cuda_build
 
-_TURNS = ("other", "this", "this", "other")
 _TOI_KW = dict(t_max=8.0, iters=64, tol=1e-4)
 # kernel -> (library, wrapper module)
-_LIBS = {"12": ("toi_kernel", toi_cuda), "9": ("distance_kernel", distance_cuda)}
+_LIBS = {"12": ("toi_kernel", toi_cuda), "9": ("distance_kernel", distance_cuda),
+         "6": ("polygon_kernel", polygon_cuda), "10": ("manifold_kernel", manifold_cuda)}
+# Kernels 6 and 10, and the bucket pairs above 16 of phase 24's cases (the
+# other version's builds for them: the earlier design's libraries)
+_BIG_K = ("6", "10")
+_BIG_K_BUCKETS = ((4, 32), (4, 64), (32, 32))
 
 
-@contextlib.contextmanager
-def _swapped(kernel: str, lib: ctypes.CDLL | None):
-    """The kernel's wrapper launches ``lib`` inside (None: its own)."""
-    mod = _LIBS[kernel][1]
-    saved = mod._kernel_lib
-    if lib is not None:
-        mod._kernel_lib = lambda *_, **__: lib
-    try:
-        yield
-    finally:
-        mod._kernel_lib = saved
-
-
-def _in_turns(cs, kernel: str, other: ctypes.CDLL, fn, reps: int | None = 20) -> dict:
-    """``fn()`` in turns with each version: its ms (CUDA events; None: not
-    timed), whether the outputs of every turn are equal, their fingerprint."""
-    outs, ms = [], {"other": [], "this": []}
-    for tag in _TURNS:
-        with _swapped(kernel, other if tag == "other" else None):
-            outs.append(fn())
-            if reps:
-                ms[tag].append(cs._events_ms(fn, reps))
-    equal = all(torch.equal(o, outs[0]) for o in outs[1:])
-    row = dict(outputs_equal=equal, fingerprint=cs.output_fingerprint(outs[0]))
-    if reps:
-        row.update(ms_other=ms["other"], ms_this=ms["this"],
-                   speedup=sum(ms["other"]) / sum(ms["this"]))
-    return row, outs[0]
+def _in_turns(cs, kernel: str, other: ctypes.CDLL, fn, reps: int | None = 20) -> tuple:
+    """`ab.in_turns` with the other version's library of ``kernel``."""
+    return ab.in_turns(cs, {_LIBS[kernel][1]: other}, fn, reps)
 
 
 def _print(tag: str, row: dict) -> None:
@@ -166,6 +159,57 @@ def _distance_cases(cs, other: ctypes.CDLL) -> tuple:
     return rows, work
 
 
+def _big_k_cases(cs, others: dict) -> tuple:
+    """Kernels 6 (float32 and bfloat16 planes) and 10 (margin 0) on each of
+    phase 24's cases, the other version's library for the case's bucket
+    pair."""
+    rows, work = [], {}
+    for k1, k2, a, b in cs.big_k_inputs():
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        calls = []
+        if "6" in others:
+            for tag, x, y in (("f32", a, b), ("bf16", a16, b16)):
+                calls.append(("6", tag, lambda x=x, y=y: polygon_cuda.sat_polygons_cuda_t(
+                    x, y, k1=k1, k2=k2), lambda x=x, y=y: polygon_cuda.sat_polygons_plain(
+                    x, y, k1, k2).reshape(-1).to(torch.float32)))
+        if "10" in others:
+            calls.append(("10", "m0", lambda: manifold_cuda.polygon_manifold_cuda_t(
+                a, b, k1=k1, k2=k2), lambda: manifold_cuda.polygon_manifold_plain(
+                a, b, k1, k2)))
+        for kernel, tag, fn, plain in calls:
+            row, out = _in_turns(cs, kernel, _other_lib(others[kernel], k1, k2), fn)
+            row = dict(kernel=kernel, case=f"{k1}x{k2}_{tag}", k1=k1, k2=k2,
+                       pairs=a.shape[1] * a.shape[2],
+                       plain_equal=bool(torch.equal(out, plain())), **row)
+            rows.append(row)
+            _print("case", row)
+        pairs = a.shape[1] * a.shape[2]
+        work[k1, k2] = (pairs, pairs - int(cs.sat_first_pass(a, b, k1, k2).sum()))
+        del a, b, a16, b16
+        torch.cuda.empty_cache()
+    return rows, work
+
+
+def _sass_by_function(cs, lib: Path) -> dict:
+    """Each function's SASS in a library (`chip_smoke._sass_functions`), by
+    mangled name from the kernel's own name on (the anonymous namespace's
+    name depends on the source file), without addresses."""
+    return {re.search(r"polygon_(?:sat|manifold)_\w+", name).group(0):
+            [x[1:] for x in ins] for name, ins in cs._sass_functions(lib).items()}
+
+
+def _default_sass(cs, kernel: str, other: Path, this: Path) -> dict:
+    """Kernel 6's or 10's default builds: whether every function of the
+    other version's at K <= 16 has the same SASS in this one, and the SASS
+    instructions of each version's functions."""
+    a, b = _sass_by_function(cs, other), _sass_by_function(cs, this)
+    small = [name for name in a if "big_k" not in name]
+    differ = [name for name in small if a[name] != b.get(name)]
+    return dict(kernel=kernel, k16_functions=len(small), k16_sass_equal=not differ,
+                k16_differ=differ, sass_other={n: len(v) for n, v in a.items()},
+                sass_this={n: len(v) for n, v in b.items()})
+
+
 def _toi_floor_per_thread(cs, lib: Path, work: dict) -> dict:
     """The earlier kernel 12's issue floor (one pair a thread, run to its own
     convergence): the shortest path through one iteration of its
@@ -206,10 +250,16 @@ def _distance_floor_per_thread(cs, lib: Path, k1: int, k2: int, pairs: int) -> d
 
 def issue_floor(cs, kernel: str, lib: Path, work) -> dict:
     """A version's issue floor at the cases' work (kernel 12: phase 14's
-    2^21 pairs; kernel 9: each case of `_distance_inputs`): this design's
+    2^21 pairs; kernel 9: each case of `_distance_inputs`; kernels 6 and
+    10: each of phase 24's cases with the pairs kernel 6's first pass
+    leaves, `chip_smoke.big_k_issue_floor`, which reads either design): this
+    design's
     (`chip_smoke.toi_issue_floor`, `chip_smoke.polygon_distance_issue_floor`)
     where the SASS has its warp votes (12) or block barriers (9), else the
     earlier one's (`_toi_floor_per_thread`, `_distance_floor_per_thread`)."""
+    if kernel in _BIG_K:
+        return {f"{k1}x{k2}": cs.big_k_issue_floor(lib, kernel, k1, k2, *counts)
+                for (k1, k2), counts in work.items()}
     if kernel == "12":
         ins = cs._sass_function(lib, "moving_obb_toi_kernel")
         if any(op.startswith("VOTE") for _, _, op, _ in ins):
@@ -231,6 +281,7 @@ def _end_to_end(cs, others: dict, model_args) -> list:
     from collide2d_tpu_torch.models.collision_model import (
         CollisionProbabilityModel,
         PolygonCollisionProbabilityModel,
+        example_polygon_configs,
     )
 
     import numpy as np
@@ -246,12 +297,47 @@ def _end_to_end(cs, others: dict, model_args) -> list:
         pmodel = PolygonCollisionProbabilityModel(np.asarray(cs.POLY_ROBOT, np.float32))
         calls.append(("9", "polygon_distance", lambda: pmodel.distance(configs,
                                                                        impl="auto")))
-    for kernel, call, fn in calls:
-        row, _ = _in_turns(cs, kernel, others[kernel], fn, 5)
+    big = [k for k in _BIG_K if k in others]
+    if big:
+        configs20 = example_polygon_configs(cs.BIG_K_ROWS, k=20, seed=25, device="cuda")
+        for robot, key in ((np.asarray(cs.POLY_ROBOT, np.float32), (4, 20)),
+                           (cs._regular_polygon(20, 1.2), (20, 20))):
+            model = PolygonCollisionProbabilityModel(robot)
+            if "6" in big:
+                calls.append(("6", f"collide_{key[0]}x{key[1]}",
+                              lambda m=model: m.collide(configs20), key))
+            if "10" in big:
+                calls.append(("10", f"contact_manifold_{key[0]}x{key[1]}",
+                              lambda m=model: m.contact_manifold(configs20), key))
+    for kernel, call, fn, *key in calls:
+        other = _other_lib(others[kernel], *key[0]) if key else others[kernel]
+        row, _ = _in_turns(cs, kernel, other, fn, 5)
         row = dict(call=call, results_equal=row.pop("outputs_equal"), **row)
         rows.append(row)
         _print("e2e", row)
     return rows
+
+
+def _jobs(kernels: list, other_csrc: Path) -> list:
+    """(version, kernel, source, defines) of every build: each version's
+    default build; for kernels 6 and 10 the other version also at each
+    bucket pair of `_BIG_K_BUCKETS` where its source reads the bucket-pair
+    defines (the earlier design)."""
+    jobs = []
+    for k in kernels:
+        for tag, csrc in (("other", other_csrc), ("this", cuda_build.CSRC_DIR)):
+            src = csrc / f"{_LIBS[k][0]}.cu"
+            buckets = (k in _BIG_K and tag == "other" and "POLY_KB" in src.read_text())
+            extra = [polygon_cuda.kernel_defines(*kk) for kk in _BIG_K_BUCKETS]
+            for defines in [()] + (extra if buckets else []):
+                jobs.append((tag, k, src, defines))
+    return jobs
+
+
+def _other_lib(libs: dict, k1: int, k2: int) -> ctypes.CDLL:
+    """The other version's library of kernel 6 or 10 for (k1, k2): its build
+    for the bucket pair, or its one library."""
+    return libs.get(polygon_cuda.kernel_defines(k1, k2), libs[()])
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -259,8 +345,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("other_csrc", type=Path,
                         help="the other version's collide2d_tpu_torch/csrc")
     parser.add_argument("--out", type=Path, help="also write query_ab.json here")
-    parser.add_argument("--kernels", default="12,9",
-                        help="the kernels to compare, comma-separated (default both)")
+    parser.add_argument("--kernels", default="12,9,6,10",
+                        help="the kernels to compare, comma-separated (default all four)")
     args = parser.parse_args(argv)
     kernels = [k for k in args.kernels.split(",") if k]
     if not kernels or not set(kernels) <= set(_LIBS):
@@ -269,35 +355,55 @@ def main(argv: list[str] | None = None) -> int:
     import chip_smoke as cs
 
     report = dict(card=cs._card(), sm_clock_mhz=[f / 1e6 for f in cs._sm_clock_hz()],
-                  builds={}, cases=[], end_to_end=[])
+                  builds={}, default_sass=[], cases=[], end_to_end=[])
     print(f"[card] {report['card']}", flush=True)
-    jobs = [(tag, k, csrc / f"{_LIBS[k][0]}.cu")
-            for k in kernels
-            for tag, csrc in (("other", args.other_csrc), ("this", cuda_build.CSRC_DIR))]
-    model_args, bench = cs.toi_inputs()
+    jobs = _jobs(kernels, args.other_csrc)
     with tempfile.TemporaryDirectory(prefix="query_ab_") as tmp:
-        libs = [Path(tmp) / f"{tag}_{k}.so" for tag, k, _ in jobs]
+        libs = [Path(tmp) / f"{tag}_{k}_{i}.so" for i, (tag, k, _, _) in enumerate(jobs)]
         with ThreadPoolExecutor(len(jobs)) as pool:
-            ptxas = list(pool.map(lambda j, lib: _nvcc_report(j[2], (), lib), jobs, libs))
-        built = {(tag, k): lib for (tag, k, _), lib in zip(jobs, libs)}
-        others = {k: _LIBS[k][1].bind(ctypes.CDLL(str(built["other", k]))) for k in kernels}
+            ptxas = list(pool.map(lambda j, lib: ab.nvcc_report(j[2], j[3], lib), jobs, libs))
+        built = {(tag, k, d): lib for (tag, k, _, d), lib in zip(jobs, libs)}
+        others = {}
+        for (tag, k, _, d), lib in zip(jobs, libs):
+            if tag == "other":
+                loaded = _LIBS[k][1].bind(ctypes.CDLL(str(lib)))
+                others[k] = others.get(k, {}) | {d: loaded} if k in _BIG_K else loaded
+        for k in kernels:
+            if k in _BIG_K:
+                row = _default_sass(cs, k, built["other", k, ()], built["this", k, ()])
+                report["default_sass"].append(row)
+                _print("sass", row)
         work = {}
         if "12" in others:
+            model_args, bench = cs.toi_inputs()
             rows, work["12"] = _toi_cases(cs, others["12"], model_args, bench)
             report["cases"] += rows
         if "9" in others:
             rows, work["9"] = _distance_cases(cs, others["9"])
             report["cases"] += rows
-        for (tag, k, _), lib, rep in zip(jobs, libs, ptxas):
-            floor = issue_floor(cs, k, lib, work[k])
-            report["builds"][f"{k}_{tag}"] = dict(ptxas=rep, issue_floor=floor)
-            print(f"[ab build] kernel={k} version={tag} ptxas={rep} floor={floor}", flush=True)
-        report["end_to_end"] = _end_to_end(cs, others, model_args)
+        if set(_BIG_K) & set(others):
+            rows, big_work = _big_k_cases(cs, others)
+            report["cases"] += rows
+            work.update({k: big_work for k in _BIG_K if k in others})
+        for (tag, k, _, d), lib, rep in zip(jobs, libs, ptxas):
+            cases = work[k]
+            if k in _BIG_K and tag == "other" and len(others[k]) > 1:
+                # the earlier design: each bucket pair's build at the cases
+                # it takes (its default build: the SASS check only)
+                cases = {kk: n for kk, n in cases.items()
+                         if d and polygon_cuda.kernel_defines(*kk) == d}
+            floor = issue_floor(cs, k, lib, cases) if cases else None
+            name = f"{k}_{tag}" + "".join(f"_{v}" for _, v in d)
+            report["builds"][name] = dict(ptxas=rep, issue_floor=floor)
+            print(f"[ab build] kernel={k} version={tag} defines={d} ptxas={rep} "
+                  f"floor={floor}", flush=True)
+        report["end_to_end"] = _end_to_end(cs, others, model_args if "12" in others else None)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "query_ab.json").write_text(json.dumps(report, indent=1))
     ok = (all(r["outputs_equal"] and r["plain_equal"] for r in report["cases"])
-          and all(r["results_equal"] for r in report["end_to_end"]))
+          and all(r["results_equal"] for r in report["end_to_end"])
+          and all(r["k16_sass_equal"] for r in report["default_sass"]))
     print(f"[ab] ok={ok}", flush=True)
     return 0 if ok else 1
 

@@ -6,8 +6,8 @@ checkout against another version's sources, on one card, in turns.
         .chipwork/parent/collide2d_tpu_torch/csrc [--out DIR] [--kernels 15,11]
 
 Run it from the root of a checkout (it uses `chip_smoke.py`'s inputs,
-timers, SASS reader and issue floors, and `utils/mc_ab.py`'s ptxas
-report) on a machine with a card and ``nvcc``. The other version's
+timers, SASS reader and issue floors, and `utils/ab.py`'s ptxas report
+and turns) on a machine with a card and ``nvcc``. The other version's
 ``screen_kernel.cu`` and ``raycast_kernel.cu`` must keep the C entry
 points of the wrappers (``rotating_screen_launch``,
 ``scene_raycast_launch``); both versions build with this checkout's
@@ -42,7 +42,6 @@ It exits non-zero when any output or result differs."""
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import sys
@@ -53,11 +52,9 @@ from pathlib import Path
 import torch
 
 from collide2d_tpu_torch.ops import raycast_cuda, screen_cuda
-from collide2d_tpu_torch.utils import cuda_build
-from collide2d_tpu_torch.utils.mc_ab import _nvcc_report
+from collide2d_tpu_torch.utils import ab, cuda_build
 
 _N_SEG, _KP = 8, 8
-_TURNS = ("other", "this", "this", "other")
 # kernel -> (library, wrapper module, defines)
 _LIBS = {
     "15": ("screen_kernel", screen_cuda, screen_cuda.screen_defines(_N_SEG)),
@@ -65,34 +62,9 @@ _LIBS = {
 }
 
 
-@contextlib.contextmanager
-def _swapped(kernel: str, lib: ctypes.CDLL | None):
-    """The kernel's wrapper launches ``lib`` inside (None: its own)."""
-    mod = _LIBS[kernel][1]
-    saved = mod._kernel_lib
-    if lib is not None:
-        mod._kernel_lib = lambda *_, **__: lib
-    try:
-        yield
-    finally:
-        mod._kernel_lib = saved
-
-
 def _in_turns(cs, kernel: str, other: ctypes.CDLL, fn, reps: int | None = 20) -> dict:
-    """``fn()`` in turns with each version: its ms (CUDA events; None: not
-    timed), whether the outputs of every turn are equal, their fingerprint."""
-    outs, ms = [], {"other": [], "this": []}
-    for tag in _TURNS:
-        with _swapped(kernel, other if tag == "other" else None):
-            outs.append(fn())
-            if reps:
-                ms[tag].append(cs._events_ms(fn, reps))
-    equal = all(all(map(torch.equal, o, outs[0])) for o in outs[1:])
-    row = dict(outputs_equal=equal, fingerprint=cs.output_fingerprint(*outs[0]))
-    if reps:
-        row.update(ms_other=ms["other"], ms_this=ms["this"],
-                   speedup=sum(ms["other"]) / sum(ms["this"]))
-    return row
+    """`ab.in_turns` with the other version's library of ``kernel``."""
+    return ab.in_turns(cs, {_LIBS[kernel][1]: other}, fn, reps)[0]
 
 
 def _screen_cases(cs, other: ctypes.CDLL) -> list:
@@ -185,8 +157,8 @@ def _host_in_turns(cs, kernel: str, other: ctypes.CDLL, fn, reps: int) -> dict:
     """``fn()`` on the host clock in turns (ms of each turn), and whether the
     results of every turn are equal."""
     outs, ms = [], {"other": [], "this": []}
-    for tag in _TURNS:
-        with _swapped(kernel, other if tag == "other" else None):
+    for tag in ab.TURNS:
+        with ab.swapped({_LIBS[kernel][1]: other} if tag == "other" else {}):
             outs.append(fn())
             ms[tag].append(cs._host_ms(fn, reps))
     flat = [o if isinstance(o, (tuple, list)) else (o,) for o in outs]
@@ -245,7 +217,7 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory(prefix="screen_raycast_ab_") as tmp:
         libs = [Path(tmp) / f"{tag}_{k}.so" for tag, k, _ in jobs]
         with ThreadPoolExecutor(len(jobs)) as pool:
-            ptxas = list(pool.map(lambda j, lib: _nvcc_report(j[2], _LIBS[j[1]][2], lib),
+            ptxas = list(pool.map(lambda j, lib: ab.nvcc_report(j[2], _LIBS[j[1]][2], lib),
                                   jobs, libs))
         built = {(tag, k): lib for (tag, k, _), lib in zip(jobs, libs)}
         for (tag, k, _), lib, rep in zip(jobs, libs, ptxas):

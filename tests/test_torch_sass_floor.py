@@ -200,3 +200,86 @@ def test_polygon_distance_issue_floor_refuses_a_pass_it_cannot_read(monkeypatch)
     monkeypatch.setattr(cs, "_bucket", lambda k: 4)
     with pytest.raises(RuntimeError, match="FMUL.SAT"):
         cs.polygon_distance_issue_floor(None, 4, 4, 100, 10, 95)
+
+
+# Kernels 6 and 10 above 16 vertices (csrc/polygon_big_k.cuh): a block loop
+# of two axes (its set-up, a guarded vertex walk of two vertices an
+# iteration folding 8 minima from 2 loads, the block's test), a remainder
+# walk of one axis, and for kernel 10 an incident loop with its 1/|n|.
+_BIG_K = """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDS R1, [R0] ;
+        /*0020*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0030*/                   FADD R3, R3, R4 ;
+        /*0040*/                   FADD R5, R5, R6 ;
+        /*0050*/              @P0  BRA 0x100 ;
+        /*0060*/                   LDS R7, [R0] ;
+        /*0070*/                   LDS R8, [R0+0x200] ;
+        /*0080*/                   FMUL R9, R7, R3 ;
+        /*0090*/                   FMNMX R10, R10, R9, PT ;
+        /*00a0*/                   FMNMX R11, R11, R9, !PT ;
+        /*00b0*/                   FMNMX R12, R12, R8, PT ;
+        /*00c0*/                   FMNMX R13, R13, R8, !PT ;
+        /*00d0*/                   FMNMX R14, R14, R9, PT ;
+        /*00e0*/                   FMNMX R15, R15, R9, !PT ;
+        /*00f0*/                   FMNMX R16, R16, R8, PT ;
+        /*00f8*/                   FMNMX R17, R17, R8, !PT ;
+        /*00fc*/              @P1  BRA 0x60 ;
+        /*0100*/                   FSETP.LT.OR P2, PT, R10, R11, P2 ;
+        /*0110*/              @P3  BRA 0x20 ;
+        /*0120*/                   LDS R18, [R0] ;
+        /*0130*/                   FMNMX R19, R19, R18, PT ;
+        /*0140*/              @P4  BRA 0x120 ;
+        /*0150*/                   MUFU.RSQ R20, R21 ;
+        /*0160*/                   FMUL R22, R20, R21 ;
+        /*0170*/              @P5  BRA 0x150 ;
+        /*0180*/                   EXIT ;
+        /*0190*/                   BRA 0x190 ;
+"""
+
+
+def _big_k_patched(monkeypatch, names):
+    _patched(monkeypatch, _ins(_BIG_K))
+    monkeypatch.setattr(cs, "_sass_names", lambda lib: names)
+
+
+def test_big_k_issue_floor_at_the_main_walk(monkeypatch):
+    _big_k_patched(monkeypatch, ["_ZN3_GLOBAL_24polygon_sat_big_k_kernelIfLi128EEEv"])
+    pairs, undecided = 10, 4
+    floor = cs.big_k_issue_floor(None, "6", 4, 32, pairs, undecided)
+    # the walk: 2 loads, the product, 8 minima and the back edge = 12 an
+    # iteration for 4 projections (8 minima, 2 each): a block of 2 axes
+    assert (floor["sass_walk_iteration"], floor["projections_per_iteration"]) == (12, 4)
+    assert floor["block"] == 2
+    # the block's set-up past the walk: IADD3, 2 FADD, the guard, the test,
+    # the back edge
+    assert floor["sass_block_setup"] == 6
+    # 8 first-pass axes a pair, the 32 of the 32-gon for each undecided
+    # pair (every edge of the 4-gon was in the first pass)
+    axes = 8 * pairs + 32 * undecided
+    assert cs.big_k_work("6", 4, 32, pairs, undecided) == (axes, 36 * axes)
+    total = 12 / 4 * 36 * axes + 6 / 2 * axes
+    assert floor["sass_per_pair"] == pytest.approx(total / pairs)
+    assert floor["issue_floor_ms"] == pytest.approx(cs._issue_ms(total)[0])
+    assert floor["sass_incident"] == 0
+
+
+def test_big_k_issue_floor_counts_kernel_10s_incident_loop(monkeypatch):
+    _big_k_patched(monkeypatch, ["_ZN3_GLOBAL_29polygon_manifold_big_k_kernelILi128EEEv"])
+    floor = cs.big_k_issue_floor(None, "10", 4, 32, 10, 0)
+    # one minimum a projection: 8 an iteration; a block of 4 faces
+    assert (floor["projections_per_iteration"], floor["block"]) == (8, 4)
+    assert floor["sass_incident"] == 3
+    faces, projections = cs.big_k_work("10", 4, 32, 10, 0)
+    assert (faces, projections) == (36 * 10, 2 * 4 * 32 * 10)
+    total = 12 / 8 * projections + 6 / 4 * faces + 3 * 4 * 10
+    assert floor["sass_per_pair"] == pytest.approx(total / 10)
+
+
+def test_big_k_issue_floor_of_the_unrolled_design(monkeypatch):
+    # a library of the earlier design: its bucket pair's function straight
+    # through, the shortest path to the last exit (every branch either way)
+    _big_k_patched(monkeypatch, ["_ZN3_GLOBAL_18polygon_sat_kernelILi4ELi32EfEEvPKT1_"])
+    floor = cs.big_k_issue_floor(None, "6", 4, 20, 10, 3)
+    assert floor["design"] == "unrolled" and floor["function"] == "polygon_sat_kernelILi4ELi32EfE"
+    assert floor["sass_per_pair"] == cs._shortest_iteration(_ins(_BIG_K), 0, 0x180)[0]
