@@ -23,13 +23,10 @@ raises, and the script then exits non-zero without printing a result):
    library also in its build that counts kernel 9's passes; the Box-Muller
    builds (-DMC_BOX_MULLER=1) of kernels 1, 7 (k = 8 and 6) and 14 (k = 8),
    and kernel 14 at the bench's k = 6 (phase 17 and the bench); kernel 7 at
-   k = 20 (phase 26); and kernel 9 at the K bucket pairs above 16 that
-   phases 24 and 25 launch ((4, 32), (4, 64), (32, 32): one library each,
-   `polygon_cuda.kernel_defines`), with ptxas's registers and spill bytes;
-   kernels 6 and 10 take every K in their one library, and the line prints
-   ptxas's registers and spill bytes and the SASS instructions of their
-   functions above 16 vertices beside the earlier design's
-   (`PARENT_BIG_K_BUILDS`);
+   k = 20 (phase 26); kernels 6, 9 and 10 take every K in their one
+   library, and the line prints ptxas's registers and spill bytes and the
+   SASS instructions of their functions above 16 vertices beside the
+   earlier design's (`PARENT_BIG_K_BUILDS`);
 2. the kernel against its plain PyTorch version on the card, same Philox
    stream, C = 100,000 annulus configurations x n = 4096 samples, shape
    noise off and on, and the adaptive tail's 256 rows x 100,000 samples:
@@ -297,20 +294,20 @@ raises, and the script then exits non-zero without printing a result):
 24. k-gons above 16 vertices: kernels 6 (float32 and bfloat16 planes), 9
    and 10 at 2^20 pairs of a 4-gon against 17-, 20-, 32- and 64-gons, of
    32-gons against 32-gons and of 20-gons against 20-gons
-   (`big_k_inputs`), each against its plain version: kernels 6 and 10
-   bitwise (every output ``torch.equal``), kernel 9 within 2e-5 with 0 signs
-   apart (and its sign kernel 6's label); the outputs of 6 and 10 against
-   the earlier design's rows (`PARENT_FINGERPRINTS`, `parent_rows_equal`);
-   every case timed (CUDA events, 20 launches after a warm-up) beside its
-   plain version and bound (kernels 6 and 10 at the true K, 9 at its
-   buckets), kernel 6 also beside its issue floor (`big_k_issue_floor`),
-   with the card's name and power limit; the entries of the kernels line
-   are kernels 6 and 10 at (4, 20) and (20, 20) and kernel 9 at the bucket
-   pairs (4, 32) and (32, 32), what phase 25's routes launch;
+   (`big_k_inputs`), each against its plain version, bitwise (every output
+   ``torch.equal``; kernel 9's sign also kernel 6's label, and its counting
+   build's output and passes: the pairs its first pass leaves recounted on
+   the card, `distance_first_pass`, and those through the segment tests the
+   ones that do not overlap); the outputs against the earlier design's rows
+   (`PARENT_FINGERPRINTS`, `parent_rows_equal`); every case timed (CUDA
+   events, 20 launches after a warm-up) beside its plain version, its bound
+   at the true K (kernels 6 and 9 at the work their passes evaluate, 9 also
+   at every axis and test) and its issue floor (`big_k_issue_floor`), with
+   the card's name and power limit; the entries of the kernels line are
+   the three at (4, 20) and (20, 20), what phase 25's routes launch;
 25. the routes at k = 20, each route's launches counted from 0: a 4-gon
-   robot (kernels 6 and 10 at (4, 20), 9 at the bucket pair (4, 32)) and a
-   20-gon robot ((20, 20); 9 at (32, 32)) against
-   2^20 `example_polygon_configs` 20-gons through
+   robot (kernels 6, 9 and 10 at (4, 20)) and a 20-gon robot ((20, 20))
+   against 2^20 `example_polygon_configs` 20-gons through
    `PolygonCollisionProbabilityModel.collide`, `CollisionProbabilityModel
    .collide_polygons`, ``distance(impl='auto')`` and ``contact_manifold``
    (labels equal ``impl='torch'``'s, distance signs the labels, values
@@ -319,8 +316,9 @@ raises, and the script then exits non-zero without printing a result):
    20-gons in a 40-side box: the matrix bitwise `ops.sat.sat_polygons` on
    every pair on the card, the swept pairs (window 512) the matrix's, the
    dense manifolds as phase 20's (`_scene_manifold_check`); kernels 6, 9
-   and 10 launched on both routes; the ms of each route's ``collide`` and
-   ``contact_manifold`` calls (CUDA events, 5 calls after a warm-up);
+   and 10 launched on both routes; the ms of each route's ``collide``,
+   ``distance`` and ``contact_manifold`` calls (CUDA events, 5 calls after a
+   warm-up);
 26. kernel 7 at k = 20 against the 4-gon robot (its own library) against
    its plain version on the same Philox stream, 16,384 rows x 4,096
    samples: sum |dcount| <= 1e-5 of the samples; kernel ms, plain ms, bound;
@@ -337,9 +335,9 @@ raises, and the script then exits non-zero without printing a result):
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path (the Box-Muller builds of
 kernels 1, 7 and 14 as entries of their own: launches in the full bench,
-and in phases 10's and 17's Box-Muller rounds; kernels 6, 9 and 10 at the
-bucket pairs (4, 32) and (32, 32) and kernel 7 at k = 20 too: launches on
-phases 25's and 26's routes), with ``bound_ms``: the larger
+and in phases 10's and 17's Box-Muller rounds; kernels 6, 9 and 10 at (4,
+20) and (20, 20) and kernel 7 at k = 20 too: launches on phases 25's and
+26's routes), with ``bound_ms``: the larger
 of the bytes the function must move over 3.35 TB/s and the FP32
 operations its source writes for these inputs over 67 TFLOP/s (an FMA
 counts 2; the library calls ``log1pf``, ``sqrtf``, ``sincosf`` and the
@@ -513,8 +511,7 @@ def phase_build():
     # at the JAX bench's k = 6, phase 17 checks it)
     bm = normal_defines("box_muller")
     jobs = [(name, ()) for name in (
-        "mc_kernel", "sat_kernel", "distance_kernel", "toi_kernel", "mc_toi_kernel",
-        "stream_kernel")] + [
+        "mc_kernel", "sat_kernel", "toi_kernel", "mc_toi_kernel", "stream_kernel")] + [
         ("mc_polygon_kernel", shape_defines(POLY_K, 4, 2)),
         ("mc_polygon_kernel", shape_defines(6, 4, 2)),
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2)),
@@ -528,9 +525,8 @@ def phase_build():
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
         ("mc_moving_polygon_kernel", shape_defines(6, 4, 2)),
         ("mc_polygon_kernel", shape_defines(20, 4, 2))]  # phase 26
-    # kernels 6 and 10 (every K in one library) and kernel 9 at the bucket
-    # pairs above 16 of phases 24 and 25, with ptxas's report
-    reported = [("polygon_kernel", ()), ("manifold_kernel", ())] + big_k_builds()
+    # kernels 6, 9 and 10 (every K in one library), with ptxas's report
+    reported = [(lib, ()) for lib, _ in BIG_K_FUNCTIONS.values()]
     with ThreadPoolExecutor(len(jobs) + len(reported)) as pool:
         big = [pool.submit(_build_reported, *job) for job in reported]
         libs = list(pool.map(lambda job: cuda_build.build(*job), jobs))
@@ -538,13 +534,11 @@ def phase_build():
     jobs += reported
     for job in jobs:
         cuda_build.load(*job)
-    above_16 = {f"{d[0][1]}x{d[1][1]}": _ptxas(name, d, "polygon_distance")
-                for name, d in big_k_builds()}
     _line("1 build", time.monotonic() - t,
           kernels=",".join(f"{name}.cu" + "".join(f":{v}" for _, v in defs)
                            for name, defs in jobs),
           libraries=",".join(lib.name for lib in libs),
-          above_16_kernel9=_json(above_16), above_16_kernels_6_10=_json(big_k_report()))
+          above_16_kernels_6_9_10=_json(big_k_report()))
 
 
 def _rect_mc_params(c: int, shape_noise: bool) -> torch.Tensor:
@@ -1773,12 +1767,16 @@ TOI_EVAL_OPS, TOI_SETUP_OPS, TOI_WINDOW_OPS = 209, 21, 96
 
 
 def polygon_distance_ops(k1: int, k2: int) -> int:
-    """csrc/distance_kernel.cu at the K buckets: A = K1 + K2 axes x (the
-    axis 2, |n|^2 3, A projections of 3, 2 (A - 2) min/max, the gap 4, 1/|n|
-    2, select and max 2) = A (5A + 9); each of the A segments 7 (edge, |e|^2,
+    """csrc/distance_kernel.cu at the K buckets up to 16 vertices, at the
+    true K above (csrc/polygon_big_k.cuh): A = K1 + K2 axes x (the axis 2,
+    |n|^2 3, A projections of 3, 2 (A - 2) min/max, the gap 4, 1/|n| 2,
+    select and max 2) = A (5A + 9); each of the A segments 7 (edge, |e|^2,
     test, reciprocal) and each of the 2 K1 K2 point-segment tests 17; sqrt
-    and select 2."""
-    k1, k2 = _bucket(k1), _bucket(k2)
+    and select 2. Every pair through every axis and every test (the
+    padding's point distances, which a polygon below its bucket adds above
+    16, not counted)."""
+    if max(k1, k2) <= 16:
+        k1, k2 = _bucket(k1), _bucket(k2)
     a = k1 + k2
     return a * (5 * a + 9) + 7 * a + 34 * k1 * k2 + 2
 
@@ -1798,6 +1796,20 @@ def polygon_distance_ops_evaluated(k1: int, k2: int, pairs: int, undecided: int,
     a = k1 + k2
     return (pairs * 4 * (5 * a + 6) + undecided * (a * (5 * a + 9) + 1)
             + separated * (8 * a + 28 * k1 * k2 + 1))
+
+
+def big_k_distance_ops_evaluated(k1: int, k2: int, pairs: int, undecided: int,
+                                 separated: int) -> int:
+    """The FP32 operations kernel 9 evaluates above 16 vertices at the true K
+    (csrc/polygon_big_k.cuh) when its passes take ``pairs``, ``undecided``
+    and ``separated`` pairs: `polygon_distance_ops_evaluated`'s counts with
+    the first pass's 8 spread normals for its 4, and for a separated pair
+    the padding's point distances, 6 each (2 differences, |d|^2 3, min), k2
+    of them where k1 is below its bucket and k1 where k2 is."""
+    a = k1 + k2
+    points = k2 * (_bucket(k1) > k1) + k1 * (_bucket(k2) > k2)
+    return (pairs * 8 * (5 * a + 6) + undecided * (a * (5 * a + 9) + 1)
+            + separated * (8 * a + 28 * k1 * k2 + 6 * points + 1))
 
 
 def manifold_ops(k1: int, k2: int) -> int:
@@ -2824,7 +2836,7 @@ PARENT_FINGERPRINTS.update({
 })
 
 
-# The earlier design of kernels 6 and 10 above 16 vertices (a library for
+# The earlier design of kernels 6, 9 and 10 above 16 vertices (a library for
 # each pair of K buckets, the body unrolled over the buckets): ptxas's
 # registers and spill-store bytes and the SASS instructions of each bucket
 # pair's float32 function, as utils/query_ab.py read them from the earlier
@@ -2834,6 +2846,9 @@ PARENT_BIG_K_BUILDS = {
     "sat_polygons": {"4x32": dict(registers=94, spill_stores=0, sass=7167),
                      "32x32": dict(registers=168, spill_stores=0, sass=21702),
                      "4x64": dict(registers=167, spill_stores=0, sass=24414)},
+    "polygon_distance": {"4x32": dict(registers=224, spill_stores=0, sass=15138),
+                         "32x32": dict(registers=255, spill_stores=0, sass=57852),
+                         "4x64": dict(registers=255, spill_stores=996, sass=40274)},
     "polygon_manifold": {"4x32": dict(registers=205, spill_stores=0, sass=5626),
                          "32x32": dict(registers=160, spill_stores=0, sass=14725),
                          "4x64": dict(registers=255, spill_stores=824, sass=11152)},
@@ -2862,6 +2877,18 @@ PARENT_FINGERPRINTS.update({
     "big_k_20x20": [[449318045614080, 2235590648944132096],
                     [449388358926336, 2235935721112207360],
                     [-114840416382766, -578808021985297786]],
+})
+# Kernel 9 above 16 vertices in the earlier design (a library for each pair
+# of K buckets, the body unrolled over them) on phase 24's inputs, as
+# utils/query_ab.py read them on an NVIDIA H100 80GB HBM3 from the earlier
+# sources' builds.
+PARENT_FINGERPRINTS.update({
+    "big_k_distance_4x17": [[451833636846145, 2250457051273322324]],
+    "big_k_distance_4x20": [[442895597436796, 2207922696347655721]],
+    "big_k_distance_4x32": [[431785207637938, 2149152842164083688]],
+    "big_k_distance_4x64": [[425607315856009, 2119853281122428767]],
+    "big_k_distance_32x32": [[184072664124984, 915401508840766973]],
+    "big_k_distance_20x20": [[209496492544519, 1047622682430401076]],
 })
 
 def screen_inputs():
@@ -3262,29 +3289,28 @@ def phase_scene_swept() -> None:
 
 
 BIG_K_PAIRS = 1 << 20
-# Phase 24's (K1, K2): a 4-gon against 17-, 20-, 32- and 64-gons (kernel 9's
-# bucket pairs (4, 32) and (4, 64)), 32-gons against 32-gons and 20-gons
-# against 20-gons (the k = 20 routes' shape); every case is timed.
+# Phase 24's (K1, K2): a 4-gon against 17-, 20-, 32- and 64-gons, 32-gons
+# against 32-gons and 20-gons against 20-gons (the k = 20 routes' shape);
+# every case is timed.
 BIG_K_CASES = ((4, 17), (4, 20), (4, 32), (4, 64), (32, 32), (20, 20))
 BIG_K_ROWS = 1 << 20  # phase 25's model rows at k = 20
 # (kernels line name, library, the TPU kernel it replaces)
 BIG_K_KERNELS = (("sat_polygons", "polygon_kernel", "polygon_pallas.py:92"),
                  ("polygon_distance", "distance_kernel", "distance_pallas.py:229"),
                  ("polygon_manifold", "manifold_kernel", "manifold_pallas.py:181"))
-# Kernels 6 and 10 run above 16 vertices at the true K (one library for every
-# K), kernel 9 at its K buckets (a library per bucket pair)
-RUN_TIME_K = ("sat_polygons", "polygon_manifold")
 # Phase 25's routes: the 4-gon and the 20-gon robot against 20-gons, as
-# (K1, K2) and kernel 9's bucket pair; the kernels line's entries above 16
-# are kernels 6 and 10 at the first, 9 at the second (`_big_k_key`)
-BIG_K_ROUTES = (((4, 20), (4, 32)), ((20, 20), (32, 32)))
+# (K1, K2); the kernels line's entries above 16 are kernels 6, 9 and 10 at
+# each (all three run at the true K, one library for every K)
+BIG_K_ROUTES = ((4, 20), (20, 20))
 # ptxas's report of the builds phase 1 reads it for, by (library, defines):
 # the kernels' registers, stack and spill bytes, and the nvcc seconds
 BUILD_PTXAS: dict = {}
-# The functions of kernels 6 and 10 above 16 vertices: phase 1 prints their
-# ptxas report and SASS instructions (the tiled float32 instantiations, what
-# phase 24's cases run)
+# The functions of kernels 6, 9 and 10 above 16 vertices: phase 1 prints
+# their ptxas report and SASS instructions (the tiled float32
+# instantiations, what phase 24's cases run)
 BIG_K_FUNCTIONS = {"sat_polygons": ("polygon_kernel", "polygon_sat_big_k_kernelIfLi128EE"),
+                   "polygon_distance": ("distance_kernel",
+                                        "polygon_distance_big_k_kernelILi128EE"),
                    "polygon_manifold": ("manifold_kernel",
                                         "polygon_manifold_big_k_kernelILi128EE")}
 # Phase 26: kernel 7 at K = 20 against the 4-gon robot (2 kept axes)
@@ -3304,15 +3330,6 @@ KERNEL_NUMBERS = {
     "mc_toi_counts": "13", "mc_moving_poly_counts": "14",
     "mc_moving_poly_counts_box_muller": "14bm", "rotating_screen": "15", "stream_sum": "16"}
 CONTACT_LABELS, CONTACT_SCENE_PAIRS, CONTACT_RAY_SHAPE = [1, 0, 0], 49, 15
-
-
-def big_k_builds() -> list:
-    """Kernel 9's libraries at the bucket pairs phases 24 and 25 launch
-    (kernels 6 and 10 take every K in their default library): (library,
-    defines)."""
-    from collide2d_tpu_torch.ops.polygon_cuda import kernel_defines
-
-    return [("distance_kernel", kernel_defines(k1, k2)) for k1, k2 in ((4, 32), (4, 64), (32, 32))]
 
 
 def _build_reported(name: str, defines) -> Path:
@@ -3345,15 +3362,20 @@ def _ptxas(name: str, defines, function: str) -> dict:
 
 
 def big_k_report() -> dict:
-    """Phase 1's report of kernels 6 and 10 above 16 vertices: each
+    """Phase 1's report of kernels 6, 9 and 10 above 16 vertices: each
     function's ptxas registers, stack and spill bytes and SASS
-    instructions, beside the earlier design's (`PARENT_BIG_K_BUILDS`)."""
+    instructions, beside the earlier design's (`PARENT_BIG_K_BUILDS`); and
+    the most spill-store bytes of any of the library's run-time-K
+    instantiations (every tile, and device memory)."""
     from collide2d_tpu_torch.utils import cuda_build
 
     out = {}
     for name, (lib, function) in BIG_K_FUNCTIONS.items():
         ins = _sass_function(cuda_build.library_path(lib), function)
+        build = BUILD_PTXAS.get((lib, ()), {}).get("functions", {})
+        spills = [v["spill_stores"] for k, v in build.items() if "big_k" in k]
         out[name] = dict(_ptxas(lib, (), function), sass=len(ins),
+                         spill_stores_any_tile=max(spills, default=None),
                          parent=PARENT_BIG_K_BUILDS[name])
     return out
 
@@ -3371,22 +3393,14 @@ def big_k_inputs():
         yield k1, k2, a, b
 
 
-def _big_k_key(name: str, k1: int, k2: int):
-    """The kernels line's key of a case: (K1, K2) for kernels 6 and 10,
-    kernel 9's bucket pair."""
-    return (k1, k2) if name in RUN_TIME_K else (_bucket(k1), _bucket(k2))
-
-
 def phase_big_k(card: str) -> dict:
     """Phase 24: kernels 6, 9 and 10 above 16 vertices against their plain
     versions at 2^20 pairs; returns the kernels line's entries by (name,
-    `_big_k_key`) for phase 25's routes (phase 25 adds their launches)."""
+    (K1, K2)) for phase 25's routes (phase 25 adds their launches)."""
     from collide2d_tpu_torch.ops import distance_cuda, manifold_cuda, polygon_cuda
     from collide2d_tpu_torch.utils import cuda_build
 
     n = BIG_K_PAIRS
-    route_keys = {(name, _big_k_key(name, *shape)) for name, _, _ in BIG_K_KERNELS
-                  for shape, _ in BIG_K_ROUTES}
     entries = {}
     for k1, k2, a, b in big_k_inputs():
         t = time.monotonic()
@@ -3406,27 +3420,41 @@ def phase_big_k(card: str) -> dict:
         dist, want_dist = (f() for f in calls["polygon_distance"])
         want_dist = want_dist.reshape(-1)
         man, want_man = (f() for f in calls["polygon_manifold"])
+        # kernel 9's counting build: the pairs through every axis and through
+        # the segment tests
+        counted, undecided9, separated9 = distance_cuda.polygon_distance_passes(a, b, k1=k1,
+                                                                               k2=k2)
         torch.cuda.synchronize()
         differ = int((label != want_label.float()).sum())
         differ16 = int((label16 != want16.float()).sum())
         err9 = float((dist - want_dist).abs().max())
-        signs9 = int(((dist <= 0) != (want_dist <= 0)).sum())
         vs_label = int(((dist <= 0) != (label > 0)).sum())
         differ10, err10 = _manifold_diff(manifold_cuda.unpack_manifold(man, n),
                                          manifold_cuda.unpack_manifold(want_man, n))
         bitwise = dict(labels=torch.equal(label, want_label.float()),
                        labels_bf16=torch.equal(label16, want16.float()),
+                       distance=torch.equal(dist, want_dist),
+                       distance_counted=torch.equal(counted, dist),
                        manifold=torch.equal(man, want_man))
         share = float(want_label.float().mean())
-        if (not all(bitwise.values()) or err9 > 2e-5 or signs9 or vs_label
+        # kernel 9's passes: its first pass's settled pairs recounted on the
+        # card, the separated ones those that do not overlap
+        first9 = int(distance_first_pass(a, b, k1, k2).sum())
+        overlap9 = int((want_dist < 0).sum())
+        passes_ok = undecided9 == n - first9 and separated9 == n - overlap9
+        if (not all(bitwise.values()) or vs_label or not passes_ok
                 or not 0.0 < share < 1.0):
             raise RuntimeError(
                 f"k-gons ({k1}, {k2}): {differ} labels ({differ16} bf16) differ from kernel "
-                f"6's plain version; kernel 9 by {err9}, {signs9} signs, {vs_label} against "
-                f"kernel 6; kernel 10 {differ10} counts, values by {err10} (bitwise "
-                f"{bitwise}); share {share}")
+                f"6's plain version; kernel 9 by {err9}, {vs_label} signs against kernel 6, "
+                f"passes {undecided9} / {separated9} against {n - first9} / {n - overlap9}; "
+                f"kernel 10 {differ10} counts, values by {err10} (bitwise {bitwise}); "
+                f"share {share}")
         fingerprint = output_fingerprint(label, label16, man)
-        parent = PARENT_FINGERPRINTS.get(f"big_k_{k1}x{k2}")
+        fingerprint9 = output_fingerprint(dist)
+        parent_equal = dict(
+            kernels_6_10=fingerprint == PARENT_FINGERPRINTS.get(f"big_k_{k1}x{k2}"),
+            kernel_9=fingerprint9 == PARENT_FINGERPRINTS.get(f"big_k_distance_{k1}x{k2}"))
         # the pairs kernel 6's first pass leaves to its second
         undecided = n - int(sat_first_pass(a, b, k1, k2).sum())
         timing = {}
@@ -3436,50 +3464,52 @@ def phase_big_k(card: str) -> dict:
             nbytes = (2 * k1 + 2 * k2) * 4 + (36 if name == "polygon_manifold" else 4)
             if name == "sat_polygons":  # 5 (k1 + k2) an axis, at the axes evaluated
                 ops = 5 * (k1 + k2) * big_k_work(name, k1, k2, n, undecided)[0]
+            elif name == "polygon_distance":  # at the work its passes evaluate
+                ops = big_k_distance_ops_evaluated(k1, k2, n, undecided9, separated9)
             else:
-                ops = {"polygon_distance": polygon_distance_ops,
-                       "polygon_manifold": manifold_ops}[name](k1, k2) * n
+                ops = manifold_ops(k1, k2) * n
             bound, bound_by = _bound_ms(nbytes * n, ops)
             timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
-            if name in BIG_K_FUNCTIONS:
-                floor = big_k_issue_floor(cuda_build.library_path(lib), name, k1, k2, n,
-                                          undecided)
-                timing[name].update(issue_floor_ms=floor["issue_floor_ms"],
-                                    sass_per_pair=floor["sass_per_pair"])
-            key = _big_k_key(name, k1, k2)
-            if (name, key) in route_keys:
-                entry = entries.setdefault((name, key), dict(max_abs_err=0.0))
+            if name == "polygon_distance":  # every pair through every axis and test
+                timing[name]["bound_ms_full_work"] = _bound_ms(
+                    nbytes * n, polygon_distance_ops(k1, k2) * n)[0]
+            work = ((undecided9, separated9) if name == "polygon_distance"
+                    else (undecided,))
+            floor = big_k_issue_floor(cuda_build.library_path(lib), name, k1, k2, n, *work)
+            timing[name].update(issue_floor_ms=floor["issue_floor_ms"],
+                                sass_per_pair=floor["sass_per_pair"])
+            if (k1, k2) in BIG_K_ROUTES:  # the route's shape: its kernels line entry
+                ptxas = _ptxas(lib, (), BIG_K_FUNCTIONS[name][1])
                 err = {"sat_polygons": float(differ), "polygon_distance": err9,
                        "polygon_manifold": err10}[name]
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                if (k1, k2) == key:  # the timed case is the route's shape
-                    ptxas = (_ptxas(lib, (), BIG_K_FUNCTIONS[name][1])
-                             if name in BIG_K_FUNCTIONS else
-                             _ptxas(lib, polygon_cuda.kernel_defines(k1, k2),
-                                    "polygon_distance"))
-                    entry.update(timing[name], registers=ptxas.get("registers"),
-                                 spill_stores_bytes=ptxas.get("spill_stores"),
-                                 spill_loads_bytes=ptxas.get("spill_loads"),
-                                 stack_frame_bytes=ptxas.get("stack_frame"))
+                entries[(name, (k1, k2))] = dict(
+                    timing[name], max_abs_err=err, registers=ptxas.get("registers"),
+                    spill_stores_bytes=ptxas.get("spill_stores"),
+                    spill_loads_bytes=ptxas.get("spill_loads"),
+                    stack_frame_bytes=ptxas.get("stack_frame"))
         bf16_ms = _events_ms(lambda: polygon_cuda.sat_polygons_cuda_t(a16, b16, k1=k1, k2=k2),
                              reps=20)
-        _line("24 k-gons above 16", time.monotonic() - t, k1=k1, k2=k2,
-              kernel9_buckets=f"{_bucket(k1)}x{_bucket(k2)}", pairs=n,
+        evaluated9 = big_k_distance_ops_evaluated(k1, k2, n, undecided9, separated9)
+        _line("24 k-gons above 16", time.monotonic() - t, k1=k1, k2=k2, pairs=n,
               tile_pairs=polygon_cuda.tile_pairs(k1, k2), card=card.replace(" ", "_"),
               labels_differ=differ, labels_differ_bf16=differ16,
               collision_share=f"{share:.4f}",
               distance_max_abs_diff=f"{err9:.3e}",
-              distance_bitwise=bool(torch.equal(dist, want_dist)),
               distance_sign_mismatch_vs_kernel6=vs_label,
               manifold_counts_differ=differ10, manifold_max_abs_diff=f"{err10:.3e}",
-              labels_bitwise=bitwise["labels"], labels_bf16_bitwise=bitwise["labels_bf16"],
-              manifold_bitwise=bitwise["manifold"], kernel6_undecided=undecided,
-              fingerprint=_json(fingerprint),
-              parent_rows_equal=fingerprint == parent,
+              **{f"{k}_bitwise": v for k, v in bitwise.items()},
+              kernel6_undecided=undecided, kernel9_undecided=undecided9,
+              kernel9_separated=separated9,
+              kernel9_ops_per_pair=polygon_distance_ops(k1, k2),
+              kernel9_ops_per_pair_evaluated=f"{evaluated9 / n:.1f}",
+              fingerprint=_json(fingerprint), fingerprint_kernel9=_json(fingerprint9),
+              parent_rows_equal=all(parent_equal.values()),
+              parent_rows_equal_by_kernel=_json(parent_equal),
               kernel6_bf16_ms=f"{bf16_ms:.4f}",
               **{f"{name}_{k}": (f"{v:.4f}" if isinstance(v, float) else v)
                  for name, row in timing.items() for k, v in row.items()})
         del a, b, a16, b16, label, label16, dist, man, want_label, want16, want_dist, want_man
+        del counted
         torch.cuda.empty_cache()
     return entries
 
@@ -3510,8 +3540,8 @@ def _big_k_scene_matrix(polys: torch.Tensor, rows: int = 128) -> torch.Tensor:
 def phase_big_k_routes(entries: dict) -> None:
     """Phase 25: the model and scene routes at k = 20 on the card; sets the
     launches of `phase_big_k`'s entries (each counted from 0 over its route:
-    the 4-gon robot's for (4, 20) and kernel 9's (4, 32), the 20-gon robot's
-    and the scenes' for (20, 20) and (32, 32))."""
+    the 4-gon robot's for (4, 20), the 20-gon robot's and the scenes' for
+    (20, 20))."""
     from collide2d_tpu_torch import bench
     from collide2d_tpu_torch.models.collision_model import (
         CollisionProbabilityModel,
@@ -3524,7 +3554,7 @@ def phase_big_k_routes(entries: dict) -> None:
     sub = slice(0, 1 << 16)
     head = type(configs)(*(a[sub] for a in configs))
     robots = (np.asarray(POLY_ROBOT, np.float32), _regular_polygon(20, 1.2))
-    for (key, buckets), robot in zip(BIG_K_ROUTES, robots):
+    for key, robot in zip(BIG_K_ROUTES, robots):
         model = PolygonCollisionProbabilityModel(robot)
         t = time.monotonic()
         bench.reset_launch_counts()
@@ -3548,7 +3578,7 @@ def phase_big_k_routes(entries: dict) -> None:
         if min(counts.values()) <= 0:
             raise RuntimeError(f"the k = 20 route {key} launched {counts}")
         for name, n in counts.items():
-            entries[(name, _big_k_key(name, *key))]["launches"] = n
+            entries[(name, key)]["launches"] = n
         want = model.collide(head, impl="torch")
         d_torch = model.distance(head, impl="torch")
         m_torch = model.contact_manifold(head, impl="torch")
@@ -3583,9 +3613,9 @@ def phase_big_k_routes(entries: dict) -> None:
                 **_scene_manifold_check("k = 20 dense manifolds", sman, polys))
         route_ms = {f"{call}_ms": f"{_events_ms(fn, reps=5):.4f}" for call, fn in (
             ("collide", lambda: model.collide(configs)),
+            ("distance", lambda: model.distance(configs, impl="auto")),
             ("contact_manifold", lambda: model.contact_manifold(configs)))}
         _line("25 k = 20 routes", time.monotonic() - t, shape=f"{key[0]}x{key[1]}",
-              kernel9_buckets=f"{buckets[0]}x{buckets[1]}",
               rows=BIG_K_ROWS, robot_k=len(model.robot_verts), obstacle_k=20, **route_ms,
               launches=_json(counts), collision_share=f"{share:.4f}",
               labels_differ_vs_torch=label_differ, distance_sign_mismatch=sign,
@@ -4491,14 +4521,17 @@ def _sass_names(lib: Path) -> list:
     return list(_sass_functions(lib))
 
 
-# Kernels 6 and 10 by number and by kernels-line name: (the run-time-K
+# Kernels 6, 9 and 10 by number and by kernels-line name: (the run-time-K
 # function's name, its template arguments before P, the K <= 16 function's
 # name and its template arguments after the buckets, the minima a vertex
 # folds for each axis or face)
 _BIG_K_SASS = {"sat_polygons": ("polygon_sat_big_k_kernel", "f", "polygon_sat_kernel", "f", 2),
+               "polygon_distance": ("polygon_distance_big_k_kernel", "",
+                                    "polygon_distance_kernel", "", 2),
                "polygon_manifold": ("polygon_manifold_big_k_kernel", "", "polygon_manifold_kernel",
                                     "", 1)}
-_BIG_K_SASS["6"], _BIG_K_SASS["10"] = _BIG_K_SASS["sat_polygons"], _BIG_K_SASS["polygon_manifold"]
+_BIG_K_SASS["6"], _BIG_K_SASS["9"], _BIG_K_SASS["10"] = (
+    _BIG_K_SASS[name] for name in ("sat_polygons", "polygon_distance", "polygon_manifold"))
 
 
 def big_k_work(kernel: str, k1: int, k2: int, pairs: int, undecided: int) -> tuple:
@@ -4515,34 +4548,65 @@ def big_k_work(kernel: str, k1: int, k2: int, pairs: int, undecided: int) -> tup
     return axes, (k1 + k2) * axes
 
 
+def big_k_distance_work(k1: int, k2: int, pairs: int, undecided: int,
+                        separated: int) -> dict:
+    """What kernel 9 evaluates above 16 vertices (csrc/polygon_big_k.cuh)
+    when its passes take ``pairs``, ``undecided`` and ``separated`` pairs:
+    the projections onto the k1 + k2 vertices of its first pass's 8 normals
+    for every pair and of every edge normal for the undecided pairs; those
+    edge normals (k1 + k2 an undecided pair); for the separated pairs the
+    k1 + k2 segments and the 2 k1 k2 point-segment tests."""
+    a = k1 + k2
+    return dict(first_projections=8 * a * pairs, projections=a * a * undecided,
+                axes=a * undecided, segments=a * separated, tests=2 * k1 * k2 * separated)
+
+
 def big_k_issue_floor(lib: Path, kernel: str, k1: int, k2: int, pairs: int,
-                      undecided: int) -> dict:
-    """Kernel 6's or 10's issue floor for ``pairs`` pairs at (k1, k2) above
-    16 vertices, from the library's SASS, in either design:
+                      undecided: int, separated: int | None = None) -> dict:
+    """Kernel 6's, 9's or 10's issue floor for ``pairs`` pairs at (k1, k2)
+    above 16 vertices, from the library's SASS, in either design:
 
     - run-time K (csrc/polygon_big_k.cuh; the instantiation for the case's
-      tile, `tile_pairs`), at the work the pairs evaluate (`big_k_work`;
-      ``undecided``: the pairs kernel 6's first pass leaves): each
-      projection at the rate of the main vertex walk (the innermost loop
-      with the most minima a load: a block of `kAxes` axes or `kFaces`
-      faces, two vertices an iteration; its shortest iteration over the
-      projections it folds); each axis or face at the set-up of that block
-      (the shortest path through the loop around the walk that folds
-      nothing, over the block's axes or faces); kernel 10's incident loop
-      (its shortest iteration) once a face of the smaller polygon. The
-      remainder blocks, the first pass's set-up, the clips and the tile's
-      copy count nothing beyond that;
+      tile, `tile_pairs`), at the work the pairs evaluate (`big_k_work`,
+      `big_k_distance_work`; ``undecided``: the pairs the first pass of
+      kernel 6, or of kernel 9, leaves; ``separated``: the pairs through
+      kernel 9's segment tests): each projection at the rate of the main
+      vertex walk (the innermost loop with the most minima a load: a block
+      of `kAxes` axes or `kFaces` faces, two vertices an iteration; its
+      shortest iteration over the projections it folds); each axis or face
+      at the set-up of that block (the shortest path through the loop
+      around the walk that walks no vertex, over the block's axes or faces);
+      kernel 10's incident loop (its shortest iteration) once a face of the
+      smaller polygon; kernel 9 (whose axis blocks are smaller than its
+      first pass's 8 normals) its first pass's projections at the rate of
+      that walk (the one no loop holds) and the rest at its axis walk's (the
+      one a block loop holds, with the most minima a load and no test), its
+      point-segment tests at the rate of its segment walk (the innermost
+      loop with the most ``FMUL.SAT``, one a test) and each segment at that
+      block's set-up likewise. The remainder
+      blocks, the first pass's set-up, the clips, the padding's point
+      distances and the tile's copy count nothing beyond that;
     - the earlier design (a library for the case's bucket pair, its body
-      unrolled): the shortest path from its entry to its last exit, a pair.
+      unrolled): the shortest path from its entry to its last exit, a pair;
+      kernel 9's (`polygon_distance_issue_floor`), a pair through its first
+      pass, every axis and every test.
 
     Every forward branch may go either way (the division's and square
     root's slow paths count nothing)."""
     from collide2d_tpu_torch.ops.polygon_cuda import tile_pairs
 
     base, args, small, small_args, minima = _BIG_K_SASS[kernel]
+    distance = base == "polygon_distance_big_k_kernel"
     if not any(base in name for name in _sass_names(lib)):
         fn = f"{small}ILi{_bucket(k1)}ELi{_bucket(k2)}E{small_args}E"
         ins = _sass_function(lib, fn)
+        if distance:
+            floor = polygon_distance_issue_floor(lib, k1, k2, pairs, pairs, pairs)
+            return dict(design="unrolled", function=fn, sass=len(ins),
+                        sass_per_pair=floor["sass_per_pair"],
+                        issue_floor_ms=floor["issue_floor_ms"],
+                        sm_clock_mhz=floor["sm_clock_mhz"],
+                        sm_clock_max_mhz=floor["sm_clock_max_mhz"])
         exits = [a for a, pred, op, _ in ins if op.startswith("EXIT") and not pred]
         per_pair = _shortest_iteration(ins, ins[0][0], max(exits))[0]
         ms, now, top = _issue_ms(per_pair * pairs)
@@ -4556,18 +4620,57 @@ def big_k_issue_floor(lib: Path, kernel: str, k1: int, k2: int, pairs: int,
         return min((y for y in loops if _inside(y, x)), default=None,
                    key=lambda y: y["end"] - y["start"])
 
-    walks = [x for x in loops if _holds(ins, x, "FMNMX") and _holds(ins, x, "LDS")
-             and not any(_inside(x, y) for y in loops)]
+    innermost = [x for x in loops if not any(_inside(x, y) for y in loops)]
+    walks = [x for x in innermost if _holds(ins, x, "FMNMX") and _holds(ins, x, "LDS")]
     if not walks:
         raise RuntimeError(f"{fn}: no vertex walk (a loop of loads and minima) in the SASS")
-    walk = max(walks, key=lambda x: (_holds(ins, x, "FMNMX") / _holds(ins, x, "LDS"),
-                                     around(x) is not None, -x["start"]))
+
+    def ratio(x):
+        return _holds(ins, x, "FMNMX") / _holds(ins, x, "LDS")
+
+    if distance:  # the axis walk: in a block loop, no test
+        blocked = [x for x in walks if around(x) is not None
+                   and not _holds(ins, x, "FMUL.SAT")]
+        if not blocked:
+            raise RuntimeError(f"{fn}: no axis walk (a walk in a block loop) in the SASS")
+        walk = max(blocked, key=lambda x: (ratio(x), -x["start"]))
+    else:
+        walk = max(walks, key=lambda x: (ratio(x), around(x) is not None, -x["start"]))
     per_iteration = _shortest_iteration(ins, walk["start"], walk["end"])[0]
     folded = _holds(ins, walk, "FMNMX") // minima  # projections an iteration
     size = folded // 2  # the block's axes or faces (two vertices an iteration)
     block = around(walk)
+    # kernel 9's block ends in the gaps' maxima: its set-up is the shortest
+    # path that skips the walks, not one free of minima
     setup = 0 if block is None else _shortest_iteration(
-        ins, block["start"], block["end"], also=("FMNMX",), count=0)[0]
+        ins, block["start"], block["end"], also=("FMNMX",),
+        count=None if distance else 0)[0]
+    if distance:
+        work = big_k_distance_work(k1, k2, pairs, undecided, separated)
+        first = max((x for x in walks if around(x) is None), key=ratio, default=None)
+        if first is None:
+            raise RuntimeError(f"{fn}: no first-pass walk (a walk no loop holds) in the SASS")
+        per_first = (_shortest_iteration(ins, first["start"], first["end"])[0]
+                     / (_holds(ins, first, "FMNMX") // minima))
+        tests = max(innermost, key=lambda x: (_holds(ins, x, "FMUL.SAT"), -x["start"]))
+        folded_tests = _holds(ins, tests, "FMUL.SAT")
+        if not folded_tests or around(tests) is None:
+            raise RuntimeError(f"{fn}: no segment walk (a loop of FMUL.SAT in a block loop)")
+        per_test = _shortest_iteration(ins, tests["start"], tests["end"])[0] / folded_tests
+        segments = around(tests)
+        segment_setup = _shortest_iteration(ins, segments["start"], segments["end"])[0]
+        total = (per_first * work["first_projections"]
+                 + per_iteration / folded * work["projections"] + setup / size * work["axes"]
+                 + per_test * work["tests"]
+                 + segment_setup / (folded_tests // 2) * work["segments"])
+        ms, now, top = _issue_ms(total)
+        return dict(design="run-time K", function=fn, sass=len(ins),
+                    sass_per_first_projection=per_first,
+                    sass_walk_iteration=per_iteration, projections_per_iteration=folded,
+                    sass_per_projection=per_iteration / folded, sass_block_setup=setup,
+                    block=size, sass_per_test=per_test, sass_segment_setup=segment_setup,
+                    segments=folded_tests // 2, sass_per_pair=total / pairs,
+                    issue_floor_ms=ms, sm_clock_mhz=now, sm_clock_max_mhz=top)
     items, projections = big_k_work(kernel, k1, k2, pairs, undecided)
     total = per_iteration / folded * projections + setup / size * items
     incident = 0
@@ -4588,21 +4691,43 @@ def _inside(outer: dict, inner: dict) -> bool:
     return outer["start"] <= inner["start"] and inner["end"] <= outer["end"] and outer != inner
 
 
-def sat_first_pass(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
-    """Whether kernel 6's first pass above 16 vertices
-    (csrc/polygon_big_k.cuh::spread_axes_separate) separates each packed
-    pair: polygon 1's edges u k1 / 4 and polygon 2's u k2 / 4 (u < 4), each
-    product and sum rounded on its own; bool (n,)."""
+def _spread_intervals(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int):
+    """Each of the 8 edge normals the first pass of kernels 6 and 9 tests
+    above 16 vertices (csrc/polygon_big_k.cuh::spread_intervals): polygon 1's
+    edges u k1 / 4 and polygon 2's u k2 / 4 (u < 4), each product and sum
+    rounded on its own; yields (|n|^2, then both polygons' min and max
+    projections), each (8, M)."""
     x1, y1 = p1t[:k1].float(), p1t[k1:].float()
     x2, y2 = p2t[:k2].float(), p2t[k2:].float()
-    sep = torch.zeros(p1t.shape[1:], dtype=torch.bool, device=p1t.device)
     for x, y, k in ((x1, y1, k1), (x2, y2, k2)):
         for u in range(4):
             i = u * k // 4
             j = (i + 1) % k
             ax, ay = y[j] - y[i], x[i] - x[j]
             q1, q2 = ax * x1 + ay * y1, ax * x2 + ay * y2
-            sep |= (q1.amax(0) < q2.amin(0)) | (q2.amax(0) < q1.amin(0))
+            yield ax * ax + ay * ay, q1.amin(0), q1.amax(0), q2.amin(0), q2.amax(0)
+
+
+def sat_first_pass(p1t: torch.Tensor, p2t: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
+    """Whether kernel 6's first pass above 16 vertices
+    (csrc/polygon_big_k.cuh::spread_axes_separate) separates each packed
+    pair: one of the spread normals (`_spread_intervals`) with disjoint
+    intervals; bool (n,)."""
+    sep = torch.zeros(p1t.shape[1:], dtype=torch.bool, device=p1t.device)
+    for _, mn1, mx1, mn2, mx2 in _spread_intervals(p1t, p2t, k1, k2):
+        sep |= (mx1 < mn2) | (mx2 < mn1)
+    return sep.reshape(-1)
+
+
+def distance_first_pass(p1t: torch.Tensor, p2t: torch.Tensor, k1: int,
+                        k2: int) -> torch.Tensor:
+    """Whether kernel 9's first pass above 16 vertices
+    (csrc/polygon_big_k.cuh::spread_normals_settle) settles each packed pair
+    as separated: one of the spread normals (`_spread_intervals`) with
+    |n|^2 > 0 and an unscaled gap >= 0; bool (n,)."""
+    sep = torch.zeros(p1t.shape[1:], dtype=torch.bool, device=p1t.device)
+    for nn, mn1, mx1, mn2, mx2 in _spread_intervals(p1t, p2t, k1, k2):
+        sep |= (nn > 0) & (torch.maximum(mn2 - mx1, mn1 - mx2) >= 0)
     return sep.reshape(-1)
 
 
@@ -4765,15 +4890,14 @@ def main() -> int:
         **stream,
     }] + [{
         # kernels 6, 9 and 10 above 16 vertices on the k = 20 routes (phases
-        # 24 and 25): 6 and 10 at the routes' K, 9 at its bucket pairs
+        # 24 and 25), at the routes' K
         "name": f"{name}_k{key[0]}_k{key[1]}",
         "route": "cuda",
         "source": f"collide2d_tpu_torch/csrc/{lib}.cu",
         "replaces": f"collide2d_tpu/ops/{replaces}",
         **big_k[(name, key)],
         "library_ms": None,
-    } for name, lib, replaces in BIG_K_KERNELS
-        for key in (_big_k_key(name, *shape) for shape, _ in BIG_K_ROUTES)] + [{
+    } for name, lib, replaces in BIG_K_KERNELS for key in BIG_K_ROUTES] + [{
         "name": "mc_poly_counts_k20",
         "route": "cuda",
         "source": "collide2d_tpu_torch/csrc/mc_polygon_kernel.cu",

@@ -53,16 +53,24 @@
 // point-segment test clamps its parameter with one saturating multiply
 // (14 operations, was 17). K is a run-time value: the default build
 // carries buckets 4, 8 and 16 for each polygon and pads in registers
-// (polygon_soa.cuh); a K above 16 pads to the next power of two in a build
-// for that one pair of buckets (`POLY_KB1` / `POLY_KB2`), the same body.
-// The padding is exact for the sign: a zero edge is masked to -inf in the
-// gap max and a duplicate vertex adds no projection; it can move the
-// separation distance by rounding (a zero-length segment's point distance
-// against the closing edge's clamped one), so the plain version pads to
-// the same bucket. With
+// (polygon_soa.cuh). The padding is exact for the sign: a zero edge is
+// masked to -inf in the gap max and a duplicate vertex adds no projection;
+// it can move the separation distance by rounding (a zero-length segment's
+// point distance against the real segments' rounded values), so the plain
+// version pads to the same bucket.
+//
+// Above 16 vertices in either polygon (`polygon_distance_big_k_kernel`,
+// the same library): run-time loops over the true K1 and K2, a block's
+// pairs staged in shared memory (polygon_big_k.cuh, shared with kernels 6
+// and 10): 8 edge normals spread around both polygons first, then both
+// lists packed as above, every axis in blocks of 4 normals a vertex walk,
+// every point-segment test in blocks of 4 segments a walk, and where a
+// polygon is below its bucket the point distances to its last vertex that
+// its padding's zero-length segments give (the header argues the bits are
+// the padded body's). With
 // -DPOLYDIST_COUNT=1 the library also counts the pairs through every axis
-// and through the segment tests (polygon_distance_counts); the default
-// build does not.
+// and through the segment tests (polygon_distance_counts), in both bodies;
+// the default build does not.
 //
 // Rounding. Every product, sum and difference is __fmul_rn / __fadd_rn /
 // __fsub_rn in the JAX order (no FMA contraction), so `distance <= 0` of
@@ -80,6 +88,7 @@
 #include <math.h>
 
 #include "obb_distance.cuh"
+#include "polygon_big_k.cuh"
 #include "polygon_distance.cuh"
 #include "polygon_soa.cuh"
 
@@ -213,7 +222,6 @@ unsigned grid_for(long long n, long long per_block) {
   return blocks > INT_MAX ? 0u : static_cast<unsigned>(blocks);
 }
 
-#if !POLY_KB1
 template <int K1>
 bool launch_k2(const float* p1, const float* p2, float* out, long long n,
                int k1, int k2, unsigned grid, cudaStream_t s) {
@@ -224,7 +232,98 @@ bool launch_k2(const float* p1, const float* p2, float* out, long long n,
     default: return false;
   }
 }
+
+// Above 16 vertices: one pair a thread at the true K1 and K2, a block's P
+// pairs staged in shared memory, or (P == 0) read in device memory where a
+// 32-pair tile does not fit (polygon_big_k.cuh). `pad1` / `pad2`: polygon 1
+// / 2 is below its K bucket, so its last vertex is also a point of the
+// vertex-segment minimum.
+template <int P>
+__global__ void __launch_bounds__(collide2d::big_k::kMaxPairs)
+    polygon_distance_big_k_kernel(const float* __restrict__ p1,
+                                  const float* __restrict__ p2,
+                                  float* __restrict__ out, long long n, int k1,
+                                  int k2, bool pad1, bool pad2, bool vec) {
+  namespace big_k = collide2d::big_k;
+  using big_k::Polygon;
+  const long long p0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const int t = threadIdx.x;
+  if constexpr (P > 0) {
+    __shared__ int separated[P];  // the tile's pairs that need d2 alone
+    __shared__ int undecided[P];  // and those that need every axis
+    __shared__ int counts[2];
+    if (t < 2) counts[t] = 0;
+    const float* tile = big_k::stage_pairs<P>(p1, p2, n, k1, k2, p0, vec);
+    const float* tile2 = tile + 2 * k1 * P;
+    // Pass 1, a pair a thread: the 8 spread edge normals.
+    const bool live = p0 + t < n;
+    const bool sep = live && big_k::spread_normals_settle(Polygon<float, P>{tile + t, 0, k1},
+                                                          Polygon<float, P>{tile2 + t, 0, k2});
+    big_k::append(sep, t, separated, &counts[0]);
+    big_k::append(live && !sep, t, undecided, &counts[1]);
+    __syncthreads();
+    // Passes 2 and 3 over both lists, packed onto the block's lanes, the
+    // undecided pairs first: every axis, then (an overlapping pair writes
+    // its gap) every segment test, which a separated pair starts with.
+    const int n_undecided = counts[1];
+    const int n_listed = n_undecided + counts[0];
+    for (int i = t; i < n_listed; i += P) {
+      const bool decided = i >= n_undecided;
+      const int u = decided ? separated[i - n_undecided] : undecided[i];
+      const Polygon<float, P> b1{tile + u, 0, k1}, b2{tile2 + u, 0, k2};
+      if (!decided) {
+        const float gap = big_k::support_gap(b1, b2);
+        if (gap < 0.0f) {
+          out[p0 + u] = gap;
+          continue;
+        }
+#if POLYDIST_COUNT
+        atomicAdd(&g_counts[1], 1ull);
 #endif
+      }
+      out[p0 + u] = sqrtf(big_k::separation_d2(b1, b2, pad1, pad2));
+    }
+#if POLYDIST_COUNT
+    if (t == 0) {
+      atomicAdd(&g_counts[0], static_cast<unsigned long long>(n_undecided));
+      atomicAdd(&g_counts[1], static_cast<unsigned long long>(n_listed - n_undecided));
+    }
+#endif
+  } else {
+    if (p0 + t >= n) return;
+    const Polygon<float, 0> b1{p1 + p0 + t, n, k1}, b2{p2 + p0 + t, n, k2};
+    if (!big_k::spread_normals_settle(b1, b2)) {
+#if POLYDIST_COUNT
+      atomicAdd(&g_counts[0], 1ull);
+#endif
+      const float gap = big_k::support_gap(b1, b2);
+      if (gap < 0.0f) {
+        out[p0 + t] = gap;
+        return;
+      }
+    }
+#if POLYDIST_COUNT
+    atomicAdd(&g_counts[1], 1ull);
+#endif
+    out[p0 + t] = sqrtf(big_k::separation_d2(b1, b2, pad1, pad2));
+  }
+}
+
+cudaError_t launch_big_k(const float* p1, const float* p2, float* out, long long n, int k1,
+                         int k2, cudaStream_t s) {
+  namespace big_k = collide2d::big_k;
+  const bool pad1 = collide2d::k_bucket(k1) > k1, pad2 = collide2d::k_bucket(k2) > k2;
+  const bool vec = big_k::planes_aligned(p1, p2, n);
+  return big_k::launch_tiled(n, k1, k2, sizeof(float), [&](auto tile, unsigned grid,
+                                                           size_t bytes) {
+    constexpr int P = decltype(tile)::value;
+    const cudaError_t err = big_k::allow_tile(polygon_distance_big_k_kernel<P>, bytes);
+    if (err != cudaSuccess) return err;
+    polygon_distance_big_k_kernel<P><<<grid, P > 0 ? P : big_k::kMaxPairs, bytes, s>>>(
+        p1, p2, out, n, k1, k2, pad1, pad2, P > 0 && vec);
+    return cudaSuccess;
+  });
+}
 
 }  // namespace
 
@@ -243,36 +342,36 @@ extern "C" int obb_distance_launch(const float* b1, const float* b2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `k1`/`k2`: the vertices of each polygon (>= 1; a pair of buckets the
-// build carries, else cudaErrorInvalidValue).
+// `k1`/`k2`: the vertices of each polygon (>= 1; any K: above 16 in either
+// polygon the run-time-K body).
 extern "C" int polygon_distance_launch(const float* p1, const float* p2,
                                        float* out, long long n, int k1, int k2,
                                        void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (k1 < 1 || k2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k1 > 16 || k2 > 16) {
+    const cudaError_t err = launch_big_k(p1, p2, out, n, k1, k2, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   const unsigned grid = grid_for(n, kThreads);
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
-#if POLY_KB1
-  if (collide2d::build_carries(k1, k2)) {
-    polygon_distance_kernel<POLY_KB1, POLY_KB2><<<grid, kThreads, 0, s>>>(p1, p2, out, n, k1, k2);
-    ok = true;
-  }
-#else
   switch (collide2d::k_bucket(k1)) {
     case 4: ok = launch_k2<4>(p1, p2, out, n, k1, k2, grid, s); break;
     case 8: ok = launch_k2<8>(p1, p2, out, n, k1, k2, grid, s); break;
     case 16: ok = launch_k2<16>(p1, p2, out, n, k1, k2, grid, s); break;
     default: ok = false;
   }
-#endif
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 #if POLYDIST_COUNT
 // The pairs kernel 9 took through every axis (out[0]) and through the
-// segment tests (out[1]) since the last call (synchronises).
+// segment tests (out[1]) since the last call, in either body
+// (synchronises).
 extern "C" int polygon_distance_counts(unsigned long long* out) {
   const unsigned long long zero[2] = {0, 0};
   cudaError_t err = cudaMemcpyFromSymbol(out, g_counts, sizeof(zero));

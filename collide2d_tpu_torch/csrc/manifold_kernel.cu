@@ -207,33 +207,19 @@ __global__ void __launch_bounds__(collide2d::big_k::kMaxPairs)
   for (int c = 0; c < 9; ++c) out[c * n + p] = r[c];
 }
 
-template <int P>
-cudaError_t launch_big_k_tiles(const float* p1, const float* p2, float* out, long long n,
-                               int k1, int k2, float margin, cudaStream_t s) {
-  const size_t bytes = 2ull * (k1 + k2) * P * sizeof(float);
-  const long long blocks = (n + P - 1) / P;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const cudaError_t err = collide2d::big_k::allow_tile(polygon_manifold_big_k_kernel<P>, bytes);
-  if (err != cudaSuccess) return err;
-  polygon_manifold_big_k_kernel<P><<<static_cast<unsigned>(blocks), P, bytes, s>>>(
-      p1, p2, out, n, k1, k2, margin, collide2d::big_k::planes_aligned(p1, p2, n));
-  return cudaSuccess;
-}
-
 cudaError_t launch_big_k(const float* p1, const float* p2, float* out, long long n,
                          int k1, int k2, float margin, cudaStream_t s) {
-  switch (collide2d::big_k::tile_pairs(k1, k2, sizeof(float))) {
-    case 128: return launch_big_k_tiles<128>(p1, p2, out, n, k1, k2, margin, s);
-    case 64: return launch_big_k_tiles<64>(p1, p2, out, n, k1, k2, margin, s);
-    case 32: return launch_big_k_tiles<32>(p1, p2, out, n, k1, k2, margin, s);
-    default: break;
-  }
-  constexpr int kThreadsUntiled = collide2d::big_k::kMaxPairs;
-  const long long blocks = (n + kThreadsUntiled - 1) / kThreadsUntiled;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  polygon_manifold_big_k_kernel<0><<<static_cast<unsigned>(blocks), kThreadsUntiled, 0, s>>>(
-      p1, p2, out, n, k1, k2, margin, false);
-  return cudaSuccess;
+  namespace big_k = collide2d::big_k;
+  const bool vec = big_k::planes_aligned(p1, p2, n);
+  return big_k::launch_tiled(n, k1, k2, sizeof(float), [&](auto tile, unsigned grid,
+                                                           size_t bytes) {
+    constexpr int P = decltype(tile)::value;
+    const cudaError_t err = big_k::allow_tile(polygon_manifold_big_k_kernel<P>, bytes);
+    if (err != cudaSuccess) return err;
+    polygon_manifold_big_k_kernel<P><<<grid, P > 0 ? P : big_k::kMaxPairs, bytes, s>>>(
+        p1, p2, out, n, k1, k2, margin, P > 0 && vec);
+    return cudaSuccess;
+  });
 }
 
 }  // namespace

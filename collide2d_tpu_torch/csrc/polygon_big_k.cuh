@@ -1,11 +1,12 @@
-// Kernels 6 and 10 on pairs in which either polygon has more than 16
+// Kernels 6, 9 and 10 on pairs in which either polygon has more than 16
 // vertices: run-time loops over the true K, one library for every K.
 //
-// The K <= 16 bodies (polygon_kernel.cu, manifold_kernel.cu) hold every
-// vertex in registers, unrolled over the K bucket. Above 16 that does not
-// fit the card: at (32, 32) kernel 6's body is some 20,000 instructions, far
-// past the SM's instruction caches; the vertices take 168-255 registers a
-// thread and spill at (4, 64); a 17-gon pays for 32. Here instead:
+// The K <= 16 bodies (polygon_kernel.cu, distance_kernel.cu,
+// manifold_kernel.cu) hold every vertex in registers, unrolled over the K
+// bucket. Above 16 that does not fit the card: at (32, 32) kernel 6's body
+// is some 20,000 instructions, far past the SM's instruction caches; the
+// vertices take 168-255 registers a thread and spill at (4, 64); a 17-gon
+// pays for 32. Here instead:
 //
 // - One pair a thread, its vertices staged in shared memory. A block takes P
 //   pairs and copies the 2 (k1 + k2) coordinate planes of its P columns from
@@ -17,22 +18,28 @@
 //   a template argument, so every load is a constant offset; past what a
 //   32-pair tile holds, the same body reads the planes in device memory
 //   through the same view (`Polygon`).
-// - Run-time loops over the true K: axes and faces i -> (i + 1) % k and
-//   projections over the k real vertices, never over a bucket.
+// - Run-time loops over the true K: axes, faces and segments i -> (i + 1) %
+//   k and projections over the k real vertices, never over a bucket.
 // - Register blocking, so shared memory stays off the critical path: kernel
-//   6 takes `kAxes` consecutive edges of one polygon at once (their normals
-//   from the kAxes + 1 vertices they span) and walks the k1 + k2 vertices
-//   once for them, two vertices an iteration (four loads feed 2 kAxes x 5
-//   instructions: 2 __fmul_rn, __fadd_rn, fminf, fmaxf); kernel 10 takes
-//   `kFaces` faces at once (a face's normal, 1 / |n| and offset once, then 4
-//   instructions a vertex of the other polygon). The edges left over run in
+//   6 takes `kAxes` consecutive edges of one polygon at once (kernel 9
+//   `kGapAxes`; their normals from the kAxes + 1 vertices they span) and
+//   walks the k1 + k2 vertices once for them, two vertices an iteration
+//   (four loads feed 2 kAxes x 5 instructions: 2 __fmul_rn, __fadd_rn,
+//   fminf, fmaxf); kernel 10 takes `kFaces` faces at once (a face's normal,
+//   1 / |n| and offset once, then 4 instructions a vertex of the other
+//   polygon); kernel 9 takes `kSegments` segments of one polygon at once
+//   (edge, 1 / |e|^2 and start vertex once, then the 14-instruction
+//   point-segment test a vertex of the other). The edges left over run in
 //   blocks of half the size, down to one, so none is evaluated twice.
-// - Kernel 6 in two passes: first 8 edge normals spread around both
+// - Kernels 6 and 9 in two passes: first 8 edge normals spread around both
 //   polygons for every pair, which separate most of the pairs that any axis
 //   separates (phase 24 of chip_smoke.py prints the pairs left,
-//   `kernel6_undecided`); the pairs left are listed in shared memory and
-//   take every other axis packed onto the block's first lanes, so a warp
-//   runs the full test only for pairs that need it.
+//   `kernel6_undecided`, `kernel9_undecided`); the pairs are listed in
+//   shared memory and the rest of the work runs packed onto the block's
+//   first lanes, so a warp runs the full test only for pairs that need it.
+//   Kernel 9 lists both kinds, the undecided first: an undecided pair takes
+//   every axis and writes its gap where it overlaps, then (as a pair the
+//   first pass separated starts) every point-segment test.
 //
 // Measured in turns against this design's variants (utils/query_ab.py on
 // phase 24's cases, NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6, PR
@@ -59,9 +66,20 @@
 //   face order with strict `>`, so the first max still wins; the incident
 //   loop runs over the incident body's faces, which are the real faces of
 //   the padded loop over the common max(k1, k2), in the same order;
-// - kernel 6's two passes test every axis of a pair the first does not
-//   separate (the second skips only a polygon of at most 4 vertices, whose
-//   edges were all in the first), so the label is the OR over all of them;
+// - kernels 6's and 9's two passes test every axis of a pair the first does
+//   not settle (kernel 6's second skips only a polygon of at most 4
+//   vertices, whose edges were all in the first), so the label is the OR
+//   over all of them and kernel 9's gap the max over all of them;
+// - kernel 9 (polygon_distance.cuh): its output reads a max or a min over a
+//   set, so the order is free; the padding's zero axes sit at -inf and its
+//   duplicate vertices move no interval, but its zero-length segments at
+//   q_{k-1} give the point distance of each vertex of the other polygon to
+//   q_{k-1}, which the real segments at q_{k-1} can miss by rounding (one
+//   clamps its parameter at 1 after other subtractions, the other takes a
+//   parameter just above 0 and can round a coordinate away): where k is
+//   below its bucket (`k_bucket`), the body takes that point distance too
+//   (`pad1`, `pad2`), and the plain version, which pads, stays the
+//   definition;
 // - every product and sum stays explicitly rounded (`dot2`, __fsub_rn,
 //   __fmul_rn, `inv_norm`), and comparisons combine with `&` and `|`.
 //
@@ -73,24 +91,34 @@
 
 #include <math.h>
 
+#include "polygon_distance.cuh"
 #include "polygon_soa.cuh"
 
 namespace collide2d {
 namespace big_k {
 
-// Axes of kernel 6 and faces of kernel 10 a vertex walk serves. 16 of each,
-// in turns on phase 24's cases (utils/query_ab.py against a copy with 16;
-// NVIDIA H100 80GB HBM3, 700 W): kernel 6 f32 5-6% faster at (4, 64) and
-// (32, 32) but 9% slower at (20, 20); bf16 5-26% slower everywhere; kernel
-// 10 5% faster at (32, 32), 15-21% slower at (4, 17) to (4, 32). The k = 20
-// routes take (4, 20) and (20, 20).
+// Axes of kernel 6, faces of kernel 10, and axes and segments of kernel 9,
+// a vertex walk serves. In turns on phase 24's cases (utils/query_ab.py
+// against a copy with the constant edited; NVIDIA H100 80GB HBM3, 700 W):
+// 16 axes or faces, kernel 6 f32 5-6% faster at (4, 64) and (32, 32) but 9%
+// slower at (20, 20), bf16 5-26% slower everywhere, kernel 10 5% faster at
+// (32, 32), 15-21% slower at (4, 17) to (4, 32). Kernel 9: 4 segments
+// against 8, 0.5-19% faster at (4, 17), (4, 20), (4, 32), (4, 64) and (20,
+// 20), 3% slower at (32, 32), the same 80 registers (16: 127 registers,
+// 4-15% slower in five of the six); then 4 axes against 8, 5-16% faster at
+// (4, 17), (4, 20), (4, 32) and (20, 20), 4% slower at (4, 64) and (32,
+// 32). Where k is not a multiple of the block, the walk's remainder blocks
+// also run, more code in flight. The k = 20 routes take (4, 20) and (20,
+// 20).
 constexpr int kAxes = 8;
 constexpr int kFaces = 8;
+constexpr int kGapAxes = 4;
+constexpr int kSegments = 4;
 // Pairs a block (and threads a block) at most, and the tile rule: the
 // largest P of 128, 64 and 32 whose tile leaves room for three blocks an SM
 // (3 x (tile + kernel 6's list of P pairs + 1 KB reserved) <= 228 KB),
 // else 32 while a tile fits the 227 KB a block may hold less 1 KB for the
-// list, else no tile.
+// lists (kernel 9's two take 2 P + 2 ints), else no tile.
 constexpr int kMaxPairs = 128;
 constexpr int kMinPairs = 32;
 constexpr long long kTileBytes = 75776;
@@ -132,12 +160,10 @@ struct Polygon {
   __device__ __forceinline__ float y(int i) const { return to_f32(*at(k + i)); }
 };
 
-// The true normals (ey, -ex) of b's edges i0 .. i0 + A - 1 (edge i: vertex
-// i -> (i + 1) % k), from the A + 1 vertices they span.
+// b's vertices i0 .. i0 + A - 1 and the one after them (vertex (i0 + A) % k).
 template <int A, class V>
-__device__ __forceinline__ void edge_normals(const V& b, int i0, float (&ax)[A],
-                                             float (&ay)[A]) {
-  float xs[A + 1], ys[A + 1];
+__device__ __forceinline__ void span(const V& b, int i0, float (&xs)[A + 1],
+                                     float (&ys)[A + 1]) {
 #pragma unroll
   for (int u = 0; u < A; ++u) {
     xs[u] = b.x(i0 + u);
@@ -146,6 +172,15 @@ __device__ __forceinline__ void edge_normals(const V& b, int i0, float (&ax)[A],
   const int last = i0 + A == b.k ? 0 : i0 + A;
   xs[A] = b.x(last);
   ys[A] = b.y(last);
+}
+
+// The true normals (ey, -ex) of b's edges i0 .. i0 + A - 1 (edge i: vertex
+// i -> (i + 1) % k), from the A + 1 vertices they span.
+template <int A, class V>
+__device__ __forceinline__ void edge_normals(const V& b, int i0, float (&ax)[A],
+                                             float (&ay)[A]) {
+  float xs[A + 1], ys[A + 1];
+  span<A>(b, i0, xs, ys);
 #pragma unroll
   for (int u = 0; u < A; ++u) {
     ax[u] = __fsub_rn(ys[u + 1], ys[u]);
@@ -213,11 +248,14 @@ __device__ __forceinline__ bool edges_separate(const V& e, int i0, const V& b1,
   return sep;
 }
 
-// Kernel 6's first pass: 8 edge normals spread around both polygons
-// (polygon 1's edges u k1 / 4 and polygon 2's u k2 / 4, u < 4), one block.
+// The first pass's 8 edge normals spread around both polygons (polygon 1's
+// edges u k1 / 4 and polygon 2's u k2 / 4, u < 4), and both polygons'
+// intervals on them.
 template <class V>
-__device__ __forceinline__ bool spread_axes_separate(const V& b1, const V& b2) {
-  float ax[8], ay[8];
+__device__ __forceinline__ void spread_intervals(const V& b1, const V& b2, float (&ax)[8],
+                                                 float (&ay)[8], float (&mn1)[8],
+                                                 float (&mx1)[8], float (&mn2)[8],
+                                                 float (&mx2)[8]) {
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
     const V& e = u < 4 ? b1 : b2;
@@ -226,9 +264,16 @@ __device__ __forceinline__ bool spread_axes_separate(const V& b1, const V& b2) {
     ax[u] = __fsub_rn(e.y(j), e.y(i));
     ay[u] = __fsub_rn(e.x(i), e.x(j));
   }
-  float mn1[8], mx1[8], mn2[8], mx2[8];
   intervals<8>(b1, ax, ay, mn1, mx1);
   intervals<8>(b2, ax, ay, mn2, mx2);
+}
+
+// Kernel 6's first pass: whether one of the 8 spread edge normals
+// separates the pair.
+template <class V>
+__device__ __forceinline__ bool spread_axes_separate(const V& b1, const V& b2) {
+  float ax[8], ay[8], mn1[8], mx1[8], mn2[8], mx2[8];
+  spread_intervals(b1, b2, ax, ay, mn1, mx1, mn2, mx2);
   bool sep = false;
 #pragma unroll
   for (int u = 0; u < 8; ++u) sep = sep | (mx1[u] < mn2[u]) | (mx2[u] < mn1[u]);
@@ -415,12 +460,162 @@ __device__ __forceinline__ void manifold(const V& b1, const V& b2, float margin,
   out[8] = ref1 ? ny : -ny;
 }
 
+// ---- kernel 9: signed distance ----
+//
+// `gap < 0 ? gap : sqrt(d2)` as polygon_distance.cuh defines it, over the
+// true K: `gap` the largest scaled support gap over every edge normal of
+// both polygons (a zero normal masked to -inf), `d2` the smallest squared
+// distance from a vertex of either polygon to a closed edge segment of the
+// other.
+
+// Kernel 9's first pass: whether one of the 8 spread edge normals (kernel
+// 6's) proves the pair separated, unscaled: g >= 0 (or -0) on a normal with
+// nn > 0 (polygon_distance.cuh's note), not kernel 6's strict test, which
+// ignores nn: a normal whose |n|^2 underflows to 0 sits at -inf in the gap,
+// so it proves nothing.
+template <class V>
+__device__ __forceinline__ bool spread_normals_settle(const V& b1, const V& b2) {
+  float ax[8], ay[8], mn1[8], mx1[8], mn2[8], mx2[8];
+  spread_intervals(b1, b2, ax, ay, mn1, mx1, mn2, mx2);
+  bool sep = false;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const float nn = dot2(ax[u], ax[u], ay[u], ay[u]);
+    const float g = fmaxf(__fsub_rn(mn2[u], mx1[u]), __fsub_rn(mn1[u], mx2[u]));
+    sep = sep | ((nn > 0.0f) & (g >= 0.0f));
+  }
+  return sep;
+}
+
+// gap = max(gap, the scaled support gaps of b1 and b2 on e's edge normals
+// i0 .. i0 + A - 1).
+template <int A, class V>
+__device__ __forceinline__ void axes_gap(const V& e, int i0, const V& b1, const V& b2,
+                                         float& gap) {
+  float ax[A], ay[A];
+  edge_normals(e, i0, ax, ay);
+  float mn1[A], mx1[A], mn2[A], mx2[A];
+  intervals<A>(b1, ax, ay, mn1, mx1);
+  intervals<A>(b2, ax, ay, mn2, mx2);
+#pragma unroll
+  for (int u = 0; u < A; ++u) {
+    const float nn = dot2(ax[u], ax[u], ay[u], ay[u]);
+    const float raw = fmaxf(__fsub_rn(mn2[u], mx1[u]), __fsub_rn(mn1[u], mx2[u]));
+    const float g = __fmul_rn(raw, inv_norm(nn > 0.0f ? nn : 1.0f));
+    gap = fmaxf(gap, nn > 0.0f ? g : -INFINITY);
+  }
+}
+
+// e's edge normals i0 .. k-1 in blocks of A, the rest in blocks of A / 2,
+// ... 1.
+template <int A, class V>
+__device__ __forceinline__ void edges_gap(const V& e, int i0, const V& b1, const V& b2,
+                                          float& gap) {
+#pragma unroll 1
+  for (; i0 + A <= e.k; i0 += A) axes_gap<A>(e, i0, b1, b2, gap);
+  if constexpr (A > 1) edges_gap<A / 2>(e, i0, b1, b2, gap);
+}
+
+// The pair's signed support gap over every true edge normal of both.
+template <class V>
+__device__ __forceinline__ float support_gap(const V& b1, const V& b2) {
+  float gap = -INFINITY;
+  edges_gap<kGapAxes>(b1, 0, b1, b2, gap);
+  edges_gap<kGapAxes>(b2, 0, b1, b2, gap);
+  return gap;
+}
+
+// Fold vertex (x, y)'s squared distances to S segments (start (qx, qy),
+// edge (ex, ey), 1 / |e|^2 or 0 for a zero-length one) into their minima:
+// polydist::vertex_segment_min's test, the parameter clamped by one
+// saturating multiply.
+template <int S>
+__device__ __forceinline__ void fold_segments(const float (&qx)[S + 1],
+                                              const float (&qy)[S + 1],
+                                              const float (&ex)[S], const float (&ey)[S],
+                                              const float (&inv)[S], float x, float y,
+                                              float (&m)[S]) {
+#pragma unroll
+  for (int u = 0; u < S; ++u) {
+    const float dx = __fsub_rn(x, qx[u]);
+    const float dy = __fsub_rn(y, qy[u]);
+    const float t = polydist::mul_sat(dot2(dx, ex[u], dy, ey[u]), inv[u]);
+    const float cx = __fsub_rn(dx, __fmul_rn(t, ex[u]));
+    const float cy = __fsub_rn(dy, __fmul_rn(t, ey[u]));
+    m[u] = fminf(m[u], dot2(cx, cx, cy, cy));
+  }
+}
+
+// d2 = min(d2, the squared distances of p's vertices to q's closed edge
+// segments j0 .. j0 + S - 1), p's vertices walked once, two an iteration.
+template <int S, class V>
+__device__ __forceinline__ void segment_block(const V& q, int j0, const V& p, float& d2) {
+  float qx[S + 1], qy[S + 1], ex[S], ey[S], inv[S], m[S];
+  span<S>(q, j0, qx, qy);
+#pragma unroll
+  for (int u = 0; u < S; ++u) {
+    ex[u] = __fsub_rn(qx[u + 1], qx[u]);
+    ey[u] = __fsub_rn(qy[u + 1], qy[u]);
+    const float ee = dot2(ex[u], ex[u], ey[u], ey[u]);
+    inv[u] = ee > 0.0f ? __fdiv_rn(1.0f, ee) : 0.0f;
+    m[u] = INFINITY;
+  }
+  int v = 0;
+#pragma unroll 1
+  for (; v + 2 <= p.k; v += 2) {
+    const float xa = p.x(v), ya = p.y(v), xb = p.x(v + 1), yb = p.y(v + 1);
+    fold_segments<S>(qx, qy, ex, ey, inv, xa, ya, m);
+    fold_segments<S>(qx, qy, ex, ey, inv, xb, yb, m);
+  }
+  if (v < p.k) fold_segments<S>(qx, qy, ex, ey, inv, p.x(v), p.y(v), m);
+#pragma unroll
+  for (int u = 0; u < S; ++u) d2 = fminf(d2, m[u]);
+}
+
+// q's segments j0 .. k-1 in blocks of S, the rest in blocks of S / 2, ... 1.
+template <int S, class V>
+__device__ __forceinline__ void segments_from(const V& q, int j0, const V& p, float& d2) {
+#pragma unroll 1
+  for (; j0 + S <= q.k; j0 += S) segment_block<S>(q, j0, p, d2);
+  if constexpr (S > 1) segments_from<S / 2>(q, j0, p, d2);
+}
+
+// d2 = min(d2, the squared distance of each of p's vertices to (x, y)): a
+// zero-length segment's value, `t` being 0.
+template <class V>
+__device__ __forceinline__ void point_min(const V& p, float x, float y, float& d2) {
+#pragma unroll 1
+  for (int v = 0; v < p.k; ++v) {
+    const float dx = __fsub_rn(p.x(v), x);
+    const float dy = __fsub_rn(p.y(v), y);
+    d2 = fminf(d2, dot2(dx, dx, dy, dy));
+  }
+}
+
+// The pair's squared distance when it does not overlap: every vertex of
+// each polygon against every segment of the other; and, for a polygon below
+// its K bucket (`pad1`, `pad2`: collide2d::k_bucket(k) > k), every vertex of
+// the other against its last vertex, the padding's zero-length segments.
+template <class V>
+__device__ __forceinline__ float separation_d2(const V& b1, const V& b2, bool pad1,
+                                               bool pad2) {
+  float d2 = INFINITY;
+  segments_from<kSegments>(b2, 0, b1, d2);
+  segments_from<kSegments>(b1, 0, b2, d2);
+  if (pad2) point_min(b1, b2.x(b2.k - 1), b2.y(b2.k - 1), d2);
+  if (pad1) point_min(b2, b1.x(b1.k - 1), b1.y(b1.k - 1), d2);
+  return d2;
+}
+
 #if defined(__CUDACC__)
 
 }  // namespace big_k
 }  // namespace collide2d
 
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace collide2d {
 namespace big_k {
@@ -489,6 +684,31 @@ inline cudaError_t allow_tile(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Launches a run-time-K kernel over n pairs at (k1, k2) with `elem_bytes`
+// coordinates: `launch(tile, grid, bytes)`, `tile` a
+// std::integral_constant of the tile rule's P (`tile_pairs`: P threads a
+// block and `bytes` of dynamic shared memory for their tile; the caller
+// passes them to `allow_tile`), or of 0 (the planes in device memory,
+// kMaxPairs threads a block, no tile); cudaErrorInvalidValue where the grid
+// does not fit.
+template <class Launch>
+inline cudaError_t launch_tiled(long long n, int k1, int k2, int elem_bytes,
+                                Launch&& launch) {
+  const auto with = [&](auto tile) -> cudaError_t {
+    constexpr int threads = decltype(tile)::value > 0 ? decltype(tile)::value : kMaxPairs;
+    const long long blocks = (n + threads - 1) / threads;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    return launch(tile, static_cast<unsigned>(blocks),
+                  static_cast<size_t>(2ull * (k1 + k2) * decltype(tile)::value * elem_bytes));
+  };
+  switch (tile_pairs(k1, k2, elem_bytes)) {
+    case 128: return with(std::integral_constant<int, 128>{});
+    case 64: return with(std::integral_constant<int, 64>{});
+    case 32: return with(std::integral_constant<int, 32>{});
+    default: return with(std::integral_constant<int, 0>{});
+  }
 }
 
 #endif  // __CUDACC__

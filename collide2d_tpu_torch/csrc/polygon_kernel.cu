@@ -216,37 +216,22 @@ __global__ void __launch_bounds__(collide2d::big_k::kMaxPairs)
   }
 }
 
-template <typename T, int P>
-cudaError_t launch_big_k_tiles(const T* p1, const T* p2, float* out, long long n, int k1,
-                               int k2, cudaStream_t s) {
-  const size_t bytes = 2ull * (k1 + k2) * P * sizeof(T);
-  const long long blocks = (n + P - 1) / P;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const cudaError_t err =
-      collide2d::big_k::allow_tile(polygon_sat_big_k_kernel<T, P>, bytes);
-  if (err != cudaSuccess) return err;
-  polygon_sat_big_k_kernel<T, P><<<static_cast<unsigned>(blocks), P, bytes, s>>>(
-      p1, p2, out, n, k1, k2, collide2d::big_k::planes_aligned(p1, p2, n));
-  return cudaSuccess;
-}
-
 template <typename T>
 cudaError_t launch_big_k(const void* p1v, const void* p2v, float* out, long long n,
                          int k1, int k2, cudaStream_t s) {
+  namespace big_k = collide2d::big_k;
   const T* p1 = static_cast<const T*>(p1v);
   const T* p2 = static_cast<const T*>(p2v);
-  switch (collide2d::big_k::tile_pairs(k1, k2, sizeof(T))) {
-    case 128: return launch_big_k_tiles<T, 128>(p1, p2, out, n, k1, k2, s);
-    case 64: return launch_big_k_tiles<T, 64>(p1, p2, out, n, k1, k2, s);
-    case 32: return launch_big_k_tiles<T, 32>(p1, p2, out, n, k1, k2, s);
-    default: break;
-  }
-  constexpr int kThreadsUntiled = collide2d::big_k::kMaxPairs;
-  const long long blocks = (n + kThreadsUntiled - 1) / kThreadsUntiled;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  polygon_sat_big_k_kernel<T, 0><<<static_cast<unsigned>(blocks), kThreadsUntiled, 0, s>>>(
-      p1, p2, out, n, k1, k2, false);
-  return cudaSuccess;
+  const bool vec = big_k::planes_aligned(p1, p2, n);
+  return big_k::launch_tiled(n, k1, k2, sizeof(T), [&](auto tile, unsigned grid,
+                                                       size_t bytes) {
+    constexpr int P = decltype(tile)::value;
+    const cudaError_t err = big_k::allow_tile(polygon_sat_big_k_kernel<T, P>, bytes);
+    if (err != cudaSuccess) return err;
+    polygon_sat_big_k_kernel<T, P><<<grid, P > 0 ? P : big_k::kMaxPairs, bytes, s>>>(
+        p1, p2, out, n, k1, k2, P > 0 && vec);
+    return cudaSuccess;
+  });
 }
 
 }  // namespace

@@ -8,29 +8,17 @@
 // plane[c][p]. One thread takes one pair, so neighbouring threads read
 // neighbouring addresses of every plane and each load is coalesced.
 //
-// The register bodies are compiled for K buckets: 4, 8 and 16 in the
-// default build; kernel 9 also takes one bucket pair above 16 (a power of
-// two: 32, 64, 128, ...) in a build of its own (`POLY_KB1` / `POLY_KB2`,
-// below). A polygon of k <= K vertices fills slots k..K-1 with copies of
-// vertex k-1 (the repeat-last padding of `ops.sat.sat_polygons`), which adds
-// only zero-length edges and duplicate vertices. Kernels 6 and 10 above 16
-// vertices loop over the true K instead (polygon_big_k.cuh), in their
-// default build.
+// The register bodies are compiled for K buckets 4, 8 and 16. A polygon of
+// k <= K vertices fills slots k..K-1 with copies of vertex k-1 (the
+// repeat-last padding of `ops.sat.sat_polygons`), which adds only
+// zero-length edges and duplicate vertices. Above 16 vertices in either
+// polygon, kernels 6, 9 and 10 loop over the true K instead
+// (polygon_big_k.cuh), in the same library; kernel 9's plain version still
+// pads to the bucket (`k_bucket`), which that body reproduces.
 
 #pragma once
 
 #include "fp32_rn.cuh"
-
-// A build of kernel 9 for the pair of K buckets (POLY_KB1, POLY_KB2), one
-// of them above 16 (ops/polygon_cuda.py::kernel_defines), carries that one
-// instantiation; the default build (0, 0) carries every pair of 4, 8 and
-// 16 and no other.
-#ifndef POLY_KB1
-#define POLY_KB1 0
-#endif
-#ifndef POLY_KB2
-#define POLY_KB2 0
-#endif
 
 namespace collide2d {
 
@@ -44,13 +32,6 @@ inline int k_bucket(int k) {
   int b = 32;
   while (b < k) b *= 2;
   return b;
-}
-
-// Whether this build of kernel 9 carries the bucket pair of (k1, k2).
-inline bool build_carries(int k1, int k2) {
-  const int b1 = k_bucket(k1), b2 = k_bucket(k2);
-  if (POLY_KB1 != 0) return b1 == POLY_KB1 && b2 == POLY_KB2;
-  return b1 != 0 && b2 != 0 && b1 <= 16 && b2 <= 16;
 }
 
 // Vertices 0..k-1 of pair p from the float32 planes of `src`; slots

@@ -13,18 +13,24 @@ boxes are the (6, 8, M) SoA of `sat_cuda.pack_obbs` (cx, cy, cos, sin,
   both boxes' vertices in the other's frame.
 - `polygon_distance_plain` is kernel 9's arithmetic: support gaps over the
   true edge normals scaled by ``1 / sqrt(|n|^2)`` when overlapping, else the
-  vertex-segment minimum, on polygons padded to the kernel's K bucket.
+  vertex-segment minimum, on polygons padded to their K bucket
+  (`polygon_cuda.k_bucket`). It stays the definition above 16 vertices,
+  where the kernel loops over the true K and takes the padding's point
+  distances itself.
 
 The ``*_cuda_t`` functions take packed batches and route on their device:
 a CUDA tensor launches ``csrc/distance_kernel.cu`` (built at first use by
-`utils.cuda_build`; kernel 9 takes k-gons above 16 vertices in the
-library of their bucket pair, `polygon_cuda.kernel_defines`) and counts
-the launch in ``LAUNCHES[name]``; a failed build or launch raises; a CPU
-tensor runs the plain version. The kernels have no backward: inputs that
+`utils.cuda_build`, one library for every K: kernel 9 pads k-gons to the
+buckets 4, 8 and 16 in registers, and above 16 vertices in either polygon
+runs a body over the true K1 and K2 with the pairs' vertices staged in
+shared memory, ``csrc/polygon_big_k.cuh``) and counts the launch in
+``LAUNCHES[name]``; a failed build or launch raises; a CPU tensor runs the
+plain version. The kernels have no backward: inputs that
 require grad raise (the differentiable path is `ops.distance`,
 ``impl='torch'`` on the models).
 `polygon_distance_passes` runs kernel 9 through the library's build that
-counts the pairs its passes take (every axis; the segment tests).
+counts the pairs its passes take (every axis; the segment tests), in
+either body.
 
 `rect_distance_cuda` and `polygon_distance_cuda` are the drop-ins for
 `ops.distance.rect_signed_distance` / `polygon_signed_distance`: they pad N,
@@ -114,14 +120,11 @@ def obb_distance_plain(b1t: torch.Tensor, b2t: torch.Tensor,
                                     b2t[2], b2t[3], b2t[4], b2t[5])
 
 
-def distance_defines(count: bool = False, k1: int = 4,
-                     k2: int = 4) -> tuple[tuple[str, int], ...]:
-    """The ``-D`` defines of the library that carries kernel 9 at (k1, k2)
-    (`polygon_cuda.kernel_defines`, kernel 9's bucket-pair rule; the
-    default build at K <= 16):
-    ``count`` builds the variant that counts kernel 9's pairs through each
-    pass (`polygon_distance_passes`)."""
-    return ((("POLYDIST_COUNT", 1),) if count else ()) + polygon_cuda.kernel_defines(k1, k2)
+def distance_defines(count: bool = False) -> tuple[tuple[str, int], ...]:
+    """The ``-D`` defines of the kernels' library: ``count`` builds the
+    variant that counts kernel 9's pairs through each pass
+    (`polygon_distance_passes`)."""
+    return (("POLYDIST_COUNT", 1),) if count else ()
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -138,10 +141,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _kernel_lib(count: bool = False, k1: int = 4, k2: int = 4) -> ctypes.CDLL:
+def _kernel_lib(count: bool = False) -> ctypes.CDLL:
     from collide2d_tpu_torch.utils import cuda_build
 
-    return bind(cuda_build.load(_KERNEL, distance_defines(count, k1, k2)))
+    return bind(cuda_build.load(_KERNEL, distance_defines(count)))
 
 
 def _launched(name: str, err: int) -> None:
@@ -188,9 +191,9 @@ def rect_distance_cuda(c1, ext1, th1, c2, ext2, th2, *,
 
 
 def _padded_columns(pt: torch.Tensor, k: int):
-    """The x and y rows of a packed (2k, 8, M) batch, each padded to the
-    kernel's K bucket (`polygon_cuda.k_bucket`) by repeating row k-1: two
-    (K, 8, M) tensors."""
+    """The x and y rows of a packed (2k, 8, M) batch, each padded to its K
+    bucket (`polygon_cuda.k_bucket`) by repeating row k-1: two (K, 8, M)
+    tensors."""
     kb = polygon_cuda.k_bucket(k)
     x, y = pt[:k], pt[k:]
     if kb > k:
@@ -207,7 +210,9 @@ def _inv_norm(nn: torch.Tensor) -> torch.Tensor:
 def polygon_distance_plain(p1t: torch.Tensor, p2t: torch.Tensor, k1: int,
                            k2: int) -> torch.Tensor:
     """Kernel 9 in torch operations: float32 (8, M) signed distances of
-    packed k-gon pairs, each polygon padded to the kernel's K bucket."""
+    packed k-gon pairs, each polygon padded to its K bucket (the kernel's
+    registers up to 16 vertices; above, its body over the true K gives the
+    same bits)."""
     x1, y1 = _padded_columns(p1t, k1)
     x2, y2 = _padded_columns(p2t, k2)
     gap = None
@@ -292,7 +297,7 @@ def _polygon_distance(p1t, p2t, k1, k2, block, counts):
         return polygon_distance_plain(p1t, p2t, k1, k2).reshape(-1)
     n = p1t.shape[1] * p1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
-    lib = _kernel_lib(counts is not None, k1, k2)
+    lib = _kernel_lib(counts is not None)
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(p1t.device):
         _launched("polygon_distance", lib.polygon_distance_launch(

@@ -48,27 +48,15 @@ def reset_launches() -> None:
 
 
 def k_bucket(k: int) -> int:
-    """The K a polygon of ``k`` vertices is padded to inside kernel 9, and
-    inside kernels 6 and 10 up to 16: 4, 8 or 16 up to 16, else the next
-    power of two (``csrc/polygon_soa.cuh::k_bucket``)."""
+    """The K a polygon of ``k`` vertices is padded to inside kernels 6, 9
+    and 10 up to 16, and in kernel 9's plain version at any k: 4, 8 or 16
+    up to 16, else the next power of two (``csrc/polygon_soa.cuh::k_bucket``)."""
     if k < 1:
         raise ValueError(f"a polygon needs at least one vertex, got k={k}")
     for b in REGISTER_BUCKETS:
         if k <= b:
             return b
     return 1 << (k - 1).bit_length()
-
-
-def kernel_defines(k1: int, k2: int) -> tuple[tuple[str, int], ...]:
-    """The ``-D`` defines of kernel 9's library that carries the bucket pair
-    of (k1, k2) (`distance_cuda.distance_defines`): none for the default
-    build (every pair of 4, 8 and 16), else ``POLY_KB1`` / ``POLY_KB2`` (a
-    build for that one pair, compiled at its first use). Kernels 6 and 10
-    take every K in their one library."""
-    b1, b2 = k_bucket(k1), k_bucket(k2)
-    if max(b1, b2) <= REGISTER_BUCKETS[-1]:
-        return ()
-    return (("POLY_KB1", b1), ("POLY_KB2", b2))
 
 
 # `tile_pairs`' constants (csrc/polygon_big_k.cuh): the largest P of 128, 64
@@ -79,8 +67,8 @@ TILE_BYTES, MAX_TILE_BYTES = 75_776, 231_424
 
 
 def tile_pairs(k1: int, k2: int, elem_bytes: int = 4) -> int:
-    """The pairs a block of kernel 6 or 10 stages in shared memory above 16
-    vertices (``csrc/polygon_big_k.cuh::tile_pairs``): 128, 64 or 32, or 0
+    """The pairs a block of kernel 6, 9 or 10 stages in shared memory above
+    16 vertices (``csrc/polygon_big_k.cuh::tile_pairs``): 128, 64 or 32, or 0
     where the body reads the planes in device memory."""
     column = 2 * (k1 + k2) * elem_bytes
     for p in TILE_PAIRS[:-1]:

@@ -5,9 +5,9 @@ the CPU.
 gives the wrapper its own back; `ab.in_turns` runs a call in turns (other,
 this, this, other) and says whether every turn's outputs are equal. A
 stand-in for `chip_smoke` (timer and fingerprint) and a stand-in module
-replace the card. `query_ab` builds the other version of kernels 6 and 10
-once for each bucket pair above 16 only where its source reads the bucket
-defines (the earlier design), and picks that library for a case.
+replace the card. `query_ab` builds the other version of kernels 6, 9 and
+10 once for each bucket pair above 16 only where its source reads the
+bucket defines (the earlier design), and picks that library for a case.
 """
 
 import types
@@ -15,7 +15,6 @@ import types
 import pytest
 import torch
 
-from collide2d_tpu_torch.ops import polygon_cuda
 from collide2d_tpu_torch.utils import ab, cuda_build, query_ab
 
 torch.set_num_threads(1)
@@ -80,16 +79,19 @@ def test_query_ab_builds_bucket_pairs_only_for_the_earlier_design(tmp_path):
     earlier.mkdir()
     for name in ("polygon_kernel", "manifold_kernel", "distance_kernel", "toi_kernel"):
         (earlier / f"{name}.cu").write_text("#if POLY_KB1\n#endif\n")
-    jobs = query_ab._jobs(["6", "10", "9"], earlier)
-    buckets = [polygon_cuda.kernel_defines(*kk) for kk in query_ab._BIG_K_BUCKETS]
-    for k in ("6", "10"):
+    jobs = query_ab._jobs(["6", "10", "9", "12"], earlier)
+    buckets = [query_ab._bucket_defines(*kk) for kk in query_ab._BIG_K_BUCKETS]
+    assert buckets == [(("POLY_KB1", 4), ("POLY_KB2", 32)), (("POLY_KB1", 4), ("POLY_KB2", 64)),
+                       (("POLY_KB1", 32), ("POLY_KB2", 32))]
+    for k in ("6", "10", "9"):
         assert [d for tag, kk, _, d in jobs if tag == "other" and kk == k] == [(), *buckets]
         assert [d for tag, kk, _, d in jobs if tag == "this" and kk == k] == [()]
-    assert [d for _, kk, _, d in jobs if kk == "9"] == [(), ()]  # kernel 9: its own rule
-    # this checkout's kernels 6 and 10 take every K in one library
-    jobs = query_ab._jobs(["6", "10"], cuda_build.CSRC_DIR)
-    assert [d for *_, d in jobs] == [()] * 4
+    assert [d for _, kk, _, d in jobs if kk == "12"] == [(), ()]  # kernel 12: no K
+    # this checkout's kernels 6, 9 and 10 take every K in one library
+    jobs = query_ab._jobs(["6", "10", "9"], cuda_build.CSRC_DIR)
+    assert [d for *_, d in jobs] == [()] * 6
     libs = {(): "default", **{d: f"lib{i}" for i, d in enumerate(buckets)}}
     assert query_ab._other_lib(libs, 4, 20) == "lib0"
     assert query_ab._other_lib(libs, 20, 20) == "lib2"
+    assert query_ab._other_lib(libs, 4, 8) == "default"
     assert query_ab._other_lib({(): "default"}, 32, 32) == "default"

@@ -266,10 +266,10 @@ def test_polygon_kernel_matches_plain(cuda, k1, k2, bf16):
     assert 0 < int(want.sum()) < n
 
 
-# Above 16 vertices kernel 9 pads to the next power of two, each pair of
-# buckets a library of its own built at first use, and kernels 6 and 10 loop
-# over the true K in their one library: all three bitwise their plain
-# versions (9's pads to the same bucket) as below 16.
+# Above 16 vertices kernels 6, 9 and 10 loop over the true K in their one
+# library: all three bitwise their plain versions as below 16 (9's pads to
+# the next power of two, which the kernel's point distances to a polygon's
+# last vertex reproduce).
 @pytest.mark.parametrize("k1,k2", [(17, 4), (4, 17), (4, 20), (20, 20), (4, 32),
                                    (32, 32)])
 def test_polygon_kernels_take_k_above_16(cuda, k1, k2):
@@ -300,12 +300,14 @@ def test_polygon_kernels_take_k_above_16(cuda, k1, k2):
                        label[:1000].to(torch.int32))
 
 
-# Above 16 vertices kernels 6 and 10 loop over the true K (one library for
-# every K): a block stages its pairs in shared memory (128, 64 or 32 pairs,
-# `polygon_cuda.tile_pairs`), or the body reads device memory where no
-# 32-pair tile fits; bitwise their plain versions on each route, on points
-# and segments, and on planes that start off 16 bytes (the plain copy) or
-# end inside a block.
+# Above 16 vertices kernels 6, 9 and 10 loop over the true K (one library
+# for every K): a block stages its pairs in shared memory (128, 64 or 32
+# pairs, `polygon_cuda.tile_pairs`), or the body reads device memory where
+# no 32-pair tile fits; bitwise their plain versions on each route, on
+# points and segments, and on planes that start off 16 bytes (the plain
+# copy) or end inside a block; kernel 9's counting build counts its passes
+# on each route (the pairs through the segment tests: those that do not
+# overlap).
 @pytest.mark.parametrize("k1,k2", [(1, 20), (2, 17), (20, 24), (64, 64), (4, 460),
                                    (4, 1000)])
 def test_big_k_kernels_on_each_tile(cuda, k1, k2):
@@ -316,11 +318,17 @@ def test_big_k_kernels_on_each_tile(cuda, k1, k2):
     label = polygon_cuda.sat_polygons_cuda_t(a, b, k1=k1, k2=k2)
     label16 = polygon_cuda.sat_polygons_cuda_t(a.bfloat16(), b.bfloat16(), k1=k1, k2=k2)
     man = manifold_cuda.polygon_manifold_cuda_t(a, b, k1=k1, k2=k2, margin=0.1)
+    dist = distance_cuda.polygon_distance_cuda_t(a, b, k1=k1, k2=k2)
+    counted, undecided, separated = distance_cuda.polygon_distance_passes(a, b, k1=k1, k2=k2)
     torch.cuda.synchronize()
     assert torch.equal(label, polygon_cuda.sat_polygons_plain(a, b, k1, k2).reshape(-1).float())
     assert torch.equal(label16, polygon_cuda.sat_polygons_plain(
         a.bfloat16(), b.bfloat16(), k1, k2).reshape(-1).float())
     assert torch.equal(man, manifold_cuda.polygon_manifold_plain(a, b, k1, k2, 0.1))
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    assert torch.equal(dist, want) and torch.equal(counted, want)
+    overlap = int((want < 0).sum())
+    assert separated == n - overlap and overlap <= undecided <= n
     assert polygon_cuda.tile_pairs(4, 460) == 32 and polygon_cuda.tile_pairs(4, 1000) == 0
 
 
@@ -340,11 +348,15 @@ def test_big_k_kernels_on_unaligned_and_ragged_planes(cuda):
     assert torch.equal(got, polygon_cuda.sat_polygons_plain(a, b, k1, k2).reshape(-1).float())
     man = manifold_cuda.polygon_manifold_cuda_t(*shifted, k1=k1, k2=k2)
     assert torch.equal(man, manifold_cuda.polygon_manifold_plain(a, b, k1, k2))
+    dist = distance_cuda.polygon_distance_cuda_t(*shifted, k1=k1, k2=k2)
+    assert torch.equal(dist, distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1))
     # 3 columns (24 pairs): one block, past the last pair
     a3, b3 = a[:, :, :3].contiguous(), b[:, :, :3].contiguous()
     man3 = manifold_cuda.polygon_manifold_cuda_t(a3, b3, k1=k1, k2=k2, block=1)
+    dist3 = distance_cuda.polygon_distance_cuda_t(a3, b3, k1=k1, k2=k2, block=1)
     torch.cuda.synchronize()
     assert torch.equal(man3, manifold_cuda.polygon_manifold_plain(a3, b3, k1, k2))
+    assert torch.equal(dist3, distance_cuda.polygon_distance_plain(a3, b3, k1, k2).reshape(-1))
 
 
 def test_polygon_models_launch_the_kernel(cuda):

@@ -1,24 +1,34 @@
-"""Kernels 6 and 10 above 16 vertices: their run-time-K bodies on the host.
+"""Kernels 6, 9 and 10 above 16 vertices: their run-time-K bodies on the host.
 
-``csrc/polygon_big_k.cuh`` holds what kernels 6 (k-gon SAT labels) and 10
-(contact manifolds) compute for one pair when either polygon has more than
-16 vertices: loops over the true K1 and K2, axes and faces in register
-blocks, the vertices read through a pointer-and-stride view (a shared-memory
-tile of P pairs on the card, or the planes in device memory). Here it is
-compiled with g++ (``__device__`` defined away, CUDA's rounded intrinsics as
-plain float operations under ``-ffp-contract=off``, bf16 as its 16 high
-bits) and driven through both views: the tile as the kernels stage it
+``csrc/polygon_big_k.cuh`` holds what kernels 6 (k-gon SAT labels), 9
+(signed distances) and 10 (contact manifolds) compute for one pair when
+either polygon has more than 16 vertices: loops over the true K1 and K2,
+axes, segments and faces in register blocks, the vertices read through a
+pointer-and-stride view (a shared-memory tile of P pairs on the card, or
+the planes in device memory). Here it is compiled with g++ (``__device__``
+defined away, CUDA's rounded intrinsics as plain float operations under
+``-ffp-contract=off``, the saturating multiply as its clamp, bf16 as its 16
+high bits) and driven through both views: the tile as the kernels stage it
 (`polygon_cuda.tile_pairs` pairs a block, planes [plane][pair]) and the
-packed planes themselves. On packed rows that numpy makes from a seed, the
-labels are held bit for bit to ``sat_polygons_plain`` (float32 and
-bf16-rounded planes; kernel 6's first pass to ``chip_smoke.sat_first_pass``,
-the count of the work it leaves) and the manifolds to ``polygon_manifold_plain`` (every
-output's bits, margins 0 and 0.1), at (K1, K2) = (4, 17), (4, 20), (20,
-20), (32, 32), (4, 64) and (17, 4), and on degenerate polygons (one and two
-vertices, repeated consecutive vertices). The header's tile rule
-(`tile_pairs`) is the wrapper's. It skips only where g++ is absent. The
-wrappers of kernels 6 and 10 load one library for every K; kernel 9 keeps
-one per pair of K buckets above 16.
+packed planes themselves; kernel 9's pairs as the kernel takes them (its
+first pass, every axis where that does not settle the pair, the segment
+tests where the gap is not below 0). On packed rows that numpy makes from a
+seed, the labels are held bit for bit to ``sat_polygons_plain`` (float32
+and bf16-rounded planes; kernel 6's first pass to
+``chip_smoke.sat_first_pass``, the count of the work it leaves), the
+distances to ``polygon_distance_plain`` (which pads to the K bucket; kernel
+9's first pass to a numpy version of its 8 normals and to
+``chip_smoke.distance_first_pass``) and the manifolds to
+``polygon_manifold_plain`` (every output's bits, margins 0 and 0.1), at
+(K1, K2) = (4, 17), (4, 20), (20, 20), (32, 32), (4, 64) and (17, 4), and on
+degenerate polygons (one and two vertices, repeated consecutive vertices);
+kernel 9 also on a normal whose |n|^2 underflows to 0 (which its first pass
+must not take as proof of separation, as kernel 6's test would) and on
+pairs where the padding's point distance to a polygon's last vertex is the
+strict minimum (found by a seeded search here: the body must take it). The
+header's tile rule (`tile_pairs`) is the wrapper's. It skips only where g++
+is absent. The wrappers of kernels 6, 9 and 10 load one library for every
+K.
 
 This is the only place the new loop order runs before the card:
 tests/test_torch_gpu.py and ``chip_smoke.py`` phase 24 hold the kernels to
@@ -123,11 +133,15 @@ static bool read(FILE* in, std::vector<T>& v, size_t count) {
   return fread(v.data(), sizeof(T), count, in) == count;
 }
 
-// argv: mode (sat | sat_first | sat_bf16 | manifold | tile_pairs) k1 k2 n pairs margin in out
+// argv: mode (sat | sat_first | sat_bf16 | manifold | dist | dist_unpadded |
+// tile_pairs) k1 k2 n pairs margin in out
 // IN: int32 S, S float32 values and their S float32 square roots, then the
 // (2 k1, n) and (2 k2, n) planes (float32, or bf16 bits for sat_bf16).
 // OUT: float32 labels (n; sat_first: 1 where kernel 6's first pass
-// separates the pair) or the 9 float32 manifold planes (9, n).
+// separates the pair), the 9 float32 manifold planes (9, n), or kernel 9's
+// (3, n): the gap where the pair overlaps else d2, 1 where that is the gap,
+// 1 where the first pass settles the pair (dist_unpadded: without the
+// padding's point distances).
 int main(int argc, char** argv) {
   const char* mode = argv[1];
   if (!strcmp(mode, "tile_pairs")) {  // argv: tile_pairs max_k
@@ -167,6 +181,22 @@ int main(int argc, char** argv) {
         label[p] = first ? static_cast<float>(spread_axes_separate(b1, b2)) : sat_label(b1, b2);
       });
       fwrite(label.data(), 4, n, out);
+    } else if (!strncmp(mode, "dist", 4)) {
+      // as kernel 9 takes a pair: the first pass; every axis where it does
+      // not settle the pair; the segment tests where the gap is not below 0
+      const bool padded = !strcmp(mode, "dist");
+      const bool pad1 = padded && collide2d::k_bucket(k1) > k1;
+      const bool pad2 = padded && collide2d::k_bucket(k2) > k2;
+      std::vector<float> planes(3 * n);
+      each_pair(a, b, n, k1, k2, pairs, [&](long long p, const auto& b1, const auto& b2) {
+        const bool first = spread_normals_settle(b1, b2);
+        const float gap = first ? 0.0f : support_gap(b1, b2);
+        const bool is_gap = !first && gap < 0.0f;
+        planes[p] = is_gap ? gap : separation_d2(b1, b2, pad1, pad2);
+        planes[n + p] = is_gap;
+        planes[2 * n + p] = first;
+      });
+      fwrite(planes.data(), 4, 3 * n, out);
     } else {
       std::vector<float> planes(9 * n);
       each_pair(a, b, n, k1, k2, pairs, [&](long long p, const auto& b1, const auto& b2) {
@@ -255,7 +285,9 @@ def _run(program, tmp_path, mode, a, b, k1, k2, pairs, margin=0.0):
     subprocess.run([str(program), mode, str(k1), str(k2), str(n), str(pairs), repr(margin),
                     str(inp), str(out)], check=True, timeout=300)
     raw = torch.from_numpy(np.fromfile(out, np.float32))
-    return raw if mode.startswith("sat") else raw.reshape(9, *a.shape[1:])
+    if mode.startswith("sat"):
+        return raw
+    return raw.reshape(3, -1) if mode.startswith("dist") else raw.reshape(9, *a.shape[1:])
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -299,6 +331,140 @@ def test_manifold_body_is_the_plain_version(program, tmp_path, k1, k2, margin):
         assert torch.equal(_bits(got), _bits(want)), pairs
     counts = want[0].reshape(-1)
     assert (counts == 0).any() and (counts == 2).any()
+
+
+def _distance(program, tmp_path, a, b, k1, k2, pairs, mode="dist"):
+    """Kernel 9's body on packed pairs: (distances (n,), whether its first
+    pass settles each pair (n,)); the square root of d2 is torch's (the plain
+    version's)."""
+    value, is_gap, first = _run(program, tmp_path, mode, a, b, k1, k2, pairs)
+    return torch.where(is_gap.bool(), value, torch.sqrt(value)), first.bool()
+
+
+def _distance_first_pass_numpy(a, b, k1, k2):
+    """Kernel 9's first pass in numpy float32: the 8 spread edge normals
+    (polygon 1's edges u k1 / 4, polygon 2's u k2 / 4), settled where one has
+    |n|^2 > 0 and an unscaled gap >= 0; bool (n,)."""
+    x1, y1 = (c.numpy().reshape(k1, -1) for c in (a[:k1], a[k1:]))
+    x2, y2 = (c.numpy().reshape(k2, -1) for c in (b[:k2], b[k2:]))
+    sep = np.zeros(x1.shape[1], bool)
+    for x, y, k in ((x1, y1, k1), (x2, y2, k2)):
+        for u in range(4):
+            i = u * k // 4
+            j = (i + 1) % k
+            ax, ay = y[j] - y[i], x[i] - x[j]
+            q1, q2 = ax * x1 + ay * y1, ax * x2 + ay * y2
+            g = np.maximum(q2.min(0) - q1.max(0), q1.min(0) - q2.max(0))
+            sep |= (ax * ax + ay * ay > 0) & (g >= 0)
+    return torch.from_numpy(sep)
+
+
+@pytest.mark.parametrize("k1,k2", SHAPES)
+def test_distance_body_is_the_plain_version(program, tmp_path, k1, k2):
+    a, b = _packed(np.random.default_rng(500 * k1 + k2), k1, k2)
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    for pairs in _views(k1, k2, 4):
+        got, first = _distance(program, tmp_path, a, b, k1, k2, pairs)
+        assert torch.equal(_bits(got), _bits(want)), pairs
+    assert 0 < int((want < 0).sum()) < N
+    # the first pass: its 8 normals in numpy and in chip_smoke's count of the
+    # work it leaves; a pair it settles does not overlap, and it settles most
+    # of the separated pairs
+    assert torch.equal(first, _distance_first_pass_numpy(a, b, k1, k2))
+    assert torch.equal(first, chip_smoke.distance_first_pass(a, b, k1, k2))
+    assert not (first & (want < 0)).any()
+    assert int(first.sum()) >= 0.5 * int((want >= 0).sum())
+
+
+@pytest.mark.parametrize("k1,k2", [(1, 20), (20, 1), (2, 17), (17, 2), (20, 24), (33, 3)])
+def test_distance_body_on_degenerate_polygons(program, tmp_path, k1, k2):
+    # a point, a segment, runs of repeated consecutive vertices (zero-length
+    # edges and segments), and K1, K2 below, at and far from their buckets
+    a, b = _packed(np.random.default_rng(600 * k1 + k2), k1, k2, repeat=True)
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    for pairs in _views(k1, k2, 4):
+        got, first = _distance(program, tmp_path, a, b, k1, k2, pairs)
+        assert torch.equal(_bits(got), _bits(want)), pairs
+    assert torch.equal(first, _distance_first_pass_numpy(a, b, k1, k2))
+    assert 0 < int((want < 0).sum()) < N
+
+
+def _needles(rng, n, k, tiny, shift):
+    """(n, k, 2) float32 k-gons: a needle from (-1, 0) to a vertical edge of
+    length 2 ``tiny`` at x = 0 (vertices 0 and 1: edge 0, whose |normal|^2
+    underflows to 0), the other vertices on its two long sides; mirrored
+    (pointing right, the short edge at x = 0) where ``shift`` is not 0, and
+    moved right by it."""
+    top = (k - 3) // 2
+    xs_top = -np.sort(rng.uniform(0.05, 0.95, (n, top)), axis=1)
+    xs_bot = np.sort(-rng.uniform(0.05, 0.95, (n, k - 3 - top)), axis=1)
+    t = tiny[:, None]
+    x = np.concatenate([np.zeros((n, 2)), xs_top, -np.ones((n, 1)), xs_bot], 1)
+    y = np.concatenate([-t, t, t * (1 + xs_top), np.zeros((n, 1)), -t * (1 + xs_bot)], 1)
+    if np.any(shift):
+        x = shift[:, None] - x  # mirrored: still counter-clockwise with y negated
+        y = -y
+    return np.stack([x, y], -1).astype(np.float32)
+
+
+def test_distance_first_pass_needs_a_nonzero_normal(program, tmp_path):
+    # two needles tip to tip, a gap of `shift` apart along x: their only
+    # normals along x are their tips' tiny edges (edge 0 of each, a spread
+    # normal), where |n|^2 underflows to 0, so the plain version masks them
+    # and every other normal shows overlap: the distance is the (negative)
+    # gap. Kernel 6's strict test on the tiny edge would take the pair as
+    # separated and give sqrt(d2) instead
+    rng = np.random.default_rng(700)
+    k1 = k2 = 20
+    tiny = 10.0 ** rng.uniform(-30, -24, N)
+    shift = rng.uniform(0.05, 1.0, N)
+    p1 = _needles(rng, N, k1, tiny, np.zeros(N))
+    p2 = _needles(rng, N, k2, tiny, shift)
+    a, b = (polygon_cuda.pack_polygons(torch.from_numpy(p)) for p in (p1, p2))
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    for pairs in _views(k1, k2, 4):
+        got, first = _distance(program, tmp_path, a, b, k1, k2, pairs)
+        assert torch.equal(_bits(got), _bits(want)), pairs
+    assert bool((want < 0).all())
+    assert not first.any() and not _distance_first_pass_numpy(a, b, k1, k2).any()
+    assert bool(chip_smoke.sat_first_pass(a, b, k1, k2).all())  # kernel 6's test
+    assert bool((_edge_norms(a, k1).reshape(k1, -1)[0] == 0).all())  # edge 0's |n|^2
+
+
+def _touching(rng, n, k):
+    """Pairs of (n, k, 2) float32 k-gons a seeded search takes: polygon 2
+    an ellipse polygon, polygon 1 its reflection through its last vertex
+    q_{k-1}, moved out along the closing edge's outward normal by s and along
+    the edge by a little (10^-7 to 10^-3 of s), so that polygon 1's last
+    vertex lies just outside q_{k-1}, its projection on the closing edge
+    just above 0."""
+    q = _polygons(rng, n, k).astype(np.float64)
+    last, first = q[:, -1], q[:, 0]
+    e = first - last
+    length = np.linalg.norm(e, axis=1, keepdims=True)
+    normal = np.stack([e[:, 1], -e[:, 0]], 1) / length
+    s = 10.0 ** rng.uniform(-4, -1, (n, 1))
+    along = s * 10.0 ** rng.uniform(-7, -3, (n, 1)) / length
+    p = 2 * last[:, None] - q + (s * normal + along * e / length)[:, None]
+    return p.astype(np.float32), q.astype(np.float32)
+
+
+def test_distance_body_takes_the_padding_point_distance(program, tmp_path):
+    # 20-gons pad to 32: the padding's zero-length segments at each
+    # polygon's last vertex give the point distances to it, which the real
+    # segments there can miss by rounding. On these near-touching pairs the
+    # body with those point distances is the plain version; without them
+    # some pairs come out larger (the point distance was the strict minimum)
+    k1 = k2 = 20
+    p1, p2 = _touching(np.random.default_rng(18), N, k1)
+    a, b = (polygon_cuda.pack_polygons(torch.from_numpy(p)) for p in (p1, p2))
+    want = distance_cuda.polygon_distance_plain(a, b, k1, k2).reshape(-1)
+    for pairs in _views(k1, k2, 4):
+        got, _ = _distance(program, tmp_path, a, b, k1, k2, pairs)
+        assert torch.equal(_bits(got), _bits(want)), pairs
+    unpadded, _ = _distance(program, tmp_path, a, b, k1, k2, 0, mode="dist_unpadded")
+    assert bool((unpadded >= want).all()) and int((unpadded > want).sum()) > 0
+    assert bool((want > 0).all())
 
 
 # Degenerate polygons: a point, a segment, and k-gons with runs of repeated
@@ -374,10 +540,7 @@ def test_tile_rule_is_the_wrappers(program):
     assert polygon_cuda.tile_pairs(4, 900) == 32 and polygon_cuda.tile_pairs(4, 901) == 0
 
 
-# ---- the wrappers' libraries: one for every K (kernels 6 and 10), one per
-# bucket pair above 16 (kernel 9) ----
-
-BUCKET_SHAPES = [(4, 20), (20, 20), (32, 32), (4, 64)]
+# ---- the wrappers' libraries: one for every K ----
 
 
 def _loaded(monkeypatch, module):
@@ -387,8 +550,9 @@ def _loaded(monkeypatch, module):
 
     def load(name, defines=()):
         asked.append(cuda_build.library_path(name, defines))
-        return types.SimpleNamespace(polygon_sat_launch=types.SimpleNamespace(),
-                                     polygon_manifold_launch=types.SimpleNamespace())
+        return types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
+            "polygon_sat_launch", "polygon_manifold_launch", "obb_distance_launch",
+            "polygon_distance_launch")})
 
     monkeypatch.setattr(cuda_build, "load", load)
     module._kernel_lib()
@@ -396,24 +560,19 @@ def _loaded(monkeypatch, module):
 
 
 @pytest.mark.parametrize("module,name", [(polygon_cuda, "polygon_kernel"),
+                                         (distance_cuda, "distance_kernel"),
                                          (manifold_cuda, "manifold_kernel")])
-def test_kernels_6_and_10_take_every_k_in_one_library(monkeypatch, module, name):
-    # the launcher's library takes no shape: the default build, whatever K
-    assert not inspect.signature(module._kernel_lib).parameters
+def test_kernels_6_9_and_10_take_every_k_in_one_library(monkeypatch, module, name):
+    # the launcher's library takes no shape (kernel 9's: only whether it
+    # counts its passes): the default build, whatever K
+    assert [*inspect.signature(module._kernel_lib).parameters] == (
+        ["count"] if module is distance_cuda else [])
     assert _loaded(monkeypatch, module) == [cuda_build.library_path(name)]
-    # and its source reads no bucket-pair define
+    # its source reads no bucket-pair define, and neither do the headers
     assert "POLY_KB" not in (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    assert not any("POLY_KB" in h.read_text() for h in cuda_build.CSRC_DIR.glob("*.cuh"))
+    assert distance_cuda.distance_defines() == ()
+    assert distance_cuda.distance_defines(count=True) == (("POLYDIST_COUNT", 1),)
     # chip_smoke's phase 1 builds no library of its own above 16
-    assert all(lib == "distance_kernel" for lib, _ in chip_smoke.big_k_builds())
-
-
-@pytest.mark.parametrize("k1,k2", BUCKET_SHAPES)
-def test_kernel_9_keeps_a_library_per_bucket_pair(k1, k2):
-    b1, b2 = polygon_cuda.k_bucket(k1), polygon_cuda.k_bucket(k2)
-    assert polygon_cuda.kernel_defines(k1, k2) == (("POLY_KB1", b1), ("POLY_KB2", b2))
-    assert distance_cuda.distance_defines(k1=k1, k2=k2) == (("POLY_KB1", b1),
-                                                            ("POLY_KB2", b2))
-    assert polygon_cuda.kernel_defines(8, 16) == ()
-    paths = {cuda_build.library_path("distance_kernel", polygon_cuda.kernel_defines(*s))
-             for s in BUCKET_SHAPES}
-    assert len(paths) == 3  # (4, 32), (32, 32) and (4, 64)
+    assert not hasattr(chip_smoke, "big_k_builds") and not hasattr(polygon_cuda,
+                                                                   "kernel_defines")

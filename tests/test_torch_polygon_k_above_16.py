@@ -1,14 +1,14 @@
 """Kernels 6, 9 and 10 above 16 vertices: their plain versions on the CPU
 against the JAX package.
 
-On a card the three kernels pad a polygon of k > 16 vertices to the next
-power of two (32, 64, ...), each pair of buckets a library of its own
-(`polygon_cuda.kernel_defines`); the plain versions of kernels 9 and 10 pad
-to the same bucket (`distance_cuda._padded_columns`), and kernel 6's labels
-do not depend on the padding. On the same numpy rows (4-gons against 17-,
-20-, 32- and 64-gons, and 32-gons against 32-gons) each plain version is
-held to the JAX package's jnp function and to its Pallas kernel run with
-``interpret=True``: labels and signs bitwise, distances within 2e-5
+On a card the three kernels loop over the true K above 16 vertices, one
+library for every K (csrc/polygon_big_k.cuh); the plain versions of kernels
+9 and 10 pad a polygon of k > 16 vertices to the next power of two (32, 64,
+...; `distance_cuda._padded_columns`), which those loops reproduce bit for
+bit, and kernel 6's labels do not depend on the padding. On the same
+numpy rows (4-gons against 17-, 20-, 32- and 64-gons, and 32-gons against
+32-gons) each plain version is held to the JAX package's jnp function and
+to its Pallas kernel run with ``interpret=True``: labels and signs bitwise, distances within 2e-5
 (tests/test_torch_distance.py's bar for kernel 9's plain version), manifold
 counts equal and points, depths and normals within 2e-5
 (tests/test_torch_manifold.py's bar for kernel 10's). The bucket rule of the
@@ -147,37 +147,33 @@ static inline float __fdiv_rn(float a, float b) { return a / b; }
 static inline float __fsqrt_rn(float a) { return a; }
 #include "polygon_soa.cuh"
 int main() {
-  for (int k = 0; k <= 300; ++k)
-    printf("%d %d %d\n", k, collide2d::k_bucket(k), collide2d::build_carries(k, 4));
+  for (int k = 0; k <= 300; ++k) printf("%d %d\n", k, collide2d::k_bucket(k));
   return 0;
 }
 """
 
 
-@pytest.mark.parametrize("kb1", [0, 32, 64])
+@pytest.mark.parametrize("kb1", [0])  # 0: the default build, the one every K takes
 def test_header_bucket_rule_is_the_wrappers(tmp_path, kb1):
-    # csrc/polygon_soa.cuh's k_bucket and which pairs a build carries
-    # (the default one, or -DPOLY_KB1=kb1 -DPOLY_KB2=4) against
-    # polygon_cuda.k_bucket / kernel_defines
+    # csrc/polygon_soa.cuh's k_bucket (the registers' buckets of the K <= 16
+    # bodies, and the padding kernel 9's run-time-K body reproduces) against
+    # polygon_cuda.k_bucket
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile csrc/polygon_soa.cuh on the host")
     src, exe = tmp_path / "bucket.cc", tmp_path / "bucket"
     src.write_text(_BUCKET_PROGRAM)
-    defines = [f"-DPOLY_KB1={kb1}", "-DPOLY_KB2=4"] if kb1 else []
-    subprocess.run([gxx, "-std=c++17", *defines, "-I", str(cuda_build.CSRC_DIR), "-o",
+    subprocess.run([gxx, "-std=c++17", "-I", str(cuda_build.CSRC_DIR), "-o",
                     str(exe), str(src)], check=True, capture_output=True, timeout=120)
     out = subprocess.run([str(exe)], check=True, capture_output=True, text=True,
                          timeout=60).stdout.split("\n")[:-1]
+    assert len(out) == 301
     for line in out:
-        k, bucket, carried = (int(x) for x in line.split())
+        k, bucket = (int(x) for x in line.split())
         if k == 0:
-            assert bucket == 0 and not carried
+            assert bucket == 0
             continue
         assert bucket == tpc.k_bucket(k), k
-        want = dict(tpc.kernel_defines(k, 4)) == (
-            {"POLY_KB1": kb1, "POLY_KB2": 4} if kb1 else {})
-        assert bool(carried) == want, k
     assert [tpc.k_bucket(k) for k in (1, 5, 16, 17, 33, 65, 129)] == [
         4, 8, 16, 32, 64, 128, 256]
     with pytest.raises(ValueError, match="at least one vertex"):

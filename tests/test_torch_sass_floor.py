@@ -283,3 +283,88 @@ def test_big_k_issue_floor_of_the_unrolled_design(monkeypatch):
     floor = cs.big_k_issue_floor(None, "6", 4, 20, 10, 3)
     assert floor["design"] == "unrolled" and floor["function"] == "polygon_sat_kernelILi4ELi32EfE"
     assert floor["sass_per_pair"] == cs._shortest_iteration(_ins(_BIG_K), 0, 0x180)[0]
+
+
+# Kernel 9 above 16 vertices (csrc/polygon_big_k.cuh): the first pass's
+# walk (no loop around it), a block loop of one axis (its set-up, a guarded
+# walk folding 4 minima from 1 load, then the scaled gap's 1/|n| and max),
+# and a block loop of one segment (its set-up, a guarded walk of 2 tests,
+# then the minimum).
+_BIG_K_DISTANCE = """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDS R1, [R0] ;
+        /*0020*/                   FMNMX R2, R2, R1, PT ;
+        /*0030*/                   FMNMX R3, R3, R1, !PT ;
+        /*0040*/                   FMNMX R4, R4, R1, PT ;
+        /*0050*/                   FMNMX R5, R5, R1, !PT ;
+        /*0060*/              @P0  BRA 0x10 ;
+        /*0070*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*0080*/                   FADD R7, R7, R8 ;
+        /*0090*/              @P1  BRA 0x100 ;
+        /*00a0*/                   LDS R9, [R0] ;
+        /*00b0*/                   FMUL R10, R9, R7 ;
+        /*00c0*/                   FMNMX R11, R11, R10, PT ;
+        /*00d0*/                   FMNMX R12, R12, R10, !PT ;
+        /*00e0*/                   FMNMX R13, R13, R10, PT ;
+        /*00e8*/                   FMNMX R14, R14, R10, !PT ;
+        /*00f0*/              @P2  BRA 0xa0 ;
+        /*0100*/                   MUFU.RSQ R15, R16 ;
+        /*0110*/                   FMNMX R17, R17, R15, !PT ;
+        /*0120*/              @P3  BRA 0x70 ;
+        /*0130*/                   FADD R18, R18, R19 ;
+        /*0140*/                   MUFU.RCP R20, R18 ;
+        /*0150*/              @P4  BRA 0x1c0 ;
+        /*0160*/                   LDS R21, [R0] ;
+        /*0170*/                   FMUL.SAT R22, R21, R20 ;
+        /*0180*/                   FMUL.SAT R23, R21, R20 ;
+        /*0190*/                   FMNMX R24, R24, R22, PT ;
+        /*01a0*/                   FMNMX R25, R25, R23, PT ;
+        /*01b0*/              @P5  BRA 0x160 ;
+        /*01c0*/                   FMNMX R26, R24, R25, PT ;
+        /*01d0*/              @P6  BRA 0x130 ;
+        /*01e0*/                   EXIT ;
+        /*01f0*/                   BRA 0x1f0 ;
+"""
+
+
+def test_big_k_issue_floor_of_kernel_9s_passes(monkeypatch):
+    _patched(monkeypatch, _ins(_BIG_K_DISTANCE))
+    monkeypatch.setattr(cs, "_sass_names", lambda lib: [
+        "_ZN3_GLOBAL_29polygon_distance_big_k_kernelILi128EEEvPKfS2_Pfxiibbb"])
+    pairs, undecided, separated = 10, 4, 7
+    floor = cs.big_k_issue_floor(None, "9", 4, 32, pairs, undecided, separated)
+    # the first pass's walk (no loop around it): LDS, 4 minima, the back
+    # edge = 6 an iteration for 2 projections
+    assert floor["sass_per_first_projection"] == 3
+    # the axis walk (in a block loop): LDS, FMUL, 4 minima, the back edge =
+    # 7 an iteration for 2 projections
+    assert (floor["sass_walk_iteration"], floor["projections_per_iteration"]) == (7, 2)
+    # the block's set-up skips the walk but keeps the gap's 1/|n| and max:
+    # IADD3, FADD, the guard, MUFU.RSQ, FMNMX, the back edge
+    assert (floor["sass_block_setup"], floor["block"]) == (6, 1)
+    # the segment walk: LDS, 2 FMUL.SAT, 2 minima, the back edge = 6 for 2
+    # tests; its block: FADD, MUFU.RCP, the guard, the minimum, the back edge
+    assert (floor["sass_per_test"], floor["sass_segment_setup"], floor["segments"]) == (
+        3, 5, 1)
+    work = cs.big_k_distance_work(4, 32, pairs, undecided, separated)
+    assert work == dict(first_projections=8 * 36 * 10, projections=36 * 36 * 4,
+                        axes=36 * 4, segments=36 * 7, tests=2 * 4 * 32 * 7)
+    total = (3 * work["first_projections"] + 7 / 2 * work["projections"] + 6 * work["axes"]
+             + 3 * work["tests"] + 5 * work["segments"])
+    assert floor["sass_per_pair"] == pytest.approx(total / pairs)
+    assert floor["issue_floor_ms"] == pytest.approx(cs._issue_ms(total)[0])
+
+
+def test_big_k_issue_floor_of_kernel_9s_unrolled_design(monkeypatch):
+    # a library of the earlier design (its bucket pair's body unrolled):
+    # `polygon_distance_issue_floor`'s pair through the first pass, every
+    # axis and every test
+    _patched(monkeypatch, _distance_sass(4))
+    monkeypatch.setattr(cs, "_bucket", lambda k: 4)
+    monkeypatch.setattr(cs, "_sass_names", lambda lib: [
+        "_ZN3_GLOBAL_23polygon_distance_kernelILi4ELi4EEEvPKfS2_Pfxii"])
+    floor = cs.big_k_issue_floor(None, "9", 4, 20, 100, 10, 95)
+    assert floor["design"] == "unrolled"
+    assert floor["function"] == "polygon_distance_kernelILi4ELi4EE"
+    assert floor["sass_per_pair"] == 62
+    assert floor["issue_floor_ms"] == pytest.approx(cs._issue_ms(100 * 62)[0])
