@@ -1,0 +1,170 @@
+"""The exact collision probability of a noisy convex configuration.
+
+A configuration is a robot polygon (K2 vertices, CCW, robot frame) placed
+at ``position`` with orientation ``robot_theta``, and an obstacle polygon
+(K vertices, CCW, obstacle frame) whose pose is Gaussian noise: it is
+rotated by dtheta ~ N(0, s_theta^2) about the origin and translated by
+(dx, dy), dx ~ N(0, s_x^2), dy ~ N(0, s_y^2), all independent. The two
+collide when they overlap (touching counts; it has probability 0).
+
+For a fixed dtheta they overlap exactly when (dx, dy) lies in the convex
+polygon ``position + R ⊕ (-O(dtheta))`` (a Minkowski sum, R the rotated
+robot, O the rotated obstacle). Scaled by the sigmas that polygon's
+Gaussian mass is a sum over its edges of signed triangle masses with the
+origin as apex; each triangle's mass is its swept angle over 2 pi less two
+Owen's T values (Owen 1956):
+
+    mass(0, A, B) = angle(A, B) / (2 pi) - [T(|h|, s_B / h) - T(|h|, s_A / h)]
+
+where h is the signed distance of the edge's line from the origin and
+s_A, s_B the positions of A and B along it. The dtheta integral is a
+composite Gauss-Legendre rule over +-7 sigma, with panel edges at every
+angle where a robot edge turns parallel to an obstacle edge (the Minkowski
+sum changes its vertices there, so the integrand is analytic on each
+panel) and at least every half sigma. Everything is float64; no sample is
+drawn. This is the judge of every label the benchmark compares.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.special import owens_t
+
+# Half-width of the dtheta integral in sigmas: the mass outside is 2.6e-12.
+THETA_SIGMAS = 7.0
+# Panel length cap in sigmas, and Gauss-Legendre nodes per panel.
+PANEL_SIGMAS = 0.5
+GL_NODES = 4
+# Rows per block of the computation (bounds its temporaries).
+ROW_BLOCK = 64
+
+
+def rect_vertices(w, h) -> np.ndarray:
+    """Rectangles w x h centred at the origin: (..., 4, 2) CCW from the
+    bottom-left corner."""
+    w = np.asarray(w, np.float64)[..., None]
+    h = np.asarray(h, np.float64)[..., None]
+    sx = np.array([-0.5, 0.5, 0.5, -0.5])
+    sy = np.array([-0.5, -0.5, 0.5, 0.5])
+    return np.stack([w * sx, h * sy], axis=-1)
+
+
+def _rotate(v: np.ndarray, theta: np.ndarray) -> np.ndarray:
+    """Rotate (..., K, 2) vertices by (...) angles about the origin."""
+    c = np.cos(theta)[..., None]
+    s = np.sin(theta)[..., None]
+    x, y = v[..., 0], v[..., 1]
+    return np.stack([c * x - s * y, s * x + c * y], axis=-1)
+
+
+def _bottom(v: np.ndarray) -> np.ndarray:
+    """Index of each polygon's lowest vertex (ties: the leftmost)."""
+    y = v[..., 1]
+    low = y == y.min(axis=-1, keepdims=True)
+    return np.where(low, v[..., 0], np.inf).argmin(axis=-1)
+
+
+def _edges(v: np.ndarray, start: np.ndarray) -> np.ndarray:
+    """A CCW polygon's edge vectors, taken cyclically from ``start``."""
+    k = v.shape[-2]
+    order = (start[..., None] + np.arange(k)) % k
+    w = np.take_along_axis(v, order[..., None], axis=-2)
+    return np.roll(w, -1, axis=-2) - w
+
+
+def minkowski_sum(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The Minkowski sum of two convex CCW polygons (..., Ka, 2) and
+    (..., Kb, 2): (..., Ka + Kb, 2) CCW vertices from the lowest one (edges
+    merged by angle; a zero-length edge repeats a vertex)."""
+    ia, ib = _bottom(a), _bottom(b)
+    e = np.concatenate([_edges(a, ia), _edges(b, ib)], axis=-2)
+    ang = np.mod(np.arctan2(e[..., 1], e[..., 0]), 2.0 * np.pi)
+    e = np.take_along_axis(e, np.argsort(ang, axis=-1, kind="stable")[..., None],
+                           axis=-2)
+    start = (np.take_along_axis(a, ia[..., None, None], axis=-2)
+             + np.take_along_axis(b, ib[..., None, None], axis=-2))
+    return start + np.concatenate([np.zeros_like(e[..., :1, :]),
+                                   np.cumsum(e[..., :-1, :], axis=-2)], axis=-2)
+
+
+def polygon_gaussian_mass(v: np.ndarray) -> np.ndarray:
+    """P(z in polygon) for z ~ N(0, I_2): (..., K, 2) convex CCW vertices,
+    by the edge sum of triangle masses (module docstring)."""
+    a = v
+    b = np.roll(v, -1, axis=-2)
+    e = b - a
+    length = np.hypot(e[..., 0], e[..., 1])
+    cross = a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+    dot = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+    ok = (length > 0) & (cross != 0)
+    safe_len = np.where(ok, length, 1.0)
+    h = np.where(ok, cross / safe_len, 1.0)
+    s_a = (a[..., 0] * e[..., 0] + a[..., 1] * e[..., 1]) / safe_len
+    s_b = (b[..., 0] * e[..., 0] + b[..., 1] * e[..., 1]) / safe_len
+    t = owens_t(np.abs(h), s_b / h) - owens_t(np.abs(h), s_a / h)
+    tri = np.arctan2(cross, dot) / (2.0 * np.pi) - t
+    return np.where(ok, tri, 0.0).sum(axis=-1)
+
+
+def _theta_panels(robot: np.ndarray, obstacle: np.ndarray, s_theta: np.ndarray):
+    """Per row, the sorted panel edges of the dtheta integral (R, P + 1):
+    +-7 sigma, every half sigma, and every angle in between at which a
+    robot edge is parallel to an obstacle edge."""
+    lim = THETA_SIGMAS * s_theta
+    n_grid = int(round(2 * THETA_SIGMAS / PANEL_SIGMAS))
+    grid = lim[:, None] * np.linspace(-1.0, 1.0, n_grid + 1)[None, :]
+    er = np.roll(robot, -1, axis=-2) - robot
+    eo = np.roll(obstacle, -1, axis=-2) - obstacle
+    ar = np.arctan2(er[..., 1], er[..., 0])
+    ao = np.arctan2(eo[..., 1], eo[..., 0])
+    base = np.mod(ar[:, :, None] - ao[:, None, :], np.pi).reshape(len(lim), -1)
+    m_hi = int(np.ceil(float(lim.max(initial=0.0)) / np.pi)) + 1
+    m = np.arange(-m_hi, m_hi + 1) * np.pi
+    kinks = (base[:, :, None] + m[None, None, :]).reshape(len(lim), -1)
+    kinks = np.clip(kinks, -lim[:, None], lim[:, None])
+    return np.sort(np.concatenate([grid, kinks], axis=1), axis=1)
+
+
+def _rows_probability(position, robot_theta, robot, obstacle, sd) -> np.ndarray:
+    r = len(position)
+    robot_w = _rotate(robot, robot_theta)               # (R, K2, 2)
+    s_theta = np.maximum(sd[:, 2], 1e-300)
+    edges = _theta_panels(robot_w, obstacle, s_theta)   # (R, P + 1)
+    lo, hi = edges[:, :-1], edges[:, 1:]
+    x, w = np.polynomial.legendre.leggauss(GL_NODES)
+    half = 0.5 * (hi - lo)
+    mid = 0.5 * (hi + lo)
+    nodes = mid[..., None] + half[..., None] * x              # (R, P, G)
+    weights = half[..., None] * w * np.exp(-0.5 * (nodes / s_theta[:, None, None])
+                                           ** 2) / (np.sqrt(2 * np.pi)
+                                                    * s_theta[:, None, None])
+    live = np.broadcast_to((hi > lo)[..., None], nodes.shape)
+    row = np.broadcast_to(np.arange(r)[:, None, None], nodes.shape)[live]
+    dtheta = nodes[live]
+    neg_obstacle = -_rotate(obstacle[row], dtheta)
+    poly = position[row][:, None, :] + minkowski_sum(robot_w[row], neg_obstacle)
+    scale = 1.0 / np.maximum(sd[row, :2], 1e-300)
+    mass = polygon_gaussian_mass(poly * scale[:, None, :])
+    return np.bincount(row, weights=mass * weights[live], minlength=r)
+
+
+def collision_probability(position, robot_theta, robot_verts, obstacle_verts,
+                          sd) -> np.ndarray:
+    """Exact P(collision) of each configuration (float64, (N,)).
+
+    ``position`` (N, 2), ``robot_theta`` (N,), ``robot_verts`` (K2, 2) or
+    (N, K2, 2), ``obstacle_verts`` (N, K, 2), ``sd`` (N, 3) = sigmas of x,
+    y and theta. Polygons convex and CCW."""
+    position = np.asarray(position, np.float64)
+    n = len(position)
+    robot_theta = np.asarray(robot_theta, np.float64)
+    robot = np.broadcast_to(np.asarray(robot_verts, np.float64),
+                            (n,) + np.shape(robot_verts)[-2:])
+    obstacle = np.asarray(obstacle_verts, np.float64)
+    sd = np.asarray(sd, np.float64)
+    out = np.empty(n, np.float64)
+    for i in range(0, n, ROW_BLOCK):
+        j = min(n, i + ROW_BLOCK)
+        out[i:j] = _rows_probability(position[i:j], robot_theta[i:j], robot[i:j],
+                                     obstacle[i:j], sd[i:j])
+    return np.clip(out, 0.0, 1.0)
