@@ -1,0 +1,13 @@
+"""idle_ms_per_100k.driver (ms): card-idle milliseconds charged to the
+program's ``driver/`` spans (and the ``round/`` spans inside them) on the
+main thread, averaged over the cards, per 100,000 configurations labeled
+(`core.program_spans`)."""
+
+from benchmark.core import program_spans
+
+
+def read(ctx):
+    c = program_spans.charged(ctx)
+    if c is None or ctx.counters.get("rows", 0) <= 0:
+        return None
+    return c["layers"][program_spans.DRIVER] * 1e3 * 1e5 / ctx.counters["rows"]

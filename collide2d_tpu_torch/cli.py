@@ -21,9 +21,10 @@ device of ``--device``'s kind (every visible card; one CPU device is no
 mesh) and ``--sample_parallel S`` each configuration's samples over S of
 them; labels are bitwise a single-device run's (`parallel`). A
 ``--sample_parallel`` larger than the device count exits with an error.
-``--trace_dir`` writes a ``torch.profiler`` trace of generate, relabel
-or ztest. A negative ``--checkpoint_every`` is an error (the JAX package
-reads it as "every group").
+``--trace_dir`` writes a ``torch.profiler`` trace of generate, relabel,
+ztest, polylabel or movelabel, with the program's spans
+(`utils.profiling.span`). A negative ``--checkpoint_every`` is an error
+(the JAX package reads it as "every group").
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from collide2d_tpu_torch.data.pipeline import (
     relabel_dataset,
     ztest,
 )
+from collide2d_tpu_torch.utils.profiling import span, trace
 
 _IMPL_HELP = ("MC sampler: auto = cuda, the fused kernel (on a CPU device "
               "its plain torch version); threefry = the per-draw reference "
@@ -399,12 +401,16 @@ def _add_label_flags(p: argparse.ArgumentParser, impl_help: str = _IMPL_HELP) ->
                    help="rounds between mid-run checkpoints to "
                         "<data_out>.checkpoint.npz (0 = off; a rerun with "
                         "the same --seed auto-resumes from it)")
+    p.add_argument("--trace_dir", default="",
+                   help="write a torch.profiler trace (Chrome JSON) of the "
+                        "labeling into this directory")
     p.add_argument("--verbose", type=_bool_flag, default=False)
 
 
 def _label(name: str, args: argparse.Namespace, configs, robot, **cfg_extra):
     """Run the adaptive driver for a labeling command and write
-    ``args.data_out``: cp, n_samples, converged."""
+    ``args.data_out``: cp, n_samples, converged (traced into
+    ``args.trace_dir`` when it is set)."""
     import time
 
     import numpy as np
@@ -431,12 +437,14 @@ def _label(name: str, args: argparse.Namespace, configs, robot, **cfg_extra):
         def progress(num_left, n_samples, round):
             print(f"[{name}] round {round}: left={num_left} "
                   f"n_samples={n_samples}", flush=True)
-    cp, n_used, done = adaptive_collision_probabilities(
-        prng.PRNGKey(seed), configs, robot, cfg, progress=progress,
-        checkpoint_path=(args.data_out + ".checkpoint.npz"
-                         if args.checkpoint_every else None),
-        checkpoint_every=args.checkpoint_every, mesh=mesh)
-    np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
+    with trace(args.trace_dir or None):
+        cp, n_used, done = adaptive_collision_probabilities(
+            prng.PRNGKey(seed), configs, robot, cfg, progress=progress,
+            checkpoint_path=(args.data_out + ".checkpoint.npz"
+                             if args.checkpoint_every else None),
+            checkpoint_every=args.checkpoint_every, mesh=mesh)
+        with span("pipeline/save_output"):
+            np.savez(args.data_out, cp=cp, n_samples=n_used, converged=done)
     return done
 
 
@@ -460,18 +468,19 @@ def _run_polylabel(args: argparse.Namespace) -> int:
 
     from collide2d_tpu_torch.mc.estimator import PolygonConfigs
 
-    data = np.load(args.data_in)
-    for field in ("obstacle_verts", "position", "pose_theta", "std_dev",
-                  "robot_verts"):
-        if field not in data:
-            raise SystemExit(f"polylabel: {args.data_in} missing '{field}'")
-    cfgs = PolygonConfigs.from_padded(
-        data["position"], data["pose_theta"], data["obstacle_verts"],
-        data["std_dev"], mask=data["mask"] if "mask" in data else None,
-        device=args.device,
-    )
+    fields = ("obstacle_verts", "position", "pose_theta", "std_dev", "robot_verts")
+    with span("pipeline/load_input"), np.load(args.data_in) as data:
+        for field in fields:
+            if field not in data:
+                raise SystemExit(f"polylabel: {args.data_in} missing '{field}'")
+        arrays = {f: data[f] for f in (*fields, "mask") if f in data}
+    with span("pipeline/upload"):
+        cfgs = PolygonConfigs.from_padded(
+            arrays["position"], arrays["pose_theta"], arrays["obstacle_verts"],
+            arrays["std_dev"], mask=arrays.get("mask"), device=args.device,
+        )
     done = _label("polylabel", args, cfgs,
-                  np.asarray(data["robot_verts"], np.float32))
+                  np.asarray(arrays["robot_verts"], np.float32))
     print(f"labeled {cfgs.num} configurations -> {args.data_out} "
           f"(converged {float(done.mean()):.1%})")
     return 0
@@ -514,25 +523,28 @@ def movelabel_inputs(path: str, args: argparse.Namespace, device):
 
     from collide2d_tpu_torch.mc.moving import moving_configs, moving_polygon_configs
 
-    data = np.load(path)
-    poly = "obstacle_verts" in data
-    for field in ("position", "pose_theta",
-                  "obstacle_verts" if poly else "obstacle_wh", "std_dev",
-                  "velocity"):
-        if field not in data:
-            raise SystemExit(f"movelabel: {path} missing '{field}'")
-    motion = dict(omega=data["omega"] if "omega" in data else 0.0,
-                  t_max=data["t_max"] if "t_max" in data else 1.0, device=device)
-    if poly:
-        if "robot_verts" not in data:
+    with span("pipeline/load_input"), np.load(path) as npz:
+        poly = "obstacle_verts" in npz
+        for field in ("position", "pose_theta",
+                      "obstacle_verts" if poly else "obstacle_wh", "std_dev",
+                      "velocity"):
+            if field not in npz:
+                raise SystemExit(f"movelabel: {path} missing '{field}'")
+        if poly and "robot_verts" not in npz:
             raise SystemExit("movelabel: polygon input (obstacle_verts present) "
                              "requires 'robot_verts' (K2, 2)")
-        cfgs = moving_polygon_configs(data["position"], data["pose_theta"],
-                                      data["obstacle_verts"], data["std_dev"],
-                                      data["velocity"], **motion)
-        return cfgs, np.asarray(data["robot_verts"], np.float32)
-    cfgs = moving_configs(data["position"], data["pose_theta"], data["obstacle_wh"],
-                          data["std_dev"], data["velocity"], **motion)
+        data = {f: npz[f] for f in npz.files}
+    motion = dict(omega=data.get("omega", 0.0), t_max=data.get("t_max", 1.0),
+                  device=device)
+    with span("pipeline/upload"):
+        if poly:
+            cfgs = moving_polygon_configs(data["position"], data["pose_theta"],
+                                          data["obstacle_verts"], data["std_dev"],
+                                          data["velocity"], **motion)
+            return cfgs, np.asarray(data["robot_verts"], np.float32)
+        cfgs = moving_configs(data["position"], data["pose_theta"],
+                              data["obstacle_wh"], data["std_dev"],
+                              data["velocity"], **motion)
     robot = (np.asarray(data["robot_wh"], np.float32) if "robot_wh" in data
              else np.asarray([args.robot_width, args.robot_height], np.float32))
     return cfgs, robot
@@ -773,7 +785,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = parse_args(argv)
+    with span("pipeline/cli_parse"):
+        args = parse_args(argv)
     return args.func(args)
 
 

@@ -30,7 +30,6 @@ from __future__ import annotations
 import functools
 import os
 import threading
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +39,7 @@ from collide2d_tpu_torch.mc import estimator as est
 from collide2d_tpu_torch.mc.estimator import AdaptiveConfig, _LoopState, resolve_impl
 from collide2d_tpu_torch.mc.moving import MovingConfigs, MovingPolygonConfigs
 from collide2d_tpu_torch.ops.mc_polygon_cuda import dedup_robot_axes
+from collide2d_tpu_torch.utils.profiling import span
 
 # Dispatch enough rounds between host syncs to amortise the readback. The
 # value is the JAX package's, kept so scheduler trajectories stay
@@ -192,7 +192,8 @@ class AdaptiveScheduler:
     The scheduler can be resumed mid-run from its counters. `step()`
     processes ONE sync group (dispatch + count handling) so callers can
     interleave several runs; `run()` loops step() to completion and
-    drains.
+    drains. Each step is a ``driver/step`` span, its plan a
+    ``driver/plan`` span (`utils.profiling.span`).
     """
 
     def __init__(
@@ -352,6 +353,10 @@ class AdaptiveScheduler:
         """
         if self.finished:
             return False
+        with span("driver/step"):
+            return self._step()
+
+    def _step(self) -> bool:
         if self.eager_resolve and self._inflight is not None:
             # Eager path: consume the previous group's count before
             # planning, so any repack shrinks THIS group's buffer.
@@ -362,7 +367,8 @@ class AdaptiveScheduler:
                 return False
             if self.finished:
                 return False
-        group, work = self.plan_group()
+        with span("driver/plan"):
+            group, work = self.plan_group()
         handle = None
         # Coalesce maximal same-plan runs into ONE multi-round dispatch
         # each: round tags and convergence checkpoints advance exactly as
@@ -463,7 +469,10 @@ class _CopyToHost:
 
 
 class _TorchOps:
-    """`AdaptiveScheduler` ops backed by torch tensors on one device."""
+    """`AdaptiveScheduler` ops backed by torch tensors on one device. Each
+    op is a span: ``round/dispatch`` (counting its
+    rounds), ``driver/readback`` (counting 1), ``driver/repack`` and
+    ``driver/checkpoint``."""
 
     def __init__(self, key, state: _LoopState, outs: _OutState,
                  robot_wh: torch.Tensor, cfg: AdaptiveConfig, *, impl: str,
@@ -490,42 +499,46 @@ class _TorchOps:
         # Device sample-slots dispatched so far (n_batch x rounds x buffer
         # rows, padding and post-freeze rows included).
         self.dispatched_slots = 0
-        # Host milliseconds of each checkpoint: readback and write.
-        self.checkpoint_ms: list[float] = []
 
     def buffer_len(self) -> int:
         return int(self.state.uids.shape[0])
 
     def run_rounds(self, nb, step, n_rounds, n_samples_first, chunk_offset):
         self.dispatched_slots += int(nb) * int(n_rounds) * self.buffer_len()
-        self.state, num_done = est._fused_round(
-            self.key, self.state, self.robot_wh, chunk_offset,
-            n_samples_first, n_rounds, nb, nb // step,
-            step_samples=step, impl=self.impl,
-            accuracy_bins=self.acc_bins, bin_accuracy=self.bin_acc,
-            use_vertices=self.cfg.use_vertices, shape_noise=self.shape_noise,
-            poly_a_keep=self.poly_a_keep, ca_iters=self.ca_iters,
-            ca_tol=self.ca_tol, screen_impl=self.cfg.screen_impl, mesh=self.mesh,
-        )
-        return _CopyToHost(num_done)
+        with span("round/dispatch", count=int(n_rounds)):
+            self.state, num_done = est._fused_round(
+                self.key, self.state, self.robot_wh, chunk_offset,
+                n_samples_first, n_rounds, nb, nb // step,
+                step_samples=step, impl=self.impl,
+                accuracy_bins=self.acc_bins, bin_accuracy=self.bin_acc,
+                use_vertices=self.cfg.use_vertices, shape_noise=self.shape_noise,
+                poly_a_keep=self.poly_a_keep, ca_iters=self.ca_iters,
+                ca_tol=self.ca_tol, screen_impl=self.cfg.screen_impl,
+                mesh=self.mesh,
+            )
+            return _CopyToHost(num_done)
 
     def start_transfer(self, handle: _CopyToHost) -> None:
         """Nothing to do: the copy started when the handle was made."""
 
     def resolve(self, handle: _CopyToHost) -> int:
-        return int(handle.numpy())
+        with span("driver/readback", count=1):
+            return int(handle.numpy())
 
     resolve_active = resolve
 
     def emit(self) -> None:
-        self.outs = _emit_to_out(self.state, self.outs)
+        with span("driver/repack"):
+            self.outs = _emit_to_out(self.state, self.outs)
 
     def flush(self, n_samples) -> None:
-        self.outs = _flush_to_out(self.state, self.outs, n_samples)
+        with span("driver/repack"):
+            self.outs = _flush_to_out(self.state, self.outs, n_samples)
 
     def pack(self, bucket) -> _CopyToHost:
-        self.state, num_active = _pack_active(self.state, bucket=bucket)
-        return _CopyToHost(num_active)
+        with span("driver/repack"):
+            self.state, num_active = _pack_active(self.state, bucket=bucket)
+            return _CopyToHost(num_active)
 
     def progress(self, num_left, n_samples, rnd) -> None:
         if self._progress is not None:
@@ -538,19 +551,19 @@ class _TorchOps:
         when ``checkpoint_every`` is set."""
         if self._checkpoint_write is None:
             return
-        t = time.monotonic()
         c = self.outs.k.shape[0] - 1
         host = lambda a: a.cpu().numpy()  # noqa: E731
-        self._checkpoint_write(
-            out_k=host(self.outs.k[:c]), out_nn=host(self.outs.n[:c]),
-            out_flag=host(self.outs.flag[:c]), uids=host(self.state.uids),
-            n_true=host(self.state.n_true), done=host(self.state.done),
-            k_frozen=host(self.state.k_frozen), n_frozen=host(self.state.n_frozen),
-            active=[host(a) for a in self.state.active],
-            n_samples=n_samples, chunk_offset=chunk_offset, num_real=num_real,
-            round=rnd,
-        )
-        self.checkpoint_ms.append((time.monotonic() - t) * 1e3)
+        with span("driver/checkpoint"):
+            self._checkpoint_write(
+                out_k=host(self.outs.k[:c]), out_nn=host(self.outs.n[:c]),
+                out_flag=host(self.outs.flag[:c]), uids=host(self.state.uids),
+                n_true=host(self.state.n_true), done=host(self.state.done),
+                k_frozen=host(self.state.k_frozen),
+                n_frozen=host(self.state.n_frozen),
+                active=[host(a) for a in self.state.active],
+                n_samples=n_samples, chunk_offset=chunk_offset,
+                num_real=num_real, round=rnd,
+            )
 
 
 # ---------------------------------------------------------------------------
@@ -582,8 +595,11 @@ def _resolve_trajectory(configs, cfg: AdaptiveConfig) -> tuple[str, tuple[int, f
     ca = (int(cfg.ca_iters), float(cfg.ca_tol))
     if not isinstance(configs, (MovingConfigs, MovingPolygonConfigs)):
         return impl, ca
-    if ca[0] > 0 and not bool((configs.omega != 0.0).any()):
-        return impl, (0, ca[1])
+    if ca[0] > 0:
+        with span("driver/readback", count=1):
+            rotating = bool((configs.omega != 0.0).any())
+        if not rotating:
+            return impl, (0, ca[1])
     if ca[0] > 0 and isinstance(configs, MovingPolygonConfigs):
         if cfg.impl == "cuda":
             raise ValueError(
@@ -637,7 +653,8 @@ class AdaptiveRun:
     a checkpoint), a scheduler over `_TorchOps`, and the final
     materialize. An object, so the dataset pipeline can interleave the
     sync groups of several runs. ``mesh``: as
-    `adaptive_collision_probabilities`'s."""
+    `adaptive_collision_probabilities`'s. Each blocking read of the
+    device is a ``driver/readback`` span."""
 
     def __init__(self, key, configs, robot_wh,
                  cfg: AdaptiveConfig = AdaptiveConfig(), *,
@@ -667,7 +684,8 @@ class AdaptiveRun:
             # generate_dataset.cu:285-290), the rectangle kernels draw 3
             # normals per sample instead of 5. One scalar readback at run
             # start; k-gon batches have no shape sigmas.
-            shape_noise = bool((configs.std_dev[:, 3:] != 0.0).any())
+            with span("driver/readback", count=1):
+                shape_noise = bool((configs.std_dev[:, 3:] != 0.0).any())
         robot_wh = torch.as_tensor(robot_wh, dtype=torch.float32, device=device)
         n_sample = est._mesh_axis(mesh, "sample")
         self.n_shards = est._mesh_axis(mesh, "config")
@@ -720,7 +738,8 @@ class AdaptiveRun:
             from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
 
             keep = possible_collision_mask(configs, robot_wh, cfg.prune_sigma)
-            keep = keep.cpu().numpy()
+            with span("driver/readback", count=1):
+                keep = keep.cpu().numpy()
             self.pruned = ~keep
             keep0 = np.flatnonzero(keep)
             if keep0.size == 0:
@@ -774,7 +793,8 @@ class AdaptiveRun:
         finish and assemble the host arrays (k/n division in float32 on
         the host)."""
         self.prefetch_outputs()
-        k_np, n_np, f_np = (h.numpy()[: self.C] for h in self._host_outs)
+        with span("driver/readback", count=1):
+            k_np, n_np, f_np = (h.numpy()[: self.C] for h in self._host_outs)
         if self.checkpoint_path is not None:
             try:
                 os.remove(self.checkpoint_path)
@@ -803,7 +823,9 @@ def run_interleaved(makers, overlap: int, on_done, *,
     submission order. A new run is admitted once the NEWEST in-flight run
     has dispatched its initial phase (`AdaptiveRun.pipeline_ready`). The
     next maker runs on a prefetch thread as soon as the previous
-    admission happens; a finished run's output copy starts
+    admission happens (a ``pipeline/make_batch`` span; the main thread's
+    wait for it is ``pipeline/admit_wait``, each ``on_done`` a
+    ``pipeline/finish`` span); a finished run's output copy starts
     asynchronously (`prefetch_outputs`) and its ``on_done`` is deferred
     by one iteration. Labels do not depend on the interleaving: both
     estimator paths key their streams by (batch key, uid, round or step
@@ -814,13 +836,17 @@ def run_interleaved(makers, overlap: int, on_done, *,
     finished: list[tuple] = []
     prefetch: dict = {"thread": None, "box": None}
 
+    def make(maker):
+        with span("pipeline/make_batch"):
+            return maker()
+
     def start_prefetch():
         if pending and prefetch["thread"] is None:
             maker, box = pending[0], {}
 
             def work():
                 try:
-                    box["made"] = maker()
+                    box["made"] = make(maker)
                 except BaseException as e:  # noqa: BLE001 — re-raised below
                     box["error"] = e
 
@@ -834,11 +860,11 @@ def run_interleaved(makers, overlap: int, on_done, *,
             or (len(runs) < max(1, overlap) and runs[-1][1].pipeline_ready())
         ):
             if prefetch["thread"] is None:
-                maker = pending.pop(0)
-                runs.append(maker())
+                runs.append(make(pending.pop(0)))
             else:
                 pending.pop(0)
-                prefetch["thread"].join()
+                with span("pipeline/admit_wait"):
+                    prefetch["thread"].join()
                 box = prefetch["box"]
                 prefetch.update(thread=None, box=None)
                 if "error" in box:  # maker failed on the prefetch thread:
@@ -852,7 +878,8 @@ def run_interleaved(makers, overlap: int, on_done, *,
         for _, r in runs[1:]:
             r.scheduler.step()
         if finished:
-            on_done(*finished.pop(0))
+            with span("pipeline/finish"):
+                on_done(*finished.pop(0))
         if runs and not alive:
             tag, r = runs.pop(0)
             r.prefetch_outputs()

@@ -55,6 +55,7 @@ from collide2d_tpu_torch.ops.sat import (
     sat_polygons,
     sat_rects,
 )
+from collide2d_tpu_torch.utils.profiling import span
 
 IMPLS = ("cuda", "threefry")
 # Samples per kernel sub-tile on the TPU path; the round plan keeps this
@@ -333,32 +334,41 @@ def _mesh_counts(configs, uids: torch.Tensor, mesh, prepare, shard_fn) -> torch.
     wait for it and the cards would take turns. Entries of other processes
     are skipped, and when the mesh spans processes the (C,) counts are
     summed over the group with one ``all_reduce``, so every process holds
-    every row's counts."""
+    every row's counts. The host's three phases are the spans
+    ``round/stage``, ``round/launch`` (one for each shard) and
+    ``round/reduce``."""
     from collide2d_tpu_torch.parallel.sharding import config_blocks
 
     out_dev = configs.position.device
     staged = []
-    for i, (lo, hi) in enumerate(config_blocks(configs.num, mesh)):
-        if hi == lo or not mesh.is_local(i):
-            continue
-        lead = mesh.devices[i, 0]
-        block = type(configs)(*(a[lo:hi].to(lead) for a in configs))
-        staged.append((lo, hi, lead, prepare(block, uids[lo:hi].to(lead),
-                                             list(mesh.devices[i]))))
-    launched = [(lo, hi, lead, [shard_fn(x, j) for j, x in enumerate(inputs)])
-                for lo, hi, lead, inputs in staged]
-    counts = torch.zeros((configs.num,), dtype=torch.int32, device=out_dev)
-    for lo, hi, lead, parts in launched:
-        total = parts[0].to(lead)
-        for part in parts[1:]:
-            total = total + part.to(lead)
-        counts[lo:hi] = total.to(out_dev)
-    if mesh.spans_processes:
-        import torch.distributed as dist
+    with span("round/stage"):
+        for i, (lo, hi) in enumerate(config_blocks(configs.num, mesh)):
+            if hi == lo or not mesh.is_local(i):
+                continue
+            lead = mesh.devices[i, 0]
+            block = type(configs)(*(a[lo:hi].to(lead) for a in configs))
+            staged.append((lo, hi, lead, prepare(block, uids[lo:hi].to(lead),
+                                                 list(mesh.devices[i]))))
+    launched = []
+    for lo, hi, lead, inputs in staged:
+        parts = []
+        for j, x in enumerate(inputs):
+            with span("round/launch"):
+                parts.append(shard_fn(x, j))
+        launched.append((lo, hi, lead, parts))
+    with span("round/reduce"):
+        counts = torch.zeros((configs.num,), dtype=torch.int32, device=out_dev)
+        for lo, hi, lead, parts in launched:
+            total = parts[0].to(lead)
+            for part in parts[1:]:
+                total = total + part.to(lead)
+            counts[lo:hi] = total.to(out_dev)
+        if mesh.spans_processes:
+            import torch.distributed as dist
 
-        host = counts.cpu()
-        dist.all_reduce(host)
-        counts = host.to(out_dev)
+            host = counts.cpu()
+            dist.all_reduce(host)
+            counts = host.to(out_dev)
     return counts
 
 

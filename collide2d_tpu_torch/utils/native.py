@@ -13,7 +13,9 @@ with ``os.replace``. It exposes:
   std::shuffle(..., std::default_random_engine(seed))
   (generate_dataset.cu:496);
 - `AsyncNpyWriter`: background-thread batch writer so device compute
-  overlaps file IO (the overlap the reference lacks, SURVEY.md P3).
+  overlaps file IO (the overlap the reference lacks, SURVEY.md P3); its
+  submits and flushes are ``pipeline/write_submit`` (counting rows) and
+  ``pipeline/write_flush`` spans (`utils.profiling.span`).
 
 Everything degrades gracefully: `available()` is False when no compiler
 exists, and callers fall back to numpy equivalents (deterministic, but
@@ -30,6 +32,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from collide2d_tpu_torch.utils.profiling import span
 
 _SRC = Path(__file__).resolve().parents[2] / "csrc" / "collide2d_native.cpp"
 _LIB = Path(__file__).resolve().parents[1] / "build" / "libcollide2d_native.so"
@@ -161,31 +165,33 @@ class AsyncNpyWriter:
         self._h = self._lib.c2_writer_new() if self._lib else None
 
     def submit(self, path: str | os.PathLike, rows: np.ndarray) -> None:
-        rows = np.ascontiguousarray(rows, np.float32)
-        if self._h is None:
-            # Atomic publish (mirrors the native writer): a run killed
-            # mid-write must never leave a truncated batch file that
-            # --resume would count as complete.
-            path = Path(path)
-            tmp = path.with_name(path.name + ".tmp")
-            with open(tmp, "wb") as f:
-                np.save(f, rows)
-            os.replace(tmp, path)
-            return
-        shape = np.asarray(rows.shape, np.int64)
-        self._lib.c2_writer_submit(
-            self._h,
-            str(path).encode(),
-            rows.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            shape.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            ctypes.c_int32(rows.ndim),
-        )
+        with span("pipeline/write_submit", count=len(rows)):
+            rows = np.ascontiguousarray(rows, np.float32)
+            if self._h is None:
+                # Atomic publish (mirrors the native writer): a run killed
+                # mid-write must never leave a truncated batch file that
+                # --resume would count as complete.
+                path = Path(path)
+                tmp = path.with_name(path.name + ".tmp")
+                with open(tmp, "wb") as f:
+                    np.save(f, rows)
+                os.replace(tmp, path)
+                return
+            shape = np.asarray(rows.shape, np.int64)
+            self._lib.c2_writer_submit(
+                self._h,
+                str(path).encode(),
+                rows.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                shape.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                ctypes.c_int32(rows.ndim),
+            )
 
     def flush(self) -> int:
         """Drain the queue; returns the number of failed writes."""
         if self._h is None:
             return 0
-        return int(self._lib.c2_writer_flush(self._h))
+        with span("pipeline/write_flush"):
+            return int(self._lib.c2_writer_flush(self._h))
 
     def close(self) -> None:
         if self._h is not None:

@@ -1,17 +1,38 @@
-"""Per-round timing for the adaptive driver's progress lines, and traces.
+"""Per-round timing for the adaptive driver's progress lines, traces, and
+the program's own spans.
 
 `StepTimer` is a copy of the one in ``collide2d_tpu/utils/profiling.py``
 (rounds, samples drawn, active-set size, throughput). `trace` is the
 counterpart of its profiler-trace context, over ``torch.profiler``
-(``--trace_dir`` of ``generate``, ``relabel`` and ``ztest``).
+(``--trace_dir`` of ``generate``, ``relabel``, ``ztest``, ``polylabel``
+and ``movelabel``).
+
+`span` names a stretch of host work at a layer's boundary
+(``<layer>/<what>``: ``pipeline/``, ``driver/``, ``round/``). It records only while a ``torch.profiler`` records in the
+process (``--trace_dir``, or a caller's own profiler): then it opens a
+function-scope record range (``torch.profiler.record_function``'s
+lighter form), so a Chrome trace shows the span beside the kernels as a
+host event, and appends a `Span` to a bounded in-memory record that
+`spans` reads and `clear` empties. A user-scope ``record_function``
+range would also be mirrored onto each card's timeline, where a reader
+of the device's operations would take it for one. Its times are ``time.time_ns()``, the
+Unix-epoch clock of the profiler's own events, so the record lines up
+with a trace's device operations without the profiler's help. Off, a
+span costs one attribute check and returns a shared null context.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclass
@@ -73,5 +94,89 @@ def trace(log_dir: str | None):
         yield prof
     finally:
         prof.stop()
+        # The spans are in the Chrome trace; the record would only grow.
+        clear()
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# ---------------------------------------------------------------------------
+# The program's spans
+# ---------------------------------------------------------------------------
+
+# Spans past this many stay out of the record (a 51 s window of `generate`
+# records a few times 10^4; one span holds ~200 B).
+LIMIT = 1 << 18
+
+_NULL = contextlib.nullcontext()
+_RANGE = torch._C._profiler._RecordFunctionFast
+_RECORD: list = []
+_IDS = itertools.count()
+_LOCAL = threading.local()
+
+
+class Span(NamedTuple):
+    """One closed span. ``parent`` is the ``id`` of the span open around
+    it on its thread (None at the top); ``count`` what it counted (rounds,
+    rows, readbacks)."""
+
+    id: int
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    count: int | None
+
+
+def _stack() -> list:
+    try:
+        return _LOCAL.stack
+    except AttributeError:
+        _LOCAL.stack = []
+        return _LOCAL.stack
+
+
+class _Open:
+    __slots__ = ("name", "count", "_range", "_id", "_parent", "_start")
+
+    def __init__(self, name, count) -> None:
+        self.name, self.count = name, count
+
+    def __enter__(self):
+        self._range = _RANGE(self.name)
+        self._range.__enter__()
+        stack = _stack()
+        parent = stack[-1] if stack else None
+        self._parent = None if parent is None else parent._id
+        self._id = next(_IDS)
+        stack.append(self)
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _stack().pop()
+        if len(_RECORD) < LIMIT:
+            _RECORD.append(Span(self._id, self.name, threading.get_ident(),
+                                self._start, end, self._parent, self.count))
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, *, count: int | None = None):
+    """``with span("driver/plan"):`` -- a named span of host work, recorded
+    only while a ``torch.profiler`` records (see the module's notes)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Open(name, count)
+
+
+def spans() -> list[Span]:
+    """The closed spans recorded so far, in the order they closed."""
+    return list(_RECORD)
+
+
+def clear() -> None:
+    """Empty the record."""
+    _RECORD.clear()
