@@ -331,6 +331,20 @@ raises, and the script then exits non-zero without printing a result):
    prints them, trajectory_validation's times of impact, probabilities in
    [0, 1]), and each prints the kernels it launched (every count read
    from 0 before it); the kernels line adds them as an ``examples`` path.
+28. the round epilogue (csrc/round_epilogue.cu, the adaptive loop's
+   stopping rule and freeze after each round; it replaces no TPU kernel)
+   against its plain update (`round_update_plain`, the torch operations it
+   replaced) on 100,000 and on the adaptive tail's 256 rows of a state
+   several rounds in, at the reference bins: state and done count bitwise,
+   with the round's counts passed in and with them already added into
+   n_true (the main path's mode, after kernels 1 and 7); the kernel's
+   device time (torch.profiler, one launch), the interval of 20
+   back-to-back launches with and without the done count (CUDA events,
+   after a warm-up; at this size the host's launch rate) beside the plain
+   update's ms and the device operations each launches, and its bound at
+   20 bytes a row. The kernels line's entry takes the device time as its
+   ms and has a ``launches_by_path`` of the adaptive runs of phases 3
+   (generate) and 11 (polylabel), each counted from 0.
 
 The second-to-last lines are the card (name, power limit) and one JSON
 object describing each kernel of the path (the Box-Muller builds of
@@ -524,7 +538,8 @@ def phase_build():
         ("mc_polygon_kernel", shape_defines(6, 4, 2) + bm),
         ("mc_moving_polygon_kernel", shape_defines(POLY_K, 4, 2) + bm),
         ("mc_moving_polygon_kernel", shape_defines(6, 4, 2)),
-        ("mc_polygon_kernel", shape_defines(20, 4, 2))]  # phase 26
+        ("mc_polygon_kernel", shape_defines(20, 4, 2)),  # phase 26
+        ("round_epilogue", ())]
     # kernels 6, 9 and 10 (every K in one library), with ptxas's report
     reported = [(lib, ()) for lib, _ in BIG_K_FUNCTIONS.values()]
     with ThreadPoolExecutor(len(jobs) + len(reported)) as pool:
@@ -685,16 +700,19 @@ def _check_batch(path: Path, rows_expected: int = 100_000) -> np.ndarray:
 
 
 def phase_main_path(work: Path):
-    """Phase 3: returns kernel 1's launches and the run's `GenerateStats`."""
+    """Phase 3: returns kernel 1's launches, the run's `GenerateStats` and
+    the round epilogue's launches."""
     from collide2d_tpu_torch.ops import mc_cuda
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
 
     t = time.monotonic()
     data = work / "main"
     mc_cuda.reset_launches()
+    rec.reset_launches()
     stats, _ = _quiet(_generate, ["--device", "cuda", "-n", "2", "-b", "100000",
                                   "--seed", "7", "--data_dir", str(data)])
     torch.cuda.synchronize()
-    launches = mc_cuda.LAUNCHES
+    launches, epilogue_launches = mc_cuda.LAUNCHES, rec.LAUNCHES
     if launches <= 0:
         raise RuntimeError("the main path never launched the kernel")
     zero = []
@@ -710,8 +728,9 @@ def phase_main_path(work: Path):
           configs_per_s=f"{stats.rows / stats.label_seconds:.1f}",
           mean_samples_per_config=f"{stats.samples_used / stats.rows:.1f}",
           slot_efficiency=f"{stats.samples_used / stats.slots_dispatched:.4f}",
-          zero_share=f"{zero_share:.4f}", kernel_launches=launches)
-    return launches, stats
+          zero_share=f"{zero_share:.4f}", kernel_launches=launches,
+          epilogue_launches=epilogue_launches)
+    return launches, stats, epilogue_launches
 
 
 ACCEPT_ROWS = 32_768
@@ -969,6 +988,27 @@ class _Interrupt(Exception):
     """Raised from a run's progress hook to stop it mid-run."""
 
 
+@contextlib.contextmanager
+def _checkpoint_write_ms():
+    """While open: the milliseconds of each checkpoint write of the
+    adaptive driver, its readback and its file together."""
+    from collide2d_tpu_torch.mc import driver
+
+    real = driver._TorchOps.bookkeeping
+    times = []
+
+    def timed(ops, *args):
+        t0 = time.perf_counter()
+        real(ops, *args)
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    driver._TorchOps.bookkeeping = timed
+    try:
+        yield times
+    finally:
+        driver._TorchOps.bookkeeping = real
+
+
 def _resume_case(name: str, key, configs, robot, cfg, ckpt: Path, launches, card: str,
                  base=None, base_s=None) -> dict:
     """One mid-run resume on the card through `AdaptiveRun` (the driver
@@ -999,29 +1039,29 @@ def _resume_case(name: str, key, configs, robot, cfg, ckpt: Path, launches, card
         if round >= RESUME_AFTER_ROUND:
             raise _Interrupt(round)
 
-    t_cut = time.monotonic()
-    run = AdaptiveRun(key, configs, robot, cfg, progress=interrupt,
-                      checkpoint_path=str(ckpt), checkpoint_every=1)
-    try:
-        run.scheduler.run()
-    except _Interrupt as stop:
-        torch.cuda.synchronize()
-        interrupted_at = stop.args[0]
-    else:
-        raise RuntimeError(f"resume {name}: the run ended before round {RESUME_AFTER_ROUND}")
-    cut_s = time.monotonic() - t_cut
-    if not ckpt.is_file():
-        raise RuntimeError(f"resume {name}: no checkpoint after the interrupt")
-    with np.load(ckpt) as z:
-        n_saved, round_saved = int(z["n_samples"]), int(z["round"])
-    nbytes = ckpt.stat().st_size
-    write_ms = list(run.ops.checkpoint_ms)
-    seen = []
-    launches[0]()
-    out, resume_s, resumed = label(progress=lambda **kw: seen.append(kw["n_samples"]),
-                                   checkpoint_path=str(ckpt), checkpoint_every=1)
-    n_launches = launches[1]()
-    write_ms += resumed.ops.checkpoint_ms
+    with _checkpoint_write_ms() as write_ms:
+        t_cut = time.monotonic()
+        run = AdaptiveRun(key, configs, robot, cfg, progress=interrupt,
+                          checkpoint_path=str(ckpt), checkpoint_every=1)
+        try:
+            run.scheduler.run()
+        except _Interrupt as stop:
+            torch.cuda.synchronize()
+            interrupted_at = stop.args[0]
+        else:
+            raise RuntimeError(f"resume {name}: the run ended before round "
+                               f"{RESUME_AFTER_ROUND}")
+        cut_s = time.monotonic() - t_cut
+        if not ckpt.is_file():
+            raise RuntimeError(f"resume {name}: no checkpoint after the interrupt")
+        with np.load(ckpt) as z:
+            n_saved, round_saved = int(z["n_samples"]), int(z["round"])
+        nbytes = ckpt.stat().st_size
+        seen = []
+        launches[0]()
+        out, resume_s, _ = label(progress=lambda **kw: seen.append(kw["n_samples"]),
+                                 checkpoint_path=str(ckpt), checkpoint_every=1)
+        n_launches = launches[1]()
     if not (seen and min(seen) > n_saved):
         raise RuntimeError(f"resume {name}: restarted (first report at "
                            f"{seen[:1]} samples, checkpoint at {n_saved})")
@@ -1629,10 +1669,83 @@ def _profiled(fn, kernel: str = "mc_poly_counts_kernel"):
     return result, kernels, busy, k7_us
 
 
-def phase_polylabel(work: Path) -> int:
-    """Phase 11: returns kernel 7's launches on the main path."""
+# Bytes the round epilogue reads and writes a row a round
+# (csrc/round_epilogue.cu's note).
+EPILOGUE_BYTES_PER_ROW = 20
+
+
+def phase_round_epilogue() -> dict:
+    """Phase 28: the round epilogue kernel against the plain update."""
+    from collide2d_tpu_torch.mc.estimator import AdaptiveConfig
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    t = time.monotonic()
+    cfg = AdaptiveConfig()
+    rule = (cfg.accuracy_bins, cfg.bin_accuracy)
+    g = torch.Generator(device="cuda").manual_seed(28)
+    n_after = 320_000  # the reference schedule's 20,000 + 3 x 100,000
+    out = {}
+    for rows in (C_CHECK, TAIL_ROWS):
+        u = lambda: torch.rand(rows, generator=g, device="cuda")  # noqa: E731
+        p = u() ** 4  # mostly small probabilities, as the tail's rows
+        n_true = (p * (n_after - 100_000)).to(torch.int32)
+        counts = (p * 100_000).to(torch.int32)
+        done = u() < 0.3
+        k_frozen = torch.where(done, n_true // 2, 0).to(torch.int32)
+        n_frozen = torch.where(done, 120_000, 1).to(torch.int32)
+        uids = torch.where(u() < 0.95, torch.arange(rows, device="cuda"), -1).to(torch.int32)
+        state = lambda: tuple(x.clone() for x in (n_true, done, k_frozen, n_frozen))  # noqa: E731
+        got = rec.round_update(*state(), counts, n_after, *rule, uids=uids)
+        want = rec.round_update_plain(*state(), counts, n_after, *rule, uids)
+        # the main path's mode: the fused kernel added the counts into n_true
+        into = state()
+        into[0].add_(counts)
+        got_into = rec.round_update(*into, None, n_after, *rule, uids=uids)
+        torch.cuda.synchronize()
+        for mode, out_ in (("counts", got), ("counts in n_true", got_into)):
+            if not (all(torch.equal(a, b) for a, b in zip(out_[:4], want[:4]))
+                    and int(out_[4]) == int(want[4])):
+                raise RuntimeError(f"the round epilogue ({mode}) differs from the "
+                                   f"plain update at {rows} rows")
+        s, fixed = state(), state()  # the kernel updates s in place
+        ms = _events_ms(lambda: rec.round_update(*s, counts, n_after, *rule), 20)
+        ms_count = _events_ms(lambda: rec.round_update(*s, counts, n_after, *rule,
+                                                       uids=uids), 20)
+        plain_ms = _events_ms(lambda: rec.round_update_plain(*fixed, counts, n_after,
+                                                             *rule, uids), 20)
+        _, kernel_ops, _, device_us = _profiled(lambda: rec.round_update(
+            *s, counts, n_after, *rule, uids=uids), kernel="round_epilogue")
+        _, plain_ops, _, _ = _profiled(lambda: rec.round_update_plain(
+            *fixed, counts, n_after, *rule, uids), kernel="round_epilogue")
+        bound_ms, bound_by = _bound_ms(rows * EPILOGUE_BYTES_PER_ROW, 0)
+        # the events time a run of launches, so for this small a kernel they
+        # read the host's launch rate; the profiler gives the device's time
+        out[rows] = dict(kernel_ms=ms, kernel_ms_with_count=ms_count, plain_ms=plain_ms,
+                         device_ms=None if device_us is None else device_us / 1e3,
+                         bound_ms=bound_ms, bound_by=bound_by, kernel_launches=kernel_ops,
+                         plain_launches=plain_ops, newly_frozen=int((got[1] & ~done).sum()))
+        _line("28 round epilogue", time.monotonic() - t, rows=rows, state_bitwise_equal=True,
+              counts_in_n_true_bitwise_equal=True,
+              kernel_ms=f"{ms:.4f}", kernel_ms_with_count=f"{ms_count:.4f}",
+              device_ms=out[rows]["device_ms"],
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.6f}",
+              kernel_kernels=kernel_ops, plain_kernels=plain_ops,
+              newly_frozen=out[rows]["newly_frozen"])
+        t = time.monotonic()
+    full = out[C_CHECK]
+    # ms: the kernel's device time (profiler); the events time of a run of
+    # launches is the host's launch interval at this size
+    return dict(max_abs_err=0, ms=full["device_ms"], launch_interval_ms=full["kernel_ms"],
+                plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+                bound_by=full["bound_by"], tail=out[TAIL_ROWS])
+
+
+def phase_polylabel(work: Path) -> tuple[int, int]:
+    """Phase 11: returns kernel 7's and the round epilogue's launches on the
+    main path."""
     from collide2d_tpu_torch.data.validate import compare_labels
     from collide2d_tpu_torch.ops import mc_polygon_cuda
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
     from collide2d_tpu_torch.ops.broad_phase import possible_collision_mask
 
     t = time.monotonic()
@@ -1652,9 +1765,10 @@ def phase_polylabel(work: Path) -> int:
 
     out = work / "polylabels.npz"
     mc_polygon_cuda.reset_launches()
+    rec.reset_launches()
     seconds = _polylabel(["--device", "cuda", "--data_in", str(src),
                           "--data_out", str(out), "--seed", "7"])
-    launches = mc_polygon_cuda.LAUNCHES
+    launches, epilogue_launches = mc_polygon_cuda.LAUNCHES, rec.LAUNCHES
     if launches <= 0:
         raise RuntimeError("polylabel never launched the k-gon kernel")
     cp, n_used, done = outputs(out)
@@ -1669,7 +1783,7 @@ def phase_polylabel(work: Path) -> int:
           configs_per_s=f"{POLY_ROWS / seconds:.1f}",
           mean_samples_per_config=f"{n_used.mean():.1f}",
           converged_share=f"{done.mean():.4f}", zero_share=f"{(cp == 0).mean():.4f}",
-          kernel_launches=launches)
+          kernel_launches=launches, epilogue_launches=epilogue_launches)
 
     t = time.monotonic()
     prof_out = work / "polylabels_profiled.npz"
@@ -1719,7 +1833,7 @@ def phase_polylabel(work: Path) -> int:
           mean_abs_d=f"{report.mean_abs_diff:.3e}",
           share_within_tol=f"{report.frac_within_tolerance:.4f}",
           pruned_share=f"{1.0 - keep.mean():.4f}", kept_rows_bitwise_equal=True)
-    return launches
+    return launches, epilogue_launches
 
 
 def _rect_rows(n: int, seed: int):
@@ -4755,7 +4869,7 @@ def main() -> int:
     check = phase_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        launches, main_stats = phase_main_path(work)
+        launches, main_stats, epilogue_generate = phase_main_path(work)
         phase_acceptance(work)
         phase_invariance(work)
         sat = phase_sat()
@@ -4765,7 +4879,7 @@ def main() -> int:
         learned_launches = phase_learned(work, card)
         poly_sat = phase_polygon_sat()
         poly_mc = phase_mc_polygon()
-        poly_mc["launches"] = phase_polylabel(work)
+        poly_mc["launches"], epilogue_polylabel = phase_polylabel(work)
         mesh_launches = phase_mesh(work, main_stats)
     queries = phase_distance()
     # kernel 8 runs on two paths: the geometry queries (phase 12) and the
@@ -4794,6 +4908,12 @@ def main() -> int:
     phase_big_k_routes(big_k)
     mc_poly_k20 = phase_mc_polygon_k20()
     example_launches = phase_examples()
+    epilogue = phase_round_epilogue()
+    # the round epilogue on the main path's adaptive runs (phases 3 and
+    # 11), each counted from 0
+    epilogue["launches_by_path"] = {"generate": epilogue_generate,
+                                    "polylabel": epilogue_polylabel}
+    epilogue["launches"] = epilogue_generate + epilogue_polylabel
     mc_toi["launches"] = traj_launches["13"]
     screen["launches"] = traj_launches["15"]
     # kernels 1, 7, 13, 14 and 15 also run on the mesh path (phase 23),
@@ -4903,6 +5023,14 @@ def main() -> int:
         "source": "collide2d_tpu_torch/csrc/mc_polygon_kernel.cu",
         "replaces": "collide2d_tpu/ops/mc_polygon_pallas.py:254",
         **mc_poly_k20,
+        "library_ms": None,
+    }, {
+        # no TPU kernel: JAX leaves the round's stopping rule to XLA's fusion
+        "name": "round_epilogue",
+        "route": "cuda",
+        "source": "collide2d_tpu_torch/csrc/round_epilogue.cu",
+        "replaces": None,
+        **epilogue,
         "library_ms": None,
     }]}
     # the examples' launches (phase 27), a path of their own

@@ -8,9 +8,10 @@ while-loop, generate_dataset.cu:425-468), in four pieces:
   comparable): plans sync groups, decides when to resolve the done-count
   readback, when to emit and repack, when to stop and how to drain. Every
   device effect goes through an injected ops object.
-- `_TorchOps` — the device ops on torch tensors: `_fused_round` rounds,
-  on-device emit/flush/pack, and scalar readbacks through pinned host
-  memory and a CUDA event (`_CopyToHost`).
+- `_TorchOps` — the device ops on torch tensors: `_fused_round` rounds
+  (from the fused kernel's table, packed once a buffer), on-device
+  emit/flush/pack, and scalar readbacks through pinned host memory and a
+  CUDA event (`_CopyToHost`).
 - `AdaptiveRun` / `adaptive_collision_probabilities` / `run_interleaved`
   — state set-up, one scheduler run, final materialize, and the
   cross-batch interleaving of several runs.
@@ -94,12 +95,15 @@ def _flush_to_out(state: _LoopState, outs: _OutState, n_samples: int) -> _OutSta
     )
 
 
-def _pack_active(state: _LoopState, *, bucket: int):
+def _pack_active(state: _LoopState, *, bucket: int, table=None):
     """Repack still-active rows into a ``bucket``-sized buffer on device.
 
     A stable sort puts active rows first in original order. Pad slots
     carry uids=-1 and done=True. Also returns the exact active count
-    (int32 scalar on device)."""
+    (int32 scalar on device) and ``table`` (the fused kernel's table of
+    ``state.active``, `estimator.pack_round_table`) gathered with the same
+    order in a ``driver/table`` span, or None: the table of the new buffer,
+    bitwise, as every row's table depends on that row alone."""
     active = ~state.done & (state.uids >= 0)
     order = torch.argsort((~active).to(torch.int32), stable=True)[:bucket]
     slot_valid = active[order]
@@ -111,7 +115,10 @@ def _pack_active(state: _LoopState, *, bucket: int):
         k_frozen=state.k_frozen[order],
         n_frozen=state.n_frozen[order],
     )
-    return new_state, active.sum(dtype=torch.int32)
+    if table is not None:
+        with span("driver/table", count=1):
+            table = table.index_select(0, order)
+    return new_state, active.sum(dtype=torch.int32), table
 
 
 @functools.lru_cache(maxsize=None)
@@ -472,16 +479,19 @@ class _TorchOps:
     """`AdaptiveScheduler` ops backed by torch tensors on one device. Each
     op is a span: ``round/dispatch`` (counting its
     rounds), ``driver/readback`` (counting 1), ``driver/repack`` and
-    ``driver/checkpoint``."""
+    ``driver/checkpoint``. ``table``: the fused kernel's table of
+    ``state.active`` (`estimator.pack_round_table`), gathered at each
+    repack; None = each round packs its own."""
 
     def __init__(self, key, state: _LoopState, outs: _OutState,
                  robot_wh: torch.Tensor, cfg: AdaptiveConfig, *, impl: str,
                  acc_bins: tuple, bin_acc: tuple, shape_noise: bool = True,
                  poly_a_keep: tuple[int, ...] | None = None,
                  ca: tuple[int, float] = (48, 1e-4), progress=None,
-                 checkpoint_write=None, mesh=None) -> None:
+                 checkpoint_write=None, mesh=None, table=None) -> None:
         self.key = key
         self.state = state
+        self.table = table
         self.outs = outs
         self.robot_wh = robot_wh
         self.cfg = cfg
@@ -514,7 +524,7 @@ class _TorchOps:
                 use_vertices=self.cfg.use_vertices, shape_noise=self.shape_noise,
                 poly_a_keep=self.poly_a_keep, ca_iters=self.ca_iters,
                 ca_tol=self.ca_tol, screen_impl=self.cfg.screen_impl,
-                mesh=self.mesh,
+                mesh=self.mesh, table=self.table,
             )
             return _CopyToHost(num_done)
 
@@ -537,7 +547,8 @@ class _TorchOps:
 
     def pack(self, bucket) -> _CopyToHost:
         with span("driver/repack"):
-            self.state, num_active = _pack_active(self.state, bucket=bucket)
+            self.state, num_active, self.table = _pack_active(
+                self.state, bucket=bucket, table=self.table)
             return _CopyToHost(num_active)
 
     def progress(self, num_left, n_samples, rnd) -> None:
@@ -552,7 +563,8 @@ class _TorchOps:
         if self._checkpoint_write is None:
             return
         c = self.outs.k.shape[0] - 1
-        host = lambda a: a.cpu().numpy()  # noqa: E731
+        # a copy on every device: the rounds update the state in place
+        host = lambda a: a.to("cpu", copy=True).numpy()  # noqa: E731
         with span("driver/checkpoint"):
             self._checkpoint_write(
                 out_k=host(self.outs.k[:c]), out_nn=host(self.outs.n[:c]),
@@ -703,6 +715,8 @@ class AdaptiveRun:
             ckpt = _load_checkpoint(checkpoint_path, key_data, c, cfg_type=cfg_type)
             if ckpt is not None:
                 state, outs, num_real, counters = _restored(ckpt, configs)
+        table = None if state is None else est.pack_round_table(
+            state.active, robot_wh, impl=impl, mesh=mesh, poly_a_keep=poly_a_keep)
         checkpoint_write = None
         if checkpoint_path is not None and checkpoint_every:
             def checkpoint_write(**kw):
@@ -711,7 +725,7 @@ class AdaptiveRun:
             key, state, outs, robot_wh, cfg, impl=impl, acc_bins=acc_bins,
             bin_acc=bin_acc, shape_noise=shape_noise, poly_a_keep=poly_a_keep,
             ca=ca, progress=progress, checkpoint_write=checkpoint_write,
-            mesh=mesh,
+            mesh=mesh, table=table,
         )
         self.scheduler = AdaptiveScheduler(cfg, self.ops, num_real=num_real,
                                            impl=impl, n_sample=n_sample,

@@ -17,7 +17,10 @@ convex k-gon `PolygonConfigs` and their trajectory forms (`mc.moving`'s
 ``'auto'`` resolves to ``'cuda'`` on every device (trajectory batches:
 see `mc_round` and `mc.driver._resolve_trajectory`). `_fused_round` runs a
 run of same-plan rounds, the `mc.stats` convergence test and label
-freezing, as its JAX namesake does inside one program.
+freezing, as its JAX namesake does inside one program: on CUDA tensors a
+round is the fused kernel, counting from a table packed once a buffer
+(`pack_round_table`) straight into the running counts, and one round
+epilogue kernel (`ops.round_epilogue_cuda`) for the rest.
 
 Under a `parallel.Mesh` a round's counts run over the mesh's config
 blocks and sample shards (`_cuda_sharded_counts`, `_sample_sharded_counts`)
@@ -47,6 +50,7 @@ from collide2d_tpu_torch.ops import (
     mc_moving_polygon_cuda,
     mc_polygon_cuda,
     mc_toi_cuda,
+    round_epilogue_cuda,
 )
 from collide2d_tpu_torch.ops.geometry import rects_from_params, transform_vertices
 from collide2d_tpu_torch.ops.sat import (
@@ -406,30 +410,81 @@ def _sample_sharded_counts(key, uids, configs: Configs, robot_wh,
         _replicas, robot_wh=robot_wh), shard)
 
 
+def _a_keep(robot_wh, poly_a_keep):
+    """The k-gon kernels' robot-axis subset: ``poly_a_keep``, or worked out
+    from the robot (a readback when it is on the card)."""
+    if poly_a_keep is not None:
+        return poly_a_keep
+    return mc_polygon_cuda.dedup_robot_axes(
+        torch.as_tensor(robot_wh, dtype=torch.float32).cpu().numpy())
+
+
+def _round_table(configs, robot_wh, a_keep) -> torch.Tensor:
+    """The parameter table of the fused kernel of ``configs``' class, one
+    row per configuration, packed in a ``driver/table`` span (k-gon
+    classes: robot-axis subset ``a_keep``)."""
+    with span("driver/table", count=1):
+        if isinstance(configs, (PolygonConfigs, MovingPolygonConfigs)):
+            rv = torch.as_tensor(robot_wh, dtype=torch.float32,
+                                 device=configs.position.device)
+            pack = (mc_moving_polygon_cuda.pack_moving_polygon_mc_params
+                    if isinstance(configs, MovingPolygonConfigs)
+                    else mc_polygon_cuda.pack_polygon_mc_params)
+            return pack(configs, rv, a_keep)
+        if isinstance(configs, MovingConfigs):
+            return mc_toi_cuda.pack_mc_toi_params(configs, robot_wh)
+        return mc_cuda.pack_mc_params(configs, robot_wh)
+
+
+def pack_round_table(configs, robot_wh, *, impl: str, mesh=None,
+                     poly_a_keep: tuple[int, ...] | None = None):
+    """``configs``' fused-kernel table for `_fused_round`'s ``table``, where
+    rounds count from a table packed once a buffer: kernel 1's (`Configs`)
+    or 7's (`PolygonConfigs`) on impl 'cuda' without a ``mesh``. None
+    wherever each round packs its own: the threefry path, a mesh (its
+    shards' copies), kernels 13 and 14. A row's table depends on that row
+    alone, so the table of a gathered buffer is this table gathered
+    (`mc.driver._pack_active`)."""
+    if (resolve_impl(impl) != "cuda" or mesh is not None
+            or not isinstance(configs, (Configs, PolygonConfigs))):
+        return None
+    a_keep = (_a_keep(robot_wh, poly_a_keep)
+              if isinstance(configs, PolygonConfigs) else None)
+    return _round_table(configs, robot_wh, a_keep)
+
+
 def _kernel_round(key, uids, configs, robot_wh, round_tag: int, n: int, *,
                   offset: int = 0, shape_noise: bool = True,
                   poly_a_keep: tuple[int, ...] | None = None,
-                  ca_iters: int = 48, ca_tol: float = 1e-4) -> torch.Tensor:
+                  ca_iters: int = 48, ca_tol: float = 1e-4,
+                  table: torch.Tensor | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """(C,) counts of the round's samples ``offset`` to ``offset + n`` on
     the fused kernel of ``configs``' class: kernel 1 (`Configs`), 7
     (`PolygonConfigs`), 13 (`MovingConfigs`) or 14 (`MovingPolygonConfigs`,
-    translation-only), through its round wrapper (its plain version on CPU
-    tensors)."""
-    if isinstance(configs, MovingPolygonConfigs):
-        return mc_moving_polygon_cuda.mc_round_moving_polygons_cuda(
-            key, uids, configs, robot_wh, round_tag, n_batch=n, offset=offset,
-            a_keep=poly_a_keep)
+    translation-only); its plain version on CPU tensors. ``table``: the
+    kernel's table from `pack_round_table`; None = packed here. ``out``
+    (kernels 1 and 7): int32 (C,) counts the round's are added into and
+    which is returned; None = new ones."""
+    poly = isinstance(configs, (PolygonConfigs, MovingPolygonConfigs))
+    a_keep = _a_keep(robot_wh, poly_a_keep) if poly else None
+    if table is None:
+        table = _round_table(configs, robot_wh, a_keep)
+    uids = uids.to(torch.int32).contiguous()
+    seed = mc_cuda.round_seed(key, round_tag)
+    if poly:
+        shape = dict(k=configs.obstacle_verts.shape[1], k2=len(robot_wh),
+                     k2a=len(a_keep), offset=offset)
+        if isinstance(configs, MovingPolygonConfigs):
+            return mc_moving_polygon_cuda.mc_moving_poly_counts(table, uids, seed, n,
+                                                                **shape)
+        return mc_polygon_cuda.mc_poly_counts(table, uids, seed, n, out=out, **shape)
     if isinstance(configs, MovingConfigs):
-        return mc_toi_cuda.mc_round_moving_cuda(
-            key, uids, configs, robot_wh, round_tag, n_batch=n, offset=offset,
-            shape_noise=shape_noise, ca_iters=ca_iters, tol=ca_tol)
-    if isinstance(configs, PolygonConfigs):
-        return mc_polygon_cuda.mc_round_polygons_cuda(
-            key, uids, configs, robot_wh, round_tag, n_batch=n, offset=offset,
-            a_keep=poly_a_keep)
-    return mc_cuda.mc_round_cuda(key, uids, configs, robot_wh, round_tag,
-                                 n_batch=n, offset=offset,
-                                 shape_noise=shape_noise)
+        return mc_toi_cuda.mc_toi_counts(table, uids, seed, n, offset=offset,
+                                         shape_noise=shape_noise,
+                                         ca_iters=ca_iters, tol=ca_tol)
+    return mc_cuda.mc_counts(table, uids, seed, n, offset=offset,
+                             shape_noise=shape_noise, out=out)
 
 
 def _granule_ranges(n: int, n_shards: int) -> list[tuple[int, int]]:
@@ -463,10 +518,8 @@ def _cuda_sharded_counts(key, uids, configs, robot_wh, round_tag: int, *,
     for bit — a stronger contract than JAX's, whose kernel streams are
     tied to block position."""
     ranges = _granule_ranges(n_batch, _mesh_axis(mesh, "sample"))
-    if poly_a_keep is None and isinstance(
-            configs, (PolygonConfigs, MovingPolygonConfigs)):
-        poly_a_keep = mc_polygon_cuda.dedup_robot_axes(
-            torch.as_tensor(robot_wh, dtype=torch.float32).cpu().numpy())
+    if isinstance(configs, (PolygonConfigs, MovingPolygonConfigs)):
+        poly_a_keep = _a_keep(robot_wh, poly_a_keep)
 
     def shard(inputs, j):
         block, bu, robot = inputs
@@ -687,6 +740,7 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
                  poly_a_keep: tuple[int, ...] | None = None,
                  ca_iters: int = 48, ca_tol: float = 1e-4,
                  screen_impl: str = "auto", mesh=None,
+                 table: torch.Tensor | None = None,
                  ) -> tuple[_LoopState, torch.Tensor]:
     """``n_rounds`` same-plan rounds with convergence and label freezing.
 
@@ -695,25 +749,32 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
     first round the criterion holds (generate_dataset.cu:455-464). Returns
     the new state and the device-resident count of done real rows. Under a
     ``mesh`` only the round counts are sharded (`mc_round`); the state
-    stays on its device."""
-    n_true, done = state.n_true, state.done
-    k_frozen, n_frozen = state.k_frozen, state.n_frozen
+    stays on its device.
+
+    ``table``: ``state.active``'s table from `pack_round_table`: no round
+    packs it, and the fused kernel adds its counts straight into
+    ``n_true``; None = each round packs its own (`mc_round`). Each round's
+    update is `ops.round_epilogue_cuda.round_update` (one epilogue launch on
+    CUDA tensors), which updates the state's tensors IN PLACE: the returned
+    state is ``state``. ``n_rounds`` is at least 1."""
+    if int(n_rounds) < 1:
+        raise ValueError(f"n_rounds must be at least 1, got {n_rounds}")
     for r in range(int(n_rounds)):
-        counts = mc_round(key, state.uids, state.active, robot_wh,
-                          int(chunk_offset) + r * int(chunk_step), n_batch=nb,
-                          step_samples=step_samples, use_vertices=use_vertices,
-                          impl=impl, shape_noise=shape_noise,
-                          poly_a_keep=poly_a_keep, ca_iters=ca_iters,
-                          ca_tol=ca_tol, screen_impl=screen_impl, mesh=mesh)
-        n_true = n_true + counts
-        n_after = int(n_samples_after) + r * int(nb)
-        conv = stats.is_converged(n_after, n_true, accuracy_bins, bin_accuracy)
-        newly = conv & ~done
-        done = done | conv
-        k_frozen = torch.where(newly, n_true, k_frozen)
-        n_frozen = torch.where(newly, torch.full_like(n_frozen, n_after),
-                               n_frozen)
-    new_state = state._replace(n_true=n_true, done=done, k_frozen=k_frozen,
-                               n_frozen=n_frozen)
-    num_done = (done & (state.uids >= 0)).sum(dtype=torch.int32)
-    return new_state, num_done
+        tag = int(chunk_offset) + r * int(chunk_step)
+        if table is None:
+            counts = mc_round(key, state.uids, state.active, robot_wh, tag,
+                              n_batch=nb, step_samples=step_samples,
+                              use_vertices=use_vertices, impl=impl,
+                              shape_noise=shape_noise, poly_a_keep=poly_a_keep,
+                              ca_iters=ca_iters, ca_tol=ca_tol,
+                              screen_impl=screen_impl, mesh=mesh)
+        else:  # the counts land in n_true
+            counts = None
+            _kernel_round(key, state.uids, state.active, robot_wh, tag, nb,
+                          shape_noise=shape_noise, poly_a_keep=poly_a_keep,
+                          table=table, out=state.n_true)
+        *_, num_done = round_epilogue_cuda.round_update(
+            state.n_true, state.done, state.k_frozen, state.n_frozen, counts,
+            int(n_samples_after) + r * int(nb), accuracy_bins, bin_accuracy,
+            uids=state.uids if r == int(n_rounds) - 1 else None)
+    return state, num_done

@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from collide2d_tpu_torch.ops import polygon_cuda, sat_cuda
+from collide2d_tpu_torch.utils import cuda_build
 
 LANE_BLOCK = sat_cuda.LANE_BLOCK  # boxes: the M % block contract of pack_obbs
 POLY_LANE_BLOCK = polygon_cuda.LANE_BLOCK
@@ -142,8 +143,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _kernel_lib(count: bool = False) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load(_KERNEL, distance_defines(count)))
 
 
@@ -166,11 +165,9 @@ def obb_distance_cuda_t(b1t: torch.Tensor, b2t: torch.Tensor, shift: float = 0.0
     n = b1t.shape[1] * b1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=b1t.device)
     lib = _kernel_lib()
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(b1t.device):
-        _launched("obb_distance", lib.obb_distance_launch(
-            b1t.data_ptr(), b2t.data_ptr(), out.data_ptr(), n,
-            sat_cuda._f32(shift), torch.cuda.current_stream(b1t.device).cuda_stream))
+    _launched("obb_distance", cuda_build.launch(
+        b1t.device, lib.obb_distance_launch, b1t.data_ptr(), b2t.data_ptr(),
+        out.data_ptr(), n, sat_cuda._f32(shift)))
     return out
 
 
@@ -298,12 +295,12 @@ def _polygon_distance(p1t, p2t, k1, k2, block, counts):
     n = p1t.shape[1] * p1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=p1t.device)
     lib = _kernel_lib(counts is not None)
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(p1t.device):
-        _launched("polygon_distance", lib.polygon_distance_launch(
-            p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
-            torch.cuda.current_stream(p1t.device).cuda_stream))
-        if counts is not None:
+    _launched("polygon_distance", cuda_build.launch(
+        p1t.device, lib.polygon_distance_launch, p1t.data_ptr(), p2t.data_ptr(),
+        out.data_ptr(), n, int(k1), int(k2)))
+    if counts is not None:
+        # the counters live on the launch's device
+        with torch.cuda.device(p1t.device):
             err = lib.polygon_distance_counts(counts)
             if err != 0:
                 raise RuntimeError(

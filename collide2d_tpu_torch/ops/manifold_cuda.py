@@ -38,6 +38,7 @@ from collide2d_tpu_torch.ops.distance_cuda import (
     pad_pairs,
     refuse_grad,
 )
+from collide2d_tpu_torch.utils import cuda_build
 
 _KERNEL = "manifold_kernel"
 # Launches of the CUDA kernel in this process (never the plain version).
@@ -169,8 +170,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load(_KERNEL))
 
 
@@ -187,12 +186,9 @@ def polygon_manifold_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
                       device=p1t.device)
     n = p1t.shape[1] * p1t.shape[2]
     lib = _kernel_lib()
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(p1t.device):
-        err = lib.polygon_manifold_launch(
-            p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
-            sat_cuda._f32(margin),
-            torch.cuda.current_stream(p1t.device).cuda_stream)
+    err = cuda_build.launch(
+        p1t.device, lib.polygon_manifold_launch, p1t.data_ptr(), p2t.data_ptr(),
+        out.data_ptr(), n, int(k1), int(k2), sat_cuda._f32(margin))
     if err != 0:
         raise RuntimeError(f"polygon_manifold_launch failed: CUDA error {err}")
     LAUNCHES += 1

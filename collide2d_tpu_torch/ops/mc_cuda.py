@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from collide2d_tpu_torch.mc import prng
+from collide2d_tpu_torch.utils import cuda_build
 
 PARAM_COLS = 16
 _KERNEL = "mc_kernel"
@@ -227,6 +228,18 @@ def mc_counts_plain(
     return counts
 
 
+def check_out(out, params: torch.Tensor) -> None:
+    """``out``, where given, must be an int32 (C,) contiguous tensor on
+    ``params``' device: the counts land there."""
+    if out is None:
+        return
+    if (out.dtype != torch.int32 or out.shape != (params.shape[0],)
+            or out.device != params.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous int32 ({params.shape[0]},) tensor on "
+            f"{params.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+
+
 def _check_inputs(params: torch.Tensor, uids: torch.Tensor, n: int) -> None:
     if params.dtype != torch.float32 or params.dim() != 2 or (
         params.shape[1] != PARAM_COLS
@@ -249,8 +262,6 @@ def _check_inputs(params: torch.Tensor, uids: torch.Tensor, n: int) -> None:
 
 
 def _kernel_lib(normal_method: str = "erfinv") -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     lib = cuda_build.load(_KERNEL, normal_defines(normal_method))
     lib.mc_counts_launch.restype = ctypes.c_int
     lib.mc_counts_launch.argtypes = [
@@ -272,6 +283,7 @@ def mc_counts(
     offset: int = 0,
     shape_noise: bool = True,
     normal_method: str = "erfinv",
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Collision counts out of ``n`` samples per configuration: int32 (C,).
 
@@ -280,18 +292,22 @@ def mc_counts(
     words; ``offset`` the index of the first sample; ``normal_method``
     "erfinv" or "box_muller" (the module's docstring). CUDA tensors launch
     the kernel's build for that method, CPU tensors run the plain
-    version."""
+    version. ``out``: an int32 (C,) tensor the counts are added into and
+    which is returned (the adaptive driver passes its running counts);
+    None = a new zeroed one."""
     global LAUNCHES, BOX_MULLER_LAUNCHES
     _check_inputs(params, uids, n)
+    check_out(out, params)
     normal_defines(normal_method)
     if params.device.type == "cpu":
-        return mc_counts_plain(params, uids, seed, n, offset=offset,
-                               shape_noise=shape_noise,
-                               normal_method=normal_method)
+        counts = mc_counts_plain(params, uids, seed, n, offset=offset,
+                                 shape_noise=shape_noise,
+                                 normal_method=normal_method)
+        return counts if out is None else out.add_(counts)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
-    counts = torch.zeros((params.shape[0],), dtype=torch.int32,
-                         device=params.device)
+    counts = out if out is not None else torch.zeros(
+        (params.shape[0],), dtype=torch.int32, device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
     lib = _kernel_lib(normal_method)
@@ -300,15 +316,11 @@ def mc_counts(
             f"n={n} exceeds the kernel's {lib.mc_max_samples_per_round()} "
             "samples per call; split the round with `offset`"
         )
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(params.device):
-        err = lib.mc_counts_launch(
-            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
-            int(params.shape[0]), int(n), int(offset),
-            int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32,
-            int(bool(shape_noise)),
-            torch.cuda.current_stream(params.device).cuda_stream,
-        )
+    err = cuda_build.launch(
+        params.device, lib.mc_counts_launch, params.data_ptr(), uids.data_ptr(),
+        counts.data_ptr(), int(params.shape[0]), int(n), int(offset),
+        int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32,
+        int(bool(shape_noise)))
     if err != 0:
         raise RuntimeError(f"mc_counts_launch failed: CUDA error {err}")
     if normal_method == "box_muller":

@@ -38,6 +38,7 @@ import torch
 
 from collide2d_tpu_torch.mc import prng
 from collide2d_tpu_torch.ops import mc_cuda, mc_polygon_cuda
+from collide2d_tpu_torch.utils import cuda_build
 
 _KERNEL = "mc_moving_polygon_kernel"
 _INF = float("inf")
@@ -182,8 +183,6 @@ def _check_inputs(params, uids, n, k, k2, k2a) -> None:
 
 def _kernel_lib(k: int, k2: int, k2a: int, normal_method: str = "erfinv"
                 ) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     lib = cuda_build.load(_KERNEL, mc_polygon_cuda.shape_defines(k, k2, k2a)
                           + mc_cuda.normal_defines(normal_method))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
@@ -222,14 +221,11 @@ def mc_moving_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int
         raise ValueError(f"n={n} exceeds the kernel's "
                          f"{lib.mc_moving_poly_max_samples_per_round()} samples "
                          "per call; split the round with `offset`")
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(params.device):
-        err = lib.mc_moving_poly_counts_launch(
-            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
-            int(params.shape[0]), int(params.shape[1]), int(k), int(k2), int(k2a),
-            int(n), int(offset), int(seed[0]) & prng.MASK32,
-            int(seed[1]) & prng.MASK32,
-            torch.cuda.current_stream(params.device).cuda_stream)
+    err = cuda_build.launch(
+        params.device, lib.mc_moving_poly_counts_launch, params.data_ptr(),
+        uids.data_ptr(), counts.data_ptr(), int(params.shape[0]),
+        int(params.shape[1]), int(k), int(k2), int(k2a), int(n), int(offset),
+        int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32)
     if err != 0:
         raise RuntimeError(f"mc_moving_poly_counts_launch failed: CUDA error {err}")
     if normal_method == "box_muller":

@@ -2,8 +2,10 @@
 its plain version.
 
 Counterpart of ``collide2d_tpu/ops/mc_polygon_pallas.py``. Everything that
-does not depend on a sample's (dx, dy, dtheta) draw is packed once a round
-into per-configuration tables by `pack_polygon_mc_params`:
+does not depend on a sample's (dx, dy, dtheta) draw is packed into
+per-configuration tables by `pack_polygon_mc_params` (once a round by
+`mc_round_polygons_cuda`; once a buffer by the adaptive driver,
+`mc.estimator.pack_round_table`):
 
 - the placed robot's (kept) edge axes and its own projection intervals;
 - the obstacle's edge normals and its own intervals on them, which rotate
@@ -47,6 +49,7 @@ import torch
 from collide2d_tpu_torch.mc import prng
 from collide2d_tpu_torch.ops import mc_cuda
 from collide2d_tpu_torch.ops.geometry import edge_normals, transform_vertices
+from collide2d_tpu_torch.utils import cuda_build
 
 _KERNEL = "mc_polygon_kernel"
 # Launches of the CUDA kernel in this process (never the plain version):
@@ -241,8 +244,6 @@ def shape_defines(k: int, k2: int, k2a: int) -> tuple[tuple[str, int], ...]:
 
 def _kernel_lib(k: int, k2: int, k2a: int, normal_method: str = "erfinv"
                 ) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     lib = cuda_build.load(_KERNEL, shape_defines(k, k2, k2a)
                           + mc_cuda.normal_defines(normal_method))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
@@ -255,7 +256,8 @@ def _kernel_lib(k: int, k2: int, k2a: int, normal_method: str = "erfinv"
 
 def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
                    k: int, k2: int, k2a: int, offset: int = 0,
-                   normal_method: str = "erfinv") -> torch.Tensor:
+                   normal_method: str = "erfinv",
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Collision counts out of ``n`` samples per configuration: int32 (C,).
 
     ``params`` (C, ROWS) float32 from `pack_polygon_mc_params` for a
@@ -264,17 +266,19 @@ def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
     words; ``offset`` the index of the first sample; ``normal_method``
     "erfinv" or "box_muller" (`ops.mc_cuda`). CUDA tensors launch the
     kernel's build for that shape and method, CPU tensors run the plain
-    version."""
+    version. ``out`` as `mc_cuda.mc_counts`': the counts are added into it."""
     global LAUNCHES, BOX_MULLER_LAUNCHES
     _check_inputs(params, uids, n, k, k2, k2a)
+    mc_cuda.check_out(out, params)
     mc_cuda.normal_defines(normal_method)
     if params.device.type == "cpu":
-        return mc_poly_counts_plain(params, uids, seed, n, k=k, k2=k2, k2a=k2a,
-                                    offset=offset, normal_method=normal_method)
+        counts = mc_poly_counts_plain(params, uids, seed, n, k=k, k2=k2, k2a=k2a,
+                                      offset=offset, normal_method=normal_method)
+        return counts if out is None else out.add_(counts)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
-    counts = torch.zeros((params.shape[0],), dtype=torch.int32,
-                         device=params.device)
+    counts = out if out is not None else torch.zeros(
+        (params.shape[0],), dtype=torch.int32, device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
     lib = _kernel_lib(k, k2, k2a, normal_method)
@@ -282,14 +286,11 @@ def mc_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
         raise ValueError(
             f"n={n} exceeds the kernel's {lib.mc_poly_max_samples_per_round()} "
             "samples per call; split the round with `offset`")
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(params.device):
-        err = lib.mc_poly_counts_launch(
-            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
-            int(params.shape[0]), int(params.shape[1]), int(k), int(k2),
-            int(k2a), int(n), int(offset), int(seed[0]) & prng.MASK32,
-            int(seed[1]) & prng.MASK32,
-            torch.cuda.current_stream(params.device).cuda_stream)
+    err = cuda_build.launch(
+        params.device, lib.mc_poly_counts_launch, params.data_ptr(), uids.data_ptr(),
+        counts.data_ptr(), int(params.shape[0]), int(params.shape[1]), int(k),
+        int(k2), int(k2a), int(n), int(offset), int(seed[0]) & prng.MASK32,
+        int(seed[1]) & prng.MASK32)
     if err != 0:
         raise RuntimeError(f"mc_poly_counts_launch failed: CUDA error {err}")
     if normal_method == "box_muller":

@@ -36,6 +36,7 @@ from collide2d_tpu_torch.mc import prng
 from collide2d_tpu_torch.ops import mc_cuda
 from collide2d_tpu_torch.ops.distance_cuda import obb_signed_distance_tile
 from collide2d_tpu_torch.ops.toi import obb_translation_toi_parts
+from collide2d_tpu_torch.utils import cuda_build
 
 PARAM_COLS = 16
 _KERNEL = "mc_toi_kernel"
@@ -170,8 +171,6 @@ def _check_inputs(params: torch.Tensor, uids: torch.Tensor, n: int,
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     lib = cuda_build.load(_KERNEL)
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.mc_toi_counts_launch.restype = ctypes.c_int
@@ -206,13 +205,11 @@ def mc_toi_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
         raise ValueError(f"n={n} exceeds the kernel's "
                          f"{lib.mc_toi_max_samples_per_round()} samples per call; "
                          "split the round with `offset`")
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(params.device):
-        err = lib.mc_toi_counts_launch(
-            params.data_ptr(), uids.data_ptr(), counts.data_ptr(),
-            int(params.shape[0]), int(n), int(offset), int(seed[0]) & prng.MASK32,
-            int(seed[1]) & prng.MASK32, int(bool(shape_noise)), int(ca_iters),
-            prng._f32(tol), torch.cuda.current_stream(params.device).cuda_stream)
+    err = cuda_build.launch(
+        params.device, lib.mc_toi_counts_launch, params.data_ptr(), uids.data_ptr(),
+        counts.data_ptr(), int(params.shape[0]), int(n), int(offset),
+        int(seed[0]) & prng.MASK32, int(seed[1]) & prng.MASK32,
+        int(bool(shape_noise)), int(ca_iters), prng._f32(tol))
     if err != 0:
         raise RuntimeError(f"mc_toi_counts_launch failed: CUDA error {err}")
     LAUNCHES += 1

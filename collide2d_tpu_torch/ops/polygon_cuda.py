@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from collide2d_tpu_torch.ops.sat import polygon_columns_collide
+from collide2d_tpu_torch.utils import cuda_build
 
 LANE_BLOCK = 512  # lanes per block of the TPU grid; kept for the M % block contract
 REGISTER_BUCKETS = (4, 8, 16)  # the K buckets of the default build
@@ -169,8 +170,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load(_KERNEL))
 
 
@@ -190,12 +189,9 @@ def sat_polygons_cuda_t(p1t: torch.Tensor, p2t: torch.Tensor, *, k1: int,
     if n == 0:
         return out
     lib = _kernel_lib()
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(p1t.device):
-        err = lib.polygon_sat_launch(
-            p1t.data_ptr(), p2t.data_ptr(), out.data_ptr(), n, int(k1), int(k2),
-            int(p1t.dtype == torch.bfloat16),
-            torch.cuda.current_stream(p1t.device).cuda_stream)
+    err = cuda_build.launch(
+        p1t.device, lib.polygon_sat_launch, p1t.data_ptr(), p2t.data_ptr(),
+        out.data_ptr(), n, int(k1), int(k2), int(p1t.dtype == torch.bfloat16))
     if err != 0:
         raise RuntimeError(f"polygon_sat_launch failed: CUDA error {err}")
     LAUNCHES += 1

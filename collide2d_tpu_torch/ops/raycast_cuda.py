@@ -36,6 +36,7 @@ import torch
 from collide2d_tpu_torch.ops.distance_cuda import refuse_grad
 from collide2d_tpu_torch.ops.geometry import edge_normals
 from collide2d_tpu_torch.ops.sat import _normalize_padding
+from collide2d_tpu_torch.utils import cuda_build
 
 _KERNEL = "raycast_kernel"
 _INF = float("inf")
@@ -177,8 +178,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _kernel_lib(kp: int, count_faces: bool = False) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load(_KERNEL, raycast_defines(kp, count_faces)))
 
 
@@ -224,17 +223,16 @@ def _cuda_or_plain(origin, direction, table, t_max, tile_shapes, faces):
         return t, idx, normal
     kp = int(table.shape[1])
     lib = _kernel_lib(kp, faces is not None)
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(dev):
-        err = lib.scene_raycast_launch(
-            origin.data_ptr(), direction.data_ptr(), table.data_ptr(),
-            t.data_ptr(), idx.data_ptr(), normal.data_ptr(), r,
-            int(table.shape[0]), kp, float(t_max), int(tile_shapes),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"scene_raycast_launch failed: CUDA error {err}")
-        LAUNCHES += 1
-        if faces is not None:
+    err = cuda_build.launch(
+        dev, lib.scene_raycast_launch, origin.data_ptr(), direction.data_ptr(),
+        table.data_ptr(), t.data_ptr(), idx.data_ptr(), normal.data_ptr(), r,
+        int(table.shape[0]), kp, float(t_max), int(tile_shapes))
+    if err != 0:
+        raise RuntimeError(f"scene_raycast_launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    if faces is not None:
+        # the counters live on the launch's device
+        with torch.cuda.device(dev):
             err = lib.scene_raycast_faces(ctypes.byref(faces))
             if err != 0:
                 raise RuntimeError(f"scene_raycast_faces failed: CUDA error {err}")

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from collide2d_tpu_torch.ops.sat import obb_overlap, rect_columns_collide
+from collide2d_tpu_torch.utils import cuda_build
 
 LANE_BLOCK = 1024  # lanes per block of the TPU grid; kept for the M % block contract
 _KERNEL = "sat_kernel"
@@ -129,8 +130,6 @@ def _check(a: torch.Tensor, b: torch.Tensor, rows: int, dtypes, block: int) -> i
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     lib = cuda_build.load(_KERNEL)
     p, ll, f, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
     for fn in (lib.sat_label_launch, lib.sat_count_launch):
@@ -152,10 +151,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     args = [a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _f32(shift)]
     if name.startswith("sat"):
         args.append(int(a.dtype == torch.bfloat16))
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(a.device):
-        err = getattr(lib, f"{name}_launch")(
-            *args, torch.cuda.current_stream(a.device).cuda_stream)
+    err = cuda_build.launch(a.device, getattr(lib, f"{name}_launch"), *args)
     if err != 0:
         raise RuntimeError(f"{name}_launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

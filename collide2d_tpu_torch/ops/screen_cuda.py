@@ -32,6 +32,7 @@ import torch
 
 from collide2d_tpu_torch.mc import prng
 from collide2d_tpu_torch.ops.toi import obb_translation_toi_parts
+from collide2d_tpu_torch.utils import cuda_build
 
 N_PARAMS = 16
 MAX_SEG = 32  # segments the kernel stages per configuration
@@ -129,8 +130,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _kernel_lib(n_seg: int) -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load(_KERNEL, screen_defines(n_seg)))
 
 
@@ -153,12 +152,10 @@ def rotating_screen(z: torch.Tensor, params: torch.Tensor, *, n_seg: int = 8,
         return flags, t0
     f32 = prng._f32
     lib = _kernel_lib(int(n_seg))
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(z.device):
-        err = lib.rotating_screen_launch(
-            z.data_ptr(), params.data_ptr(), flags.data_ptr(), t0.data_ptr(), c,
-            s, int(n_seg), f32(1.0 / n_seg), f32(0.5 / n_seg), f32(tol),
-            f32(np.pi), torch.cuda.current_stream(z.device).cuda_stream)
+    err = cuda_build.launch(
+        z.device, lib.rotating_screen_launch, z.data_ptr(), params.data_ptr(),
+        flags.data_ptr(), t0.data_ptr(), c, s, int(n_seg), f32(1.0 / n_seg),
+        f32(0.5 / n_seg), f32(tol), f32(np.pi))
     if err != 0:
         raise RuntimeError(f"rotating_screen_launch failed: CUDA error {err}")
     LAUNCHES += 1

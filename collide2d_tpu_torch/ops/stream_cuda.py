@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from collide2d_tpu_torch.ops.sat_cuda import _f32
+from collide2d_tpu_torch.utils import cuda_build
 
 TILE = 4096  # lanes of one tile, the TPU kernel's block
 _KERNEL = "stream_kernel"
@@ -78,8 +79,6 @@ def stream_sum_plain(r1: torch.Tensor, r2: torch.Tensor, s: float) -> torch.Tens
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     lib = cuda_build.load(_KERNEL)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.stream_sum_blocks.restype = i
@@ -105,12 +104,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, s: float) -> torch.Tensor:
     # [partials of a | partials of b | ticket (bits 0) | result]
     scratch = torch.zeros((2 * blocks + 2,), dtype=torch.float32, device=a.device)
     base = scratch.data_ptr()
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(a.device):
-        err = lib.stream_sum_launch(
-            a.data_ptr(), b.data_ptr(), n, _f32(s), blocks, base,
-            base + 8 * blocks, base + 8 * blocks + 4,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    err = cuda_build.launch(
+        a.device, lib.stream_sum_launch, a.data_ptr(), b.data_ptr(), n, _f32(s),
+        blocks, base, base + 8 * blocks, base + 8 * blocks + 4)
     if err != 0:
         raise RuntimeError(f"stream_sum_launch failed: CUDA error {err}")
     LAUNCHES += 1

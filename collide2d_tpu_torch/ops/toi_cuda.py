@@ -28,6 +28,7 @@ import torch
 from collide2d_tpu_torch.ops import sat_cuda
 from collide2d_tpu_torch.ops.distance_cuda import obb_signed_distance_tile, refuse_grad
 from collide2d_tpu_torch.ops.toi import obb_translation_toi_parts
+from collide2d_tpu_torch.utils import cuda_build
 
 LANE_BLOCK = 1024  # lanes per block of the TPU grid; kept for the M % block contract
 _KERNEL = "toi_kernel"
@@ -110,8 +111,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from collide2d_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load(_KERNEL))
 
 
@@ -133,12 +132,9 @@ def moving_obb_toi_cuda_t(b1t: torch.Tensor, b2t: torch.Tensor, *,
     n = b1t.shape[1] * b1t.shape[2]
     out = torch.empty((n,), dtype=torch.float32, device=b1t.device)
     lib = _kernel_lib()
-    # The launch goes to the current device: make it the tensors' one.
-    with torch.cuda.device(b1t.device):
-        err = lib.moving_obb_toi_launch(
-            b1t.data_ptr(), b2t.data_ptr(), out.data_ptr(), n,
-            sat_cuda._f32(t_max), int(iters), sat_cuda._f32(tol),
-            torch.cuda.current_stream(b1t.device).cuda_stream)
+    err = cuda_build.launch(
+        b1t.device, lib.moving_obb_toi_launch, b1t.data_ptr(), b2t.data_ptr(),
+        out.data_ptr(), n, sat_cuda._f32(t_max), int(iters), sat_cuda._f32(tol))
     if err != 0:
         raise RuntimeError(f"moving_obb_toi_launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -12,7 +12,8 @@ source or header or another shape builds anew and an unchanged one loads
 straight away. The library is written under a
 temporary name and published with ``os.replace``, so processes that build
 at the same time never load a half-written file. There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+missing ``nvcc`` or a failed build raises. Every kernel's C launcher is
+called through `launch`, on its tensors' device and current stream.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -94,3 +97,18 @@ def load(name: str, defines: Defines = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library for
     ``defines``, once per process."""
     return ctypes.CDLL(str(build(name, defines)))
+
+
+def launch(device: torch.device, fn, *args):
+    """``fn(*args, stream)``, a C launcher, with ``device`` the current device
+    and ``stream`` the raw handle of its current stream. The device is
+    switched (and back) only when it is not the current one. Both reads
+    are torch's own C calls (``torch._C``), of well under a microsecond,
+    where ``torch.cuda.device`` and ``torch.cuda.current_stream`` cost 6-11
+    us each on an H100's host: the adaptive driver launches twice a round,
+    and a tail round's kernels take a few hundred microseconds."""
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    if torch._C._cuda_getDevice() == idx:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))

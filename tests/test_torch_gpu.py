@@ -1447,3 +1447,139 @@ def test_mesh_resume_is_bitwise_on_kernel_1(cuda, tmp_path):
     assert n_saved > 0 and min(seen) > n_saved
     for got, want in zip(out, base):
         np.testing.assert_array_equal(got, want)
+
+
+# ---- the round epilogue (the adaptive loop's stopping rule and freeze) ----
+# The kernel rounds as mc/stats.py does (csrc/round_epilogue.cuh): state
+# and done count bitwise the plain update's, on states that run several
+# rounds; the adaptive driver's labels bitwise those of the plain path (the
+# torch update and a table packed every round, patched in).
+
+_EPILOGUE_BINS = [((0.0, 0.01, 0.1, 1.0), (0.0001, 0.001, 0.01)),
+                  ((0.0, 0.3, 0.2, 0.55, 1.0), (0.004, 0.0005, 0.003, 0.02))]
+
+
+@pytest.mark.parametrize("bins", range(len(_EPILOGUE_BINS)))
+@pytest.mark.parametrize("into_n_true", [False, True])
+def test_round_epilogue_matches_plain_over_rounds(cuda, bins, into_n_true):
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    edges, targets = _EPILOGUE_BINS[bins]
+    rng = np.random.default_rng(50 + bins)
+    c = 70_001
+    probs = np.array([0.0, 1e-4, 5e-4, 0.002, 0.008, 0.03, 0.12, 0.25, 0.5, 0.9, 0.99, 1.0])
+    uids = torch.from_numpy(np.where(rng.random(c) < 0.9, np.arange(c), -1)
+                            .astype(np.int32))
+    want = (torch.zeros(c, dtype=torch.int32), torch.zeros(c, dtype=torch.bool),
+            torch.zeros(c, dtype=torch.int32), torch.ones(c, dtype=torch.int32))
+    got = tuple(t.to(cuda) for t in want)
+    n_after, rounds, done_counts = 0, 14, []
+    rec.reset_launches()
+    for r in range(rounds):
+        nb = 1_000 if r < 6 else 50_000
+        n_after += nb
+        counts = rng.binomial(nb, probs[rng.integers(0, len(probs), c)]).astype(np.int32)
+        last = r == rounds - 1 or r % 4 == 3
+        *want, want_done = rec.round_update_plain(
+            *want, torch.from_numpy(counts), n_after, edges, targets,
+            uids if last else None)
+        counts_dev = torch.from_numpy(counts).to(cuda)
+        if into_n_true:  # the fused kernel's counts already added in
+            got[0].add_(counts_dev)
+        out = rec.round_update(*got, None if into_n_true else counts_dev, n_after,
+                               edges, targets, uids=uids.to(cuda) if last else None)
+        assert all(o is g for o, g in zip(out[:4], got))  # in place
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert (out[4] is None) == (not last)
+        if last:
+            assert out[4].shape == () and int(out[4]) == int(want_done)
+        done_counts.append(int(want[1].sum()))
+    assert rec.LAUNCHES == rounds
+    assert any(0 < d < c for d in done_counts)  # rows froze over several rounds
+
+
+@pytest.mark.parametrize("kernel", ["1", "7"])
+def test_round_issues_at_most_three_device_operations(cuda, kernel):
+    """A run of same-plan rounds on a hoisted table: each round is the
+    fused kernel (adding into n_true) and the epilogue; the run's last
+    round also zeroes the done count (a memset). Nothing else reaches the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from collide2d_tpu_torch.mc import estimator as est
+    from collide2d_tpu_torch.mc import prng
+    from collide2d_tpu_torch.mc.driver import AdaptiveRun
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    configs, robot, mod = _resume_case(cuda, kernel)
+    run = AdaptiveRun(prng.PRNGKey(3), configs, robot, est.AdaptiveConfig())
+    ops, rounds = run.ops, 5
+    assert ops.table is not None
+    ops.run_rounds(1024, 64, 1, 1024, 0)  # warm: builds and loads both libraries
+    torch.cuda.synchronize()
+    mod.reset_launches()
+    rec.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        handle = ops.run_rounds(1024, 64, rounds, 2048, 16)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    fused = [n for n in names if "mc_counts_kernel" in n or "mc_poly_counts_kernel" in n]
+    epilogue = [n for n in names if "round_epilogue_kernel" in n]
+    memset = [n for n in names if "memset" in n.lower()]
+    copies = [n for n in names if "memcpy" in n.lower()]  # the done count's readback
+    assert (len(fused), len(epilogue), len(memset), len(copies)) == (rounds, rounds, 1, 1)
+    assert len(names) - len(copies) <= 3 * rounds
+    assert (mod.LAUNCHES, rec.LAUNCHES) == (rounds, rounds)
+    assert 0 <= ops.resolve(handle) <= configs.num
+
+
+def _plain_round_path(monkeypatch):
+    """The plain path: the torch update (`round_update_plain`) and a
+    table packed every round."""
+    from collide2d_tpu_torch.mc import estimator as est
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    def plain(n_true, done, k_frozen, n_frozen, counts, n_after, bins, acc, *, uids=None):
+        return rec.round_update_plain(n_true, done, k_frozen, n_frozen, counts,
+                                      n_after, bins, acc, uids)
+
+    monkeypatch.setattr(rec, "round_update", plain)
+    monkeypatch.setattr(est, "pack_round_table", lambda *a, **k: None)
+
+
+def test_polylabel_labels_are_the_plain_round_paths(cuda, tmp_path, monkeypatch):
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    b = example_polygon_configs(20_000, k=8, seed=17, device="cpu")
+    np.savez(tmp_path / "in.npz", robot_verts=ROBOT_4GON,
+             position=(b.position * 0.6).numpy(), pose_theta=b.pose_theta.numpy(),
+             obstacle_verts=b.obstacle_verts.numpy(), std_dev=b.std_dev.numpy())
+    argv = ["polylabel", "--device", "cuda", "--data_in", str(tmp_path / "in.npz"),
+            "--seed", "3"]
+    rec.reset_launches()
+    assert cli.main([*argv, "--data_out", str(tmp_path / "got.npz")]) == 0
+    assert rec.LAUNCHES > 0
+    with monkeypatch.context() as m:
+        _plain_round_path(m)
+        assert cli.main([*argv, "--data_out", str(tmp_path / "want.npz")]) == 0
+    with np.load(tmp_path / "got.npz") as got, np.load(tmp_path / "want.npz") as want:
+        for name in ("cp", "n_samples", "converged"):
+            np.testing.assert_array_equal(got[name], want[name])
+        assert 0 < got["converged"].mean() < 1 or got["converged"].all()
+
+
+def test_generate_batch_is_the_plain_round_paths(cuda, tmp_path, monkeypatch):
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    argv = ["generate", "--device", "cuda", "-n", "1", "-b", "4096", "--seed", "9",
+            "--num_poses", "4096", "--num_variances", "4096", "--verbose", "false"]
+    rec.reset_launches()
+    assert cli.main([*argv, "--data_dir", str(tmp_path / "got")]) == 0
+    assert rec.LAUNCHES > 0
+    with monkeypatch.context() as m:
+        _plain_round_path(m)
+        assert cli.main([*argv, "--data_dir", str(tmp_path / "want")]) == 0
+    got = (tmp_path / "got" / "0.npy").read_bytes()
+    assert len(got) > 4096 * 5 * 4 and got == (tmp_path / "want" / "0.npy").read_bytes()
