@@ -2,15 +2,16 @@
 
     python -m benchmark.control --workload <cell> --seeds 11 12 13 [--out f.jsonl]
 
-For each seed it makes the cell's inputs as a run does (the rectangle
-tables and rows drawn as the generator draws them, or the k-gon traffic's
-first file), takes as many rows as a run compares, and labels them with
-the plain labeler (`reference.labeler`) put in the program's place: in
-bfloat16, the precision below the float32 the configuration states (the
-control, which has to come out as not correct), and in float32 (a sound
-witness). Each labeling goes through the same comparison as a run
-(`core.compare`) and prints one JSON line with its numbers. The
-benchmark's own runs never run this.
+For each seed it makes the cell's inputs as a run does, by its entry's
+``control_rows`` (the rectangle tables and rows drawn as the generator
+draws them, or the k-gon traffic's first file), takes as many rows as a
+run compares, and labels them with the plain labeler
+(`reference.labeler`) put in the program's place: in bfloat16, the
+precision below the float32 the configuration states (the control, which
+has to come out as not correct), and in float32 (a sound witness). Each
+labeling goes through the same comparison as a run (`core.compare`) and
+prints one JSON line with its numbers. The benchmark's own runs never run
+this.
 """
 
 from __future__ import annotations
@@ -20,39 +21,28 @@ import json
 import sys
 import time
 
-import numpy as np
 import torch
 
 from benchmark.core import compare, spec
 from benchmark.gen import rows
 from benchmark.reference import labeler
-from benchmark.reference.exact import rect_vertices
 
 PRECISIONS = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def inputs(cell, seed: int, count: int, device) -> tuple:
-    """(position, robot_theta, obstacle_verts, sd) of ``count`` rows of the
-    cell's traffic, host float32."""
-    cfg = cell.config
-    if cell.traffic["entry"] == "polylabel":
-        f = rows.kgon_file(cfg, seed, 0, device)
-        return (f["position"][:count], f["pose_theta"][:count],
-                f["obstacle_verts"][:count], f["std_dev"][:count])
-    poses, variances = rows.tables(cfg, seed, device)
-    pos, pose_idx, var_idx = rows.rect_rows(cfg, seed, "control", count, poses,
-                                            variances)
-    pose = poses[pose_idx].cpu().numpy()
-    sd = torch.sqrt(variances[var_idx, :3]).cpu().numpy()
-    return (pos.cpu().numpy(), pose[:, 2], rect_vertices(pose[:, 0], pose[:, 1])
-            .astype(np.float32), sd)
+    """(position, robot_theta, robot, obstacle_verts, sd) of ``count`` rows
+    of the cell's traffic, host float32, from its entry's ``control_rows``.
+    ``robot`` is the configuration's robot (K2, 2), or each row's
+    (count, K2', 2) (a moving robot's swept region,
+    `reference.exact.swept_robot`)."""
+    return spec.entry(cell).control_rows(cell, seed, count, device)
 
 
 def measure(cell, seed: int, precision: str, device) -> dict:
     cfg, w = cell.config, cell.workload
     count = w["sample_rows"]
-    position, theta, obstacle, sd = inputs(cell, seed, count, device)
-    robot = rows.robot_vertices(cfg)
+    position, theta, robot, obstacle, sd = inputs(cell, seed, count, device)
     t0 = time.perf_counter()
     cp, n, done = labeler.label(
         position, theta, robot, obstacle, sd, seed=rows.sub_seed(seed, "labeler"),

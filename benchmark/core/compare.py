@@ -21,6 +21,13 @@ The compared rows are the ``top_rows`` rows with the most samples and a
 uniform draw from the seed, ``sample_rows`` in all; their exact
 probabilities come from `reference.exact`, which works them out again from
 the configurations the benchmark made.
+
+A row's robot is the configuration's fixed robot (``robot_verts`` of
+shape (K2, 2)), or, where the entry gives one per row ((N, K2', 2)), a
+convex polygon of its own: for a robot that translates over [0, t_max]
+the region it sweeps (`reference.exact.swept_robot`), so that the label is
+judged as the probability that the motion collides and not as that of its
+start.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ class Labeled:
     n: np.ndarray               # (N,) samples behind each label
     converged: np.ndarray       # (N,)
     rows_bad: int               # rows missing or malformed, found by the entry
-    robot_verts: np.ndarray     # (K2, 2)
+    # (K2, 2), or (N, K2', 2) a robot per row (convex, CCW, robot frame)
+    robot_verts: np.ndarray
     # rows -> (position (R, 2), robot_theta (R,), obstacle_verts (R, K, 2),
     # sd (R, 3) sigmas of x, y, theta), from the benchmark's own inputs
     geometry: Callable
@@ -97,8 +105,8 @@ def compare(lab: Labeled, config: dict, seed: int, sample_rows: int,
            "stop_faults": stop_faults(lab, bins, accuracy, cap)}
     idx = sample(lab, seed, sample_rows, top_rows)
     position, robot_theta, obstacle, sd = lab.geometry(idx)
-    p = exact.collision_probability(position, robot_theta, lab.robot_verts,
-                                    obstacle, sd)
+    robot = lab.robot_verts if np.ndim(lab.robot_verts) == 2 else lab.robot_verts[idx]
+    p = exact.collision_probability(position, robot_theta, robot, obstacle, sd)
     out["miss_share"], out["z2_mean"] = label_stats(
         lab.cp[idx], lab.n[idx], p, bins, accuracy)
     out["rows_compared"] = int(len(idx))

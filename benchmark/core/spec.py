@@ -13,7 +13,16 @@ and traffic. The rest is found by those names:
   ``read(ctx)`` that returns a number or None.
 
 A later cell, configuration, mix or metric is new files and new entries,
-never an edit of a file that is here.
+never an edit of a file that is here. That holds for labels of a robot that
+translates too (a trajectory cell): the comparison judges a row against a
+robot of its own, and the cell's new entry module fills two hooks:
+
+- ``labeled()`` gives `core.compare.Labeled` a robot per row,
+  ``robot_verts`` of shape (N, K2', 2): each row's swept robot
+  (`reference.exact.swept_robot`);
+- ``control_rows(cell, seed, count, device)``, which every entry defines,
+  gives the control (`benchmark.control`) the cell's rows with that robot
+  per row.
 """
 
 from __future__ import annotations

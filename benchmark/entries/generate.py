@@ -212,3 +212,17 @@ class Run:
         sd = np.sqrt(self.variances[self.rows["var_idx"][idx]])[:, :3]
         return (self.rows["position"][idx], pose[:, 2],
                 rect_vertices(pose[:, 0], pose[:, 1]), sd)
+
+
+def control_rows(cell, seed: int, count: int, device) -> tuple:
+    """``count`` rows for `benchmark.control`, drawn from the seed's tables
+    as the generator draws them: (position, robot_theta, robot,
+    obstacle_verts, sd), host float32."""
+    cfg = cell.config
+    poses, variances = rows.tables(cfg, seed, device)
+    pos, pose_idx, var_idx = rows.rect_rows(cfg, seed, "control", count, poses,
+                                            variances)
+    pose = poses[pose_idx].cpu().numpy()
+    sd = torch.sqrt(variances[var_idx, :3]).cpu().numpy()
+    return (pos.cpu().numpy(), pose[:, 2], rows.robot_vertices(cfg),
+            rect_vertices(pose[:, 0], pose[:, 1]).astype(np.float32), sd)

@@ -128,3 +128,14 @@ class Run:
             out[k] = np.empty_like(np.concatenate(v))
             out[k][order] = np.concatenate(v)
         return out["position"], out["pose_theta"], out["obstacle_verts"], out["std_dev"]
+
+
+def control_rows(cell, seed: int, count: int, device) -> tuple:
+    """The first ``count`` rows of the seed's first k-gon file for
+    `benchmark.control`: (position, robot_theta, robot, obstacle_verts,
+    sd), host float32."""
+    cfg = cell.config
+    f = rows.kgon_file(cfg, seed, 0, device)
+    return (f["position"][:count], f["pose_theta"][:count],
+            rows.robot_vertices(cfg), f["obstacle_verts"][:count],
+            f["std_dev"][:count])

@@ -87,6 +87,37 @@ def minkowski_sum(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                                    np.cumsum(e[..., :-1, :], axis=-2)], axis=-2)
 
 
+def displacement(pose_theta, velocity, t_max) -> np.ndarray:
+    """The robot-frame displacement (R, 2) of a translating robot: its
+    origin moves by ``velocity * t_max`` in the obstacle frame ((R, 2) and
+    (R,), the program's inputs) while it keeps the orientation
+    ``pose_theta`` (R,); the start position does not enter."""
+    v = np.asarray(velocity, np.float64) * np.asarray(t_max, np.float64)[..., None]
+    return _rotate(v[..., None, :], -np.asarray(pose_theta, np.float64))[..., 0, :]
+
+
+def swept_robot(robot_verts, displacement) -> np.ndarray:
+    """The region a robot sweeps as it translates by ``displacement``: R ⊕
+    [0, d], (R, K2 + 2, 2) CCW robot-frame vertices of ``robot_verts``
+    ((K2, 2) or (R, K2, 2), convex, CCW) and the segment from the origin to
+    each row's d ((R, 2), robot frame; see `displacement`).
+
+    The robot at t in [0, t_max] is R + t d in its own frame, so the union of
+    its places is R ⊕ [0, d], a convex polygon. With the obstacle's noise
+    drawn once and fixed during the motion (as the program's trajectory
+    labels, mc/moving.py, hold it), the motion collides at some t exactly
+    when the noisy obstacle overlaps that polygon: its `collision_probability`
+    at the start position and ``robot_theta`` is P(the motion collides).
+    Touching, at the swept region's edge as at a static robot's, has
+    probability 0. A zero displacement gives the robot with two vertices
+    repeated, whose zero-length edges add nothing to the mass and no panel
+    edge to the dtheta integral: the static probability, to rounding."""
+    d = np.asarray(displacement, np.float64)
+    robot = np.broadcast_to(np.asarray(robot_verts, np.float64),
+                            d.shape[:1] + np.shape(robot_verts)[-2:])
+    return minkowski_sum(robot, np.stack([np.zeros_like(d), d], axis=-2))
+
+
 def polygon_gaussian_mass(v: np.ndarray) -> np.ndarray:
     """P(z in polygon) for z ~ N(0, I_2): (..., K, 2) convex CCW vertices,
     by the edge sum of triangle masses (module docstring)."""
@@ -109,7 +140,9 @@ def polygon_gaussian_mass(v: np.ndarray) -> np.ndarray:
 def _theta_panels(robot: np.ndarray, obstacle: np.ndarray, s_theta: np.ndarray):
     """Per row, the sorted panel edges of the dtheta integral (R, P + 1):
     +-7 sigma, every half sigma, and every angle in between at which a
-    robot edge is parallel to an obstacle edge."""
+    robot edge is parallel to an obstacle edge. A zero-length robot edge
+    (a swept robot's at zero displacement) has no direction and adds none:
+    its angles go to the lower end, where they make empty panels."""
     lim = THETA_SIGMAS * s_theta
     n_grid = int(round(2 * THETA_SIGMAS / PANEL_SIGMAS))
     grid = lim[:, None] * np.linspace(-1.0, 1.0, n_grid + 1)[None, :]
@@ -122,6 +155,8 @@ def _theta_panels(robot: np.ndarray, obstacle: np.ndarray, s_theta: np.ndarray):
     m = np.arange(-m_hi, m_hi + 1) * np.pi
     kinks = (base[:, :, None] + m[None, None, :]).reshape(len(lim), -1)
     kinks = np.clip(kinks, -lim[:, None], lim[:, None])
+    no_dir = np.repeat((er == 0).all(axis=-1), eo.shape[-2] * len(m), axis=1)
+    kinks = np.where(no_dir, -lim[:, None], kinks)
     return np.sort(np.concatenate([grid, kinks], axis=1), axis=1)
 
 
