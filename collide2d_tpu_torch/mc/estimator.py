@@ -17,10 +17,11 @@ convex k-gon `PolygonConfigs` and their trajectory forms (`mc.moving`'s
 ``'auto'`` resolves to ``'cuda'`` on every device (trajectory batches:
 see `mc_round` and `mc.driver._resolve_trajectory`). `_fused_round` runs a
 run of same-plan rounds, the `mc.stats` convergence test and label
-freezing, as its JAX namesake does inside one program: on CUDA tensors a
-round is the fused kernel, counting from a table packed once a buffer
-(`pack_round_table`) straight into the running counts, and one round
-epilogue kernel (`ops.round_epilogue_cuda`) for the rest.
+freezing, as its JAX namesake does inside one program: on CUDA tensors
+without a mesh a round is the fused kernel of any of the four classes,
+counting from a table packed once a buffer (`pack_round_table`) straight
+into the running counts, and one round epilogue kernel
+(`ops.round_epilogue_cuda`) for the rest.
 
 Under a `parallel.Mesh` a round's counts run over the mesh's config
 blocks and sample shards (`_cuda_sharded_counts`, `_sample_sharded_counts`)
@@ -439,17 +440,16 @@ def _round_table(configs, robot_wh, a_keep) -> torch.Tensor:
 def pack_round_table(configs, robot_wh, *, impl: str, mesh=None,
                      poly_a_keep: tuple[int, ...] | None = None):
     """``configs``' fused-kernel table for `_fused_round`'s ``table``, where
-    rounds count from a table packed once a buffer: kernel 1's (`Configs`)
-    or 7's (`PolygonConfigs`) on impl 'cuda' without a ``mesh``. None
-    wherever each round packs its own: the threefry path, a mesh (its
-    shards' copies), kernels 13 and 14. A row's table depends on that row
-    alone, so the table of a gathered buffer is this table gathered
-    (`mc.driver._pack_active`)."""
-    if (resolve_impl(impl) != "cuda" or mesh is not None
-            or not isinstance(configs, (Configs, PolygonConfigs))):
+    rounds count from a table packed once a buffer: on impl 'cuda' without
+    a ``mesh``, kernel 1's (`Configs`), 7's (`PolygonConfigs`), 13's
+    (`MovingConfigs`) or 14's (`MovingPolygonConfigs`). None wherever each
+    round packs its own: the threefry path and a mesh (its shards'
+    copies). A row's table depends on that row alone, so the table of a
+    gathered buffer is this table gathered (`mc.driver._pack_active`)."""
+    if resolve_impl(impl) != "cuda" or mesh is not None:
         return None
-    a_keep = (_a_keep(robot_wh, poly_a_keep)
-              if isinstance(configs, PolygonConfigs) else None)
+    poly = isinstance(configs, (PolygonConfigs, MovingPolygonConfigs))
+    a_keep = _a_keep(robot_wh, poly_a_keep) if poly else None
     return _round_table(configs, robot_wh, a_keep)
 
 
@@ -463,9 +463,9 @@ def _kernel_round(key, uids, configs, robot_wh, round_tag: int, n: int, *,
     the fused kernel of ``configs``' class: kernel 1 (`Configs`), 7
     (`PolygonConfigs`), 13 (`MovingConfigs`) or 14 (`MovingPolygonConfigs`,
     translation-only); its plain version on CPU tensors. ``table``: the
-    kernel's table from `pack_round_table`; None = packed here. ``out``
-    (kernels 1 and 7): int32 (C,) counts the round's are added into and
-    which is returned; None = new ones."""
+    kernel's table from `pack_round_table`; None = packed here. ``out``:
+    int32 (C,) counts the round's are added into and which is returned;
+    None = new ones."""
     poly = isinstance(configs, (PolygonConfigs, MovingPolygonConfigs))
     a_keep = _a_keep(robot_wh, poly_a_keep) if poly else None
     if table is None:
@@ -476,13 +476,13 @@ def _kernel_round(key, uids, configs, robot_wh, round_tag: int, n: int, *,
         shape = dict(k=configs.obstacle_verts.shape[1], k2=len(robot_wh),
                      k2a=len(a_keep), offset=offset)
         if isinstance(configs, MovingPolygonConfigs):
-            return mc_moving_polygon_cuda.mc_moving_poly_counts(table, uids, seed, n,
-                                                                **shape)
+            return mc_moving_polygon_cuda.mc_moving_poly_counts(
+                table, uids, seed, n, out=out, **shape)
         return mc_polygon_cuda.mc_poly_counts(table, uids, seed, n, out=out, **shape)
     if isinstance(configs, MovingConfigs):
         return mc_toi_cuda.mc_toi_counts(table, uids, seed, n, offset=offset,
                                          shape_noise=shape_noise,
-                                         ca_iters=ca_iters, tol=ca_tol)
+                                         ca_iters=ca_iters, tol=ca_tol, out=out)
     return mc_cuda.mc_counts(table, uids, seed, n, offset=offset,
                              shape_noise=shape_noise, out=out)
 
@@ -772,7 +772,8 @@ def _fused_round(key, state: _LoopState, robot_wh, chunk_offset: int,
             counts = None
             _kernel_round(key, state.uids, state.active, robot_wh, tag, nb,
                           shape_noise=shape_noise, poly_a_keep=poly_a_keep,
-                          table=table, out=state.n_true)
+                          ca_iters=ca_iters, ca_tol=ca_tol, table=table,
+                          out=state.n_true)
         *_, num_done = round_epilogue_cuda.round_update(
             state.n_true, state.done, state.k_frozen, state.n_frozen, counts,
             int(n_samples_after) + r * int(nb), accuracy_bins, bin_accuracy,

@@ -196,24 +196,28 @@ def _kernel_lib(k: int, k2: int, k2a: int, normal_method: str = "erfinv"
 
 def mc_moving_poly_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int,
                           *, k: int, k2: int, k2a: int,
-                          offset: int = 0,
-                          normal_method: str = "erfinv") -> torch.Tensor:
+                          offset: int = 0, normal_method: str = "erfinv",
+                          out: torch.Tensor | None = None) -> torch.Tensor:
     """Trajectory-collision counts out of ``n`` samples per configuration:
     int32 (C,). ``params`` (C, ROWS) from `pack_moving_polygon_mc_params`;
     ``uids`` int32 (C,); ``seed`` the round's two uint32 words;
     ``normal_method`` "erfinv" or "box_muller" (`ops.mc_cuda`). CUDA
     tensors launch the kernel's build for that shape and method, CPU
-    tensors run the plain version."""
+    tensors run the plain version. ``out`` as `mc_cuda.mc_counts`': the
+    counts are added into it."""
     global LAUNCHES, BOX_MULLER_LAUNCHES
     _check_inputs(params, uids, n, k, k2, k2a)
+    mc_cuda.check_out(out, params)
     mc_cuda.normal_defines(normal_method)
     if params.device.type == "cpu":
-        return mc_moving_poly_counts_plain(params, uids, seed, n, k=k, k2=k2,
-                                           k2a=k2a, offset=offset,
-                                           normal_method=normal_method)
+        counts = mc_moving_poly_counts_plain(params, uids, seed, n, k=k, k2=k2,
+                                             k2a=k2a, offset=offset,
+                                             normal_method=normal_method)
+        return counts if out is None else out.add_(counts)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
-    counts = torch.zeros((params.shape[0],), dtype=torch.int32, device=params.device)
+    counts = out if out is not None else torch.zeros(
+        (params.shape[0],), dtype=torch.int32, device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
     lib = _kernel_lib(k, k2, k2a, normal_method)

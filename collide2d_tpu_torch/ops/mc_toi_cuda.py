@@ -183,21 +183,25 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def mc_toi_counts(params: torch.Tensor, uids: torch.Tensor, seed, n: int, *,
                   offset: int = 0, shape_noise: bool = True, ca_iters: int = 48,
-                  tol: float = 1e-4) -> torch.Tensor:
+                  tol: float = 1e-4, out: torch.Tensor | None = None) -> torch.Tensor:
     """Trajectory-collision counts out of ``n`` samples per configuration:
     int32 (C,). ``params`` (C, 16) from `pack_mc_toi_params`; ``uids`` int32
     (C,) (the stream key); ``seed`` the round's two uint32 words;
     ``offset`` the first sample's index. CUDA tensors launch the kernel,
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version. ``out`` as `mc_cuda.mc_counts`': the
+    counts are added into it."""
     global LAUNCHES
     _check_inputs(params, uids, n, ca_iters)
+    mc_cuda.check_out(out, params)
     if params.device.type == "cpu":
-        return mc_toi_counts_plain(params, uids, seed, n, offset=offset,
-                                   shape_noise=shape_noise, ca_iters=ca_iters,
-                                   tol=tol)
+        counts = mc_toi_counts_plain(params, uids, seed, n, offset=offset,
+                                     shape_noise=shape_noise, ca_iters=ca_iters,
+                                     tol=tol)
+        return counts if out is None else out.add_(counts)
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
-    counts = torch.zeros((params.shape[0],), dtype=torch.int32, device=params.device)
+    counts = out if out is not None else torch.zeros(
+        (params.shape[0],), dtype=torch.int32, device=params.device)
     if int(n) == 0 or params.shape[0] == 0:
         return counts
     lib = _kernel_lib()

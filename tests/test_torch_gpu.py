@@ -1500,7 +1500,7 @@ def test_round_epilogue_matches_plain_over_rounds(cuda, bins, into_n_true):
     assert any(0 < d < c for d in done_counts)  # rows froze over several rounds
 
 
-@pytest.mark.parametrize("kernel", ["1", "7"])
+@pytest.mark.parametrize("kernel", ["1", "7", "13", "14"])
 def test_round_issues_at_most_three_device_operations(cuda, kernel):
     """A run of same-plan rounds on a hoisted table: each round is the
     fused kernel (adding into n_true) and the epilogue; the run's last
@@ -1525,7 +1525,9 @@ def test_round_issues_at_most_three_device_operations(cuda, kernel):
         handle = ops.run_rounds(1024, 64, rounds, 2048, 16)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
-    fused = [n for n in names if "mc_counts_kernel" in n or "mc_poly_counts_kernel" in n]
+    fused_name = {"1": "mc_counts_kernel", "7": "mc_poly_counts_kernel",
+                  "13": "mc_toi_counts_kernel", "14": "mc_moving_poly_counts_kernel"}
+    fused = [n for n in names if fused_name[kernel] in n]
     epilogue = [n for n in names if "round_epilogue_kernel" in n]
     memset = [n for n in names if "memset" in n.lower()]
     copies = [n for n in names if "memcpy" in n.lower()]  # the done count's readback
@@ -1568,6 +1570,37 @@ def test_polylabel_labels_are_the_plain_round_paths(cuda, tmp_path, monkeypatch)
         for name in ("cp", "n_samples", "converged"):
             np.testing.assert_array_equal(got[name], want[name])
         assert 0 < got["converged"].mean() < 1 or got["converged"].all()
+
+
+def test_movelabel_labels_are_the_plain_round_paths(cuda, tmp_path, monkeypatch):
+    """A translation-only k = 8 file: kernel 14 counting from the table
+    packed once a buffer into n_true gives the labels of a table packed
+    every round and the torch update."""
+    from collide2d_tpu_torch.ops import mc_moving_polygon_cuda
+    from collide2d_tpu_torch.ops import round_epilogue_cuda as rec
+
+    c = 20_000
+    b = example_polygon_configs(c, k=8, seed=18, device="cpu")
+    rng = np.random.default_rng(18)
+    np.savez(tmp_path / "in.npz", robot_verts=ROBOT_4GON,
+             position=(b.position * 0.6).numpy(), pose_theta=b.pose_theta.numpy(),
+             obstacle_verts=b.obstacle_verts.numpy(), std_dev=b.std_dev.numpy(),
+             velocity=rng.uniform(-2, 2, (c, 2)).astype(np.float32),
+             omega=np.zeros(c, np.float32),
+             t_max=rng.uniform(0.5, 2, c).astype(np.float32))
+    argv = ["movelabel", "--device", "cuda", "--data_in", str(tmp_path / "in.npz"),
+            "--seed", "3"]
+    rec.reset_launches()
+    mc_moving_polygon_cuda.reset_launches()
+    assert cli.main([*argv, "--data_out", str(tmp_path / "got.npz")]) == 0
+    assert rec.LAUNCHES > 0 and mc_moving_polygon_cuda.LAUNCHES == rec.LAUNCHES
+    with monkeypatch.context() as m:
+        _plain_round_path(m)
+        assert cli.main([*argv, "--data_out", str(tmp_path / "want.npz")]) == 0
+    with np.load(tmp_path / "got.npz") as got, np.load(tmp_path / "want.npz") as want:
+        for name in ("cp", "n_samples", "converged"):
+            np.testing.assert_array_equal(got[name], want[name])
+        assert 0 < got["cp"].mean() < 1
 
 
 def test_generate_batch_is_the_plain_round_paths(cuda, tmp_path, monkeypatch):

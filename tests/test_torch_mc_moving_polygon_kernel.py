@@ -188,3 +188,37 @@ def test_counts_invariant_and_wrapper_validates(batch):
         mmp.mc_moving_poly_counts(params, uids, seed, 10, k=K, k2=K2, k2a=5)
     with pytest.raises(ValueError, match="unsupported device"):
         mmp.mc_moving_poly_counts(params.to("meta"), uids.to("meta"), seed, 10, **dims)
+
+
+@pytest.fixture(scope="module")
+def out_case(batch):
+    _, tb = batch
+    params = mmp.pack_moving_polygon_mc_params(tb, ROBOT, (0, 1))
+    return params, torch.arange(128, dtype=torch.int32), (7, 8), dict(k=K, k2=K2, k2a=2)
+
+
+def test_wrapper_adds_the_counts_into_out(out_case):
+    params, uids, seed, dims = out_case
+    fresh = mmp.mc_moving_poly_counts(params, uids, seed, 300, **dims)
+    base = torch.arange(128, dtype=torch.int32) * 7
+    out = base.clone()
+    got = mmp.mc_moving_poly_counts(params, uids, seed, 300, out=out, **dims)
+    assert got is out and torch.equal(out, base + fresh)
+    assert 0 < int(fresh.sum()) < 128 * 300
+
+
+# an out of another dtype, shape, device or layout than int32 (C,) raises
+_BAD_OUT = {
+    "dtype": lambda c: torch.zeros(c, dtype=torch.int64),
+    "shape": lambda c: torch.zeros(c + 1, dtype=torch.int32),
+    "device": lambda c: torch.zeros(c, dtype=torch.int32, device="meta"),
+    "strided": lambda c: torch.zeros(2 * c, dtype=torch.int32)[::2],
+}
+
+
+@pytest.mark.parametrize("bad", list(_BAD_OUT))
+def test_wrapper_validates_out(out_case, bad):
+    params, uids, seed, dims = out_case
+    with pytest.raises(ValueError, match="out must be a contiguous int32"):
+        mmp.mc_moving_poly_counts(params, uids, seed, 10, out=_BAD_OUT[bad](128),
+                                  **dims)

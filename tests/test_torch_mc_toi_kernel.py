@@ -146,3 +146,27 @@ def test_wrapper_routes_cpu_to_plain_and_validates(philox_case):
         mc_toi_cuda.mc_toi_counts(params, uids, seed, 10, ca_iters=-1)
     with pytest.raises(ValueError, match="unsupported device"):
         mc_toi_cuda.mc_toi_counts(params.to("meta"), uids.to("meta"), seed, 10)
+
+
+def test_wrapper_adds_the_counts_into_out(philox_case):
+    params, uids, seed, counts = philox_case
+    base = torch.arange(96, dtype=torch.int32) * 7
+    out = base.clone()
+    got = mc_toi_cuda.mc_toi_counts(params, uids, seed, 600, out=out)
+    assert got is out and torch.equal(out, base + counts)
+
+
+# an out of another dtype, shape, device or layout than int32 (C,) raises
+_BAD_OUT = {
+    "dtype": lambda c: torch.zeros(c, dtype=torch.int64),
+    "shape": lambda c: torch.zeros(c + 1, dtype=torch.int32),
+    "device": lambda c: torch.zeros(c, dtype=torch.int32, device="meta"),
+    "strided": lambda c: torch.zeros(2 * c, dtype=torch.int32)[::2],
+}
+
+
+@pytest.mark.parametrize("bad", list(_BAD_OUT))
+def test_wrapper_validates_out(philox_case, bad):
+    params, uids, seed, _ = philox_case
+    with pytest.raises(ValueError, match="out must be a contiguous int32"):
+        mc_toi_cuda.mc_toi_counts(params, uids, seed, 10, out=_BAD_OUT[bad](96))

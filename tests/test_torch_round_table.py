@@ -1,10 +1,10 @@
 """The fused kernel's parameter table, packed once a buffer, on the CPU.
 
-The adaptive driver packs kernel 1's (rectangles) or kernel 7's (k-gons)
-table once when a run's buffer is built (`estimator.pack_round_table`)
-and gathers it at each repack with the order of the other fields
-(`driver._pack_active`), instead of packing it again every round. This
-holds:
+The adaptive driver packs the table of kernel 1 (rectangles), 7 (k-gons),
+13 (trajectory rectangles) or 14 (translation-only trajectory k-gons) once
+when a run's buffer is built (`estimator.pack_round_table`) and gathers it
+at each repack with the order of the other fields (`driver._pack_active`),
+instead of packing it again every round. This holds for each class:
 
 - the gathered table is bitwise the table packed from the gathered
   configurations (a row's table depends on that row alone);
@@ -23,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from collide2d_tpu_torch.mc import driver, prng
 from collide2d_tpu_torch.mc import estimator as est
+from collide2d_tpu_torch.mc.moving import moving_configs, moving_polygon_configs
 from collide2d_tpu_torch.ops.mc_polygon_cuda import dedup_robot_axes
 from collide2d_tpu_torch.utils import profiling
 
@@ -35,7 +36,19 @@ KGON_ROBOT = np.array([[-2.035, -0.87], [2.035, -0.87], [2.035, 0.87], [-2.035, 
                       np.float32)
 
 
+# The four fused-kernel classes; the trajectory ones translation-only.
+KINDS = ["rect", "kgon", "moving_rect", "moving_kgon"]
+
+
 def _configs(kind: str, c: int, seed: int):
+    """``kind``'s configs on the CPU and its robot. The trajectory kinds
+    are the static kind's rows plus a velocity and a horizon."""
+    if kind.startswith("moving_"):
+        configs, robot = _configs(kind[7:], c, seed)
+        rng = np.random.default_rng(seed + 1000)
+        make = moving_configs if kind == "moving_rect" else moving_polygon_configs
+        return make(*configs, rng.uniform(-3, 3, (c, 2)), 0.0,
+                    rng.uniform(0.5, 2, c)), robot
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-5, 5, (c, 2))
     theta = rng.uniform(0, 2 * np.pi, c)
@@ -51,11 +64,11 @@ def _configs(kind: str, c: int, seed: int):
 
 
 def _a_keep(kind):
-    return dedup_robot_axes(KGON_ROBOT) if kind == "kgon" else None
+    return dedup_robot_axes(KGON_ROBOT) if kind.endswith("kgon") else None
 
 
 @pytest.mark.parametrize("bucket", [64, 160, 300])
-@pytest.mark.parametrize("kind", ["rect", "kgon"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_gathered_table_is_the_table_of_the_gathered_configs(kind, bucket):
     c = 300
     rng = np.random.default_rng(bucket)
@@ -84,16 +97,7 @@ def test_gathered_table_is_the_table_of_the_gathered_configs(kind, bucket):
         assert torch.equal(got, want)
 
 
-def test_trajectory_classes_have_no_table():
-    from collide2d_tpu_torch.mc.moving import MovingConfigs
-
-    configs, _ = _configs("rect", 8, seed=1)
-    moving = MovingConfigs(*configs, velocity=torch.zeros(8, 2), omega=torch.zeros(8),
-                           t_max=torch.ones(8))
-    assert est.pack_round_table(moving, torch.tensor(RECT_ROBOT), impl="cuda") is None
-
-
-@pytest.mark.parametrize("kind", ["rect", "kgon"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_only_the_unsharded_kernel_path_has_a_table(kind):
     # the threefry path and a mesh's shards pack their own every round;
     # 'auto' resolves to the kernel path, which packs once
@@ -146,7 +150,7 @@ def _labels(kind, monkeypatch, per_round: bool):
     return out, len(packs), run.scheduler.rnd, names["driver/table"]
 
 
-@pytest.mark.parametrize("kind", ["rect", "kgon"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_driver_labels_across_repacks_match_a_table_packed_every_round(kind, monkeypatch):
     got, repacks, rounds, tables = _labels(kind, monkeypatch, per_round=False)
     want, repacks_w, rounds_w, tables_w = _labels(kind, monkeypatch, per_round=True)
